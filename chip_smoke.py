@@ -3,28 +3,37 @@
     python3 chip_smoke.py
 
 Drives ``underwater_image_enhancement_tpu_torch`` (never JAX) through the
-``six`` exact tier at 1920x1080.  Phases (each prints one line; a failed
-check raises and the script exits non-zero):
+``six`` exact tier, the ``six --fast`` tier and ``enhance`` at 1920x1080.
+Phases (each prints one line or more; a failed check raises and the script
+exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile ``csrc/`` into the package's PyTorch extension
    (``utils/cuda_build.py``) and time it;
 3. kernels: each CUDA kernel bit-equal to its plain PyTorch version on the
-   card: forward LAB over all 2**24 u8 RGB triples, inverse LAB (and its
-   gamma variant for each recipe gamma) over all 2**24 (L, a, b) triples,
-   CLAHE apply at 1080x1920 and 1079x1917 for the five clip limits;
+   card: forward LAB, exact and approximate, over all 2**24 u8 RGB
+   triples, inverse LAB (and its gamma variant for each recipe gamma) over
+   all 2**24 (L, a, b) triples, CLAHE apply at 1080x1920 and 1079x1917 for
+   the five clip limits, hysteresis at 1080x1920 for 4 and 64 rounds,
+   prefix sums on (6, 1080, 1920) rows, (7, 135, 1920) rows and (18, 1920)
+   along the last axis (K7 and K6 again below on the main path's own
+   buffers);
 4. slice: three seeded synthetic 1920x1080 underwater frames, written with
-   the port's PNG codec, through ``cli six`` in-process on ``cuda``; 18
-   outputs and the CSV log; the kernel launch counts of that run (counts
-   set to 0 just before it, read just after); every kernel call of that
-   run replayed on its own inputs against the plain version, bit-equal;
-   frame 0 on the card against the port's CPU path (cast code, airlight
-   A and final box equal; recipes 4-6 within 1e-6, 1-3 at >= 50 dB);
+   the port's PNG codec, through ``cli six``, ``cli six --fast`` and
+   ``cli enhance`` in-process on ``cuda``; 18 + 18 + 3 outputs and the CSV
+   logs; the kernel launch counts of each run (counts set to 0 just before
+   it, read just after); every kernel call of the two ``six`` runs
+   replayed on its own inputs against the plain version, bit-equal; frame 0
+   of each tier on the card against the port's CPU path (cast code,
+   airlight A and final box equal; recipes 4-6 within 1e-6, 1-3 at
+   >= 50 dB), and ``enhance_batch`` on the card within 1e-6 of the CPU;
 5. timing (CUDA events, medians after warm-up): ms per frame of
-   ``six_strategy_tuple`` with its spread, each stage alone, the airlight's
-   prefix sums, one ``torch.profiler`` frame (device busy and idle share),
-   and each kernel on the main path's inputs beside its bound and its
-   plain version.
+   ``six_strategy_tuple`` for each tier with its spread (the tiers timed
+   in turns, twice each), each stage alone,
+   the exact airlight's prefix sums, one ``torch.profiler`` frame of each
+   tier (device busy and idle share, launches), and each kernel on the
+   main path's inputs beside its bound, its plain version and, for the
+   prefix sums, ``torch.cumsum``.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -50,30 +59,39 @@ H, W = 1080, 1920
 CLIPS = (3.0, 2.0, 4.0, 1.5, 3.5)  # the five CLAHE legs' clip limits
 GAMMAS = (1.5, 1.2, 1.4)           # recipes 1, 5 and 6
 FRAME_RUNS = 12
+FRAME_WARMUP = 6
 STAGE_RUNS = 9
-# wrapper -> (CUDA source, TPU kernel it replaces, int/f32 ops per pixel,
-# plain version)
+PK = "underwater_image_enhancement_tpu/ops/pallas_kernels.py"
+SRC = "underwater_image_enhancement_tpu_torch/csrc/"
+# wrapper -> (CUDA source, TPU kernel it replaces, operations per element
+# of its first input, plain version)
 KERNELS = {
-    "lab_forward_unit": (
-        "underwater_image_enhancement_tpu_torch/csrc/lab_forward.cu",
-        "underwater_image_enhancement_tpu/ops/pallas_kernels.py:906", 45,
-        "lab_forward_unit_plain"),
-    "clahe_apply": (
-        "underwater_image_enhancement_tpu_torch/csrc/clahe_apply.cu",
-        "underwater_image_enhancement_tpu/ops/pallas_kernels.py:186", 30,
-        "clahe_apply_plain"),
-    "lab_inverse_unit": (
-        "underwater_image_enhancement_tpu_torch/csrc/lab_inverse.cu",
-        "underwater_image_enhancement_tpu/ops/pallas_kernels.py:941", 60,
-        "lab_inverse_unit_plain"),
-    "lab_inverse_unit_gamma": (
-        "underwater_image_enhancement_tpu_torch/csrc/lab_inverse.cu",
-        "underwater_image_enhancement_tpu/ops/pallas_kernels.py:948", 60,
-        "lab_inverse_unit_gamma_plain"),
+    "lab_forward_unit": (SRC + "lab_forward.cu", PK + ":906", 45,
+                         "lab_forward_unit_plain"),
+    "lab_forward_unit_approx": (SRC + "lab_forward.cu", PK + ":920", 105,
+                                "lab_forward_unit_approx_plain"),
+    "clahe_apply": (SRC + "clahe_apply.cu", PK + ":186", 30,
+                    "clahe_apply_plain"),
+    "lab_inverse_unit": (SRC + "lab_inverse.cu", PK + ":941", 60,
+                         "lab_inverse_unit_plain"),
+    "lab_inverse_unit_gamma": (SRC + "lab_inverse.cu", PK + ":948", 60,
+                               "lab_inverse_unit_gamma_plain"),
+    # one pass over the 3x3 neighbourhood a pixel: the least work of a
+    # propagation (the rounds are this data's, not a bound)
+    "hysteresis_propagate": (SRC + "hysteresis.cu", PK + ":75", 10,
+                             "hysteresis_propagate_plain"),
+    "sat_rows": (SRC + "scan.cu", PK + ":267", 1, "sat_rows_plain"),
 }
-EXPECTED_LAUNCHES = {"lab_forward_unit": 15, "clahe_apply": 15,
-                     "lab_inverse_unit": 6, "lab_inverse_unit_gamma": 9}
+COMMON = {"clahe_apply": 15, "lab_inverse_unit": 6,
+          "lab_inverse_unit_gamma": 9}
+EXPECTED_FAST = {**COMMON, "lab_forward_unit": 0,
+                 "lab_forward_unit_approx": 15, "hysteresis_propagate": 3,
+                 "sat_rows": 3}
 F32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores, ops per second
+OUR_KERNELS = ("lab_forward_unit_kernel<false>", "lab_forward_unit_kernel<true>",
+               "clahe_apply_kernel", "lab_inverse_unit_kernel<false>",
+               "lab_inverse_unit_kernel<true>", "hysteresis_kernel",
+               "block_totals_kernel", "block_scan_kernel")
 
 
 def log(phase: str, **kv) -> None:
@@ -132,6 +150,12 @@ def event_ms(torch, fn, runs: int, warmup: int = 1, flush=None) -> list:
     return times
 
 
+def spread(times) -> dict:
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    return {"median": f"{med:.3f}", "quartiles": f"{q1:.3f},{q3:.3f}",
+            "min_max": f"{min(times):.3f},{max(times):.3f}"}
+
+
 def capture_calls(torch, kernels):
     """Wrap each kernel wrapper of ``kernels`` so that its arguments are
     kept (tensors cloned) while it runs as before.  The pipeline looks the
@@ -173,9 +197,13 @@ def main() -> int:
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
         SIX_ORDER,
+        enhance_batch,
         six_strategy_tuple,
     )
-    from underwater_image_enhancement_tpu_torch.pipeline.six import run_strategy
+    from underwater_image_enhancement_tpu_torch.pipeline.six import (
+        airlight as tier_airlight,
+        run_strategy,
+    )
     from underwater_image_enhancement_tpu_torch.utils import cuda_build
     from underwater_image_enhancement_tpu_torch.utils import io as uio
 
@@ -200,7 +228,7 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         extension=Path(ext.__file__).name)
 
-    # 3. kernels against their plain versions, exhaustively ---------------
+    # 3. kernels against their plain versions -----------------------------
     err = {k: 0.0 for k in KERNELS}
     checked = {k: 0 for k in KERNELS}
 
@@ -208,8 +236,9 @@ def main() -> int:
         for g_, w_ in zip(got, want):
             e = float((g_.double() - w_.double()).abs().max())
             err[kname] = max(err[kname], e)
-            check(torch.equal(g_, w_), f"{kname} differs from its plain "
-                  f"version on {what}: max |d| = {e}")
+            check(g_.shape == w_.shape and torch.equal(g_, w_),
+                  f"{kname} differs from its plain version on {what}: "
+                  f"max |d| = {e}")
         checked[kname] += 1
 
     def replay(kname, args, what):
@@ -223,8 +252,12 @@ def main() -> int:
     grid = torch.as_tensor(U8_GRID, device=dev)
     idx = torch.arange(1 << 24, device=dev, dtype=torch.int32).reshape(4096, 4096)
     trip = tuple(((idx >> s) & 255).contiguous() for s in (16, 8, 0))
-    replay("lab_forward_unit", tuple(grid[t.long()] for t in trip),
-           "all 2^24 u8 RGB triples")
+    rgb = tuple(grid[t.long()] for t in trip)
+    replay("lab_forward_unit", rgb, "all 2^24 u8 RGB triples")
+    replay("lab_forward_unit_approx", rgb, "all 2^24 u8 RGB triples")
+    approx_d = max(int((a - e).abs().max()) for a, e in zip(
+        kernels.lab_forward_unit_approx(*rgb), kernels.lab_forward_unit(*rgb)))
+    check(approx_d == 1, f"approximate LAB off exact by {approx_d}, not 1")
     replay("lab_inverse_unit", trip, "all 2^24 (L, a, b) triples")
     expect_equal("lab_inverse_unit",
                  [torch.round(g_ * 255.0).to(torch.int32)
@@ -234,7 +267,7 @@ def main() -> int:
     for g in GAMMAS:
         replay("lab_inverse_unit_gamma", trip + (g,),
                f"all 2^24 (L, a, b) triples, gamma {g}")
-    del idx, trip
+    del idx, trip, rgb
     rng = torch.Generator(device=dev).manual_seed(0)
     for hh, ww in ((H, W), (1079, 1917)):
         yy = torch.arange(hh, device=dev)[:, None]
@@ -246,105 +279,202 @@ def main() -> int:
             luts, ya, xa, geo = histeq.clahe_prep(plane, clip, 8, 8)
             replay("clahe_apply", (plane, luts, ya, xa, *geo),
                    f"{hh}x{ww} clip {clip}")
+    # sparse strong seeds in a dense weak field: long chains
+    u = torch.rand((1, H, W), generator=rng, device=dev)
+    strong = (u < 0.004).to(torch.int32)
+    weak = ((u >= 0.004) & (u < 0.5)).to(torch.int32)
+    for it in (4, 64):
+        replay("hysteresis_propagate", (strong, weak, it),
+               f"1x{H}x{W} percolation field, {it} rounds")
+    for shape, dim in (((6, H, W), -2), ((7, H // 8, W), -2), ((18, W), -1)):
+        x = torch.rand(shape, generator=rng, device=dev)
+        replay("sat_rows", (x, dim), f"{shape} along {dim}")
+    del u, strong, weak, x
     torch.cuda.synchronize()
     log("kernels", result="bit-equal", checks=json.dumps(checked),
-        max_abs_err=json.dumps(err, separators=(",", ":")))
+        max_abs_err=json.dumps(err, separators=(",", ":")),
+        approx_lab_vs_exact_max=approx_d)
 
     # 4. the slice through the CLI ----------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
-    src, out = WORK / "in", WORK / "out"
+    src = WORK / "in"
     src.mkdir(parents=True)
     frames = [synthetic_frame(seed) for seed in (0, 1, 2)]
     for i, f in enumerate(frames):
         uio.imwrite_unit(str(src / f"frame{i}.png"), f)
-    calls, restore = capture_calls(torch, kernels)
-    t0 = time.perf_counter()
-    try:
-        kernels.reset_launches()
-        cli.main(["six", "--input", str(src), "--output", str(out)])
-        torch.cuda.synchronize()
-        launches = dict(kernels.launches)
-    finally:
-        restore()
-    cli_s = time.perf_counter() - t0
-    pngs = sorted(p.name for p in out.glob("*.png"))
-    with open(out / "processing_log.csv", newline="") as fh:
-        rows = list(csv.DictReader(fh))
+
+    def run_cli(argv, capture: bool):
+        calls, restore = (capture_calls(torch, kernels) if capture
+                          else ({}, lambda: None))
+        t0 = time.perf_counter()
+        try:
+            kernels.reset_launches()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        finally:
+            restore()
+        return calls, launches, time.perf_counter() - t0
+
     want = sorted(f"frame{i}_{n}.png" for i in range(3) for n in SIX_ORDER)
-    check(pngs == want, f"outputs {pngs}")
-    check(len(rows) == 18 and all(r["status"] == "success" for r in rows),
-          f"log rows {rows}")
+    runs = {}
+    for tier, extra in (("exact", []), ("fast", ["--fast"])):
+        out = WORK / f"six_{tier}"
+        calls, launches, secs = run_cli(
+            ["six", "--input", str(src), "--output", str(out)] + extra, True)
+        pngs = sorted(p.name for p in out.glob("*.png"))
+        with open(out / "processing_log.csv", newline="") as fh:
+            rows = list(csv.DictReader(fh))
+        check(pngs == want, f"{tier}: outputs {pngs}")
+        check(len(rows) == 18 and all(r["status"] == "success" for r in rows),
+              f"{tier}: log rows {rows}")
+        for p in pngs:
+            img = uio.imread_u8(str(out / p))
+            check(img is not None and img.shape == (H, W, 3),
+                  f"{tier}: bad PNG {p}")
+        check({k: len(v) for k, v in calls.items()} == launches,
+              f"{tier}: captured calls {[len(v) for v in calls.values()]} "
+              f"vs launches {launches}")
+        runs[tier] = (calls, launches, rows)
+        log("slice", tier=tier, frames=3, outputs=len(pngs),
+            csv_rows=len(rows), seconds=f"{secs:.2f}",
+            launches=json.dumps(launches, separators=(",", ":")))
+    exact_l, fast_l = runs["exact"][1], runs["fast"][1]
+    check(all(exact_l[k] == v for k, v in COMMON.items())
+          and exact_l["lab_forward_unit"] == 15
+          and exact_l["lab_forward_unit_approx"] == 0
+          and exact_l["hysteresis_propagate"] >= 3
+          and exact_l["sat_rows"] == 3 + exact_l["hysteresis_propagate"],
+          f"exact launches {exact_l}")
+    check(fast_l == EXPECTED_FAST, f"fast launches {fast_l}")
+    check([r["image_type"] for r in runs["exact"][2]]
+          == [r["image_type"] for r in runs["fast"][2]],
+          "the two tiers detect different casts")
+
+    out = WORK / "enhance"
+    _, enh_l, secs = run_cli(["enhance", "--input", str(src), "--output",
+                              str(out)], False)
+    pngs = sorted(p.name for p in out.glob("*.png"))
+    check(pngs == [f"frame{i}_enhanced.png" for i in range(3)],
+          f"enhance outputs {pngs}")
     for p in pngs:
         img = uio.imread_u8(str(out / p))
         check(img is not None and img.shape == (H, W, 3), f"bad PNG {p}")
-    check(launches == EXPECTED_LAUNCHES, f"launches {launches}")
-    check({k: len(v) for k, v in calls.items()} == EXPECTED_LAUNCHES,
-          f"captured calls {[len(v) for v in calls.values()]}")
-    log("slice", frames=3, outputs=len(pngs), csv_rows=len(rows),
-        seconds=f"{cli_s:.2f}",
-        launches=json.dumps(launches, separators=(",", ":")))
+    check(sum(enh_l.values()) == 0, f"enhance launched kernels: {enh_l}")
+    log("slice", command="enhance", frames=3, outputs=len(pngs),
+        seconds=f"{secs:.2f}")
 
-    # every kernel call of that run, replayed on its own inputs
-    for kname, arglists in calls.items():
-        for k, args in enumerate(arglists):
-            replay(kname, args, f"main-path call {k} ({H}x{W})")
+    # every kernel call of the two six runs, replayed on its own inputs
+    replayed = {}
+    for tier in ("exact", "fast"):
+        for kname, arglists in runs[tier][0].items():
+            for k, args in enumerate(arglists):
+                shape = "x".join(str(s) for s in args[0].shape)
+                replay(kname, args, f"{tier} main-path call {k} ({shape})")
+            replayed[f"{tier}:{kname}"] = len(arglists)
     torch.cuda.synchronize()
     log("main_path_inputs", result="bit-equal",
-        calls=json.dumps({k: len(v) for k, v in calls.items()}),
-        shape=f"{H}x{W}")
+        calls=json.dumps(replayed, separators=(",", ":")))
 
-    # frame 0: the card against the port's CPU path
+    # frame 0 of each tier: the card against the port's CPU path
     img0 = frames[0]
-    outs_gpu, code_gpu = six_strategy_tuple(img0, device="cuda")
-    outs_cpu, code_cpu = six_strategy_tuple(img0, device="cpu")
-    check(int(code_gpu) == int(code_cpu),
-          f"cast code card {int(code_gpu)} vs CPU {int(code_cpu)}")
-    corr_g, _ = cast_mod.detect_and_correct(torch.from_numpy(img0).to(dev))
-    corr_c, _ = cast_mod.detect_and_correct(torch.from_numpy(img0))
-    A_g, box_g = airlight.quadtree_airlight_exact_planes(
-        split_planes(corr_g), return_box=True)
-    A_c, box_c = airlight.quadtree_airlight_exact_planes(
-        split_planes(corr_c), return_box=True)
-    check(box_g == box_c and torch.equal(A_g.cpu(), A_c),
-          f"airlight card {A_g.tolist()} {box_g} vs CPU {A_c.tolist()} {box_c}")
-    diffs = {}
-    for k, n in enumerate(SIX_ORDER):
-        a = outs_gpu[k].cpu().double()
-        b = outs_cpu[k].double()
-        check(a.shape == (H, W, 3) and bool(torch.isfinite(a).all()),
-              f"{n}: shape {tuple(a.shape)} or non-finite values")
-        d = float((a - b).abs().max())
-        mse = float(((a - b) ** 2).mean())
-        psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
-        diffs[n] = d
-        if k >= 3:
-            check(d <= 1e-6, f"{n}: card vs CPU max |d| {d} > 1e-6")
-        else:
-            check(psnr >= 50.0, f"{n}: card vs CPU {psnr:.1f} dB < 50")
-    log("card_vs_cpu", code=int(code_cpu), A=A_c.tolist(), box=box_c,
-        max_abs=json.dumps(diffs))
+    for tier, fast in (("exact", False), ("fast", True)):
+        outs_gpu, code_gpu = six_strategy_tuple(img0, fast=fast, device="cuda")
+        outs_cpu, code_cpu = six_strategy_tuple(img0, fast=fast, device="cpu")
+        check(int(code_gpu) == int(code_cpu),
+              f"{tier}: cast code card {int(code_gpu)} vs CPU {int(code_cpu)}")
+        corr_g, _ = cast_mod.detect_and_correct(torch.from_numpy(img0).to(dev))
+        corr_c, _ = cast_mod.detect_and_correct(torch.from_numpy(img0))
+        desc = (airlight.quadtree_airlight_planes if fast
+                else airlight.quadtree_airlight_exact_planes)
+        kw = {"edge_iters": 4} if fast else {}
+        A_g, box_g = desc(split_planes(corr_g), return_box=True, **kw)
+        A_c, box_c = desc(split_planes(corr_c), return_box=True, **kw)
+        check(box_g == box_c and torch.equal(A_g.cpu(), A_c),
+              f"{tier}: airlight card {A_g.tolist()} {box_g} vs CPU "
+              f"{A_c.tolist()} {box_c}")
+        diffs = {}
+        for k, n in enumerate(SIX_ORDER):
+            a = outs_gpu[k].cpu().double()
+            b = outs_cpu[k].double()
+            check(a.shape == (H, W, 3) and bool(torch.isfinite(a).all()),
+                  f"{tier} {n}: shape {tuple(a.shape)} or non-finite values")
+            d = float((a - b).abs().max())
+            mse = float(((a - b) ** 2).mean())
+            psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+            diffs[n] = d
+            if k >= 3:
+                check(d <= 1e-6, f"{tier} {n}: card vs CPU max |d| {d} > 1e-6")
+            else:
+                check(psnr >= 50.0, f"{tier} {n}: card vs CPU {psnr:.1f} dB < 50")
+        log("card_vs_cpu", tier=tier, code=int(code_cpu), A=A_c.tolist(),
+            box=box_c, max_abs=json.dumps(diffs))
+    batch = np.stack(frames)
+    e_g = enhance_batch(batch, 10.0, 90.0, 0.6, 1.2, device="cuda").cpu()
+    e_c = enhance_batch(batch, 10.0, 90.0, 0.6, 1.2, device="cpu")
+    d = float((e_g.double() - e_c.double()).abs().max())
+    check(e_g.shape == (3, H, W, 3) and bool(torch.isfinite(e_g).all())
+          and d <= 1e-6, f"enhance_batch card vs CPU max |d| {d}")
+    log("card_vs_cpu", command="enhance_batch", max_abs=d)
 
     # 5. timing -----------------------------------------------------------
     imgs = [torch.from_numpy(f).to(dev) for f in frames]
-    runs = iter(range(10 ** 6))
-    frame_ms = event_ms(
-        torch, lambda: six_strategy_tuple(imgs[next(runs) % 3]), FRAME_RUNS,
-        warmup=3)
-    q1, med, q3 = statistics.quantiles(frame_ms, n=4)
-    log("frame", six_exact_ms_median=f"{med:.3f}", quartiles=f"{q1:.3f},{q3:.3f}",
-        min_max=f"{min(frame_ms):.3f},{max(frame_ms):.3f}",
-        runs=",".join(f"{t:.3f}" for t in frame_ms))
+
+    def profile_frame(fn):
+        """Wall ms, device busy ms and launches of one call of fn, and the
+        package's kernels among those launches."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        ours = {}
+        for e in ev:
+            for key in OUR_KERNELS:
+                if key in e.name:
+                    ours[key] = ours.get(key, 0) + 1
+        return wall, busy, ev, ours
+
+    # the two tiers in turns (exact, fast, exact, fast), FRAME_RUNS frames
+    # a turn after FRAME_WARMUP: the host's share of a frame drifts
+    frame_ms = {"exact": [], "fast": []}
+    turns = {"exact": [], "fast": []}
+    for tier, fast in (("exact", False), ("fast", True)) * 2:
+        it = iter(range(10 ** 6))
+        ms = event_ms(
+            torch, lambda: six_strategy_tuple(imgs[next(it) % 3], fast=fast),
+            FRAME_RUNS, warmup=FRAME_WARMUP)
+        frame_ms[tier] += ms
+        turns[tier].append(f"{statistics.median(ms):.3f}")
+    for tier, fast in (("exact", False), ("fast", True)):
+        wall, busy, ev, ours = profile_frame(
+            lambda: six_strategy_tuple(imgs[0], fast=fast))
+        log("frame", tier=tier, **{f"ms_{k}": v for k, v in
+                                   spread(frame_ms[tier]).items()},
+            turn_medians=",".join(turns[tier]),
+            runs=",".join(f"{t:.3f}" for t in frame_ms[tier]),
+            profiled_wall_ms=f"{wall:.3f}",
+            device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+            device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                               else "not measured"),
+            device_launches=len(ev),
+            package_kernels=json.dumps(ours, separators=(",", ":")))
 
     img = imgs[0]
     corrected, _ = cast_mod.detect_and_correct(img)
     planes = split_planes(corrected)
-    A = airlight.quadtree_airlight_exact_planes(planes)
-    stage_fns = {
-        "cast": lambda: cast_mod.detect_and_correct(img),
-        "airlight": lambda: airlight.quadtree_airlight_exact_planes(planes),
-    }
-    for n in SIX_ORDER:
-        stage_fns[n] = lambda n=n: run_strategy(n, corrected, A)
+    stage_fns = {"cast": lambda: cast_mod.detect_and_correct(img)}
+    for tier, fast in (("exact", False), ("fast", True)):
+        A = tier_airlight(planes, fast)
+        stage_fns[f"airlight_{tier}"] = lambda f=fast: tier_airlight(planes, f)
+        for n in SIX_ORDER:
+            stage_fns[f"{n}_{tier}"] = (
+                lambda n=n, A=A, f=fast: run_strategy(n, corrected, A, f))
     stages = {k: event_ms(torch, fn, STAGE_RUNS) for k, fn in stage_fns.items()}
     log("stages", **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
     log("stages_min", **{k: f"{min(v):.3f}" for k, v in stages.items()})
@@ -365,6 +495,7 @@ def main() -> int:
         "sat_rows": lambda: airlight._sat_rows(stack),
         "corner_grid": lambda: airlight._corner_grid(
             sats, (0, H // 2, H), (0, W // 2, W)),
+        "xla_cumsum_rows": lambda: kernels.sat_rows_plain(stack, -2),
         "torch_cumsum_rows": lambda: torch.cumsum(stack, -2),
     }
     ps = {k: (statistics.median(event_ms(torch, fn, STAGE_RUNS)),
@@ -375,66 +506,68 @@ def main() -> int:
         **{f"{k}_ms": f"{v[0]:.3f}" for k, v in ps.items()},
         **{f"{k}_launches": v[1] for k, v in ps.items()})
 
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        six_strategy_tuple(img)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
-    ours = {}
-    for e in dev_events:
-        for key in ("lab_forward_unit_kernel", "clahe_apply_kernel",
-                    "lab_inverse_unit_kernel<false>",
-                    "lab_inverse_unit_kernel<true>"):
-            if key in e.name:
-                ours[key] = ours.get(key, 0) + 1
-    log("profile", wall_ms=f"{wall_ms:.3f}",
-        device_busy_ms=f"{busy_ms:.3f}" if dev_events else "not measured",
-        device_idle_share=(f"{1 - busy_ms / wall_ms:.3f}" if dev_events
-                           else "not measured"),
-        device_launches=len(dev_events),
-        package_kernels=json.dumps(ours, separators=(",", ":")))
-
-    # each kernel on the main path's first call of it (frame 0); its bytes:
-    # the planes and tables it reads once and the planes it writes once
+    # each kernel on a main-path call of it (frame 0, the exact run's first
+    # call where the exact tier runs it); its bytes: the tensors and tables
+    # it reads once and the tensors it writes once
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     table_bytes = {
         "lab_forward_unit": kernels._table("fwd", dev).numel() * 4,
-        "clahe_apply": 0,  # its LUTs and fractions are arguments
+        "lab_forward_unit_approx": (11 + 256) * 4,  # header and GAMMA only
         "lab_inverse_unit": kernels._table("inv", dev).numel() * 4,
         "lab_inverse_unit_gamma": kernels._table("inv", dev).numel() * 4
         + 256 * 4,
     }
-    records = []
-    for kname, (source, replaces, ops_px, plain) in KERNELS.items():
-        args = calls[kname][0]
+
+    def time_call(kname, args):
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         outs = getattr(kernels, kname)(*args)
         outs = (outs,) if isinstance(outs, torch.Tensor) else outs
-        nbytes = table_bytes[kname] + sum(
+        nbytes = table_bytes.get(kname, 0) + sum(
             t.numel() * t.element_size() for t in tensors + list(outs))
-        px = args[0].numel()
         ms = statistics.median(event_ms(
             torch, lambda: getattr(kernels, kname)(*args), 30, 3, flush))
         plain_ms = statistics.median(event_ms(
-            torch, lambda: getattr(kernels, plain)(*args), 10, 1, flush))
+            torch, lambda: getattr(kernels, KERNELS[kname][3])(*args), 10, 1,
+            flush))
+        lib_ms = None
+        if kname == "sat_rows":
+            lib_ms = statistics.median(event_ms(
+                torch, lambda: torch.cumsum(args[0], args[1]), 30, 3, flush))
         t_bytes = nbytes / bw * 1e3
-        t_ops = ops_px * px / F32_PEAK * 1e3
+        t_ops = KERNELS[kname][2] * args[0].numel() / F32_PEAK * 1e3
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms, "bytes": nbytes,
+                "shape": list(args[0].shape)}
+
+    def us(v):
+        return "null" if v is None else f"{v * 1e3:.2f}"
+
+    calls = {k: runs["exact"][0][k] or runs["fast"][0][k] for k in KERNELS}
+    records = []
+    for kname, (source, replaces, _, _) in KERNELS.items():
+        t = time_call(kname, calls[kname][0])
         records.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "shape": list(args[0].shape),
-        })
-        log("timing", kernel=kname, us=f"{ms * 1e3:.2f}",
-            plain_us=f"{plain_ms * 1e3:.2f}",
-            bound_us=f"{max(t_bytes, t_ops) * 1e3:.2f}", bytes=nbytes)
+            "replaces": replaces,
+            "launches": exact_l[kname] + fast_l[kname],
+            "max_abs_err": err[kname], **t})
+        log("timing", kernel=kname, shape="x".join(map(str, t["shape"])),
+            us=us(t["ms"]), plain_us=us(t["plain_ms"]),
+            bound_us=us(t["bound_ms"]), library_us=us(t["library_ms"]),
+            bytes=t["bytes"])
+    # the other main-path shapes of K7 and K6: the fast tier's global Canny
+    # (4 rounds) and band prefix, and the exact descent's corner strips
+    for kname, args, what in (
+            ("hysteresis_propagate", runs["fast"][0]["hysteresis_propagate"][0],
+             "fast global Canny"),
+            ("sat_rows", runs["fast"][0]["sat_rows"][0], "fast band prefix"),
+            ("sat_rows", runs["exact"][0]["sat_rows"][1], "exact corner strip")):
+        t = time_call(kname, args)
+        log("timing", kernel=kname, on=repr(what),
+            shape="x".join(map(str, t["shape"])), us=us(t["ms"]),
+            plain_us=us(t["plain_ms"]), bound_us=us(t["bound_ms"]),
+            library_us=us(t["library_ms"]), bytes=t["bytes"])
     shutil.rmtree(WORK, ignore_errors=True)
 
     print(smi, flush=True)

@@ -1,6 +1,6 @@
 """Kernel tests that need an NVIDIA GPU (marker ``gpu``): each CUDA
 kernel against its plain PyTorch version on the card, and the six exact
-tier on the card against the CPU path.  They skip where
+and fast tiers on the card against the CPU path.  They skip where
 ``torch.cuda.is_available()`` is False.  On a GPU machine without JAX:
 
     python -m pytest -o addopts="" --noconftest -m gpu tests/test_torch_cuda.py
@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from underwater_image_enhancement_tpu_torch.ops import histeq, kernels
+from underwater_image_enhancement_tpu_torch.ops import airlight, histeq, kernels
+from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
 from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
     six_strategy_tuple,
 )
@@ -71,21 +72,17 @@ def test_wrapper_rejects_mixed_devices(cuda):
         kernels.lab_forward_unit(*p)
 
 
-def test_six_on_card_matches_cpu(cuda):
+def _frame():
     rng = np.random.default_rng(5)
     h, w = 120, 160
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     base = np.stack([0.15 + 0.1 * np.sin(xx / 17.0), 0.45 + 0.2 * np.cos(yy / 23.0),
                      0.55 + 0.15 * np.sin((xx + yy) / 31.0)], -1)
     img = np.clip(base + rng.normal(0, 0.03, (h, w, 3)), 0, 1).astype(np.float32)
-    img = (np.floor(img * 255) / 255).astype(np.float32)
-    kernels.reset_launches()
-    on_card, code_g = six_strategy_tuple(img)  # the default device: cuda
-    assert dict(kernels.launches) == {
-        "lab_forward_unit": 5, "clahe_apply": 5, "lab_inverse_unit": 2,
-        "lab_inverse_unit_gamma": 3}
-    on_cpu, code_c = six_strategy_tuple(img, device="cpu")
-    assert int(code_g) == int(code_c)
+    return (np.floor(img * 255) / 255).astype(np.float32)
+
+
+def _card_matches_cpu(on_card, on_cpu):
     for k, (a, b) in enumerate(zip(on_card, on_cpu)):
         assert a.device.type == "cuda"
         d = (a.cpu().double() - b.double())
@@ -94,3 +91,86 @@ def test_six_on_card_matches_cpu(cuda):
         else:
             mse = float((d ** 2).mean())
             assert mse == 0 or 10 * np.log10(1 / mse) >= 50
+
+
+def test_six_on_card_matches_cpu(cuda):
+    img = _frame()
+    kernels.reset_launches()
+    on_card, code_g = six_strategy_tuple(img)  # the default device: cuda
+    n = dict(kernels.launches)
+    # K7 once per descent level, K6 for the row table and each level's strip
+    assert n.pop("hysteresis_propagate") >= 1
+    assert n.pop("sat_rows") == 1 + kernels.launches["hysteresis_propagate"]
+    assert n == {"lab_forward_unit": 5, "lab_forward_unit_approx": 0,
+                 "clahe_apply": 5, "lab_inverse_unit": 2,
+                 "lab_inverse_unit_gamma": 3}
+    on_cpu, code_c = six_strategy_tuple(img, device="cpu")
+    assert int(code_g) == int(code_c)
+    _card_matches_cpu(on_card, on_cpu)
+
+
+def test_six_fast_on_card_matches_cpu(cuda):
+    img = _frame()
+    kernels.reset_launches()
+    on_card, code_g = six_strategy_tuple(img, fast=True)
+    assert dict(kernels.launches) == {
+        "lab_forward_unit": 0, "lab_forward_unit_approx": 5, "clahe_apply": 5,
+        "lab_inverse_unit": 2, "lab_inverse_unit_gamma": 3,
+        "hysteresis_propagate": 1, "sat_rows": 1}
+    on_cpu, code_c = six_strategy_tuple(img, fast=True, device="cpu")
+    assert int(code_g) == int(code_c)
+    corr = cast_mod.detect_and_correct(torch.from_numpy(img))[0]
+    planes = [corr[..., c].contiguous() for c in range(3)]
+    A_c, box_c = airlight.quadtree_airlight_planes(planes, edge_iters=4,
+                                                   return_box=True)
+    A_g, box_g = airlight.quadtree_airlight_planes(
+        [p.to(cuda) for p in planes], edge_iters=4, return_box=True)
+    assert box_g == box_c and torch.equal(A_g.cpu(), A_c)
+    _card_matches_cpu(on_card, on_cpu)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lab_forward_approx_kernel_equals_plain(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    p = [torch.rand(shape, generator=g, device=cuda) * 1.2 - 0.1
+         for _ in range(3)]
+    before = kernels.launches["lab_forward_unit_approx"]
+    got = kernels.lab_forward_unit_approx(*p)
+    assert kernels.launches["lab_forward_unit_approx"] == before + 1
+    for a, b in zip(got, kernels.lab_forward_unit_approx_plain(*p)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,iters", [((1, 1080, 1920), 4),
+                                         ((1, 1080, 1920), 64),
+                                         ((4, 97, 131), 64), ((3, 61, 83), 0),
+                                         ((2, 1, 1), 4), ((1, 300, 40), 123)])
+def test_hysteresis_kernel_equals_plain(cuda, shape, iters):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    u = torch.rand(shape, generator=g, device=cuda)
+    strong = (u < 0.004).to(torch.int32)
+    weak = ((u >= 0.004) & (u < 0.5)).to(torch.int32)
+    got = kernels.hysteresis_propagate(strong, weak, iters)
+    assert torch.equal(got, kernels.hysteresis_propagate_plain(strong, weak,
+                                                               iters))
+
+
+@pytest.mark.parametrize("shape,dim", [((6, 1080, 1920), -2),
+                                       ((7, 135, 1920), -2), ((18, 1920), -1),
+                                       ((3, 5, 7), 0), ((2, 16, 3), 1),
+                                       ((2, 17, 3), 1), ((1, 5000, 2), 1),
+                                       ((3, 16 ** 3 + 1), -1)])
+def test_sat_rows_kernel_equals_plain(cuda, shape, dim):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.rand(shape, generator=g, device=cuda)
+    assert torch.equal(kernels.sat_rows(x, dim), kernels.sat_rows_plain(x, dim))
+
+
+def test_kernel_limits_raise(cuda):
+    s = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.hysteresis_propagate(s, s, 200)
+    with pytest.raises(ValueError):
+        kernels.sat_rows(torch.zeros((2, 0, 3), device=cuda))
+    with pytest.raises(ValueError):
+        kernels.sat_rows(torch.zeros((), device=cuda))

@@ -21,6 +21,7 @@ from underwater_image_enhancement_tpu_torch.ops import airlight as tair
 from underwater_image_enhancement_tpu_torch.ops import boxfilter as tbox
 from underwater_image_enhancement_tpu_torch.ops import edges as tedges
 from underwater_image_enhancement_tpu_torch.ops import guided as tguided
+from underwater_image_enhancement_tpu_torch.ops import kernels
 from underwater_image_enhancement_tpu_torch.ops import stretch as tstretch
 from underwater_image_enhancement_tpu_torch.pipeline import cast as tcast
 from underwater_image_enhancement_tpu_torch.utils import io as tio
@@ -84,7 +85,7 @@ def test_cumsum_association_bit_equal(shape):
     """xla_cumsum reproduces the f32 association of jnp.cumsum on XLA:CPU."""
     x = _planes(sum(shape), shape)
     for axis in (-1, -2):
-        got = tair.xla_cumsum(torch.from_numpy(x), axis).numpy()
+        got = kernels.xla_cumsum(torch.from_numpy(x), axis).numpy()
         want = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=axis))(x))
         np.testing.assert_array_equal(got, want)
 
@@ -153,7 +154,8 @@ def _jax_airlight_and_box(planes):
 
 
 # seeds 13 and 36 flip the descent under a plain f32 torch.cumsum
-# (test_plain_cumsum_flips_the_descent); xla_cumsum keeps them equal to JAX
+# (test_plain_cumsum_flips_the_descent); kernels.sat_rows in XLA:CPU's
+# order keeps them equal to JAX
 @pytest.mark.parametrize("which", ["underwater_img", 11, 12, 13, 36])
 def test_airlight_exact_bit_equal(which, underwater_img):
     img = underwater_img if which == "underwater_img" else _seeded_frame(which)
@@ -173,15 +175,20 @@ def test_airlight_exact_bit_equal(which, underwater_img):
 @pytest.mark.parametrize("seed", [13, 36])
 def test_plain_cumsum_flips_the_descent(seed, monkeypatch):
     """Why the prefix sums keep XLA:CPU's association: with a plain f32
-    (or f64) torch.cumsum the descent of these frames ends in another box
-    than with xla_cumsum, which test_airlight_exact_bit_equal holds equal
-    to JAX."""
+    (or f64) torch.cumsum in place of kernels.sat_rows the descent of these
+    frames ends in another box than with XLA:CPU's order, which
+    test_airlight_exact_bit_equal holds equal to JAX."""
     img, _ = tcast.detect_and_correct(torch.from_numpy(_seeded_frame(seed)))
     planes = tuple(img[..., c].contiguous() for c in range(3))
     A, box = tair.quadtree_airlight_exact_planes(planes, return_box=True)
     for dtype in (torch.float32, torch.float64):
-        monkeypatch.setattr(tair, "xla_cumsum", lambda x, dim, dt=dtype:
-                            torch.cumsum(x.to(dt), dim).to(x.dtype))
+        def plain_cumsum(x, dim=-2, dt=dtype):
+            c = torch.cumsum(x.to(dt), dim).to(x.dtype)
+            pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [1, 0]
+            return torch.nn.functional.pad(c, pad)
+
+        # the descent's prefix sums: the row table and the corner strips
+        monkeypatch.setattr(kernels, "sat_rows", plain_cumsum)
         A2, box2 = tair.quadtree_airlight_exact_planes(planes,
                                                         return_box=True)
         assert box2 != box and not torch.equal(A2, A)

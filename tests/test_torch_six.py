@@ -146,11 +146,36 @@ def test_cli_six_cpu_matches_jax_cli(tmp_path, frames):
             assert np.abs(a - b).max() <= 1 / 255 + 1e-9, name
 
 
-def test_cli_six_rejects_fast(tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tcli.main(["six", "--input", str(tmp_path), "--output",
-                   str(tmp_path / "o"), "--device", "cpu", "--fast"])
-    assert not (tmp_path / "o").exists()
+def test_cli_six_fast_matches_jax_cli(tmp_path, frames):
+    """cli six --fast on three frames: 18 PNGs and the CSV, whose rows
+    match the JAX CLI's --fast run."""
+    from underwater_image_enhancement_tpu.cli import main as jax_main
+
+    src = tmp_path / "in"
+    _write_folder(src, frames["underwater_img"][0])
+    tio.imwrite_unit(str(src / "p2.png"), frames["seeded"][0])
+    kernels.reset_launches()
+    tcli.main(["six", "--input", str(src), "--output",
+               str(tmp_path / "torch"), "--device", "cpu", "--fast"])
+    assert sum(kernels.launches.values()) == 0
+    jax_main(["six", "--input", str(src), "--output", str(tmp_path / "jax"),
+              "--fast"])
+    logs = {}
+    for side in ("torch", "jax"):
+        out = tmp_path / side
+        pngs = sorted(p.name for p in out.glob("*.png"))
+        assert pngs == sorted(f"p{i}_{n}.png" for i in range(3)
+                              for n in SIX_ORDER)
+        with open(out / "processing_log.csv", newline="") as f:
+            logs[side] = list(csv.DictReader(f))
+    assert len(logs["torch"]) == len(logs["jax"]) == 18
+    for rt, rj in zip(logs["torch"], logs["jax"]):
+        for key in ("filename", "image_type", "strategy", "status"):
+            assert rt[key] == rj[key]
+        assert Path(rt["output_path"]).name == Path(rj["output_path"]).name
+    for name in sorted(p.name for p in (tmp_path / "jax").glob("*.png")):
+        img = tio.imread_u8(str(tmp_path / "torch" / name))
+        assert img.shape == frames["seeded"][0].shape
 
 
 def test_cli_six_batches_and_skips_unreadable(tmp_path, frames):
@@ -174,7 +199,7 @@ def test_cli_six_failed_frame_row_or_device_fault(tmp_path, frames,
     build or kernel launch, a sticky CUDA error) ends the run."""
     from underwater_image_enhancement_tpu_torch.pipeline import enhance
 
-    def broken(img, device):
+    def broken(img, fast, device):
         raise error("broken frame")
 
     monkeypatch.setattr(enhance, "six_strategy_tuple", broken)
@@ -239,7 +264,13 @@ def _imported_modules(path):
 
 def test_source_imports_neither_jax_nor_the_jax_package():
     files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
-    assert len(files) > 10
+    names = {str(p.relative_to(PACKAGE.parent)) for p in files}
+    assert {"underwater_image_enhancement_tpu_torch/models/diff_enhance.py",
+            "underwater_image_enhancement_tpu_torch/ops/kernels.py",
+            "underwater_image_enhancement_tpu_torch/ops/airlight.py",
+            "underwater_image_enhancement_tpu_torch/ops/stretch.py",
+            "underwater_image_enhancement_tpu_torch/pipeline/enhance.py",
+            "underwater_image_enhancement_tpu_torch/cli.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

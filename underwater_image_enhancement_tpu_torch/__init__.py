@@ -3,11 +3,13 @@
 The JAX package beside this one stays the reference; this package imports
 neither it nor JAX.  Entry points run on the CUDA device unless the caller
 asks for the CPU (``device="cpu"``); functions that take tensors run on the
-tensors' device.  The three hand-written CUDA kernels of the ``six`` exact
-tier live in ``csrc/`` and are wrapped by ``ops/kernels.py``.
+tensors' device.  The hand-written CUDA kernels live in ``csrc/`` and are
+wrapped by ``ops/kernels.py``.
 
-Ported so far: ``pipeline.enhance.six_strategy_tuple`` (exact tier) and the
-``six`` subcommand of ``cli``.
+Ported so far: ``pipeline.enhance.six_strategy_tuple`` (exact and fast
+tiers), ``enhance``/``enhance_batch`` (fixed parameters,
+``models.diff_enhance.enhance_vgg``), and the ``six`` and ``enhance``
+subcommands of ``cli``.
 """
 
 from underwater_image_enhancement_tpu_torch.version import __version__  # noqa: F401

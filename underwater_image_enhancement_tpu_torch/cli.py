@@ -1,17 +1,23 @@
 """Command-line interface of the port.
 
-    python -m underwater_image_enhancement_tpu_torch.cli six --input DIR --output DIR
+    python -m underwater_image_enhancement_tpu_torch.cli six --input DIR --output DIR [--fast]
+    python -m underwater_image_enhancement_tpu_torch.cli enhance --input PATH --output PATH
 
 Commands (reference counterparts):
-  six   six_stadigy.py __main__: all six strategies per image + CSV log
+  six       six_stadigy.py __main__: all six strategies per image + CSV log
+            (``--fast``: the histogram-percentile tier)
+  enhance   use_trained_model.py __main__ without a model: the
+            fixed-parameter enhance of one file, or of a folder in
+            same-shape batches (``*_enhanced.png``)
 
 Runs on the CUDA device by default (``--device cuda``); ``--device cpu``
 runs the plain PyTorch path.  On CUDA the kernels are built before the
 frame loop, and a ``RuntimeError`` from the build or from a kernel launch
-ends the run with a non-zero exit; other per-image errors become "failed"
-rows of ``processing_log.csv``, as in the JAX CLI.  ``--fast`` is not
-ported yet and is rejected.  Other subcommands of the JAX package's CLI
-are not ported yet.
+ends the run with a non-zero exit; other per-image errors of ``six``
+become "failed" rows of ``processing_log.csv``, as in the JAX CLI.
+``enhance --model`` (a learned predictor) and ``--devices`` (data
+parallelism) are not ported yet and are rejected, as are the JAX CLI's
+other subcommands.
 """
 
 from __future__ import annotations
@@ -22,8 +28,97 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
+
 LOG_FIELDS = ["filename", "image_type", "strategy", "status", "output_path",
               "processing_time"]
+
+
+def _start(device_name: str):
+    """The command's device; on CUDA the kernels are built here, before
+    any frame (a failed build ends the run)."""
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        resolve_device,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import cuda_build
+
+    device = resolve_device(device_name)
+    if device.type == "cuda":
+        cuda_build.extension()
+    return device
+
+
+def _stream_shape_batches(files, batch_size: int, log=print):
+    """Same-shape [(path, img), ...] chunks of <= batch_size, decoded
+    streaming: per-shape buffers flush as soon as a batch is full (the JAX
+    CLI's helper of the same name)."""
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    bs = max(1, int(batch_size))
+    pending: dict = {}
+    for p, img in uio.decode_iter(files, log=log):
+        buf = pending.setdefault(img.shape, [])
+        buf.append((p, img))
+        if len(buf) == bs:
+            yield list(buf)
+            buf.clear()
+    for buf in pending.values():
+        if buf:
+            yield buf
+
+
+def _to_host(img) -> np.ndarray:
+    return img.detach().cpu().numpy()
+
+
+def _cmd_enhance(args) -> None:
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        enhance,
+        enhance_batch,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    if args.model is not None:
+        raise SystemExit("enhance --model: the learned parameter predictor "
+                         "is not yet ported; run without --model for the "
+                         "fixed parameters")
+    if args.devices is not None:
+        raise SystemExit("enhance --devices: data parallelism over several "
+                         "cards is not yet ported; the port runs on one "
+                         "device (--device)")
+    device = _start(args.device)
+    inp = Path(args.input)
+    if not inp.is_dir():
+        img = uio.imread_unit(str(inp))
+        if img is None:
+            print(f"skip unreadable image: {inp}")
+            return
+        params = {"omega": args.omega, "gamma": args.gamma,
+                  "L_low": args.l_low, "L_high": args.l_high}
+        uio.imwrite_unit(str(args.output),
+                         _to_host(enhance(img, params, device=device)))
+        print(f"done -> {args.output}")
+        return
+
+    files = uio.collect_images(args.input)
+    outdir = Path(args.output)
+    n = 0
+    with uio.AsyncWriter() as writer:
+        for chunk in _stream_shape_batches(
+                files, args.batch_size,
+                log=lambda m: print(f"skip {m.replace('warning: ', '')}")):
+            # 'hist' equals the sorted-index mode on the u8 grid every
+            # decoded image lies on
+            outs = _to_host(enhance_batch(
+                np.stack([im for _, im in chunk]), args.l_low, args.l_high,
+                args.omega, args.gamma, stretch_mode="hist", device=device))
+            for j, (p, _) in enumerate(chunk):
+                writer.write(str(outdir / f"{p.stem}_enhanced.png"), outs[j])
+                n += 1
+    for path, err in writer.close():
+        n -= 1
+        print(f"  write failed: {Path(path).name} - {err[:50]}")
+    print(f"done ({n} images) -> {args.output}")
 
 
 def _cmd_six(args) -> None:
@@ -32,18 +127,11 @@ def _cmd_six(args) -> None:
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
         SIX_ORDER,
-        resolve_device,
         six_strategy_tuple,
     )
-    from underwater_image_enhancement_tpu_torch.utils import cuda_build
     from underwater_image_enhancement_tpu_torch.utils import io as uio
 
-    if args.fast:
-        raise SystemExit("six --fast is not yet ported to the PyTorch/CUDA "
-                         "package; run the exact tier (no --fast)")
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        cuda_build.extension()  # a failed build ends the run here
+    device = _start(args.device)
     files = uio.collect_images(args.input)
     if not files:
         print(f"no images found in {args.input}")
@@ -64,7 +152,8 @@ def _cmd_six(args) -> None:
         results = []
         try:
             for _, img in chunk:
-                outs, code = six_strategy_tuple(img, device=device)
+                outs, code = six_strategy_tuple(img, fast=args.fast,
+                                                device=device)
                 # quantize on the device: (clip * 255) truncated, as the
                 # reference's imwrite; only uint8 frames cross to the host
                 u8 = [(torch.clamp(o, 0, 1) * 255).to(torch.uint8).cpu().numpy()
@@ -154,6 +243,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="underwater_image_enhancement_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("enhance", help="fixed-parameter enhance of image(s)")
+    p.add_argument("--input", required=True, help="an image or a folder")
+    p.add_argument("--output", required=True,
+                   help="the output image, or a folder for a folder input")
+    p.add_argument("--omega", type=float, default=0.6)
+    p.add_argument("--gamma", type=float, default=1.2)
+    p.add_argument("--l-low", type=float, default=10.0)
+    p.add_argument("--l-high", type=float, default=90.0)
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="frames per call (same-shape groups)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch path)")
+    p.add_argument("--model", default=None,
+                   help="predictor checkpoint: not yet ported, rejected")
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel device count: not yet ported, "
+                        "rejected")
+    p.set_defaults(fn=_cmd_enhance)
+
     p = sub.add_parser("six", help="run all six strategies per image")
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
@@ -161,8 +270,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
     p.add_argument("--fast", action="store_true",
-                   help="the histogram-percentile tier: not yet ported, "
-                        "rejected")
+                   help="the histogram-percentile tier (banded-SAT airlight, "
+                        "fast guided filter, approximate forward LAB)")
     p.add_argument("--batch-size", type=int, default=1,
                    help="frames per chunk; a chunk's frames run one by one "
                         "and share one processing_time")

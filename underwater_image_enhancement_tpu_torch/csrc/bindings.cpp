@@ -15,7 +15,7 @@ namespace uie {
 
 void launch_lab_forward_unit(const float* r, const float* g, const float* b,
                              const int* tab, int* L, int* a, int* bb,
-                             long long n, cudaStream_t stream);
+                             long long n, bool approx, cudaStream_t stream);
 void launch_clahe_apply(const int* src, const int* luts, const float* ya,
                         const float* xa, int* out, int H, int W, int th,
                         int tw, int pt, int plf, int tiles_x, int tiles_y,
@@ -24,6 +24,15 @@ void launch_lab_inverse_unit(const int* L, const int* a, const int* b,
                              const int* tab, const float* glut, float* r,
                              float* g, float* bb, long long n,
                              cudaStream_t stream);
+long long hysteresis_smem_bytes(int iters, int tile);
+cudaError_t launch_hysteresis(const int* strong, const int* weak, int* out,
+                              int N, int H, int W, int iters, int tile,
+                              cudaStream_t stream);
+int scan_block();
+void launch_block_totals(const float* x, float* tot, int N, int L, int M,
+                         cudaStream_t stream);
+void launch_block_scan(const float* x, const float* excl, float* out, int N,
+                       int L, int M, bool lead, cudaStream_t stream);
 
 }  // namespace uie
 
@@ -59,8 +68,8 @@ Planes empty_planes(const at::Tensor& like, at::ScalarType dtype) {
           at::empty(like.sizes(), opts)};
 }
 
-Planes lab_forward_unit(const at::Tensor& r, const at::Tensor& g,
-                        const at::Tensor& b, const at::Tensor& tab) {
+Planes lab_forward(const at::Tensor& r, const at::Tensor& g,
+                   const at::Tensor& b, const at::Tensor& tab, bool approx) {
   check_planes(r, g, b, at::kFloat);
   check(tab, r, at::kInt, "table");
   TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE");
@@ -70,9 +79,19 @@ Planes lab_forward_unit(const at::Tensor& r, const at::Tensor& g,
       r.data_ptr<float>(), g.data_ptr<float>(), b.data_ptr<float>(),
       tab.data_ptr<int>(), std::get<0>(outs).data_ptr<int>(),
       std::get<1>(outs).data_ptr<int>(), std::get<2>(outs).data_ptr<int>(),
-      r.numel(), at::cuda::getCurrentCUDAStream());
+      r.numel(), approx, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return outs;
+}
+
+Planes lab_forward_unit(const at::Tensor& r, const at::Tensor& g,
+                        const at::Tensor& b, const at::Tensor& tab) {
+  return lab_forward(r, g, b, tab, false);
+}
+
+Planes lab_forward_unit_approx(const at::Tensor& r, const at::Tensor& g,
+                               const at::Tensor& b, const at::Tensor& tab) {
+  return lab_forward(r, g, b, tab, true);
 }
 
 at::Tensor clahe_apply(const at::Tensor& src, const at::Tensor& luts,
@@ -132,15 +151,86 @@ Planes lab_inverse_unit_gamma(const at::Tensor& L, const at::Tensor& a,
   return lab_inverse(L, a, b, tab, glut.data_ptr<float>());
 }
 
+// The largest shared-memory block of an H100 (227 KB).
+constexpr long long kMaxSmem = 232448;
+
+// ops/kernels.py picks the tile (hysteresis_tile) and checks its fit.
+at::Tensor hysteresis_propagate(const at::Tensor& strong,
+                                const at::Tensor& weak, int64_t iters,
+                                int64_t tile) {
+  check(strong, strong, at::kInt, "strong");
+  check(weak, strong, at::kInt, "weak");
+  TORCH_CHECK(strong.dim() == 3 && weak.sizes() == strong.sizes(),
+              "hysteresis: expected equal (N, H, W) planes");
+  TORCH_CHECK(iters >= 0 && tile > 0 &&
+                  uie::hysteresis_smem_bytes((int)iters, (int)tile) <= kMaxSmem,
+              "hysteresis: the region does not fit in shared memory");
+  const c10::cuda::CUDAGuard guard(strong.device());
+  auto out = at::empty_like(strong);
+  if (out.numel() == 0) return out;
+  C10_CUDA_CHECK(uie::launch_hysteresis(
+      strong.data_ptr<int>(), weak.data_ptr<int>(), out.data_ptr<int>(),
+      (int)strong.size(0), (int)strong.size(1), (int)strong.size(2),
+      (int)iters, (int)tile, at::cuda::getCurrentCUDAStream()));
+  return out;
+}
+
+// csrc/scan.cu's recursion on (N, L, M): L <= 16 is one sequential pass;
+// otherwise the block totals, their own scan (recursively), then each
+// block rescanned plus its exclusive prefix.
+at::Tensor scan_mid(const at::Tensor& x, int64_t N, int64_t L, int64_t M,
+                    bool lead) {
+  auto out = at::empty({N, L + (lead ? 1 : 0), M}, x.options());
+  const auto stream = at::cuda::getCurrentCUDAStream();
+  const float* excl = nullptr;
+  at::Tensor scanned;
+  if (L > uie::scan_block()) {
+    const int64_t nb = (L + uie::scan_block() - 1) / uie::scan_block();
+    auto tot = at::empty({N, nb, M}, x.options());
+    uie::launch_block_totals(x.data_ptr<float>(), tot.data_ptr<float>(),
+                             (int)N, (int)L, (int)M, stream);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    scanned = scan_mid(tot, N, nb, M, false);
+    excl = scanned.data_ptr<float>();
+  }
+  uie::launch_block_scan(x.data_ptr<float>(), excl, out.data_ptr<float>(),
+                         (int)N, (int)L, (int)M, lead, stream);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+at::Tensor prefix_scan(const at::Tensor& x, int64_t dim, bool lead) {
+  check(x, x, at::kFloat, "x");
+  TORCH_CHECK(x.dim() >= 1 && dim >= 0 && dim < x.dim(),
+              "prefix_scan: dim out of range");
+  int64_t N = 1, M = 1;
+  for (int64_t d = 0; d < dim; ++d) N *= x.size(d);
+  for (int64_t d = dim + 1; d < x.dim(); ++d) M *= x.size(d);
+  TORCH_CHECK(x.size(dim) >= 1 && x.numel() < (int64_t{1} << 31),
+              "prefix_scan: empty axis or more than 2^31 values");
+  auto sizes = x.sizes().vec();
+  sizes[dim] += lead ? 1 : 0;
+  const c10::cuda::CUDAGuard guard(x.device());
+  if (x.numel() == 0) return at::zeros(sizes, x.options());
+  return scan_mid(x, N, x.size(dim), M, lead).view(sizes);
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("lab_forward_unit", &lab_forward_unit,
         "csrc/lab_forward.cu: f32 unit planes -> int32 (L, a, b)");
+  m.def("lab_forward_unit_approx", &lab_forward_unit_approx,
+        "csrc/lab_forward.cu: f32 unit planes -> int32 (L, a, b), "
+        "2-step Newton cube root");
   m.def("clahe_apply", &clahe_apply,
         "csrc/clahe_apply.cu: int32 plane through its tile LUTs");
   m.def("lab_inverse_unit", &lab_inverse_unit,
         "csrc/lab_inverse.cu: int32 (L, a, b) -> f32 unit planes");
   m.def("lab_inverse_unit_gamma", &lab_inverse_unit_gamma,
         "csrc/lab_inverse.cu: int32 (L, a, b) -> gamma LUT of the u8 planes");
+  m.def("hysteresis_propagate", &hysteresis_propagate,
+        "csrc/hysteresis.cu: bounded 8-connected flood of (N, H, W) planes");
+  m.def("sat_rows", &prefix_scan,
+        "csrc/scan.cu: f32 prefix sum along dim in XLA:CPU's order");
 }

@@ -1,22 +1,32 @@
-// Forward LAB on float unit planes: OpenCV's integer RGB2Lab_b, bit-exact.
+// Forward LAB on float unit planes: OpenCV's integer RGB2Lab_b, bit-exact,
+// and the six --fast tier's approximate variant.
 //
 // Replaces: underwater_image_enhancement_tpu/ops/pallas_kernels.py,
-//   lab_forward_planes_unit (_make_lab_forward / _make_lab_fwd_kernel).
+//   lab_forward_planes_unit (_make_lab_forward / _make_lab_fwd_kernel), and
+//   lab_forward_planes_unit_approx (the same kernel with
+//   cbrt_corr="approx2": CBRT_TAB evaluated by _cbrt_tab_surrogate(idx,
+//   steps=2), no corrections; within +-1 u8 LSB of the exact table).
 //
 // Per pixel: quantize each channel like (v*255).astype(uint8) (clip, then
-// truncate), GAMMA_TAB gather, fixed-point COEFFS dot, descale, three
-// CBRT_TAB gathers, L/a/b descale and clip.  Integer arithmetic is the JAX
-// kernel's, op for op; `>>` on a negative int is arithmetic, as in XLA.
+// truncate), GAMMA_TAB gather, fixed-point COEFFS dot, descale, three cube
+// roots (CBRT_TAB gathers, or the surrogate), L/a/b descale and clip.
+// Integer arithmetic is the JAX kernel's, op for op; `>>` on a negative int
+// is arithmetic, as in XLA.  The surrogate rounds every multiply and add on
+// its own (__fmul_rn/__fsub_rn/__fadd_rn), in the JAX order, and rounds
+// half to even (jnp.round); its constants are the f32 values numpy gives,
+// written in hex.
 //
 // Bound on an H100: memory.  It reads 3 f32 planes and writes 3 i32 planes,
-// 24 bytes a pixel (49.8 MB at 1920x1080, ~15 us at 3.35 TB/s); the integer
-// work is ~40 ops a pixel.  Design: one thread per pixel in a grid-stride
-// loop over a few blocks per SM, so the 6 KB CBRT table (u16) and the
-// 1 KB GAMMA table are staged into shared memory once per block rather
-// than once per 256 pixels; shared memory (not __constant__) because the
-// gather indices diverge within a warp.  The TPU kernel's 128-lane segment
-// gathers and int32 packing are Mosaic workarounds and are not carried
-// over.  Built without --use_fast_math: the f32 multiply must round.
+// 24 bytes a pixel (49.8 MB at 1920x1080, ~15 us at 3.35 TB/s); the exact
+// kernel's integer work is ~40 ops a pixel, the surrogate adds ~20 f32 ops
+// per cube root (~100 a pixel).  Design: one thread per pixel in a
+// grid-stride loop over a few blocks per SM, so the 6 KB CBRT table (u16)
+// and the 1 KB GAMMA table are staged into shared memory once per block
+// rather than once per 256 pixels; shared memory (not __constant__) because
+// the gather indices diverge within a warp.  The approximate variant stages
+// only GAMMA.  The TPU kernel's 128-lane segment gathers and int32 packing
+// are Mosaic workarounds and are not carried over.  Built without
+// --use_fast_math: the f32 multiply must round.
 //
 // Table block (int32, ops/lab_tables.py FWD_TABLE):
 //   [0] L_SCALE  [1] L_SHIFT  [2..10] COEFFS (3x3 row-major)
@@ -35,6 +45,14 @@ constexpr int kLabShift = 12;
 constexpr int kLabShift2 = 15;
 constexpr int kThreads = 512;
 
+// np.float32 constants of pallas_kernels._cbrt_tab_surrogate / _rcbrt
+constexpr float kInv2040 = 0x1.010102p-11f;    // 1.0 / 2040.0
+constexpr float kTiny = 0x1.4484cp-100f;       // 1e-30
+constexpr float kThird = 0x1.555556p-2f;       // 1.0 / 3.0
+constexpr float kLinThresh = 0x1.223184p-7f;   // 0.008856
+constexpr float kLinSlope = 0x1.f25e36p+2f;    // 7.787
+constexpr float kLinOffset = 0x1.1a7b96p-3f;   // 16.0 / 116.0
+
 __device__ __forceinline__ int descale(int v, int n) {
   return (v + (1 << (n - 1))) >> n;
 }
@@ -48,6 +66,30 @@ __device__ __forceinline__ int quantize_u8(float v) {
   return (int)fminf(fmaxf(__fmul_rn(v, 255.0f), 0.0f), 255.0f);
 }
 
+// _cbrt_tab_surrogate(idx, steps=2): round(labF(idx/2040) * 2^15), the
+// cube root as t * rcbrt(t)^2 with rcbrt from the bit-trick seed
+// 0x54A21D2A - bits/3 and two division-free Newton steps
+// r <- r * ((4 - t*r^2*r) * (1/3)).
+__device__ __forceinline__ int cbrt_approx(int idx) {
+  const float t = __fmul_rn((float)idx, kInv2040);
+  float f;
+  if (t < kLinThresh) {
+    f = __fadd_rn(__fmul_rn(t, kLinSlope), kLinOffset);
+  } else {
+    const float tc = fmaxf(t, kTiny);
+    // bits of a positive float: C's truncating / equals jnp's floor //
+    float r = __int_as_float(0x54A21D2A - __float_as_int(tc) / 3);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float t_r3 = __fmul_rn(__fmul_rn(tc, __fmul_rn(r, r)), r);
+      r = __fmul_rn(r, __fmul_rn(__fsub_rn(4.0f, t_r3), kThird));
+    }
+    f = __fmul_rn(tc, __fmul_rn(r, r));
+  }
+  return __float2int_rn(__fmul_rn(f, 32768.0f));  // jnp.round: half to even
+}
+
+template <bool kApprox>
 __global__ void __launch_bounds__(kThreads)
 lab_forward_unit_kernel(const float* __restrict__ r,
                         const float* __restrict__ g,
@@ -58,11 +100,13 @@ lab_forward_unit_kernel(const float* __restrict__ r,
                         int* __restrict__ b_out,
                         long long n) {
   __shared__ int s_gamma[256];
-  __shared__ unsigned short s_cbrt[kNcbrt];
+  __shared__ unsigned short s_cbrt[kApprox ? 1 : kNcbrt];
   __shared__ int s_head[kHeader];
   for (int i = threadIdx.x; i < 256; i += blockDim.x) s_gamma[i] = tab[kGamma + i];
-  for (int i = threadIdx.x; i < kNcbrt; i += blockDim.x)
-    s_cbrt[i] = (unsigned short)tab[kCbrt + i];
+  if (!kApprox) {
+    for (int i = threadIdx.x; i < kNcbrt; i += blockDim.x)
+      s_cbrt[i] = (unsigned short)tab[kCbrt + i];
+  }
   if (threadIdx.x < kHeader) s_head[threadIdx.x] = tab[threadIdx.x];
   __syncthreads();
 
@@ -77,7 +121,12 @@ lab_forward_unit_kernel(const float* __restrict__ r,
     const int iX = clamp_i(descale(R * C[0] + G * C[1] + B * C[2], kLabShift), 0, kNcbrt - 1);
     const int iY = clamp_i(descale(R * C[3] + G * C[4] + B * C[5], kLabShift), 0, kNcbrt - 1);
     const int iZ = clamp_i(descale(R * C[6] + G * C[7] + B * C[8], kLabShift), 0, kNcbrt - 1);
-    const int fX = s_cbrt[iX], fY = s_cbrt[iY], fZ = s_cbrt[iZ];
+    int fX, fY, fZ;
+    if (kApprox) {
+      fX = cbrt_approx(iX), fY = cbrt_approx(iY), fZ = cbrt_approx(iZ);
+    } else {
+      fX = s_cbrt[iX], fY = s_cbrt[iY], fZ = s_cbrt[iZ];
+    }
     L_out[i] = clamp_i(descale(l_scale * fY + l_shift, kLabShift2), 0, 255);
     a_out[i] = clamp_i(descale(500 * (fX - fY) + (128 << kLabShift2), kLabShift2), 0, 255);
     b_out[i] = clamp_i(descale(200 * (fY - fZ) + (128 << kLabShift2), kLabShift2), 0, 255);
@@ -104,9 +153,14 @@ namespace uie {
 // Launch only; csrc/bindings.cpp checks the tensors and the launch.
 void launch_lab_forward_unit(const float* r, const float* g, const float* b,
                              const int* tab, int* L, int* a, int* bb,
-                             long long n, cudaStream_t stream) {
-  lab_forward_unit_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-      r, g, b, tab, L, a, bb, n);
+                             long long n, bool approx, cudaStream_t stream) {
+  if (approx) {
+    lab_forward_unit_kernel<true><<<grid_for(n), kThreads, 0, stream>>>(
+        r, g, b, tab, L, a, bb, n);
+  } else {
+    lab_forward_unit_kernel<false><<<grid_for(n), kThreads, 0, stream>>>(
+        r, g, b, tab, L, a, bb, n);
+  }
 }
 
 }  // namespace uie

@@ -1,4 +1,5 @@
-"""Quadtree atmospheric-light estimation, exact per-block-Canny descent.
+"""Quadtree atmospheric-light estimation: the exact per-block-Canny descent
+and the banded-SAT descent of the ``--fast`` tier.
 
 Reference: six_stadigy.py:48-157.  From the full frame, split into four
 children, score each with Q = mean brightness + (B+G-2R)/n - mean channel
@@ -6,63 +7,60 @@ variance - Canny edge density of the child crop, descend into the best
 (first max wins), stop at ``min_size``, and return the RGB of the
 brightest pixel (max R+G+B, first in row-major order) of the final box.
 
-Counterpart of the JAX package's ``quadtree_airlight_exact_planes``: the
-brightness and variance sums come from row-prefix tables (SAT corners),
-the edge term from Canny on each child crop (the four children of a level
-batched into one (4, bh, bw) call, with the crop's last row and column
-replicated to the level's buffer size).  The descent runs on the host: one
-device-to-host read per quadtree level (about log2(min(H, W)) of them),
-which this first slice accepts.
+``quadtree_airlight_exact_planes`` is the JAX package's function of the
+same name: the brightness and variance sums come from row-prefix tables
+(SAT corners), the edge term from Canny on each child crop (the four
+children of a level batched into one (4, bh, bw) call, with the crop's last
+row and column replicated to the level's buffer size).
+
+``quadtree_airlight_planes`` is the JAX package's banded SAT (its
+``quadtree_airlight_planes``): one global Canny edge map is an eighth
+statistic plane, only the sums of bands of ``_BAND`` rows are
+prefix-summed, and each corner row is rebuilt from the band prefix plus
+the masked sum of the fewer than ``_BAND`` rows left.
+
+Both descents run on the host: one device-to-host read per quadtree level
+(about log2(min(H, W)) of them).
 
 Summation order matters here (near-tie descents flip on last-bit
-differences), so the prefix sums are not ``torch.cumsum``: ``xla_cumsum``
-reproduces the association XLA:CPU gives the reference's ``jnp.cumsum``
-(blocks of 16 summed in order, block totals scanned recursively and added
-as an exclusive prefix).  It is built from elementwise adds, so the CPU and
-the card give the same bits.
+differences), so every f32 sum repeats the association XLA:CPU gives the
+reference:
+
+- prefix sums (``jnp.cumsum``): ``kernels.sat_rows`` (csrc/scan.cu; its
+  plain version ``kernels.xla_cumsum``): blocks of 16 summed in order,
+  block totals scanned recursively and added as an exclusive prefix;
+- sums over fewer than 32 values (the band sums, the in-band remainders):
+  in order, x0 + x1 + ...;
+- longer sums (the corners' masked sums over W): XLA:CPU's tree-reduction
+  rewrite, windows of 32 with the axis zero-padded to a multiple of 32
+  (half the padding in front), each window summed in order, repeated on
+  the window sums while 32 or more remain (``_xla_row_sum``).
+
+The prefix sums run as one kernel on the card; the short sums are
+elementwise adds of tensors, and the long ones host numpy f32 adds, so the
+CPU path and the card give the same bits.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from underwater_image_enhancement_tpu_torch.ops import kernels
 from underwater_image_enhancement_tpu_torch.ops.colorspace import (
     gray_u8_planes,
     quantize_u8,
 )
 from underwater_image_enhancement_tpu_torch.ops.edges import canny_u8
 
-_SCAN_BLOCK = 16
-
-
-def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Inclusive f32 prefix sum along ``dim`` with XLA:CPU's association."""
-    dim = dim % x.dim()
-    n = x.shape[dim]
-    xm = x.movedim(dim, -1)
-    if n <= _SCAN_BLOCK:
-        out = torch.empty_like(xm)
-        acc = xm[..., 0]
-        out[..., 0] = acc
-        for k in range(1, n):
-            acc = acc + xm[..., k]
-            out[..., k] = acc
-        return out.movedim(-1, dim)
-    nb = -(-n // _SCAN_BLOCK)
-    pad = nb * _SCAN_BLOCK - n
-    xp = torch.nn.functional.pad(xm, (0, pad)) if pad else xm
-    blocks = xp.reshape(xp.shape[:-1] + (nb, _SCAN_BLOCK))
-    inner = xla_cumsum(blocks, -1)
-    outer = xla_cumsum(inner[..., -1], -1)
-    excl = torch.nn.functional.pad(outer[..., :-1], (1, 0))
-    res = (inner + excl[..., None]).reshape(xp.shape)[..., :n]
-    return res.movedim(-1, dim)
+_BAND = 8        # banded-SAT row stride (the JAX package's _BAND)
+_TREE_WINDOW = 32  # XLA:CPU's tree-reduction window
 
 
 def _sat_rows(x: torch.Tensor) -> torch.Tensor:
     """Row-prefix table with a leading zero row: (P, H, W) -> (P, H+1, W)."""
-    return torch.nn.functional.pad(xla_cumsum(x, -2), (0, 0, 1, 0))
+    return kernels.sat_rows(x.contiguous(), -2)
 
 
 def _corner_grid(sat_rows: torch.Tensor, rows, cols) -> torch.Tensor:
@@ -70,8 +68,7 @@ def _corner_grid(sat_rows: torch.Tensor, rows, cols) -> torch.Tensor:
     SAT corners: grid[p, t, s] = sum of plane p over [0, rows[t]) x
     [0, cols[s])."""
     strip = sat_rows[:, list(rows), :]
-    c = torch.nn.functional.pad(xla_cumsum(strip, -1), (1, 0))
-    return c[:, :, list(cols)]
+    return kernels.sat_rows(strip, -1)[:, :, list(cols)]
 
 
 def _level_plan(H: int, W: int, min_size: int):
@@ -128,6 +125,90 @@ def _scores(grid: np.ndarray, ec: np.ndarray, cand) -> np.ndarray:
 
     t3 = (var(sr, s2r) + var(sg, s2g) + var(sb, s2b)) * (f32(1.0) / f32(3.0))
     return t1 + t2 - t3 - ec.astype(np.float32) / ns
+
+
+def _seq_sum(x, axis: int):
+    """Sum along ``axis`` in order, x0 + x1 + ... (XLA:CPU's short
+    reductions); tensors or numpy arrays."""
+    index = [slice(None)] * x.ndim
+
+    def take(k):
+        index[axis] = k
+        return x[tuple(index)]
+
+    acc = take(0)
+    for k in range(1, x.shape[axis]):
+        acc = acc + take(k)
+    return acc
+
+
+def _xla_row_sum(x: np.ndarray) -> np.ndarray:
+    """f32 sum over the last axis in XLA:CPU's tree-reduction order (module
+    docstring)."""
+    while x.shape[-1] >= _TREE_WINDOW:
+        pad = -x.shape[-1] % _TREE_WINDOW
+        if pad:
+            x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(pad // 2, pad - pad // 2)])
+        x = _seq_sum(x.reshape(x.shape[:-1] + (-1, _TREE_WINDOW)), -1)
+    return _seq_sum(x, -1)
+
+
+def _stats7(x):
+    """The descent's statistic planes [r, g, b, r^2, g^2, b^2, e] from
+    [r, g, b, e] stacked on the first axis (tensor or numpy array)."""
+    cat = torch.cat if isinstance(x, torch.Tensor) else np.concatenate
+    return cat([x[:3], x[:3] * x[:3], x[3:]])
+
+
+def quadtree_airlight_planes(planes, min_size: int = 1, edge_iters: int = 64,
+                             return_box: bool = False):
+    """Banded-SAT descent with one global Canny edge map (hysteresis
+    bounded to ``edge_iters`` rounds; the ``--fast`` tier passes 4): (r, g,
+    b) f32 planes (H, W) -> A (3,) f32 on their device (and the final
+    (r0, c0, h, w) box when ``return_box``)."""
+    r, g, b = planes
+    H, W = r.shape
+    gray = gray_u8_planes(*(quantize_u8(p) for p in planes))
+    edge = canny_u8(gray, 50, 150,
+                    hysteresis_iters=edge_iters).to(torch.float32)
+    S = _BAND
+    nb = -(-H // S)
+    src = torch.stack([r, g, b, edge])                      # (4, H, W)
+    stats = F.pad(_stats7(src), (0, 0, 0, nb * S - H)).reshape(7, nb, S, W)
+    band_prefix = kernels.sat_rows(_seq_sum(stats, 2).contiguous(), -2)
+    offs = np.arange(S)
+    lanes = np.arange(W)
+    r0, c0, h, w = 0, 0, H, W
+    for _ in _level_plan(H, W, min_size):
+        if not (h > min_size and w > min_size):
+            break
+        mh, mw = h // 2, w // 2
+        cand = [(r0, c0, mh, mw), (r0, c0 + mw, mh, w - mw),
+                (r0 + mh, c0, h - mh, mw), (r0 + mh, c0 + mw, h - mh, w - mw)]
+        rows = np.array([r0, r0 + mh, r0 + h])
+        cols = np.array([c0, c0 + mw, c0 + w])
+        bidx = rows // S
+        ids = np.clip(bidx[:, None] * S + offs[None, :], 0, H - 1)
+        idx = torch.as_tensor(np.concatenate([bidx, ids.reshape(-1)]),
+                              device=r.device)
+        # the one host read of this level: the band prefix at the three
+        # corner rows and the raw rows of their bands
+        host = torch.cat([
+            band_prefix.index_select(1, idx[:3]).reshape(-1, W),
+            src.index_select(1, idx[3:]).reshape(-1, W)]).cpu().numpy()
+        base = host[:21].reshape(7, 3, W)
+        seg = host[21:].reshape(4, 3, S, W)
+        m = (offs[None, :] < (rows - bidx * S)[:, None]).astype(np.float32)
+        part = _seq_sum(_stats7(seg) * m[None, :, :, None], 2)  # (7, 3, W)
+        strip = base + part
+        cmask = (lanes[None, :] < cols[:, None]).astype(np.float32)
+        grid = _xla_row_sum(strip[:, :, None, :] * cmask[None, None])
+        se = (grid[6, 1:, 1:] - grid[6, :-1, 1:] - grid[6, 1:, :-1]
+              + grid[6, :-1, :-1]).reshape(-1)
+        k = int(np.argmax(_scores(grid[:6], se, cand)))
+        r0, c0, h, w = cand[k]
+    A = _brightest_pixel(planes, r0, c0, h, w)
+    return (A, (r0, c0, h, w)) if return_box else A
 
 
 def quadtree_airlight_exact_planes(planes, min_size: int = 1,

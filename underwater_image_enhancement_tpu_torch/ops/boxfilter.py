@@ -1,6 +1,7 @@
 """Normalized box filter matching cv2.boxFilter(ksize=(r, r)) semantics.
 
-Window of r x r anchored at (r//2, r//2), REFLECT_101 border, mean.  The
+Window of r x r (or r rows x rx cols) anchored at (r//2, rx//2),
+REFLECT_101 border, mean.  The
 window sums use the JAX package's log-doubling scheme (``_window_sum``)
 term for term, so the f32 association, and hence every bit, matches it.
 """
@@ -41,19 +42,21 @@ def _window_sum(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
     return out
 
 
-def box_filter(x: torch.Tensor, r: int) -> torch.Tensor:
-    """Mean over an r x r window of x (..., H, W) float32, cv2.boxFilter
-    compatible (REFLECT_101 border; needs r//2 <= min(H, W) - 1).
+def box_filter(x: torch.Tensor, r: int, rx: int | None = None) -> torch.Tensor:
+    """Mean over an r x rx window (rx defaults to r) of x (..., H, W)
+    float32, cv2.boxFilter compatible in the square case (REFLECT_101
+    border; needs r//2 <= H - 1 and rx//2 <= W - 1).
 
-    The JAX reference divides by the literal r*r, which XLA compiles to a
+    The JAX reference divides by the literal r*rx, which XLA compiles to a
     multiply by its f32 reciprocal; the port multiplies by the same f32
     reciprocal."""
-    if r == 1:
+    rx = r if rx is None else rx
+    if r == 1 and rx == 1:
         return x
-    lo, hi = r // 2, r - 1 - r // 2
     lead = x.shape[:-2]
     x4 = x.reshape((-1, 1) + tuple(x.shape[-2:]))
-    xp = F.pad(x4, (lo, hi, lo, hi), mode="reflect")  # == REFLECT_101
-    s = _window_sum(_window_sum(xp, r, 2), r, 3)
+    xp = F.pad(x4, (rx // 2, rx - 1 - rx // 2, r // 2, r - 1 - r // 2),
+               mode="reflect")  # == REFLECT_101
+    s = _window_sum(_window_sum(xp, r, 2), rx, 3)
     s = s.reshape(lead + tuple(s.shape[-2:]))
-    return s * float(np.float32(1.0) / np.float32(r * r))
+    return s * float(np.float32(1.0) / np.float32(r * rx))

@@ -4,15 +4,18 @@ Counterpart of the JAX package's ``ops/edges.py``: Sobel with a REPLICATE
 border, OpenCV's integer non-maximum-suppression sectors (TG22 = 13573 in
 Q15) and tie-breaking, double threshold, and hysteresis bounded to a fixed
 number of 8-connected dilation rounds (64 by default), which the JAX
-package runs row-packed.  Here each round is one 3x3 max-pool: the same
-``e | (weak & dilate8(e))`` recurrence, so the edge maps are bit-equal.
-Planes may carry a leading batch dimension.
+package runs row-packed: here the hysteresis kernel
+(``kernels.hysteresis_propagate``, the same ``e | (weak & dilate8(e))``
+recurrence), so the edge maps are bit-equal.  Planes may carry a leading
+batch dimension.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from underwater_image_enhancement_tpu_torch.ops import kernels
 
 _SOBEL_X = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
 _SOBEL_Y = [[-1, -2, -1], [0, 0, 0], [1, 2, 1]]
@@ -45,18 +48,6 @@ def _shift_zero(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     H, W = x.shape[-2], x.shape[-1]
     xp = F.pad(x, (1, 1, 1, 1))
     return xp[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
-
-
-def _hysteresis(strong: torch.Tensor, weak: torch.Tensor,
-                iters: int) -> torch.Tensor:
-    """strong | (weak reachable from strong in <= iters 8-connected steps),
-    as float 0/1 planes (N, H, W); each round is a 3x3 max-pool (the
-    8-neighbourhood dilation with the centre, zero outside)."""
-    e = strong[:, None]
-    w = weak[:, None]
-    for _ in range(iters):
-        e = torch.maximum(e, w * F.max_pool2d(e, 3, stride=1, padding=1))
-    return e[:, 0]
 
 
 def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
@@ -103,6 +94,6 @@ def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
     cand = (m > low) & keep
     strong = cand & (m > high)
     weak = cand & ~strong
-    e = _hysteresis(strong.to(torch.float32), weak.to(torch.float32),
-                    hysteresis_iters).to(torch.int32)
+    e = kernels.hysteresis_propagate(strong.to(torch.int32),
+                                     weak.to(torch.int32), hysteresis_iters)
     return e[0] if single else e

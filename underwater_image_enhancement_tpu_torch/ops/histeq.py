@@ -112,11 +112,21 @@ def clahe_u8(channel_u8: torch.Tensor, clip_limit: float = 2.0,
 
 def clahe_enhancement_planes(planes, clip_limit: float = 2.0,
                              tiles_x: int = 8, tiles_y: int = 8,
-                             gamma: float | None = None):
+                             gamma: float | None = None,
+                             lab_fast: bool = False):
     """LAB-L CLAHE roundtrip on (r, g, b) f32 unit planes -> same, bit-exact
     vs cv2 on the u8 grid.  ``gamma`` folds a trailing ``out**gamma`` into
-    the inverse-LAB kernel's epilogue (a 256-entry LUT)."""
-    L, a, b = cs.rgb_unit_to_lab_planes(*planes)
+    the inverse-LAB kernel's epilogue (a 256-entry LUT).
+
+    ``lab_fast=True`` (the ``--fast`` tier) converts forward with the
+    approximate kernel ``kernels.lab_forward_unit_approx`` (L, a, b within 1
+    of exact) on every device.  The JAX package takes that branch only on a
+    TPU and converts exactly elsewhere; the port follows the TPU program, so
+    its CPU path runs the approximate kernel's plain version."""
+    if lab_fast:
+        L, a, b = kernels.lab_forward_unit_approx(*planes)
+    else:
+        L, a, b = cs.rgb_unit_to_lab_planes(*planes)
     L = clahe_u8(L, clip_limit, tiles_x, tiles_y)
     if gamma is not None:
         return cs.lab_to_rgb_unit_gamma_planes(L, a, b, gamma)

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the ``six`` exact tier, their wrappers,
-and their plain PyTorch versions.
+"""The hand-written CUDA kernels of the ``six`` tiers, their wrappers, and
+their plain PyTorch versions.
 
 Each wrapper checks its inputs, then dispatches on the input tensors'
 device: a CPU tensor goes to the plain version, a CUDA tensor launches the
@@ -7,12 +7,15 @@ kernel through the extension built from ``csrc/`` (``utils/cuda_build.py``;
 a failed build or launch raises, nothing falls back).  ``launches[name]``
 counts kernel launches, and only those.
 
-| wrapper                  | CUDA source          | replaces (pallas_kernels.py)    |
-|--------------------------|----------------------|---------------------------------|
-| lab_forward_unit         | csrc/lab_forward.cu  | lab_forward_planes_unit         |
-| clahe_apply              | csrc/clahe_apply.cu  | clahe_apply                     |
-| lab_inverse_unit         | csrc/lab_inverse.cu  | lab_inverse_planes_unit         |
-| lab_inverse_unit_gamma   | csrc/lab_inverse.cu  | lab_inverse_planes_unit_gamma   |
+| wrapper                  | CUDA source          | replaces (pallas_kernels.py)     |
+|--------------------------|----------------------|----------------------------------|
+| lab_forward_unit         | csrc/lab_forward.cu  | lab_forward_planes_unit          |
+| lab_forward_unit_approx  | csrc/lab_forward.cu  | lab_forward_planes_unit_approx   |
+| clahe_apply              | csrc/clahe_apply.cu  | clahe_apply                      |
+| lab_inverse_unit         | csrc/lab_inverse.cu  | lab_inverse_planes_unit          |
+| lab_inverse_unit_gamma   | csrc/lab_inverse.cu  | lab_inverse_planes_unit_gamma    |
+| hysteresis_propagate     | csrc/hysteresis.cu   | hysteresis_propagate             |
+| sat_rows                 | csrc/scan.cu         | sat_rows (in XLA:CPU's order)    |
 
 The plain versions repeat the kernels' integer and f32 arithmetic with
 tensor ops (table indexing, ``torch.div(..., rounding_mode="trunc")`` for
@@ -25,7 +28,9 @@ from __future__ import annotations
 import functools
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from underwater_image_enhancement_tpu_torch.ops import lab_tables as lt
 from underwater_image_enhancement_tpu_torch.ops.layout import div
@@ -34,9 +39,12 @@ from underwater_image_enhancement_tpu_torch.utils import cuda_build
 
 launches: Dict[str, int] = {
     "lab_forward_unit": 0,
+    "lab_forward_unit_approx": 0,
     "clahe_apply": 0,
     "lab_inverse_unit": 0,
     "lab_inverse_unit_gamma": 0,
+    "hysteresis_propagate": 0,
+    "sat_rows": 0,
 }
 
 _TABLES: Dict[Tuple[str, str], torch.Tensor] = {}
@@ -55,9 +63,9 @@ def _table(name: str, device: torch.device) -> torch.Tensor:
     return _TABLES[key]
 
 
-def _check(name: str, tensors, dtype) -> torch.device:
-    """Same device (the CPU or a CUDA card), dtype and 2-D shape;
-    contiguous."""
+def _check(name: str, tensors, dtype, ndim: int | None = 2) -> torch.device:
+    """Same device (the CPU or a CUDA card), dtype and non-empty shape
+    (``ndim`` dimensions unless None); contiguous."""
     dev = tensors[0].device
     shape = tuple(tensors[0].shape)
     for t in tensors:
@@ -67,11 +75,12 @@ def _check(name: str, tensors, dtype) -> torch.device:
             raise ValueError(f"{name}: inputs on {t.device} and {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape or len(shape) != 2 or 0 in shape:
-            raise ValueError(f"{name}: expected equal non-empty 2-D planes, "
-                             f"got {tuple(t.shape)}")
+        if (tuple(t.shape) != shape or 0 in shape
+                or (ndim is not None and len(shape) != ndim)):
+            raise ValueError(f"{name}: expected equal non-empty "
+                             f"{ndim or 'N'}-D tensors, got {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: planes must be contiguous")
+            raise ValueError(f"{name}: inputs must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev
@@ -103,9 +112,10 @@ def quantize_u8(img: torch.Tensor) -> torch.Tensor:
     return torch.clamp(img * 255.0, 0.0, 255.0).to(torch.int32)
 
 
-def lab_forward_u8_plain(r8, g8, b8):
+def lab_forward_u8_plain(r8, g8, b8, cbrt_fn=None):
     """OpenCV RGB2Lab_b on u8-valued int32 planes (inputs clipped to
-    [0, 255]) -> int32 (L, a, b)."""
+    [0, 255]) -> int32 (L, a, b).  ``cbrt_fn(idx)`` replaces the CBRT_TAB
+    gather (the approximate tier's surrogate)."""
     tab = _table("fwd", r8.device)
     h = 2 + 9
     gamma, cbrt = tab[h:h + 256], tab[h + 256:]
@@ -115,7 +125,7 @@ def lab_forward_u8_plain(r8, g8, b8):
     def cbrt_of(row):
         acc = R * int(C[row, 0]) + G * int(C[row, 1]) + B * int(C[row, 2])
         idx = torch.clamp(_descale(acc, lt.LAB_SHIFT), 0, lt.NCBRT - 1)
-        return cbrt[idx.long()]
+        return cbrt[idx.long()] if cbrt_fn is None else cbrt_fn(idx)
 
     fX, fY, fZ = cbrt_of(0), cbrt_of(1), cbrt_of(2)
     clip = lambda v: torch.clamp(v, 0, 255)  # noqa: E731
@@ -136,6 +146,41 @@ def lab_forward_unit(r, g, b):
     if dev.type == "cpu":
         return lab_forward_unit_plain(r, g, b)
     return _launch("lab_forward_unit", r, g, b, _table("fwd", dev))
+
+
+_F32 = np.float32
+
+
+def cbrt_tab_approx(idx: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_cbrt_tab_surrogate(idx, steps=2)``: round(labF(idx/2040)
+    * 2**15) with the cube root t * rcbrt(t)**2, rcbrt from the bit-trick
+    seed ``0x54A21D2A - bits // 3`` and two division-free Newton steps, each
+    f32 op rounded on its own in the JAX order.  Within 1 of CBRT_TAB."""
+    c = lambda v: float(_F32(v))  # noqa: E731 - the f32 constant numpy gives
+    t = idx.to(torch.float32) * c(1.0 / 2040.0)
+    tc = torch.clamp(t, min=c(1e-30))
+    r = (0x54A21D2A - torch.div(tc.view(torch.int32), 3,
+                                rounding_mode="floor")).view(torch.float32)
+    for _ in range(2):
+        r = r * ((4.0 - tc * (r * r) * r) * c(1.0 / 3.0))
+    f = torch.where(t < c(0.008856), t * c(7.787) + c(16.0 / 116.0),
+                    tc * (r * r))
+    return torch.round(f * 32768.0).to(torch.int32)
+
+
+def lab_forward_unit_approx_plain(r, g, b):
+    return lab_forward_u8_plain(quantize_u8(r), quantize_u8(g), quantize_u8(b),
+                                cbrt_fn=cbrt_tab_approx)
+
+
+def lab_forward_unit_approx(r, g, b):
+    """The six --fast tier's forward LAB: as lab_forward_unit with the
+    cube-root table replaced by ``cbrt_tab_approx`` (L, a, b each within 1
+    of the exact conversion)."""
+    dev = _check("lab_forward_unit_approx", (r, g, b), torch.float32)
+    if dev.type == "cpu":
+        return lab_forward_unit_approx_plain(r, g, b)
+    return _launch("lab_forward_unit_approx", r, g, b, _table("fwd", dev))
 
 
 # ---------------------------------------------------------------------------
@@ -263,3 +308,99 @@ def lab_inverse_unit_gamma(L, a, b, gamma: float):
         return lab_inverse_unit_gamma_plain(L, a, b, gamma)
     return _launch("lab_inverse_unit_gamma", L, a, b, _table("inv", dev),
                    gamma_lut(gamma, dev))
+
+
+# ---------------------------------------------------------------------------
+# Canny hysteresis (csrc/hysteresis.cu)
+# ---------------------------------------------------------------------------
+
+def hysteresis_propagate_plain(strong, weak, iters: int):
+    """``iters`` rounds of e | (weak & dilate8(e)) from e = strong, each a
+    3x3 max-pool of the float 0/1 state (zero outside the plane)."""
+    e = (strong != 0).to(torch.float32)[:, None]
+    w = (weak != 0).to(torch.float32)[:, None]
+    for _ in range(iters):
+        e = torch.maximum(e, w * F.max_pool2d(e, 3, stride=1, padding=1))
+    return e[:, 0].to(torch.int32)
+
+
+SMEM_BYTES = 232448  # shared memory a block of an H100 can have (227 KB)
+
+
+def hysteresis_tile(iters: int) -> int:
+    """csrc/hysteresis.cu's output tile side for ``iters`` rounds: 64 for
+    long propagations (less halo a pixel), 32 for short ones or where the
+    64 tile's region, 3 bytes a cell of (tile + 2*iters)^2, overflows
+    shared memory; 0 where neither fits."""
+    for tile in ((64, 32) if iters > 16 else (32,)):
+        if 3 * (tile + 2 * iters) ** 2 <= SMEM_BYTES:
+            return tile
+    return 0
+
+
+def hysteresis_propagate(strong, weak, iters: int = 64):
+    """strong | (weak reachable from strong in <= iters 8-connected steps)
+    on (N, H, W) int32 {0, 1} planes, zero outside each plane -> int32."""
+    dev = _check("hysteresis_propagate", (strong, weak), torch.int32, 3)
+    if iters < 0:
+        raise ValueError("hysteresis_propagate: iters must be >= 0")
+    if dev.type == "cpu":
+        return hysteresis_propagate_plain(strong, weak, iters)
+    tile = hysteresis_tile(iters)
+    if not tile:
+        raise ValueError(f"hysteresis_propagate: {iters} rounds need more "
+                         "shared memory than a block has")
+    return _launch("hysteresis_propagate", strong, weak, int(iters), tile)
+
+
+# ---------------------------------------------------------------------------
+# Prefix sums in XLA:CPU's order (csrc/scan.cu)
+# ---------------------------------------------------------------------------
+
+SCAN_BLOCK = 16
+
+
+def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive f32 prefix sum along ``dim`` with XLA:CPU's association
+    (the reference's jnp.cumsum): blocks of 16 summed in order, block
+    totals scanned by the same rule and added as an exclusive prefix.
+    Elementwise adds only, so the CPU and the card give the same bits."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    xm = x.movedim(dim, -1)
+    if n <= SCAN_BLOCK:
+        out = torch.empty_like(xm)
+        acc = xm[..., 0]
+        out[..., 0] = acc
+        for k in range(1, n):
+            acc = acc + xm[..., k]
+            out[..., k] = acc
+        return out.movedim(-1, dim)
+    nb = -(-n // SCAN_BLOCK)
+    pad = nb * SCAN_BLOCK - n
+    xp = F.pad(xm, (0, pad)) if pad else xm
+    blocks = xp.reshape(xp.shape[:-1] + (nb, SCAN_BLOCK))
+    inner = xla_cumsum(blocks, -1)
+    outer = xla_cumsum(inner[..., -1], -1)
+    excl = F.pad(outer[..., :-1], (1, 0))
+    res = (inner + excl[..., None]).reshape(xp.shape)[..., :n]
+    return res.movedim(-1, dim)
+
+
+def sat_rows_plain(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [1, 0]
+    return F.pad(xla_cumsum(x, dim), pad)
+
+
+def sat_rows(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """Prefix sums along ``dim`` of a contiguous f32 tensor in XLA:CPU's
+    association, with a leading zero inserted along ``dim``: (P, H, W) ->
+    (P, H+1, W) row tables by default; a (P, 3, W) strip scanned along
+    dim=-1 gives the descent's SAT corners."""
+    dev = _check("sat_rows", (x,), torch.float32, None)
+    if x.dim() == 0 or x.numel() >= 1 << 31:
+        raise ValueError("sat_rows: expected 1 to 2**31 - 1 values")
+    d = dim % x.dim()
+    if dev.type == "cpu":
+        return sat_rows_plain(x, d)
+    return _launch("sat_rows", x, d, True)

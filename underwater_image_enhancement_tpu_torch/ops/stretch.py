@@ -1,18 +1,35 @@
 """Percentile contrast stretch, white balance and gamma on channel planes.
 
-Counterpart of the JAX package's ``ops/stretch.py`` for the ``six`` exact
-tier.  Percentiles follow ``np.percentile``'s linear interpolation.  The
-JAX exact tier selects the order statistics with an O(n) radix select that
-is bit-equal to its full-sort oracle; here one ``torch.sort`` of the
-stacked channels gives the same order statistics, and the interpolation
-is the same f32 arithmetic (indices and weights from ``_lerp_indices``,
-then ``lv*lw + hv*hw`` with each product rounded).
+Counterpart of the JAX package's ``ops/stretch.py``.  Three percentile
+methods:
+
+- ``"sort"`` (the ``six`` exact tier): ``np.percentile``'s linear
+  interpolation.  The JAX exact tier selects the order statistics with an
+  O(n) radix select that is bit-equal to its full-sort oracle; here one
+  ``torch.sort`` of the stacked channels gives the same order statistics,
+  and the interpolation is the same f32 arithmetic (indices and weights
+  from ``_lerp_indices``, then ``lv*lw + hv*hw`` with each product
+  rounded).
+- ``"hist-fast"`` (the ``--fast`` tier): ``perc_pairs_hist`` on every 8th
+  row, the JAX two-level 32x32-bin histogram (``_perc_pair_hist``).
+- ``_perc_pair_index_u8`` (``enhance_batch``): the sorted-index percentile
+  ``sorted[int(pct/100*n)]`` from an exact 256-bin histogram.
+
+Percentile ranks and indices are host f32 arithmetic, in the order the
+jitted JAX program computes them on XLA:CPU: with the six recipes' constant
+percentiles XLA folds ``pct/100*(n-1)+1`` at compile time with an IEEE
+division; with a traced percentile (``enhance_batch``'s parameters) it
+rewrites ``pct/100*n`` to ``pct * f32(f32(1/100) * n)``; and it rewrites
+the histogram's ``bin / ((k*k-1) / span)`` to ``(bin * span) *
+f32(1/(k*k-1))``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from underwater_image_enhancement_tpu_torch.ops.layout import div
 
 _f32 = np.float32
 
@@ -48,25 +65,113 @@ def percentiles_planes(planes, pcts) -> torch.Tensor:
     return srt[:, lo] * lw + srt[:, hi] * hw
 
 
+def perc_pairs_hist(planes, l_low: float, l_high: float, k: int = 32,
+                    subsample: int = 1) -> torch.Tensor:
+    """Approximate (p_low, p_high) of each same-shape (H, W) plane from a
+    two-level histogram (the JAX ``_perc_pair_hist``, per plane): k coarse
+    buckets between the plane's min and max locate each target rank, k fine
+    bins inside that bucket refine it; the result is the fine bin's left
+    edge.  ``subsample`` > 1 takes every subsample-th row (min and max
+    too).  -> (len(planes), 2) f32 on the planes' device.
+
+    The planes and both percentiles go through one batch of tensor ops: the
+    (plane, coarse, fine) histogram is one exact integer scatter-add (no
+    host sync), and every f32 step is the JAX program's, elementwise."""
+    x = torch.stack([p[::subsample, :] if subsample > 1 else p
+                     for p in planes])                      # (C, h, W)
+    C, n = x.shape[0], x[0].numel()
+    flat = x.reshape(C, n)
+    vmin, vmax = flat.amin(1), flat.amax(1)
+    kk = k * k - 1
+    span = torch.clamp(vmax - vmin, min=1e-12)
+    scale = div(torch.full_like(vmin, kk), span)  # IEEE: a traced divisor
+    idx = torch.clamp((flat - vmin[:, None]) * scale[:, None], 0, kk)
+    hi_f = torch.floor(idx / k)  # exact: k is a power of two
+    lo = torch.clamp(idx - hi_f * k, 0, k - 1)
+    plane = torch.arange(C, device=x.device)[:, None] * (k * k)
+    key = plane + hi_f.to(torch.int64) * k + lo.to(torch.int64)
+    hist = torch.zeros(C * k * k, dtype=torch.int32, device=x.device)
+    hist.scatter_add_(0, key.reshape(-1),
+                      torch.ones(key.numel(), dtype=torch.int32,
+                                 device=x.device))
+    hist = hist.reshape(C, k, k)
+    c1 = torch.cumsum(hist.sum(2), 1)                       # (C, k)
+    # constant percentiles: XLA folds the rank with an IEEE division
+    rank = torch.tensor([float(_f32(_f32(_f32(p) / _f32(100.0)) * _f32(n - 1))
+                               + _f32(1.0)) for p in (l_low, l_high)],
+                        device=x.device)                    # (2,)
+    b1 = torch.clamp((c1[:, None, :] < rank[None, :, None]).sum(2), 0, k - 1)
+    below = torch.where(b1 > 0,
+                        torch.gather(c1, 1, torch.clamp(b1 - 1, min=0)), 0)
+    fine = hist[torch.arange(C, device=x.device)[:, None], b1]  # (C, 2, k)
+    c2 = torch.cumsum(fine, 2) + below[..., None]
+    b2 = torch.clamp((c2 < rank[None, :, None]).sum(2), 0, k - 1)
+    # bin / scale: XLA rewrites b / (kk / span) to (b * span) * (1/kk)
+    return vmin[:, None] + (b1 * k + b2).to(torch.float32) * span[:, None] \
+        * float(_f32(1.0) / _f32(kk))
+
+
+def _perc_pair_hist(channel: torch.Tensor, l_low: float, l_high: float,
+                    k: int = 32, subsample: int = 1):
+    """perc_pairs_hist of one plane -> (p_low, p_high), 0-dim tensors."""
+    p = perc_pairs_hist((channel,), l_low, l_high, k, subsample)[0]
+    return p[0], p[1]
+
+
+def order_index(pct, n: int) -> np.ndarray:
+    """int(pct/100*n) clipped to [0, n-1] for host percentiles (scalars or
+    arrays), as jitted JAX computes it for a traced pct:
+    ``pct * f32(f32(1/100) * n)``, truncated."""
+    q = np.asarray(pct, np.float32) * (_f32(_f32(1.0) / _f32(100.0)) * _f32(n))
+    return np.clip(q.astype(np.int32), 0, n - 1)
+
+
+def _perc_pair_index_u8(channel: torch.Tensor, l_low: float, l_high: float):
+    """EXACT sorted-index percentiles ``sorted[int(pct/100*n)]``
+    (vgg_16_UIE.py:57-92) of a channel on the u8 grid, from a 256-bin
+    histogram of round(channel*255): the order statistic sorted[i] is the
+    first grid value v with #(q <= v) > i.  Bit-equal to the sort for
+    u8-grid inputs (the JAX ``_perc_pair_index_u8``); 0-dim f32 tensors."""
+    n = channel.numel()
+    q = torch.clamp(torch.round(channel * 255.0), 0.0, 255.0).to(torch.int64)
+    cdf = torch.cumsum(torch.bincount(q.reshape(-1), minlength=256), 0)
+    grid = torch.as_tensor(U8_GRID, device=channel.device)
+    return tuple(grid[(cdf <= int(i)).sum()]
+                 for i in order_index([l_low, l_high], n))
+
+
+def _stretch(planes, pairs, eps: float):
+    """(p - lo) / (hi - lo + eps) per plane, clipped to [0, 1]."""
+    return tuple(torch.clamp(div(p - lo, hi - lo + eps), 0.0, 1.0)
+                 for p, (lo, hi) in zip(planes, pairs))
+
+
 def color_enhancement_planes(planes, l_low=15.0, l_high=95.0,
-                             eps: float = 1e-10):
+                             eps: float = 1e-10, method: str = "sort"):
     """Per-channel percentile stretch (p - lo) / (hi - lo + eps), clipped to
-    [0, 1] (enhancement_strategies.py:251-273)."""
-    pr = percentiles_planes(planes, (l_low, l_high))
-    denom = pr[:, 1] - pr[:, 0] + eps
-    return tuple(torch.clamp((p - pr[c, 0]) / denom[c], 0.0, 1.0)
-                 for c, p in enumerate(planes))
+    [0, 1] (enhancement_strategies.py:251-273).  method: "sort" (exact
+    np.percentile) or "hist-fast" (``perc_pairs_hist`` on every 8th row)."""
+    if method == "sort":
+        pr = percentiles_planes(planes, (l_low, l_high))
+        pairs = [(pr[c, 0], pr[c, 1]) for c in range(len(planes))]
+    elif method == "hist-fast":
+        pr = perc_pairs_hist(planes, l_low, l_high, subsample=8)
+        pairs = [(pr[c, 0], pr[c, 1]) for c in range(len(planes))]
+    else:
+        raise ValueError(f"unknown percentile method {method!r}")
+    return _stretch(planes, pairs, eps)
 
 
-def enhance_contrast_planes(planes, l_low=15.0, l_high=95.0):
+def enhance_contrast_planes(planes, l_low=15.0, l_high=95.0,
+                            method: str = "sort"):
     """six_stadigy.py:190-199 flavour (eps 1e-6)."""
-    return color_enhancement_planes(planes, l_low, l_high, 1e-6)
+    return color_enhancement_planes(planes, l_low, l_high, 1e-6, method)
 
 
-def white_balance_planes(planes, percentile=5.0):
+def white_balance_planes(planes, percentile=5.0, method: str = "sort"):
     """Symmetric percentile stretch (six_stadigy.py:210-219, eps 1e-6)."""
     return color_enhancement_planes(planes, percentile, 100.0 - percentile,
-                                    1e-6)
+                                    1e-6, method)
 
 
 def gamma_correction_pow(img: torch.Tensor, gamma=1.2) -> torch.Tensor:

@@ -1,30 +1,41 @@
-"""Public entry points of the ported ``six`` program.
+"""Public entry points of the ported pipelines.
 
-``six_strategy_tuple(img, device="cuda")``: cast detect/correct, then the
-six recipes of ``pipeline/six.py`` (six_stadigy.py:392-447 per-image body),
-with one airlight estimate shared by the three dehaze recipes (they all
-descend on the same corrected frame, so the outputs equal the reference's
-per-recipe recomputation).
+- ``six_strategy_tuple(img, fast=False, device="cuda")``: cast
+  detect/correct, then the six recipes of ``pipeline/six.py``
+  (six_stadigy.py:392-447 per-image body), with one airlight estimate
+  shared by the three dehaze recipes (they all descend on the same
+  corrected frame, so the outputs equal the reference's per-recipe
+  recomputation).  ``fast=True`` is the histogram-percentile tier.
+- ``enhance(img, params)`` / ``enhance_batch``: the fixed-parameter
+  enhance of use_trained_model.py:83-111 (``models.diff_enhance``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from underwater_image_enhancement_tpu_torch.ops.airlight import (
-    quadtree_airlight_exact_planes,
-)
+from underwater_image_enhancement_tpu_torch.models import diff_enhance
 from underwater_image_enhancement_tpu_torch.ops.layout import split_planes
 from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
 from underwater_image_enhancement_tpu_torch.pipeline.six import (
     SIX_STRATEGIES,
+    airlight,
     run_strategy,
 )
 
 SIX_ORDER = tuple(SIX_STRATEGIES)  # strong, medium, light, clahe, wb, hist_eq
+
+# the predictor's safety-clamp defaults (use_trained_model.py:69-79)
+DEFAULT_PARAMS = {
+    "omega": 0.6,
+    "gamma": 1.2,
+    "L_low": 10.0,
+    "L_high": 90.0,
+    "use_gamma": 1.0,
+}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -38,22 +49,54 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def six_strategy_tuple(img, device: Union[str, torch.device] = "cuda"):
-    """One (H, W, 3) float image in [0, 1] (numpy array or tensor) ->
-    (tuple of six (H, W, 3) float32 tensors on ``device``, int32 cast code
-    tensor).  The exact tier; the reference's ``fast`` tier is not ported."""
-    dev = resolve_device(device)
+def _on_device(img, dev: torch.device) -> torch.Tensor:
+    """A numpy array or tensor -> float32 tensor on ``dev``."""
     if isinstance(img, np.ndarray):
         img = torch.from_numpy(np.ascontiguousarray(img, np.float32))
-    img = img.to(device=dev, dtype=torch.float32)
+    return img.to(device=dev, dtype=torch.float32)
+
+
+def six_strategy_tuple(img, fast: bool = False,
+                       device: Union[str, torch.device] = "cuda"):
+    """One (H, W, 3) float image in [0, 1] (numpy array or tensor) ->
+    (tuple of six (H, W, 3) float32 tensors on ``device``, int32 cast code
+    tensor).  ``fast`` selects the JAX package's ``hist-fast`` tier."""
+    img = _on_device(img, resolve_device(device))
     corrected, code = cast_mod.detect_and_correct(img)
-    A = quadtree_airlight_exact_planes(split_planes(corrected))
-    outs = tuple(run_strategy(name, corrected, A) for name in SIX_ORDER)
+    A = airlight(split_planes(corrected), fast)
+    outs = tuple(run_strategy(name, corrected, A, fast) for name in SIX_ORDER)
     return outs, code
 
 
-def six_strategy_single(img, device: Union[str, torch.device] = "cuda"
+def six_strategy_single(img, fast: bool = False,
+                        device: Union[str, torch.device] = "cuda"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One image -> ((6, H, W, 3) stack of the six outputs, cast code)."""
-    outs, code = six_strategy_tuple(img, device=device)
+    outs, code = six_strategy_tuple(img, fast=fast, device=device)
     return torch.stack(outs), code
+
+
+def enhance_batch(imgs, l_low, l_high, omega, gamma, stretch_mode: str = "hist",
+                  device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """(B, H, W, 3) in [0, 1] -> enhanced, vgg_16_UIE.py:32-55 semantics;
+    each parameter a number or (B,).  stretch_mode "index" takes the
+    sorted-index percentiles from a sort, "hist" the same percentiles from
+    an exact 256-bin histogram (equal on the u8 grid of decoded images)."""
+    imgs = _on_device(imgs, resolve_device(device))
+    params = {"L_low": l_low, "L_high": l_high, "omega": omega,
+              "gamma": gamma}
+    mode = "index-u8" if stretch_mode == "hist" else stretch_mode
+    return diff_enhance.enhance_vgg(imgs, params, stretch_mode=mode)
+
+
+def enhance(img, params: Optional[Dict[str, float]] = None,
+            stretch_mode: str = "index",
+            device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """Single-image enhance() (use_trained_model.py:83-111): params holds
+    scalars among omega/gamma/L_low/L_high (defaults DEFAULT_PARAMS)."""
+    p = dict(DEFAULT_PARAMS)
+    p.update(params or {})
+    img = _on_device(img, resolve_device(device))
+    return enhance_batch(img[None], p["L_low"], p["L_high"], p["omega"],
+                         p["gamma"], stretch_mode=stretch_mode,
+                         device=device)[0]

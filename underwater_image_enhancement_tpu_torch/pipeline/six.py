@@ -1,10 +1,15 @@
-"""The six_stadigy recipes (six_stadigy.py:226-285), exact tier.
+"""The six_stadigy recipes (six_stadigy.py:226-285), exact and fast tiers.
 
 Each recipe runs channel-first on three (H, W) planes: dehaze (strategies
 1-3, sharing one airlight estimate), percentile stretch, white balance,
 and the LAB-L CLAHE leg, whose LAB forward, CLAHE apply and LAB inverse
 steps are the package's CUDA kernels.  Constants live in
-``utils/config.SIX_PARAMS``.  The ``--fast`` tier is not ported yet.
+``utils/config.SIX_PARAMS``.
+
+``fast=True`` is the JAX package's ``method="hist-fast"`` tier
+(pipeline/six.py there): the banded-SAT airlight with 4 hysteresis rounds
+(``airlight``), the fast guided filter on every 4th row, the hist-fast
+percentiles, and the approximate forward LAB in the CLAHE legs.
 """
 
 from __future__ import annotations
@@ -12,6 +17,10 @@ from __future__ import annotations
 import torch
 
 from underwater_image_enhancement_tpu_torch.ops import dehaze, histeq, stretch
+from underwater_image_enhancement_tpu_torch.ops.airlight import (
+    quadtree_airlight_exact_planes,
+    quadtree_airlight_planes,
+)
 from underwater_image_enhancement_tpu_torch.ops.layout import (
     split_planes,
     stack_planes,
@@ -19,8 +28,21 @@ from underwater_image_enhancement_tpu_torch.ops.layout import (
 from underwater_image_enhancement_tpu_torch.utils.config import SIX_PARAMS
 
 
-def _restore(planes, A, omega, radius, eps):
-    t = dehaze.estimate_transmission_six_planes(planes, A, omega, radius, eps)
+def _method(fast: bool) -> str:
+    return "hist-fast" if fast else "sort"
+
+
+def airlight(planes, fast: bool = False) -> torch.Tensor:
+    """The tier's airlight A (3,): the exact per-block-Canny descent, or
+    the banded SAT with 4 hysteresis rounds."""
+    if fast:
+        return quadtree_airlight_planes(planes, edge_iters=4)
+    return quadtree_airlight_exact_planes(planes)
+
+
+def _restore(planes, A, omega, radius, eps, fast):
+    t = dehaze.estimate_transmission_six_planes(
+        planes, A, omega, radius, eps, guided_subsample=4 if fast else 1)
     return dehaze.recover_planes(planes, t, A)
 
 
@@ -28,55 +50,60 @@ def _gamma_pow(planes, g):
     return tuple(stretch.gamma_correction_pow(c, g) for c in planes)
 
 
-def strategy1_strong_dehazing(img, A):
+def _clahe(planes, p, fast, gamma=None):
+    return histeq.clahe_enhancement_planes(planes, p["clahe"], gamma=gamma,
+                                           lab_fast=fast)
+
+
+def strategy1_strong_dehazing(img, A, fast: bool = False):
     """Dehaze .3/r20/eps .5 -> stretch 5-98 -> CLAHE 3.0 -> gamma**1.5."""
     p = SIX_PARAMS["strong_dehazing"]
-    e = _restore(split_planes(img), A, *p["dehaze"])
-    e = stretch.enhance_contrast_planes(e, *p["stretch"])
-    return stack_planes(histeq.clahe_enhancement_planes(
-        e, p["clahe"], gamma=p["gamma"]))
+    e = _restore(split_planes(img), A, *p["dehaze"], fast)
+    e = stretch.enhance_contrast_planes(e, *p["stretch"], method=_method(fast))
+    return stack_planes(_clahe(e, p, fast, gamma=p["gamma"]))
 
 
-def strategy2_medium_dehazing(img, A):
+def strategy2_medium_dehazing(img, A, fast: bool = False):
     """Dehaze .5/r15/eps .5 -> stretch 15-95 -> CLAHE 2.0."""
     p = SIX_PARAMS["medium_dehazing"]
-    e = _restore(split_planes(img), A, *p["dehaze"])
-    e = stretch.enhance_contrast_planes(e, *p["stretch"])
-    return stack_planes(histeq.clahe_enhancement_planes(e, p["clahe"]))
+    e = _restore(split_planes(img), A, *p["dehaze"], fast)
+    e = stretch.enhance_contrast_planes(e, *p["stretch"], method=_method(fast))
+    return stack_planes(_clahe(e, p, fast))
 
 
-def strategy3_light_dehazing(img, A):
+def strategy3_light_dehazing(img, A, fast: bool = False):
     """Dehaze .7/r10/eps .1 -> stretch 20-85 -> white balance p2."""
     p = SIX_PARAMS["light_dehazing"]
-    e = _restore(split_planes(img), A, *p["dehaze"])
-    e = stretch.enhance_contrast_planes(e, *p["stretch"])
-    return stack_planes(stretch.white_balance_planes(e, p["wb"]))
+    e = _restore(split_planes(img), A, *p["dehaze"], fast)
+    e = stretch.enhance_contrast_planes(e, *p["stretch"], method=_method(fast))
+    return stack_planes(stretch.white_balance_planes(e, p["wb"],
+                                                     method=_method(fast)))
 
 
-def strategy4_clahe_enhancement(img):
+def strategy4_clahe_enhancement(img, fast: bool = False):
     """CLAHE 4.0 -> stretch 10-95 -> white balance p3 -> gamma**1.3."""
     p = SIX_PARAMS["clahe_enhancement"]
-    e = histeq.clahe_enhancement_planes(split_planes(img), p["clahe"])
-    e = stretch.enhance_contrast_planes(e, *p["stretch"])
-    e = stretch.white_balance_planes(e, p["wb"])
+    e = _clahe(split_planes(img), p, fast)
+    e = stretch.enhance_contrast_planes(e, *p["stretch"], method=_method(fast))
+    e = stretch.white_balance_planes(e, p["wb"], method=_method(fast))
     return stack_planes(_gamma_pow(e, p["gamma"]))
 
 
-def strategy5_white_balance(img):
+def strategy5_white_balance(img, fast: bool = False):
     """White balance p2 -> stretch 15-90 -> CLAHE 1.5 -> gamma**1.2."""
     p = SIX_PARAMS["white_balance"]
-    e = stretch.white_balance_planes(split_planes(img), p["wb"])
-    e = stretch.enhance_contrast_planes(e, *p["stretch"])
-    return stack_planes(histeq.clahe_enhancement_planes(
-        e, p["clahe"], gamma=p["gamma"]))
+    e = stretch.white_balance_planes(split_planes(img), p["wb"],
+                                     method=_method(fast))
+    e = stretch.enhance_contrast_planes(e, *p["stretch"], method=_method(fast))
+    return stack_planes(_clahe(e, p, fast, gamma=p["gamma"]))
 
 
-def strategy6_histogram_eq(img):
+def strategy6_histogram_eq(img, fast: bool = False):
     """Stretch 5-98 -> CLAHE 3.5 -> gamma**1.4."""
     p = SIX_PARAMS["histogram_eq"]
-    e = stretch.enhance_contrast_planes(split_planes(img), *p["stretch"])
-    return stack_planes(histeq.clahe_enhancement_planes(
-        e, p["clahe"], gamma=p["gamma"]))
+    e = stretch.enhance_contrast_planes(split_planes(img), *p["stretch"],
+                                        method=_method(fast))
+    return stack_planes(_clahe(e, p, fast, gamma=p["gamma"]))
 
 
 # reference order; the dehaze recipes take the shared airlight A
@@ -91,6 +118,7 @@ SIX_STRATEGIES = {
 DEHAZE_STRATEGIES = ("strong_dehazing", "medium_dehazing", "light_dehazing")
 
 
-def run_strategy(name: str, img: torch.Tensor, A: torch.Tensor):
+def run_strategy(name: str, img: torch.Tensor, A: torch.Tensor,
+                 fast: bool = False):
     fn = SIX_STRATEGIES[name]
-    return fn(img, A) if name in DEHAZE_STRATEGIES else fn(img)
+    return fn(img, A, fast) if name in DEHAZE_STRATEGIES else fn(img, fast)
