@@ -3,37 +3,48 @@
     python3 chip_smoke.py
 
 Drives ``underwater_image_enhancement_tpu_torch`` (never JAX) through the
-``six`` exact tier, the ``six --fast`` tier and ``enhance`` at 1920x1080.
-Phases (each prints one line or more; a failed check raises and the script
-exits non-zero):
+``six`` exact tier, the ``six --fast`` tier, ``enhance`` and the Phase-1
+labeling path (``auto``, ``build-dataset``, ``build-dataset --fast``) at
+1920x1080.  Phases (each prints one line or more; a failed check raises and
+the script exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile ``csrc/`` into the package's PyTorch extension
    (``utils/cuda_build.py``) and time it;
 3. kernels: each CUDA kernel bit-equal to its plain PyTorch version on the
-   card: forward LAB, exact and approximate, over all 2**24 u8 RGB
-   triples, inverse LAB (and its gamma variant for each recipe gamma) over
-   all 2**24 (L, a, b) triples, CLAHE apply at 1080x1920 and 1079x1917 for
-   the five clip limits, hysteresis at 1080x1920 for 4 and 64 rounds,
-   prefix sums on (6, 1080, 1920) rows, (7, 135, 1920) rows and (18, 1920)
-   along the last axis (K7 and K6 again below on the main path's own
-   buffers);
+   card: forward LAB, exact and approximate on f32 planes and exact on
+   int32 planes (K1b, and K4's L alone), over all 2**24 u8 RGB triples (K4
+   equal to K1b's L, K1b to K1 on the u8 grid, and both on int32 values
+   outside [0, 255]), inverse LAB (and its gamma variant for each recipe
+   gamma) over all 2**24 (L, a, b) triples, CLAHE apply at 1080x1920 and
+   1079x1917 for the five clip limits, hysteresis at 1080x1920 for 4 and 64
+   rounds, prefix sums on (6, 1080, 1920) rows, (7, 135, 1920) rows and
+   (18, 1920) along the last axis (each kernel again below on the main
+   path's own buffers);
 4. slice: three seeded synthetic 1920x1080 underwater frames, written with
-   the port's PNG codec, through ``cli six``, ``cli six --fast`` and
-   ``cli enhance`` in-process on ``cuda``; 18 + 18 + 3 outputs and the CSV
-   logs; the kernel launch counts of each run (counts set to 0 just before
-   it, read just after); every kernel call of the two ``six`` runs
-   replayed on its own inputs against the plain version, bit-equal; frame 0
-   of each tier on the card against the port's CPU path (cast code,
-   airlight A and final box equal; recipes 4-6 within 1e-6, 1-3 at
-   >= 50 dB), and ``enhance_batch`` on the card within 1e-6 of the CPU;
+   the port's PNG codec, through ``cli six``, ``cli six --fast``, ``cli
+   enhance``, ``cli auto``, ``cli build-dataset`` and ``cli build-dataset
+   --fast`` in-process on ``cuda``; their outputs (18 + 18 + 3 PNGs and the
+   CSV logs; 3 winners; the dataset CSV with 5 scores a row and
+   ``dataset.pkl`` with three finite 79-value vectors); the kernel launch
+   counts of each run (counts set to 0 just before it, read just after);
+   every kernel call of the five runs but ``enhance`` replayed on its own
+   inputs against the plain version, bit-equal; frame 0 on the card against
+   the port's CPU path: ``six`` in each tier (cast code, airlight A and
+   final box equal; recipes 4-6 within 1e-6, 1-3 at >= 50 dB),
+   ``enhance_batch`` within 1e-6, and the label program in each tier (the
+   five strategies within 1e-6 or, dehazing, >= 50 dB; scores within 1e-3;
+   the same winner unless the CPU's top two lie within 1e-2; the features
+   within 1e-4 relative or 1e-5 absolute);
 5. timing (CUDA events, medians after warm-up): ms per frame of
    ``six_strategy_tuple`` for each tier with its spread (the tiers timed
-   in turns, twice each), each stage alone,
-   the exact airlight's prefix sums, one ``torch.profiler`` frame of each
-   tier (device busy and idle share, launches), and each kernel on the
-   main path's inputs beside its bound, its plain version and, for the
-   prefix sums, ``torch.cumsum``.
+   in turns, twice each), each stage alone, the exact airlight's prefix
+   sums, ms per frame of ``auto_enhance_batch`` and of the label program
+   (strategies, scores and features; each part alone too) in each tier,
+   one ``torch.profiler``
+   frame of each of these (device busy and idle share, launches), and each
+   kernel on the main path's inputs beside its bound, its plain version
+   and, for the prefix sums, ``torch.cumsum``.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -42,8 +53,11 @@ result and exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -70,6 +84,10 @@ KERNELS = {
                          "lab_forward_unit_plain"),
     "lab_forward_unit_approx": (SRC + "lab_forward.cu", PK + ":920", 105,
                                 "lab_forward_unit_approx_plain"),
+    "lab_forward_u8": (SRC + "lab_forward.cu", PK + ":889", 40,
+                       "lab_forward_u8_plain"),
+    "lab_forward_l_u8": (SRC + "lab_forward.cu", PK + ":898", 20,
+                         "lab_forward_l_u8_plain"),
     "clahe_apply": (SRC + "clahe_apply.cu", PK + ":186", 30,
                     "clahe_apply_plain"),
     "lab_inverse_unit": (SRC + "lab_inverse.cu", PK + ":941", 60,
@@ -85,11 +103,34 @@ KERNELS = {
 COMMON = {"clahe_apply": 15, "lab_inverse_unit": 6,
           "lab_inverse_unit_gamma": 9}
 EXPECTED_FAST = {**COMMON, "lab_forward_unit": 0,
-                 "lab_forward_unit_approx": 15, "hysteresis_propagate": 3,
+                 "lab_forward_unit_approx": 15, "lab_forward_u8": 0,
+                 "lab_forward_l_u8": 0, "hysteresis_propagate": 3,
                  "sat_rows": 3}
+# the label runs on three frames: the shared launches (the exact tier's K7
+# and K6 add one call a descent level, checked apart)
+LABEL_COMMON = {"lab_forward_unit_approx": 0, "clahe_apply": 3,
+                "lab_inverse_unit": 3, "lab_inverse_unit_gamma": 0}
+EXPECTED_LABEL = {
+    # 5 brightness L planes (K4) and 5 metric Cannys (K7) a frame
+    "auto": {**LABEL_COMMON, "lab_forward_unit": 3, "lab_forward_l_u8": 15,
+             "lab_forward_u8": 0},
+    # the features add one K1b and one Canny a frame
+    "build": {**LABEL_COMMON, "lab_forward_unit": 3, "lab_forward_l_u8": 15,
+              "lab_forward_u8": 3},
+    "build_fast": {"lab_forward_unit": 0, "lab_forward_unit_approx": 3,
+                   "lab_forward_u8": 0, "lab_forward_l_u8": 0,
+                   "clahe_apply": 3, "lab_inverse_unit": 3,
+                   "lab_inverse_unit_gamma": 0, "hysteresis_propagate": 21,
+                   "sat_rows": 3},
+}
+# K7 calls beyond one a descent level: the metric (and feature) Cannys
+EXTRA_CANNY = {"auto": 15, "build": 18}
 F32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores, ops per second
-OUR_KERNELS = ("lab_forward_unit_kernel<false>", "lab_forward_unit_kernel<true>",
-               "clahe_apply_kernel", "lab_inverse_unit_kernel<false>",
+OUR_KERNELS = ("lab_forward_kernel<float, false, false>",
+               "lab_forward_kernel<float, true, false>",
+               "lab_forward_kernel<int, false, false>",
+               "lab_forward_kernel<int, false, true>", "clahe_apply_kernel",
+               "lab_inverse_unit_kernel<false>",
                "lab_inverse_unit_kernel<true>", "hysteresis_kernel",
                "block_totals_kernel", "block_scan_kernel")
 
@@ -196,9 +237,28 @@ def main() -> int:
     from underwater_image_enhancement_tpu_torch.ops.stretch import U8_GRID
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        CONFIG_ORDER,
         SIX_ORDER,
+        auto_enhance_batch,
         enhance_batch,
         six_strategy_tuple,
+    )
+    from underwater_image_enhancement_tpu_torch.features.full import (
+        extract_all_features,
+    )
+    from underwater_image_enhancement_tpu_torch.metrics.quality import (
+        comprehensive_planes,
+    )
+    from underwater_image_enhancement_tpu_torch.pipeline.strategies import (
+        DEHAZE,
+        STRATEGY_DISPLAY,
+        strategy_planes,
+    )
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        label_batch,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.config import (
+        DEFAULT_QUALITY_WEIGHTS,
     )
     from underwater_image_enhancement_tpu_torch.pipeline.six import (
         airlight as tier_airlight,
@@ -258,6 +318,21 @@ def main() -> int:
     approx_d = max(int((a - e).abs().max()) for a, e in zip(
         kernels.lab_forward_unit_approx(*rgb), kernels.lab_forward_unit(*rgb)))
     check(approx_d == 1, f"approximate LAB off exact by {approx_d}, not 1")
+    replay("lab_forward_u8", trip, "all 2^24 u8 RGB triples")
+    replay("lab_forward_l_u8", trip, "all 2^24 u8 RGB triples")
+    lab_u8 = kernels.lab_forward_u8(*trip)
+    check(torch.equal(kernels.lab_forward_l_u8(*trip), lab_u8[0]),
+          "K4 differs from K1b's L plane")
+    check(all(torch.equal(a, b) for a, b in
+              zip(lab_u8, kernels.lab_forward_unit(*rgb))),
+          "K1b differs from K1 on the u8 grid")
+    del lab_u8
+    gen = torch.Generator(device=dev).manual_seed(1)
+    wide = tuple(torch.randint(-300, 600, (H, W), generator=gen, device=dev,
+                               dtype=torch.int32) for _ in range(3))
+    replay("lab_forward_u8", wide, f"{H}x{W} int32 values in [-300, 600)")
+    replay("lab_forward_l_u8", wide, f"{H}x{W} int32 values in [-300, 600)")
+    del wide
     replay("lab_inverse_unit", trip, "all 2^24 (L, a, b) triples")
     expect_equal("lab_inverse_unit",
                  [torch.round(g_ * 255.0).to(torch.int32)
@@ -343,6 +418,7 @@ def main() -> int:
     check(all(exact_l[k] == v for k, v in COMMON.items())
           and exact_l["lab_forward_unit"] == 15
           and exact_l["lab_forward_unit_approx"] == 0
+          and exact_l["lab_forward_u8"] == exact_l["lab_forward_l_u8"] == 0
           and exact_l["hysteresis_propagate"] >= 3
           and exact_l["sat_rows"] == 3 + exact_l["hysteresis_propagate"],
           f"exact launches {exact_l}")
@@ -364,9 +440,75 @@ def main() -> int:
     log("slice", command="enhance", frames=3, outputs=len(pngs),
         seconds=f"{secs:.2f}")
 
+    # Phase-1 labeling: auto, build-dataset, build-dataset --fast
+    for key, argv in (
+            ("auto", ["auto", "--input", str(src), "--output",
+                      str(WORK / "auto")]),
+            ("build", ["build-dataset", "--input", str(src), "--output",
+                       str(WORK / "build")]),
+            ("build_fast", ["build-dataset", "--input", str(src), "--output",
+                            str(WORK / "build_fast"), "--fast"])):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            calls, launches, secs = run_cli(argv, True)
+        text = printed.getvalue()
+        print(text, end="", flush=True)
+        if key == "auto":
+            lines = [ln for ln in text.splitlines() if ".png: " in ln]
+            winners = [ln.split(": ")[1].split(" ")[0] for ln in lines]
+            check(len(lines) == 3 and all(w in CONFIG_ORDER for w in winners)
+                  and all(float(ln.rsplit("(", 1)[1].rstrip(")")) > 0
+                          for ln in lines), f"auto printed {lines}")
+            pngs = sorted(p.name for p in (WORK / "auto").glob("*.png"))
+            check(pngs == sorted(f"frame{i}_{w}.png"
+                                 for i, w in enumerate(winners)),
+                  f"auto outputs {pngs} for winners {winners}")
+            out_dir = WORK / "auto"
+        else:
+            out_dir = WORK / key / "strategy_results"
+            with open(WORK / key / "reports" / "dataset_building.csv",
+                      newline="") as fh:
+                rows = list(csv.DictReader(fh))
+            names = [STRATEGY_DISPLAY[k] for k in CONFIG_ORDER]
+            check(len(rows) == 3 and all(
+                r["best_strategy"] in names
+                and all(np.isfinite(float(r[n])) for n in names)
+                and float(r["best_score"]) == max(float(r[n]) for n in names)
+                for r in rows), f"{key}: CSV rows {rows}")
+            with open(WORK / key / "trained_models" / "dataset.pkl", "rb") as fh:
+                items = pickle.load(fh)
+            check(len(items) == 3 and all(
+                it["features"].shape == (79,)
+                and bool(np.isfinite(it["features"]).all()) for it in items),
+                f"{key}: dataset.pkl")
+            winners = [r["best_strategy"] for r in rows]
+            pngs = sorted(p.name for p in out_dir.glob("*.png"))
+            check(pngs == sorted(f"{r['filename'][:-4]}_{r['best_strategy']}.png"
+                                 for r in rows), f"{key}: outputs {pngs}")
+        for p in pngs:
+            img = uio.imread_u8(str(out_dir / p))
+            check(img is not None and img.shape == (H, W, 3),
+                  f"{key}: bad PNG {p}")
+        check({k: len(v) for k, v in calls.items()} == launches,
+              f"{key}: captured calls vs launches {launches}")
+        check(all(launches[k] == v for k, v in EXPECTED_LABEL[key].items()),
+              f"{key}: launches {launches}")
+        if key in EXTRA_CANNY:
+            levels = launches["sat_rows"] - 3
+            check(levels >= 3 and launches["hysteresis_propagate"]
+                  == levels + EXTRA_CANNY[key],
+                  f"{key}: K7 {launches['hysteresis_propagate']} and K6 "
+                  f"{launches['sat_rows']} disagree on the descent's levels")
+        runs[key] = (calls, launches, None)
+        log("slice", command=key, frames=3, outputs=len(pngs),
+            winners=",".join(winners), seconds=f"{secs:.2f}",
+            launches=json.dumps(launches, separators=(",", ":")))
+    check(runs["auto"][1]["sat_rows"] == runs["build"][1]["sat_rows"],
+          "auto and build-dataset descend differently on the same frames")
+
     # every kernel call of the two six runs, replayed on its own inputs
     replayed = {}
-    for tier in ("exact", "fast"):
+    for tier in runs:
         for kname, arglists in runs[tier][0].items():
             for k, args in enumerate(arglists):
                 shape = "x".join(str(s) for s in args[0].shape)
@@ -417,6 +559,50 @@ def main() -> int:
           and d <= 1e-6, f"enhance_batch card vs CPU max |d| {d}")
     log("card_vs_cpu", command="enhance_batch", max_abs=d)
 
+    # frame 0 through the label program, both tiers: strategies, scores,
+    # winner and features on the card against the CPU path
+    x0 = torch.from_numpy(frames[0][None])
+    n_px = H * W
+    for tier, fast in (("exact", False), ("fast", True)):
+        f_g, s_g, b_g, st_g = (t.cpu() for t in label_batch(
+            x0.to(dev), DEFAULT_QUALITY_WEIGHTS, True, fast))
+        f_c, s_c, b_c, st_c = label_batch(x0, DEFAULT_QUALITY_WEIGHTS, True,
+                                          fast)
+        diffs = {}
+        for k, n in enumerate(CONFIG_ORDER):
+            a, b = st_g[0, k].double(), st_c[0, k].double()
+            check(a.shape == (H, W, 3) and bool(torch.isfinite(a).all()),
+                  f"label {tier} {n}: shape or non-finite values")
+            diffs[n] = float((a - b).abs().max())
+            mse = float(((a - b) ** 2).mean())
+            if n in DEHAZE:
+                check(mse == 0 or 10 * np.log10(1.0 / mse) >= 50.0,
+                      f"label {tier} {n}: card vs CPU under 50 dB")
+            else:
+                check(diffs[n] <= 1e-6, f"label {tier} {n}: card vs CPU "
+                      f"max |d| {diffs[n]} > 1e-6")
+        sd = float((s_g - s_c).abs().max())
+        check(sd <= 1e-3, f"label {tier}: scores differ by {sd}")
+        top = torch.sort(s_c[0], descending=True).values
+        if float(top[0] - top[1]) >= 1e-2:
+            check(int(b_g[0]) == int(b_c[0]), f"label {tier}: winner "
+                  f"{int(b_g[0])} on the card, {int(b_c[0])} on the CPU")
+        else:
+            check(float(s_c[0, int(b_g[0])]) >= float(top[0]) - 1e-2,
+                  f"label {tier}: the card's pick is no near tie")
+        ferr = (f_g.double() - f_c.double()).abs()[0]
+        rel = ferr / f_c.double().abs()[0].clamp(min=1e-30)
+        ok = (ferr <= 1e-4 * f_c.double().abs()[0]) | (ferr <= 1e-5)
+        ok[35:45] = ferr[35:45] <= 2.5 / n_px
+        check(bool(ok.all()) and bool(torch.isfinite(f_g).all()),
+              f"label {tier}: features off at {torch.nonzero(~ok).ravel()}")
+        log("card_vs_cpu", command=f"label_{tier}",
+            winner=CONFIG_ORDER[int(b_c[0])],
+            scores=",".join(f"{v:.4f}" for v in s_c[0].tolist()),
+            score_max_abs=sd, feature_max_abs=float(ferr.max()),
+            feature_max_rel=float(rel[ferr > 1e-5].max()) if (ferr > 1e-5).any()
+            else 0.0, strategy_max_abs=json.dumps(diffs))
+
     # 5. timing -----------------------------------------------------------
     imgs = [torch.from_numpy(f).to(dev) for f in frames]
 
@@ -465,6 +651,27 @@ def main() -> int:
             device_launches=len(ev),
             package_kernels=json.dumps(ours, separators=(",", ":")))
 
+    # the label path: auto (strategies, scores, pick) and the label program
+    # (plus the features) per frame, one frame a call
+    w8 = DEFAULT_QUALITY_WEIGHTS
+    label_fns = {
+        "auto": lambda i: auto_enhance_batch(imgs[i][None], device=dev),
+        "label_exact": lambda i: label_batch(imgs[i][None], w8, False, False),
+        "label_fast": lambda i: label_batch(imgs[i][None], w8, False, True),
+    }
+    for key, fn in label_fns.items():
+        it = iter(range(10 ** 6))
+        ms = event_ms(torch, lambda: fn(next(it) % 3), 6, warmup=2)
+        wall, busy, ev, ours = profile_frame(lambda: fn(0))
+        log("frame", path=key, **{f"ms_{k}": v for k, v in spread(ms).items()},
+            runs=",".join(f"{t:.3f}" for t in ms),
+            profiled_wall_ms=f"{wall:.3f}",
+            device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+            device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                               else "not measured"),
+            device_launches=len(ev),
+            package_kernels=json.dumps(ours, separators=(",", ":")))
+
     img = imgs[0]
     corrected, _ = cast_mod.detect_and_correct(img)
     planes = split_planes(corrected)
@@ -475,6 +682,15 @@ def main() -> int:
         for n in SIX_ORDER:
             stage_fns[f"{n}_{tier}"] = (
                 lambda n=n, A=A, f=fast: run_strategy(n, corrected, A, f))
+    # the label program's three parts on the raw frame
+    for tier, fast in (("exact", False), ("fast", True)):
+        outs5 = strategy_planes(img, fast)
+        stage_fns[f"label_strategies_{tier}"] = (
+            lambda f=fast: strategy_planes(img, f))
+        stage_fns[f"label_scores_{tier}"] = (
+            lambda o=outs5, f=fast: [comprehensive_planes(x, w8, f) for x in o])
+        stage_fns[f"label_features_{tier}"] = (
+            lambda f=fast: extract_all_features(img, f))
     stages = {k: event_ms(torch, fn, STAGE_RUNS) for k, fn in stage_fns.items()}
     log("stages", **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
     log("stages_min", **{k: f"{min(v):.3f}" for k, v in stages.items()})
@@ -513,6 +729,8 @@ def main() -> int:
     table_bytes = {
         "lab_forward_unit": kernels._table("fwd", dev).numel() * 4,
         "lab_forward_unit_approx": (11 + 256) * 4,  # header and GAMMA only
+        "lab_forward_u8": kernels._table("fwd", dev).numel() * 4,
+        "lab_forward_l_u8": kernels._table("fwd", dev).numel() * 4,
         "lab_inverse_unit": kernels._table("inv", dev).numel() * 4,
         "lab_inverse_unit_gamma": kernels._table("inv", dev).numel() * 4
         + 256 * 4,
@@ -543,14 +761,16 @@ def main() -> int:
     def us(v):
         return "null" if v is None else f"{v * 1e3:.2f}"
 
-    calls = {k: runs["exact"][0][k] or runs["fast"][0][k] for k in KERNELS}
+    # the first main-path call of each kernel, in run order
+    calls = {k: next(r[0][k] for r in runs.values() if r[0][k])
+             for k in KERNELS}
     records = []
     for kname, (source, replaces, _, _) in KERNELS.items():
         t = time_call(kname, calls[kname][0])
         records.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": exact_l[kname] + fast_l[kname],
+            "launches": sum(r[1][kname] for r in runs.values()),
             "max_abs_err": err[kname], **t})
         log("timing", kernel=kname, shape="x".join(map(str, t["shape"])),
             us=us(t["ms"]), plain_us=us(t["plain_ms"]),

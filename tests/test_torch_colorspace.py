@@ -1,5 +1,6 @@
-"""The LAB kernels' plain versions (the CPU side of kernels K1, K3, K3g)
-against the JAX Pallas kernels in interpret mode, and against cv2."""
+"""The LAB kernels' plain versions (the CPU side of kernels K1, K1b, K4,
+K3, K3g) against the JAX Pallas kernels in interpret mode, and against
+cv2; HSV, gray and the fast tier's arithmetic LAB against JAX."""
 
 import cv2
 import jax.numpy as jnp
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from underwater_image_enhancement_tpu.ops import colorspace as jcs
+from underwater_image_enhancement_tpu.ops import pallas_kernels as pk
 from underwater_image_enhancement_tpu_torch.ops import colorspace as tcs
 from underwater_image_enhancement_tpu_torch.ops import kernels
 from underwater_image_enhancement_tpu_torch.ops import lab_tables as tlt
@@ -205,3 +207,135 @@ def test_gamma_wrapper_checks_planes_and_builds_its_lut(g):
     lut = kernels.gamma_lut(g, torch.device("cpu"))
     assert lut.dtype == torch.float32 and lut.shape == (256,)
     assert torch.equal(lut, torch.from_numpy(tstretch.U8_GRID) ** g)
+
+
+def _u8_triples(seed):
+    """int32 planes of random u8 triples plus values outside [0, 255]
+    (the clamp), pure-dark triples (labF's linear branch, t < 0.008856)
+    and bright ones (its cube-root branch), in rows 0 and 1."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(0, 256, (3,) + SHAPE).astype(np.int32)
+    p[:, 0, :6] = np.array([[-5, 300, 0, 255, -1, 256]] * 3)
+    p[:, 1, :8] = np.arange(8)  # dark greys: Y index below 18
+    return p
+
+
+@pytest.fixture(scope="module")
+def jax_forward_u8():
+    out = {}
+    for seed in (0, 1):
+        p = _u8_triples(seed)
+        jp = [jnp.asarray(x) for x in p]
+        out[seed] = (p, [np.asarray(x) for x in pk.lab_forward_planes(*jp)],
+                     np.asarray(pk.lab_forward_l_plane(*jp)))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_triples_reach_the_clamp_and_both_labf_branches(seed):
+    p = _u8_triples(seed).astype(np.int64)
+    assert p.min() < 0 and p.max() > 255
+    c = np.clip(p, 0, 255)
+    R, G, B = (tlt.GAMMA_TAB[x] for x in c)
+    iy = (R * tlt.COEFFS[1, 0] + G * tlt.COEFFS[1, 1] + B * tlt.COEFFS[1, 2]
+          + (1 << 11)) >> 12
+    t = iy / 2040.0
+    assert (t < 0.008856).any() and (t >= 0.008856).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lab_forward_u8_bit_equal_to_pallas(jax_forward_u8, seed):
+    """K1b's plain version against the Pallas kernel (interpret mode)."""
+    p, want, _ = jax_forward_u8[seed]
+    got = kernels.lab_forward_u8_plain(*(torch.from_numpy(x) for x in p))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lab_forward_l_u8_bit_equal_to_pallas_and_xla(jax_forward_u8, seed):
+    """K4's plain version against the Pallas kernel (interpret mode), the
+    JAX XLA path, and K1b's L."""
+    p, want3, want = jax_forward_u8[seed]
+    tp = [torch.from_numpy(x) for x in p]
+    got = kernels.lab_forward_l_u8_plain(*tp)
+    assert got.dtype == torch.int32 and got.shape == SHAPE
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want3[0])
+    xla = jcs.rgb_to_lab_l_u8_exact(jnp.asarray(np.stack(p, -1)), impl="xla")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(xla))
+    np.testing.assert_array_equal(
+        np.stack([x.numpy() for x in kernels.lab_forward_u8_plain(*tp)], -1),
+        np.asarray(jcs.rgb_to_lab_u8_exact(jnp.asarray(np.stack(p, -1)))))
+
+
+def test_lab_forward_u8_and_l_match_cv2():
+    rng = np.random.default_rng(8)
+    rgb = rng.integers(0, 256, SHAPE + (3,)).astype(np.uint8)
+    planes = [torch.from_numpy(rgb[..., c].astype(np.int32)) for c in range(3)]
+    want = cv2.cvtColor(rgb, cv2.COLOR_RGB2LAB)
+    lab = tcs.rgb_to_lab_u8_exact_planes(*planes)
+    np.testing.assert_array_equal(np.stack([x.numpy() for x in lab], -1), want)
+    np.testing.assert_array_equal(
+        tcs.rgb_to_lab_l_u8_exact(*planes).numpy(), want[..., 0])
+
+
+@pytest.mark.parametrize("name", ["lab_forward_u8", "lab_forward_l_u8"])
+def test_u8_lab_wrappers_run_plain_on_cpu_and_check_inputs(name):
+    p = [torch.from_numpy(x) for x in _u8_triples(2)]
+    before = dict(kernels.launches)
+    got = getattr(kernels, name)(*p)
+    assert kernels.launches == before
+    want = getattr(kernels, name + "_plain")(*p)
+    got, want = ((got,), (want,)) if name == "lab_forward_l_u8" else (got, want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    fn = getattr(kernels, name)
+    with pytest.raises(TypeError):
+        fn(p[0].float(), p[1], p[2])
+    with pytest.raises(ValueError):
+        fn(p[0][:, :-1], p[1], p[2])
+    with pytest.raises(ValueError):
+        fn(p[0].t().contiguous().t(), p[1], p[2])
+    with pytest.raises(ValueError):
+        fn(p[0][None], p[1][None], p[2][None])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hsv_bit_equal_to_jax_and_cv2(seed):
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, SHAPE + (3,)).astype(np.uint8)
+    rgb[0, :4] = [[7, 7, 7], [255, 0, 0], [0, 255, 0], [0, 0, 255]]
+    planes = [torch.from_numpy(rgb[..., c].astype(np.int32)) for c in range(3)]
+    got = np.stack([x.numpy() for x in tcs.rgb_to_hsv_u8(*planes)], -1)
+    np.testing.assert_array_equal(
+        got, np.asarray(jcs.rgb_to_hsv_u8(jnp.asarray(rgb.astype(np.int32)))))
+    np.testing.assert_array_equal(got, cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV))
+    np.testing.assert_array_equal(tcs.hsv_s_u8_planes(*planes).numpy(),
+                                  got[..., 1])
+    np.testing.assert_array_equal(
+        tcs.rgb_to_gray_u8(torch.from_numpy(rgb.astype(np.int32))).numpy(),
+        cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY))
+
+
+def test_arith_lab_within_one_level_of_jax():
+    """The fast tier's arithmetic LAB: torch's pow (the cube root and
+    ** 2.4) and XLA's differ in the last ulp, so a rounded value may sit
+    one level off JAX's; the unrounded L within 1e-4."""
+    rng = np.random.default_rng(9)
+    rgb = rng.integers(0, 256, SHAPE + (3,)).astype(np.int32)
+    rgb.reshape(-1, 3)[:256] = np.arange(256)[:, None]  # every grey
+    planes = [torch.from_numpy(np.ascontiguousarray(rgb[..., c]))
+              for c in range(3)]
+    got = np.stack([x.numpy() for x in tcs.rgb_to_lab_u8_arith(*planes)], -1)
+    want = np.asarray(jcs.rgb_to_lab_u8_arith(jnp.asarray(rgb)))
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= 1 and (got != want).mean() < 1e-3
+    exact = np.stack([x.numpy() for x in kernels.lab_forward_u8_plain(*planes)],
+                     -1)
+    assert np.abs(got - exact).max() <= 2
+    L = tcs.rgb_u8_to_lab_l_arith_planes(*planes).numpy()
+    wantL = np.asarray(jcs.rgb_u8_to_lab_l_arith_planes(
+        *(jnp.asarray(rgb[..., c]) for c in range(3))))
+    np.testing.assert_allclose(L, wantL, rtol=0, atol=1e-4)

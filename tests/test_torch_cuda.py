@@ -1,6 +1,7 @@
 """Kernel tests that need an NVIDIA GPU (marker ``gpu``): each CUDA
 kernel against its plain PyTorch version on the card, and the six exact
-and fast tiers on the card against the CPU path.  They skip where
+and fast tiers and the Phase-1 label program on the card against the CPU
+path.  They skip where
 ``torch.cuda.is_available()`` is False.  On a GPU machine without JAX:
 
     python -m pytest -o addopts="" --noconftest -m gpu tests/test_torch_cuda.py
@@ -102,6 +103,7 @@ def test_six_on_card_matches_cpu(cuda):
     assert n.pop("hysteresis_propagate") >= 1
     assert n.pop("sat_rows") == 1 + kernels.launches["hysteresis_propagate"]
     assert n == {"lab_forward_unit": 5, "lab_forward_unit_approx": 0,
+                 "lab_forward_u8": 0, "lab_forward_l_u8": 0,
                  "clahe_apply": 5, "lab_inverse_unit": 2,
                  "lab_inverse_unit_gamma": 3}
     on_cpu, code_c = six_strategy_tuple(img, device="cpu")
@@ -114,7 +116,8 @@ def test_six_fast_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     on_card, code_g = six_strategy_tuple(img, fast=True)
     assert dict(kernels.launches) == {
-        "lab_forward_unit": 0, "lab_forward_unit_approx": 5, "clahe_apply": 5,
+        "lab_forward_unit": 0, "lab_forward_unit_approx": 5,
+        "lab_forward_u8": 0, "lab_forward_l_u8": 0, "clahe_apply": 5,
         "lab_inverse_unit": 2, "lab_inverse_unit_gamma": 3,
         "hysteresis_propagate": 1, "sat_rows": 1}
     on_cpu, code_c = six_strategy_tuple(img, fast=True, device="cpu")
@@ -174,3 +177,43 @@ def test_kernel_limits_raise(cuda):
         kernels.sat_rows(torch.zeros((2, 0, 3), device=cuda))
     with pytest.raises(ValueError):
         kernels.sat_rows(torch.zeros((), device=cuda))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lab_forward_u8_kernels_equal_plain(cuda, shape):
+    """K1b and K4 on int32 planes that reach past both ends of [0, 255]."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    p = [torch.randint(-20, 280, shape, generator=g, device=cuda,
+                       dtype=torch.int32) for _ in range(3)]
+    before = dict(kernels.launches)
+    lab = kernels.lab_forward_u8(*p)
+    L = kernels.lab_forward_l_u8(*p)
+    assert kernels.launches["lab_forward_u8"] == before["lab_forward_u8"] + 1
+    assert kernels.launches["lab_forward_l_u8"] == before["lab_forward_l_u8"] + 1
+    for a, b in zip(lab, kernels.lab_forward_u8_plain(*p)):
+        assert torch.equal(a, b)
+    assert torch.equal(L, kernels.lab_forward_l_u8_plain(*p))
+    assert torch.equal(L, lab[0])
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_label_batch_on_card_matches_cpu(cuda, fast):
+    from underwater_image_enhancement_tpu_torch.select.system import label_batch
+    from underwater_image_enhancement_tpu_torch.utils.config import (
+        DEFAULT_QUALITY_WEIGHTS,
+    )
+
+    imgs = torch.from_numpy(np.stack([_frame(), _frame()[::-1].copy()]))
+    kernels.reset_launches()
+    feats, scores, best, win = label_batch(imgs.to(cuda),
+                                           DEFAULT_QUALITY_WEIGHTS, fast=fast)
+    n = dict(kernels.launches)
+    assert n["lab_forward_l_u8"] == (0 if fast else 10)
+    assert n["lab_forward_u8"] == (0 if fast else 2)
+    c_feats, c_scores, c_best, c_win = label_batch(
+        imgs, DEFAULT_QUALITY_WEIGHTS, fast=fast)
+    assert float((scores.cpu() - c_scores).abs().max()) <= 1e-3
+    assert torch.equal(best.cpu(), c_best)
+    err = (feats.cpu().double() - c_feats.double()).abs()
+    assert bool(((err <= 1e-4 * c_feats.double().abs()) | (err <= 1e-5)).all())
+    assert win.shape == c_win.shape

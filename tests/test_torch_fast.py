@@ -233,8 +233,9 @@ def test_hist_fast_stretch_bit_equal(underwater_img):
         tuple(torch.from_numpy(p) for p in planes), 2.0, method="hist-fast")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # "radix" is the exact tier's name for the sort; an unknown method raises
     with pytest.raises(ValueError):
-        tstretch.white_balance_planes(got, 2.0, method="radix")
+        tstretch.white_balance_planes(got, 2.0, method="quantile")
 
 
 @pytest.mark.parametrize("r,rx", [(5, 20), (3, 15), (2, 10), (7, 7)])

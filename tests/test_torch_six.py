@@ -237,6 +237,13 @@ def test_port_runs_without_jax_in_subprocess(tmp_path):
         "img = rng.random((40, 48, 3)).astype(np.float32)\n"
         "outs, code = six_strategy_tuple(img, device='cpu')\n"
         "assert len(outs) == 6\n"
+        "import underwater_image_enhancement_tpu_torch.metrics.quality\n"
+        "import underwater_image_enhancement_tpu_torch.features.full\n"
+        "import underwater_image_enhancement_tpu_torch.select.system\n"
+        "from underwater_image_enhancement_tpu_torch.pipeline.enhance "
+        "import auto_enhance_batch\n"
+        "best, k, scores = auto_enhance_batch(img[None], device='cpu')\n"
+        "assert best.shape == (1, 40, 48, 3) and scores.shape == (1, 5)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'underwater_image_enhancement_tpu'"
         " or m.startswith('underwater_image_enhancement_tpu.')]\n"
@@ -270,6 +277,10 @@ def test_source_imports_neither_jax_nor_the_jax_package():
             "underwater_image_enhancement_tpu_torch/ops/airlight.py",
             "underwater_image_enhancement_tpu_torch/ops/stretch.py",
             "underwater_image_enhancement_tpu_torch/pipeline/enhance.py",
+            "underwater_image_enhancement_tpu_torch/pipeline/strategies.py",
+            "underwater_image_enhancement_tpu_torch/metrics/quality.py",
+            "underwater_image_enhancement_tpu_torch/features/full.py",
+            "underwater_image_enhancement_tpu_torch/select/system.py",
             "underwater_image_enhancement_tpu_torch/cli.py"} <= names
     for path in files:
         for mod in _imported_modules(path):

@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from underwater_image_enhancement_tpu.ops import airlight as jair
+from underwater_image_enhancement_tpu.ops import colorspace as jcs
 from underwater_image_enhancement_tpu.ops import histeq as jhisteq
 from underwater_image_enhancement_tpu.ops import lab_tables as jlt
 from underwater_image_enhancement_tpu.ops import stretch as jstretch
@@ -93,3 +94,24 @@ def test_lerp_indices_equal(n):
         assert got[:2] == (int(li[0]), int(hi[0]))
         assert np.float32(got[2]) == np.asarray(lw)[0]
         assert np.float32(got[3]) == np.asarray(hw)[0]
+
+
+def test_hsv_tables_and_arith_lab_constants_equal():
+    np.testing.assert_array_equal(tlt.SDIV_TAB, jcs._SDIV_TAB)
+    np.testing.assert_array_equal(tlt.HDIV_TAB, jcs._HDIV_TAB)
+    assert tlt.SDIV_TAB.dtype == tlt.HDIV_TAB.dtype == np.int32
+    np.testing.assert_array_equal(tlt.RGB2XYZ_F32, np.asarray(jcs._RGB2XYZ))
+    np.testing.assert_array_equal(tlt.WHITE_F32, np.asarray(jcs._WHITE))
+    assert tlt.RGB2XYZ_F32.dtype == tlt.WHITE_F32.dtype == np.float32
+
+
+def test_phase1_config_equal():
+    assert tconfig.DEFAULT_STRATEGIES == jconfig.DEFAULT_STRATEGIES
+    assert tconfig.DEFAULT_QUALITY_WEIGHTS == jconfig.DEFAULT_QUALITY_WEIGHTS
+    assert tconfig.FULL_QUALITY_WEIGHTS == jconfig.FULL_QUALITY_WEIGHTS
+    t, j = tconfig.Config(), jconfig.Config()
+    for f in ("image_folder", "output_folder", "save_all_enhanced",
+              "batch_size", "fast_label", "quality_weights", "feature_folder",
+              "strategy_folder", "model_folder", "report_folder"):
+        assert getattr(t, f) == getattr(j, f), f
+    assert not hasattr(t, "n_devices") and not hasattr(t, "data_parallel")

@@ -8,8 +8,10 @@ wrapped by ``ops/kernels.py``.
 
 Ported so far: ``pipeline.enhance.six_strategy_tuple`` (exact and fast
 tiers), ``enhance``/``enhance_batch`` (fixed parameters,
-``models.diff_enhance.enhance_vgg``), and the ``six`` and ``enhance``
-subcommands of ``cli``.
+``models.diff_enhance.enhance_vgg``), Phase-1 labeling
+(``pipeline.enhance.auto_enhance_batch``, ``select.system``), and the
+``six``, ``enhance``, ``auto`` and ``build-dataset`` subcommands of
+``cli``.
 """
 
 from underwater_image_enhancement_tpu_torch.version import __version__  # noqa: F401

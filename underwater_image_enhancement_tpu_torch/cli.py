@@ -2,13 +2,21 @@
 
     python -m underwater_image_enhancement_tpu_torch.cli six --input DIR --output DIR [--fast]
     python -m underwater_image_enhancement_tpu_torch.cli enhance --input PATH --output PATH
+    python -m underwater_image_enhancement_tpu_torch.cli auto --input DIR --output DIR
+    python -m underwater_image_enhancement_tpu_torch.cli build-dataset --input DIR --output DIR [--fast]
 
 Commands (reference counterparts):
-  six       six_stadigy.py __main__: all six strategies per image + CSV log
-            (``--fast``: the histogram-percentile tier)
-  enhance   use_trained_model.py __main__ without a model: the
-            fixed-parameter enhance of one file, or of a folder in
-            same-shape batches (``*_enhanced.png``)
+  six            six_stadigy.py __main__: all six strategies per image +
+                 CSV log (``--fast``: the histogram-percentile tier)
+  enhance        use_trained_model.py __main__ without a model: the
+                 fixed-parameter enhance of one file, or of a folder in
+                 same-shape batches (``*_enhanced.png``)
+  auto           main.py's Phase-1 choice per image: the best of the five
+                 config-flavour strategies by the weighted quality score
+                 (``{stem}_{strategy}.png``, ``name: strategy (score)``)
+  build-dataset  main.py Phase 1: label each image, save the winner, the
+                 CSV report and ``dataset.pkl`` (``--fast``: the
+                 throughput tier)
 
 Runs on the CUDA device by default (``--device cuda``); ``--device cpu``
 runs the plain PyTorch path.  On CUDA the kernels are built before the
@@ -17,7 +25,8 @@ ends the run with a non-zero exit; other per-image errors of ``six``
 become "failed" rows of ``processing_log.csv``, as in the JAX CLI.
 ``enhance --model`` (a learned predictor) and ``--devices`` (data
 parallelism) are not ported yet and are rejected, as are the JAX CLI's
-other subcommands.
+other subcommands (Phase 2's ``train-selector``, ``run`` and ``predict``
+among them).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import traceback
 from pathlib import Path
 
 import numpy as np
+import torch
 
 LOG_FIELDS = ["filename", "image_type", "strategy", "status", "output_path",
               "processing_time"]
@@ -121,9 +131,62 @@ def _cmd_enhance(args) -> None:
     print(f"done ({n} images) -> {args.output}")
 
 
-def _cmd_six(args) -> None:
-    import torch
+def _reject_devices(args) -> None:
+    if args.devices is not None:
+        raise SystemExit(f"{args.cmd} --devices: data parallelism over "
+                         "several cards is not yet ported; the port runs on "
+                         "one device (--device)")
 
+
+def _cmd_auto(args) -> None:
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        CONFIG_ORDER,
+        auto_enhance_batch,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    _reject_devices(args)
+    device = _start(args.device)
+    files = uio.collect_images(args.input)
+    outdir = Path(args.output)
+    with uio.AsyncWriter() as writer:
+        for chunk in _stream_shape_batches(files, args.batch_size,
+                                           log=lambda m: None):
+            best_imgs, best, scores = auto_enhance_batch(
+                np.stack([im for _, im in chunk]), device=device)
+            # quantized on the device, as the reference's imwrite; one
+            # read of the images and one of the numbers a chunk
+            u8 = _to_host((best_imgs.clamp(0, 1) * 255).to(torch.uint8))
+            best, scores = _to_host(best), _to_host(scores)
+            for j, (p, _) in enumerate(chunk):
+                k = int(best[j])
+                name = CONFIG_ORDER[k]
+                writer.write(str(outdir / f"{p.stem}_{name}.png"), u8[j])
+                print(f"{p.name}: {name} ({float(scores[j, k]):.2f})")
+    for path, err in writer.close():
+        print(f"  write failed: {Path(path).name} - {err[:50]}")
+
+
+def _cmd_build_dataset(args) -> None:
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        SelfSupervisedSystem,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.config import Config
+
+    _reject_devices(args)
+    device = _start(args.device)
+    cfg = Config(image_folder=args.input, output_folder=args.output,
+                 fast_label=bool(args.fast),
+                 batch_size=int(args.batch_size or 8))
+    system = SelfSupervisedSystem(cfg, device=device)
+    rows = system.build_dataset()
+    print(f"labeled {len(rows)} images")
+    for k, v in system.dataset_report().items():
+        print(f"  {k:<24} {v['count']:>4} ({v['fraction'] * 100:.1f}%) "
+              f"score {v['mean_score']:.2f}±{v['std_score']:.2f}")
+
+
+def _cmd_six(args) -> None:
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
         SIX_ORDER,
@@ -276,6 +339,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames per chunk; a chunk's frames run one by one "
                         "and share one processing_time")
     p.set_defaults(fn=_cmd_six)
+
+    device_help = ("torch device (default cuda; cpu runs the plain PyTorch "
+                   "versions of the kernels)")
+    devices_help = "data-parallel device count: not yet ported, rejected"
+    p = sub.add_parser("auto", help="best-of-5-strategies per image")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--batch-size", type=int, default=4,
+                   help="frames per call (same-shape groups)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.add_argument("--devices", type=int, default=None, help=devices_help)
+    p.set_defaults(fn=_cmd_auto)
+
+    p = sub.add_parser("build-dataset", help="Phase 1 self-supervised labeling")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--fast", action="store_true",
+                   help="throughput-tier strategies (banded airlight, fast "
+                        "guided filter, histogram percentiles, arithmetic "
+                        "LAB); near-tie winners may flip")
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="frames per labeling call (same-shape groups)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.add_argument("--devices", type=int, default=None, help=devices_help)
+    p.set_defaults(fn=_cmd_build_dataset)
     return ap
 
 

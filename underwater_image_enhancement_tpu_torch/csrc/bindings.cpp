@@ -16,6 +16,9 @@ namespace uie {
 void launch_lab_forward_unit(const float* r, const float* g, const float* b,
                              const int* tab, int* L, int* a, int* bb,
                              long long n, bool approx, cudaStream_t stream);
+void launch_lab_forward_u8(const int* r, const int* g, const int* b,
+                           const int* tab, int* L, int* a, int* bb,
+                           long long n, bool l_only, cudaStream_t stream);
 void launch_clahe_apply(const int* src, const int* luts, const float* ya,
                         const float* xa, int* out, int H, int W, int th,
                         int tw, int pt, int plf, int tiles_x, int tiles_y,
@@ -92,6 +95,37 @@ Planes lab_forward_unit(const at::Tensor& r, const at::Tensor& g,
 Planes lab_forward_unit_approx(const at::Tensor& r, const at::Tensor& g,
                                const at::Tensor& b, const at::Tensor& tab) {
   return lab_forward(r, g, b, tab, true);
+}
+
+Planes lab_forward_u8(const at::Tensor& r, const at::Tensor& g,
+                      const at::Tensor& b, const at::Tensor& tab) {
+  check_planes(r, g, b, at::kInt);
+  check(tab, r, at::kInt, "table");
+  TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE");
+  const c10::cuda::CUDAGuard guard(r.device());
+  auto outs = empty_planes(r, at::kInt);
+  uie::launch_lab_forward_u8(
+      r.data_ptr<int>(), g.data_ptr<int>(), b.data_ptr<int>(),
+      tab.data_ptr<int>(), std::get<0>(outs).data_ptr<int>(),
+      std::get<1>(outs).data_ptr<int>(), std::get<2>(outs).data_ptr<int>(),
+      r.numel(), false, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return outs;
+}
+
+at::Tensor lab_forward_l_u8(const at::Tensor& r, const at::Tensor& g,
+                            const at::Tensor& b, const at::Tensor& tab) {
+  check_planes(r, g, b, at::kInt);
+  check(tab, r, at::kInt, "table");
+  TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE");
+  const c10::cuda::CUDAGuard guard(r.device());
+  auto L = at::empty(r.sizes(), r.options().dtype(at::kInt));
+  uie::launch_lab_forward_u8(
+      r.data_ptr<int>(), g.data_ptr<int>(), b.data_ptr<int>(),
+      tab.data_ptr<int>(), L.data_ptr<int>(), nullptr, nullptr, r.numel(),
+      true, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return L;
 }
 
 at::Tensor clahe_apply(const at::Tensor& src, const at::Tensor& luts,
@@ -223,6 +257,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("lab_forward_unit_approx", &lab_forward_unit_approx,
         "csrc/lab_forward.cu: f32 unit planes -> int32 (L, a, b), "
         "2-step Newton cube root");
+  m.def("lab_forward_u8", &lab_forward_u8,
+        "csrc/lab_forward.cu: u8-valued int32 planes -> int32 (L, a, b)");
+  m.def("lab_forward_l_u8", &lab_forward_l_u8,
+        "csrc/lab_forward.cu: u8-valued int32 planes -> int32 L");
   m.def("clahe_apply", &clahe_apply,
         "csrc/clahe_apply.cu: int32 plane through its tile LUTs");
   m.def("lab_inverse_unit", &lab_inverse_unit,

@@ -1,32 +1,42 @@
-// Forward LAB on float unit planes: OpenCV's integer RGB2Lab_b, bit-exact,
-// and the six --fast tier's approximate variant.
+// Forward LAB: OpenCV's integer RGB2Lab_b, bit-exact, on float unit planes
+// or on u8-valued int32 planes, and the six --fast tier's approximate
+// variant.
 //
-// Replaces: underwater_image_enhancement_tpu/ops/pallas_kernels.py,
-//   lab_forward_planes_unit (_make_lab_forward / _make_lab_fwd_kernel), and
-//   lab_forward_planes_unit_approx (the same kernel with
-//   cbrt_corr="approx2": CBRT_TAB evaluated by _cbrt_tab_surrogate(idx,
-//   steps=2), no corrections; within +-1 u8 LSB of the exact table).
+// Replaces (underwater_image_enhancement_tpu/ops/pallas_kernels.py, all
+// built by _make_lab_forward / _make_lab_fwd_kernel):
+//   lab_forward_planes_unit (K1): f32 unit planes -> (L, a, b);
+//   lab_forward_planes_unit_approx (K8 _approx): K1 with cbrt_corr="approx2",
+//     CBRT_TAB evaluated by _cbrt_tab_surrogate(idx, steps=2), no
+//     corrections; within +-1 u8 LSB of the exact table;
+//   lab_forward_planes (K1b): u8-valued int32 planes (clipped to [0, 255])
+//     -> (L, a, b);
+//   lab_forward_l_plane (K4): K1b's L plane alone (one CBRT gather, one
+//     output plane), the brightness metric's input.
 //
-// Per pixel: quantize each channel like (v*255).astype(uint8) (clip, then
-// truncate), GAMMA_TAB gather, fixed-point COEFFS dot, descale, three cube
-// roots (CBRT_TAB gathers, or the surrogate), L/a/b descale and clip.
-// Integer arithmetic is the JAX kernel's, op for op; `>>` on a negative int
-// is arithmetic, as in XLA.  The surrogate rounds every multiply and add on
+// Per pixel: bring each channel to a u8 index (f32: quantize like
+// (v*255).astype(uint8), clip then truncate; int32: clip to [0, 255]),
+// GAMMA_TAB gather, fixed-point COEFFS dot, descale, the cube roots
+// (CBRT_TAB gathers, or the surrogate), L/a/b descale and clip.  Integer
+// arithmetic is the JAX kernel's, op for op; `>>` on a negative int is
+// arithmetic, as in XLA.  The surrogate rounds every multiply and add on
 // its own (__fmul_rn/__fsub_rn/__fadd_rn), in the JAX order, and rounds
 // half to even (jnp.round); its constants are the f32 values numpy gives,
 // written in hex.
 //
-// Bound on an H100: memory.  It reads 3 f32 planes and writes 3 i32 planes,
-// 24 bytes a pixel (49.8 MB at 1920x1080, ~15 us at 3.35 TB/s); the exact
-// kernel's integer work is ~40 ops a pixel, the surrogate adds ~20 f32 ops
-// per cube root (~100 a pixel).  Design: one thread per pixel in a
-// grid-stride loop over a few blocks per SM, so the 6 KB CBRT table (u16)
-// and the 1 KB GAMMA table are staged into shared memory once per block
-// rather than once per 256 pixels; shared memory (not __constant__) because
-// the gather indices diverge within a warp.  The approximate variant stages
-// only GAMMA.  The TPU kernel's 128-lane segment gathers and int32 packing
-// are Mosaic workarounds and are not carried over.  Built without
-// --use_fast_math: the f32 multiply must round.
+// Bound on an H100: memory.  K1, K8 and K1b read 3 planes and write 3
+// (24 bytes a pixel, 49.8 MB at 1920x1080, ~15 us at 3.35 TB/s); K4 reads
+// 3 and writes 1 (16 bytes a pixel, 33.2 MB, ~9.9 us).  The exact integer
+// work is ~40 ops a pixel (~20 for K4); the surrogate adds ~20 f32 ops per
+// cube root (~100 a pixel).  Design: one thread per pixel in a grid-stride
+// loop over a few blocks per SM, so the 6 KB CBRT table (u16) and the 1 KB
+// GAMMA table are staged into shared memory once per block rather than
+// once per 256 pixels; shared memory (not __constant__) because the gather
+// indices diverge within a warp.  One template serves the four kernels:
+// the input type, the cube root and the L-only epilogue are its
+// parameters; the approximate variant stages only GAMMA.  The TPU kernel's
+// 128-lane segment gathers and int32 packing are Mosaic workarounds and
+// are not carried over.  Built without --use_fast_math: the f32 multiply
+// must round.
 //
 // Table block (int32, ops/lab_tables.py FWD_TABLE):
 //   [0] L_SCALE  [1] L_SHIFT  [2..10] COEFFS (3x3 row-major)
@@ -89,16 +99,16 @@ __device__ __forceinline__ int cbrt_approx(int idx) {
   return __float2int_rn(__fmul_rn(f, 32768.0f));  // jnp.round: half to even
 }
 
-template <bool kApprox>
+// A channel value -> its u8 index.
+__device__ __forceinline__ int to_u8(float v) { return quantize_u8(v); }
+__device__ __forceinline__ int to_u8(int v) { return clamp_i(v, 0, 255); }
+
+template <typename In, bool kApprox, bool kLOnly>
 __global__ void __launch_bounds__(kThreads)
-lab_forward_unit_kernel(const float* __restrict__ r,
-                        const float* __restrict__ g,
-                        const float* __restrict__ b,
-                        const int* __restrict__ tab,
-                        int* __restrict__ L_out,
-                        int* __restrict__ a_out,
-                        int* __restrict__ b_out,
-                        long long n) {
+lab_forward_kernel(const In* __restrict__ r, const In* __restrict__ g,
+                   const In* __restrict__ b, const int* __restrict__ tab,
+                   int* __restrict__ L_out, int* __restrict__ a_out,
+                   int* __restrict__ b_out, long long n) {
   __shared__ int s_gamma[256];
   __shared__ unsigned short s_cbrt[kApprox ? 1 : kNcbrt];
   __shared__ int s_head[kHeader];
@@ -112,24 +122,31 @@ lab_forward_unit_kernel(const float* __restrict__ r,
 
   const int l_scale = s_head[0], l_shift = s_head[1];
   const int* C = s_head + 2;
+  // the labF cube root of COEFFS row `row` applied to (R, G, B)
+  auto cube_root = [&](int row, int R, int G, int B) -> int {
+    const int idx = clamp_i(
+        descale(R * C[3 * row] + G * C[3 * row + 1] + B * C[3 * row + 2], kLabShift),
+        0, kNcbrt - 1);
+    if constexpr (kApprox) {
+      return cbrt_approx(idx);
+    } else {
+      return s_cbrt[idx];
+    }
+  };
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const int R = s_gamma[quantize_u8(r[i])];
-    const int G = s_gamma[quantize_u8(g[i])];
-    const int B = s_gamma[quantize_u8(b[i])];
-    const int iX = clamp_i(descale(R * C[0] + G * C[1] + B * C[2], kLabShift), 0, kNcbrt - 1);
-    const int iY = clamp_i(descale(R * C[3] + G * C[4] + B * C[5], kLabShift), 0, kNcbrt - 1);
-    const int iZ = clamp_i(descale(R * C[6] + G * C[7] + B * C[8], kLabShift), 0, kNcbrt - 1);
-    int fX, fY, fZ;
-    if (kApprox) {
-      fX = cbrt_approx(iX), fY = cbrt_approx(iY), fZ = cbrt_approx(iZ);
-    } else {
-      fX = s_cbrt[iX], fY = s_cbrt[iY], fZ = s_cbrt[iZ];
-    }
+    const int R = s_gamma[to_u8(r[i])];
+    const int G = s_gamma[to_u8(g[i])];
+    const int B = s_gamma[to_u8(b[i])];
+    const int fY = cube_root(1, R, G, B);
     L_out[i] = clamp_i(descale(l_scale * fY + l_shift, kLabShift2), 0, 255);
-    a_out[i] = clamp_i(descale(500 * (fX - fY) + (128 << kLabShift2), kLabShift2), 0, 255);
-    b_out[i] = clamp_i(descale(200 * (fY - fZ) + (128 << kLabShift2), kLabShift2), 0, 255);
+    if (!kLOnly) {
+      const int fX = cube_root(0, R, G, B);
+      const int fZ = cube_root(2, R, G, B);
+      a_out[i] = clamp_i(descale(500 * (fX - fY) + (128 << kLabShift2), kLabShift2), 0, 255);
+      b_out[i] = clamp_i(descale(200 * (fY - fZ) + (128 << kLabShift2), kLabShift2), 0, 255);
+    }
   }
 }
 
@@ -155,10 +172,23 @@ void launch_lab_forward_unit(const float* r, const float* g, const float* b,
                              const int* tab, int* L, int* a, int* bb,
                              long long n, bool approx, cudaStream_t stream) {
   if (approx) {
-    lab_forward_unit_kernel<true><<<grid_for(n), kThreads, 0, stream>>>(
+    lab_forward_kernel<float, true, false><<<grid_for(n), kThreads, 0, stream>>>(
         r, g, b, tab, L, a, bb, n);
   } else {
-    lab_forward_unit_kernel<false><<<grid_for(n), kThreads, 0, stream>>>(
+    lab_forward_kernel<float, false, false><<<grid_for(n), kThreads, 0, stream>>>(
+        r, g, b, tab, L, a, bb, n);
+  }
+}
+
+// u8-valued int32 planes; l_only writes L alone (a and bb may be null).
+void launch_lab_forward_u8(const int* r, const int* g, const int* b,
+                           const int* tab, int* L, int* a, int* bb,
+                           long long n, bool l_only, cudaStream_t stream) {
+  if (l_only) {
+    lab_forward_kernel<int, false, true><<<grid_for(n), kThreads, 0, stream>>>(
+        r, g, b, tab, L, a, bb, n);
+  } else {
+    lab_forward_kernel<int, false, false><<<grid_for(n), kThreads, 0, stream>>>(
         r, g, b, tab, L, a, bb, n);
   }
 }

@@ -1,10 +1,13 @@
 """Colour-space conversions with OpenCV-compatible integer semantics.
 
 Counterpart of the JAX package's ``ops/colorspace.py``, limited to what the
-``six`` exact tier runs.  Integer images are int32 tensors holding u8
-values.  The LAB legs go through the hand-written kernels of
-``ops/kernels.py`` (plain versions on CPU tensors), which also hold
-``quantize_u8`` and ``ctrunc_div`` (the JAX ``_ctrunc_div``).
+ported paths run.  Integer images are int32 tensors holding u8 values, as
+channel planes.  The exact LAB conversions go through the hand-written
+kernels of ``ops/kernels.py`` (plain versions on CPU tensors), which also
+hold ``quantize_u8`` and ``ctrunc_div`` (the JAX ``_ctrunc_div``).  HSV is
+cv2's fixed-point 8U path with its division tables (``lab_tables``); the
+fast tier's arithmetic LAB is f32 elementwise math, within a few u8 levels
+of the exact one.
 
 ``u8_to_unit`` is IEEE ``/ 255``, the values of ``stretch.U8_GRID`` and of
 a decoded frame.  Jitted JAX compiles the same division to a multiply by
@@ -13,11 +16,19 @@ the reciprocal (1 ulp off on 126 of the 256 values); eager JAX divides.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from underwater_image_enhancement_tpu_torch.ops import kernels
+from underwater_image_enhancement_tpu_torch.ops import lab_tables as lt
 from underwater_image_enhancement_tpu_torch.ops.kernels import quantize_u8  # noqa: F401
 from underwater_image_enhancement_tpu_torch.ops.layout import div
+
+# x / 255.0 as jitted XLA computes it (a multiply by the f32 reciprocal):
+# the same bits on every device, for the metrics' and features' HSV S
+INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 # cv2 5.x RGB2GRAY fixed-point weights (shift 15)
 _GRAY_SHIFT = 15
@@ -35,6 +46,106 @@ def gray_u8_planes(r, g, b) -> torch.Tensor:
     """Bit-exact cv2 RGB2GRAY from u8-valued int32 planes."""
     acc = r * _R2Y + g * _G2Y + b * _B2Y + (1 << (_GRAY_SHIFT - 1))
     return acc >> _GRAY_SHIFT
+
+
+def rgb_to_gray_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """cv2 RGB2GRAY of a (..., 3) u8-valued int tensor -> (...)."""
+    return gray_u8_planes(rgb_u8[..., 0], rgb_u8[..., 1], rgb_u8[..., 2])
+
+
+@functools.lru_cache(maxsize=None)
+def _hsv_table(name: str, device: torch.device) -> torch.Tensor:
+    """lab_tables' SDIV_TAB or HDIV_TAB on ``device``, copied once (a copy
+    from host memory would wait for the device at every call)."""
+    return torch.as_tensor(getattr(lt, name), device=device)
+
+
+def _gather(name: str, idx: torch.Tensor) -> torch.Tensor:
+    return _hsv_table(name, idx.device)[idx.long()]
+
+
+def _hsv_v_s(r8, g8, b8):
+    """HSV's V, the max - min spread and S = (diff * sdiv[v] + 2^11) >> 12."""
+    v = torch.maximum(torch.maximum(r8, g8), b8)
+    diff = v - torch.minimum(torch.minimum(r8, g8), b8)
+    return v, diff, (diff * _gather("SDIV_TAB", v) + (1 << 11)) >> 12
+
+
+def hsv_s_u8_planes(r8, g8, b8) -> torch.Tensor:
+    """cv2 8U RGB2HSV's S from u8-valued int32 planes, bit-exact."""
+    return _hsv_v_s(r8, g8, b8)[2]
+
+
+def rgb_to_hsv_u8(r8, g8, b8):
+    """cv2 8U RGB2HSV on u8-valued int32 planes, bit-exact -> (h, s, v)
+    planes: H in [0, 180), S and V in [0, 255].  h = (term * hdiv[diff] +
+    2^11) >> 12 (+180 if negative), term chosen by the first channel equal
+    to the max in the order r, g, b."""
+    v, diff, s = _hsv_v_s(r8, g8, b8)
+    term = torch.where(v == r8, g8 - b8,
+                       torch.where(v == g8, b8 - r8 + 2 * diff,
+                                   r8 - g8 + 4 * diff))
+    h = (term * _gather("HDIV_TAB", diff) + (1 << 11)) >> 12
+    h = torch.where(h < 0, h + 180, h)
+    h = torch.where(diff == 0, 0, h)
+    return h, s, v
+
+
+def rgb_to_lab_u8_exact_planes(r8, g8, b8):
+    """Bit-exact RGB2LAB on u8-valued int32 planes -> int32 L/a/b (kernel
+    K1b, ``kernels.lab_forward_u8``)."""
+    return kernels.lab_forward_u8(*(p.contiguous() for p in (r8, g8, b8)))
+
+
+def rgb_to_lab_l_u8_exact(r8, g8, b8) -> torch.Tensor:
+    """The L plane alone of ``rgb_to_lab_u8_exact_planes`` (kernel K4,
+    ``kernels.lab_forward_l_u8``): the brightness metric reads only L."""
+    return kernels.lab_forward_l_u8(*(p.contiguous() for p in (r8, g8, b8)))
+
+
+def _srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    return torch.where(c <= 0.04045, c / 12.92,
+                       torch.pow((c + 0.055) / 1.055, 2.4))
+
+
+def _lab_f(t: torch.Tensor) -> torch.Tensor:
+    d = 6.0 / 29.0
+    return torch.where(t > d ** 3, torch.pow(torch.clamp(t, min=0.0), 1.0 / 3.0),
+                       t / (3.0 * d * d) + 4.0 / 29.0)
+
+
+def _linear_planes(r8, g8, b8):
+    return tuple(_srgb_to_linear(u8_to_unit(p)) for p in (r8, g8, b8))
+
+
+def _xyz_row(lin, k: int) -> torch.Tensor:
+    """Row k of RGB2XYZ applied to the linear planes, over the white."""
+    m = lt.RGB2XYZ_F32
+    acc = lin[0] * float(m[k, 0]) + lin[1] * float(m[k, 1]) + lin[2] * float(m[k, 2])
+    return acc / float(lt.WHITE_F32[k])
+
+
+def rgb_to_lab_u8_arith(r8, g8, b8):
+    """The fast tier's arithmetic RGB2LAB on u8-valued int planes -> f32
+    (L, a, b) planes, rounded and clipped to [0, 255] but not cast: sRGB
+    linearisation, the XYZ matrix, labF with a cube root.  Within a few u8
+    levels of the exact integer pipeline (the JAX ``rgb_to_lab_u8_arith``;
+    its ``cbrt`` and ``** 2.4`` round their last ulp otherwise than torch's
+    ``pow``)."""
+    lin = _linear_planes(r8, g8, b8)
+    fx, fy, fz = (_lab_f(_xyz_row(lin, k)) for k in range(3))
+    L = (116.0 * fy - 16.0) * 255.0 / 100.0
+    a = 500.0 * (fx - fy) + 128.0
+    b = 200.0 * (fy - fz) + 128.0
+    return tuple(torch.clamp(torch.round(v), 0.0, 255.0) for v in (L, a, b))
+
+
+def rgb_u8_to_lab_l_arith_planes(r8, g8, b8) -> torch.Tensor:
+    """The arithmetic L plane (u8 scale, f32, not rounded) of u8-valued
+    int planes: the fast tier's brightness input (the JAX
+    ``rgb_u8_to_lab_l_arith_planes``)."""
+    y = _xyz_row(_linear_planes(r8, g8, b8), 1)
+    return (116.0 * _lab_f(y) - 16.0) * 255.0 / 100.0
 
 
 def rgb_unit_to_lab_planes(r, g, b):

@@ -1,9 +1,13 @@
-"""3x3 correlation and cv2.Canny (aperture 3, L1 gradient) on int planes.
+"""3x3 correlation, Sobel, Laplacian and cv2.Canny (aperture 3, L1
+gradient).
 
-Counterpart of the JAX package's ``ops/edges.py``: Sobel with a REPLICATE
-border, OpenCV's integer non-maximum-suppression sectors (TG22 = 13573 in
-Q15) and tie-breaking, double threshold, and hysteresis bounded to a fixed
-number of 8-connected dilation rounds (64 by default), which the JAX
+Counterpart of the JAX package's ``ops/edges.py``: ``sobel`` and
+``laplacian`` correlate float planes under BORDER_REFLECT_101 (cv2's
+default), summing the nonzero taps in the JAX loop order; Canny takes
+Sobel with a REPLICATE border, OpenCV's integer non-maximum-suppression
+sectors (TG22 = 13573 in Q15) and tie-breaking, double threshold, and
+hysteresis bounded to a fixed number of 8-connected dilation rounds (64 by
+default), which the JAX
 package runs row-packed: here the hysteresis kernel
 (``kernels.hysteresis_propagate``, the same ``e | (weak & dilate8(e))``
 recurrence), so the edge maps are bit-equal.  Planes may carry a leading
@@ -22,16 +26,30 @@ _SOBEL_Y = [[-1, -2, -1], [0, 0, 0], [1, 2, 1]]
 _TG22 = 13573  # tan(22.5 deg) in Q15, as in OpenCV canny.cpp
 
 
-def conv3x3(x: torch.Tensor, kernel) -> torch.Tensor:
-    """Correlate x (..., H, W) with a 3x3 kernel (nested lists) under cv2's
-    BORDER_REPLICATE: nine shifted multiply-adds in the JAX package's
-    order (its ``conv3x3(..., mode="edge")``)."""
+_LAP_K1 = [[0, 1, 0], [1, -4, 1], [0, 1, 0]]
+_LAP_K3 = [[2, 0, 2], [0, -8, 0], [2, 0, 2]]
+
+
+def _border_index(n: int, mode: str, device) -> torch.Tensor:
+    """Source indices of positions -1..n under ``mode``: "edge" clamps
+    (BORDER_REPLICATE), "reflect" mirrors without repeating the edge
+    (BORDER_REFLECT_101, ``jnp.pad``'s reflect; a length-1 axis repeats)."""
+    i = torch.arange(-1, n + 1, device=device)
+    if mode == "reflect":
+        i = torch.where(i < 0, -i, torch.where(i > n - 1, 2 * (n - 1) - i, i))
+    elif mode != "edge":
+        raise ValueError(f"unknown border mode {mode!r}")
+    return torch.clamp(i, 0, n - 1)
+
+
+def conv3x3(x: torch.Tensor, kernel, mode: str = "reflect") -> torch.Tensor:
+    """Correlate x (..., H, W) with a 3x3 kernel (nested lists) under cv2
+    border semantics, ``mode`` "reflect" (BORDER_REFLECT_101) or "edge"
+    (BORDER_REPLICATE): the nonzero taps' shifted products summed in the
+    JAX package's order."""
     H, W = x.shape[-2], x.shape[-1]
-
-    def edge_index(n):  # -1..n, clamped: the replicated border
-        return torch.clamp(torch.arange(-1, n + 1, device=x.device), 0, n - 1)
-
-    xp = x.index_select(-2, edge_index(H)).index_select(-1, edge_index(W))
+    xp = (x.index_select(-2, _border_index(H, mode, x.device))
+          .index_select(-1, _border_index(W, mode, x.device)))
     out = None
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
@@ -41,6 +59,19 @@ def conv3x3(x: torch.Tensor, kernel) -> torch.Tensor:
             term = xp[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W] * k
             out = term if out is None else out + term
     return out
+
+
+def sobel(x: torch.Tensor, axis: str, mode: str = "reflect") -> torch.Tensor:
+    """cv2.Sobel(ksize=3) derivative along "x" (columns) or "y" (rows)."""
+    return conv3x3(x, _SOBEL_X if axis == "x" else _SOBEL_Y, mode)
+
+
+def laplacian(x: torch.Tensor, ksize: int = 1) -> torch.Tensor:
+    """cv2.Laplacian, BORDER_REFLECT_101: ksize 1 the 4-neighbour kernel,
+    ksize 3 [[2, 0, 2], [0, -8, 0], [2, 0, 2]]."""
+    if ksize not in (1, 3):
+        raise ValueError(f"laplacian: ksize must be 1 or 3, got {ksize}")
+    return conv3x3(x, _LAP_K1 if ksize == 1 else _LAP_K3, "reflect")
 
 
 def _shift_zero(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -62,8 +93,8 @@ def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
     package's canny_u8)."""
     single = gray_u8.dim() == 2
     g = (gray_u8[None] if single else gray_u8).to(torch.int32)
-    dx = conv3x3(g, _SOBEL_X)
-    dy = conv3x3(g, _SOBEL_Y)
+    dx = conv3x3(g, _SOBEL_X, "edge")
+    dy = conv3x3(g, _SOBEL_Y, "edge")
     m = dx.abs() + dy.abs()
     if valid_hw is not None:
         h, w = (torch.as_tensor(v, device=g.device).reshape(-1, 1, 1)

@@ -1,10 +1,13 @@
-"""CLAHE with OpenCV-compatible integer semantics (cv2.createCLAHE).
+"""Histograms, entropy, histogram equalization and CLAHE with
+OpenCV-compatible integer semantics (cv2.equalizeHist, cv2.createCLAHE).
 
-Counterpart of the JAX package's ``ops/histeq.py`` for the ``six`` exact
-tier: REFLECT_101 padding to tile multiples, integer tile histograms, clip
-and redistribution with OpenCV's residual stepping, round-half-even LUTs
-(tensor ops), then the per-pixel LUT blend in the CLAHE-apply kernel
-(``kernels.clahe_apply``).  Bit-exact against cv2 on u8 planes.
+Counterpart of the JAX package's ``ops/histeq.py``.  Histograms are exact
+integer counts from one ``scatter_add_`` (no host sync, unlike
+``torch.bincount`` on a card).  CLAHE: REFLECT_101 padding to tile
+multiples, integer tile histograms, clip and redistribution with OpenCV's
+residual stepping, round-half-even LUTs (tensor ops), then the per-pixel
+LUT blend in the CLAHE-apply kernel (``kernels.clahe_apply``).  Bit-exact
+against cv2 on u8 planes.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from underwater_image_enhancement_tpu_torch.ops import colorspace as cs
 from underwater_image_enhancement_tpu_torch.ops import kernels
+from underwater_image_enhancement_tpu_torch.ops.layout import div
 
 
 def _reflect101_index(n: int, n_out: int) -> np.ndarray:
@@ -26,6 +30,55 @@ def _reflect101_index(n: int, n_out: int) -> np.ndarray:
     period = 2 * (n - 1)
     i = i % period
     return np.where(i < n, i, period - i)
+
+
+def histogram256(rows: torch.Tensor) -> torch.Tensor:
+    """256-bin histograms of u8-valued int rows: (T, N) -> (T, 256) int32,
+    exact, one scatter-add (no host sync)."""
+    T = rows.shape[0]
+    key = rows.long() + 256 * torch.arange(T, device=rows.device)[:, None]
+    hist = torch.zeros(T * 256, dtype=torch.int32, device=rows.device)
+    hist.scatter_add_(0, key.reshape(-1),
+                      torch.ones(key.numel(), dtype=torch.int32,
+                                 device=rows.device))
+    return hist.reshape(T, 256)
+
+
+def shannon_entropy_u8(plane_u8: torch.Tensor) -> torch.Tensor:
+    """Base-2 Shannon entropy of a u8-valued int plane (skimage's
+    shannon_entropy on u8 data) -> 0-dim f32."""
+    # / n as jitted XLA computes it: times the f32 reciprocal (the same
+    # bits on every device)
+    inv_n = float(np.float32(1.0) / np.float32(plane_u8.numel()))
+    p = histogram256(plane_u8.reshape(1, -1))[0].to(torch.float32) * inv_n
+    return -torch.sum(torch.where(
+        p > 0, p * torch.log2(torch.clamp(p, min=1e-30)), 0.0))
+
+
+def equalize_hist_u8(channel_u8: torch.Tensor) -> torch.Tensor:
+    """cv2.equalizeHist on a u8-valued int32 plane (H, W): the first
+    occupied bin maps to 0 and leaves the normaliser; lut[i] =
+    rint((cdf[i] - cdf[i0]) * f32(255 / (n - hist[i0]))) with an IEEE
+    division; a constant plane comes back unchanged."""
+    n = channel_u8.numel()
+    hist = histogram256(channel_u8.reshape(1, -1))[0]
+    i0 = torch.argmax((hist > 0).to(torch.int32))  # the first occupied bin
+    cdf = torch.cumsum(hist, 0)
+    denom = (n - hist[i0]).to(torch.float32)
+    scale = torch.where(denom > 0,
+                        div(torch.full_like(denom, 255.0),
+                            torch.clamp(denom, min=1.0)), 0.0)
+    lut = torch.clamp(torch.round((cdf - cdf[i0]).to(torch.float32) * scale),
+                      0, 255).to(torch.int32)
+    out = lut[channel_u8.long()]
+    return torch.where(denom > 0, out, channel_u8.to(torch.int32))
+
+
+def histogram_equalization_planes(planes):
+    """Per-channel equalizeHist of quantize_u8 of f32 unit planes, back to
+    unit floats (enhancement_strategies.py:330-345)."""
+    return tuple(cs.u8_to_unit(equalize_hist_u8(cs.quantize_u8(p)))
+                 for p in planes)
 
 
 class ClaheGeometry(NamedTuple):
@@ -62,9 +115,7 @@ def _clahe_luts(x: torch.Tensor, geo: ClaheGeometry, clip_limit: float):
     T = ty * tx
     area = th * tw
     tiles = x.reshape(ty, th, tx, tw).permute(0, 2, 1, 3).reshape(T, area)
-    tile_id = torch.arange(T, device=x.device)[:, None] * 256
-    hist = torch.bincount((tiles + tile_id).reshape(-1).long(),
-                          minlength=T * 256).reshape(T, 256).to(torch.int32)
+    hist = histogram256(tiles)
     clip = max(int(clip_limit * area / 256.0), 1)
     clipped = torch.clamp(hist, max=clip)
     excess = (hist - clipped).sum(dim=1, dtype=torch.int32)

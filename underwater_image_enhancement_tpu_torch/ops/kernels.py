@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of the ``six`` tiers, their wrappers, and
+"""The hand-written CUDA kernels of the ported paths, their wrappers, and
 their plain PyTorch versions.
 
 Each wrapper checks its inputs, then dispatches on the input tensors'
@@ -11,6 +11,8 @@ counts kernel launches, and only those.
 |--------------------------|----------------------|----------------------------------|
 | lab_forward_unit         | csrc/lab_forward.cu  | lab_forward_planes_unit          |
 | lab_forward_unit_approx  | csrc/lab_forward.cu  | lab_forward_planes_unit_approx   |
+| lab_forward_u8           | csrc/lab_forward.cu  | lab_forward_planes               |
+| lab_forward_l_u8         | csrc/lab_forward.cu  | lab_forward_l_plane              |
 | clahe_apply              | csrc/clahe_apply.cu  | clahe_apply                      |
 | lab_inverse_unit         | csrc/lab_inverse.cu  | lab_inverse_planes_unit          |
 | lab_inverse_unit_gamma   | csrc/lab_inverse.cu  | lab_inverse_planes_unit_gamma    |
@@ -40,6 +42,8 @@ from underwater_image_enhancement_tpu_torch.utils import cuda_build
 launches: Dict[str, int] = {
     "lab_forward_unit": 0,
     "lab_forward_unit_approx": 0,
+    "lab_forward_u8": 0,
+    "lab_forward_l_u8": 0,
     "clahe_apply": 0,
     "lab_inverse_unit": 0,
     "lab_inverse_unit_gamma": 0,
@@ -112,10 +116,11 @@ def quantize_u8(img: torch.Tensor) -> torch.Tensor:
     return torch.clamp(img * 255.0, 0.0, 255.0).to(torch.int32)
 
 
-def lab_forward_u8_plain(r8, g8, b8, cbrt_fn=None):
+def lab_forward_u8_plain(r8, g8, b8, cbrt_fn=None, l_only: bool = False):
     """OpenCV RGB2Lab_b on u8-valued int32 planes (inputs clipped to
-    [0, 255]) -> int32 (L, a, b).  ``cbrt_fn(idx)`` replaces the CBRT_TAB
-    gather (the approximate tier's surrogate)."""
+    [0, 255]) -> int32 (L, a, b), or L alone with ``l_only`` (one cube root,
+    no fX/fZ).  ``cbrt_fn(idx)`` replaces the CBRT_TAB gather (the
+    approximate tier's surrogate)."""
     tab = _table("fwd", r8.device)
     h = 2 + 9
     gamma, cbrt = tab[h:h + 256], tab[h + 256:]
@@ -127,12 +132,37 @@ def lab_forward_u8_plain(r8, g8, b8, cbrt_fn=None):
         idx = torch.clamp(_descale(acc, lt.LAB_SHIFT), 0, lt.NCBRT - 1)
         return cbrt[idx.long()] if cbrt_fn is None else cbrt_fn(idx)
 
-    fX, fY, fZ = cbrt_of(0), cbrt_of(1), cbrt_of(2)
     clip = lambda v: torch.clamp(v, 0, 255)  # noqa: E731
+    fY = cbrt_of(1)
     L = clip(_descale(lt.L_SCALE * fY + lt.L_SHIFT, lt.LAB_SHIFT2))
+    if l_only:
+        return L
+    fX, fZ = cbrt_of(0), cbrt_of(2)
     a = clip(_descale(500 * (fX - fY) + (128 << lt.LAB_SHIFT2), lt.LAB_SHIFT2))
     b = clip(_descale(200 * (fY - fZ) + (128 << lt.LAB_SHIFT2), lt.LAB_SHIFT2))
     return L, a, b
+
+
+def lab_forward_u8(r8, g8, b8):
+    """Bit-exact RGB2LAB on u8-valued int32 planes (H, W), clipped to
+    [0, 255] -> int32 (L, a, b) planes (kernel K1b)."""
+    dev = _check("lab_forward_u8", (r8, g8, b8), torch.int32)
+    if dev.type == "cpu":
+        return lab_forward_u8_plain(r8, g8, b8)
+    return _launch("lab_forward_u8", r8, g8, b8, _table("fwd", dev))
+
+
+def lab_forward_l_u8_plain(r8, g8, b8):
+    return lab_forward_u8_plain(r8, g8, b8, l_only=True)
+
+
+def lab_forward_l_u8(r8, g8, b8):
+    """The L plane alone of ``lab_forward_u8``: one cube root and one output
+    plane (kernel K4, the brightness metric's input)."""
+    dev = _check("lab_forward_l_u8", (r8, g8, b8), torch.int32)
+    if dev.type == "cpu":
+        return lab_forward_l_u8_plain(r8, g8, b8)
+    return _launch("lab_forward_l_u8", r8, g8, b8, _table("fwd", dev))
 
 
 def lab_forward_unit_plain(r, g, b):

@@ -1,8 +1,11 @@
-"""OpenCV's integer RGB2Lab_b / Lab2RGBinteger tables, built with numpy.
+"""OpenCV's integer RGB2Lab_b / Lab2RGBinteger tables, its 8U HSV
+division tables, and the f32 constants of the arithmetic LAB, built with
+numpy.
 
 The port's own copy of the reference tables (the JAX package's
-``ops/lab_tables.py`` builds the same arrays; tests hold them equal).  The
-cube-root table is built in float32 to match OpenCV's softfloat table init.
+``ops/lab_tables.py`` and ``ops/colorspace.py`` build the same arrays;
+tests hold them equal).  The cube-root table is built in float32 to match
+OpenCV's softfloat table init.
 """
 
 from __future__ import annotations
@@ -89,3 +92,15 @@ INV_HEADER = np.concatenate([
     [MIN_AB, AB_MAX, AB_LIN_THRESH, AB_LIN_K, ADIV_OFFSET, BDIV_OFFSET]])
 INV_TABLE = np.concatenate([INV_HEADER, L2YF_TAB[:, 0], L2YF_TAB[:, 1],
                             INV_GAMMA_TAB]).astype(np.int32)
+
+# cv2 8U RGB2HSV fixed-point division tables (hsv_shift 12), np.round (half
+# to even): sdiv[i] = round((255 << 12) / i), hdiv[i] = round((180 << 12) /
+# (6 i)), 0 at i = 0.
+SDIV_TAB = np.zeros(256, np.int32)
+SDIV_TAB[1:] = np.round((255 << 12) / np.arange(1, 256)).astype(np.int32)
+HDIV_TAB = np.zeros(256, np.int32)
+HDIV_TAB[1:] = np.round((180 << 12) / (6.0 * np.arange(1, 256))).astype(np.int32)
+
+# the arithmetic (fast-tier) LAB's sRGB -> XYZ matrix and D65 white, f32
+RGB2XYZ_F32 = _M_RGB2XYZ.astype(np.float32)
+WHITE_F32 = _WHITE_D65.astype(np.float32)

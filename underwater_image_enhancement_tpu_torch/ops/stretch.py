@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``ops/stretch.py``.  Three percentile
 methods:
 
-- ``"sort"`` (the ``six`` exact tier): ``np.percentile``'s linear
-  interpolation.  The JAX exact tier selects the order statistics with an
+- ``"sort"`` (the exact tiers; ``"radix"``, the JAX exact tier's method,
+  is another name for it): ``np.percentile``'s linear interpolation.  The
+  JAX exact tier selects the order statistics with an
   O(n) radix select that is bit-equal to its full-sort oracle; here one
   ``torch.sort`` of the stacked channels gives the same order statistics,
   and the interpolation is the same f32 arithmetic (indices and weights
@@ -63,6 +64,12 @@ def percentiles_planes(planes, pcts) -> torch.Tensor:
     lw = torch.tensor([i[2] for i in idx], dtype=torch.float32, device=dev)
     hw = torch.tensor([i[3] for i in idx], dtype=torch.float32, device=dev)
     return srt[:, lo] * lw + srt[:, hi] * hw
+
+
+def percentiles(channel: torch.Tensor, pcts) -> torch.Tensor:
+    """Exact np.percentile-convention percentiles of one plane ->
+    (len(pcts),) f32 (the JAX ``percentiles_radix``)."""
+    return percentiles_planes((channel,), pcts)[0]
 
 
 def perc_pairs_hist(planes, l_low: float, l_high: float, k: int = 32,
@@ -149,9 +156,10 @@ def _stretch(planes, pairs, eps: float):
 def color_enhancement_planes(planes, l_low=15.0, l_high=95.0,
                              eps: float = 1e-10, method: str = "sort"):
     """Per-channel percentile stretch (p - lo) / (hi - lo + eps), clipped to
-    [0, 1] (enhancement_strategies.py:251-273).  method: "sort" (exact
-    np.percentile) or "hist-fast" (``perc_pairs_hist`` on every 8th row)."""
-    if method == "sort":
+    [0, 1] (enhancement_strategies.py:251-273).  method: "sort" or "radix"
+    (exact np.percentile) or "hist-fast" (``perc_pairs_hist`` on every 8th
+    row)."""
+    if method in ("sort", "radix"):
         pr = percentiles_planes(planes, (l_low, l_high))
         pairs = [(pr[c, 0], pr[c, 1]) for c in range(len(planes))]
     elif method == "hist-fast":
@@ -177,3 +185,10 @@ def white_balance_planes(planes, percentile=5.0, method: str = "sort"):
 def gamma_correction_pow(img: torch.Tensor, gamma=1.2) -> torch.Tensor:
     """img ** gamma, no clip (six_stadigy.py:221-224)."""
     return torch.pow(torch.clamp(img, min=0.0), float(gamma))
+
+
+def gamma_correction_inv(img: torch.Tensor, gamma=1.2) -> torch.Tensor:
+    """clip(max(img, 0) ** (1/gamma), 0, 1) (enhancement_strategies.py:
+    276-285); 1/gamma is the f32 quotient jitted XLA folds."""
+    inv = float(_f32(1.0) / _f32(gamma))
+    return torch.clamp(torch.pow(torch.clamp(img, min=0.0), inv), 0.0, 1.0)

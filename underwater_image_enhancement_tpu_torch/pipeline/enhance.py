@@ -8,6 +8,11 @@
   recomputation).  ``fast=True`` is the histogram-percentile tier.
 - ``enhance(img, params)`` / ``enhance_batch``: the fixed-parameter
   enhance of use_trained_model.py:83-111 (``models.diff_enhance``).
+- ``auto_enhance_batch(imgs)``: main.py's Phase-1 per-image logic: the
+  five config-flavour strategies (``pipeline/strategies.py``, exact tier),
+  each scored with the 6-weight quality total, and the best one kept.
+  The argmax runs on the device (the first index wins ties, as
+  ``jnp.argmax``), so a frame is read back once, by the caller.
 """
 
 from __future__ import annotations
@@ -17,16 +22,30 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from underwater_image_enhancement_tpu_torch.metrics.quality import (
+    comprehensive_planes,
+)
 from underwater_image_enhancement_tpu_torch.models import diff_enhance
-from underwater_image_enhancement_tpu_torch.ops.layout import split_planes
+from underwater_image_enhancement_tpu_torch.ops.layout import (
+    split_planes,
+    stack_planes,
+)
 from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
 from underwater_image_enhancement_tpu_torch.pipeline.six import (
     SIX_STRATEGIES,
     airlight,
     run_strategy,
 )
+from underwater_image_enhancement_tpu_torch.pipeline.strategies import (
+    LABEL_ORDER,
+    strategy_planes,
+)
+from underwater_image_enhancement_tpu_torch.utils.config import (
+    DEFAULT_QUALITY_WEIGHTS,
+)
 
 SIX_ORDER = tuple(SIX_STRATEGIES)  # strong, medium, light, clahe, wb, hist_eq
+CONFIG_ORDER = LABEL_ORDER  # strong, medium, clahe, light, histogram_eq
 
 # the predictor's safety-clamp defaults (use_trained_model.py:69-79)
 DEFAULT_PARAMS = {
@@ -100,3 +119,40 @@ def enhance(img, params: Optional[Dict[str, float]] = None,
     return enhance_batch(img[None], p["L_low"], p["L_high"], p["omega"],
                          p["gamma"], stretch_mode=stretch_mode,
                          device=device)[0]
+
+
+def score_strategies(img: torch.Tensor, weights: Dict[str, float],
+                     fast: bool = False):
+    """The five strategies of one (H, W, 3) image on its device and their
+    weighted quality totals -> (list of five (r, g, b) plane tuples in
+    CONFIG_ORDER, (5,) f32 scores)."""
+    outs = strategy_planes(img, fast)
+    return outs, torch.stack([comprehensive_planes(o, weights, fast)
+                              for o in outs])
+
+
+def select_planes(outs, best: torch.Tensor) -> torch.Tensor:
+    """The (H, W, 3) output of strategy ``best`` (a 0-dim index tensor on
+    the device), picked with an elementwise where-chain: no host read."""
+    picked = []
+    for c in range(3):
+        acc = outs[0][c]
+        for k in range(1, len(outs)):
+            acc = torch.where(best == k, outs[k][c], acc)
+        picked.append(acc)
+    return stack_planes(picked)
+
+
+def auto_enhance_batch(imgs, device: Union[str, torch.device] = "cuda"):
+    """(B, H, W, 3) images in [0, 1] (numpy array or tensor) -> (best
+    images (B, H, W, 3), best index (B,) int64, scores (B, 5)), tensors on
+    ``device``; indices follow CONFIG_ORDER."""
+    imgs = _on_device(imgs, resolve_device(device))
+    best_imgs, best_idx, all_scores = [], [], []
+    for img in imgs:
+        outs, scores = score_strategies(img, DEFAULT_QUALITY_WEIGHTS)
+        best = torch.argmax(scores)
+        best_imgs.append(select_planes(outs, best))
+        best_idx.append(best)
+        all_scores.append(scores)
+    return torch.stack(best_imgs), torch.stack(best_idx), torch.stack(all_scores)

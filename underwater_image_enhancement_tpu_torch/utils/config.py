@@ -1,11 +1,16 @@
-"""Configuration constants the ported paths need (no dataclass config yet).
+"""Configuration of the ported paths: constants and the Phase-1 run
+configuration.
 
 Values mirror the reference's config.py and six_stadigy.py; the JAX
-package's ``utils/config.py`` carries the same numbers."""
+package's ``utils/config.py`` carries the same numbers (the port keeps its
+own copy; ``tests/test_torch_tables.py`` holds them equal)."""
 
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+import os
+from pathlib import Path
+from typing import Any, Dict, List
 
 SUPPORTED_FORMATS: List[str] = [".jpg", ".jpeg", ".png", ".tif", ".tiff", ".bmp"]
 
@@ -26,3 +31,84 @@ SIX_PARAMS = {
                       "gamma": 1.2},
     "histogram_eq": {"stretch": (5.0, 98.0), "clahe": 3.5, "gamma": 1.4},
 }
+
+# The five "config flavour" strategies (config.py:28-75), the Phase-1
+# labels.  Dehaze: omega, guided-filter radius, stretch L_low/L_high and an
+# optional img**(1/gamma); CLAHE and histogram equalization take their
+# stretch bounds from pipeline/strategies.py.
+DEFAULT_STRATEGIES: Dict[str, Dict[str, Any]] = {
+    "strong_dehazing": {
+        "name": "StrongDehazing", "omega": 0.5, "guided_radius": 15,
+        "L_low": 10, "L_high": 95, "gamma": 1.2, "apply_gamma": True,
+    },
+    "medium_dehazing": {
+        "name": "MediumDehazing", "omega": 0.6, "guided_radius": 20,
+        "L_low": 15, "L_high": 92, "apply_gamma": True,
+    },
+    "light_enhancement": {
+        "name": "LightEnhancement", "omega": 0.4, "guided_radius": 10,
+        "L_low": 15, "L_high": 95, "apply_gamma": False,
+    },
+    "clahe_enhancement": {
+        "name": "CLAHEEnhancement", "clip_limit": 2.0,
+        "tile_grid_size": (8, 8), "apply_gamma": False,
+    },
+    "histogram_equalization": {
+        "name": "HistogramEqualization", "L_low": 10, "L_high": 95,
+    },
+}
+
+# Quality weights of config.py:78-85: six of the eight metrics; colorfulness
+# and naturalness get 0 through weights.get(key, 0)
+# (quality_assessment.py:284).
+DEFAULT_QUALITY_WEIGHTS: Dict[str, float] = {
+    "contrast": 0.25, "sharpness": 0.20, "entropy": 0.15,
+    "saturation": 0.15, "brightness": 0.15, "edge_density": 0.10,
+}
+
+# The eight-metric defaults used when no weights are passed
+# (quality_assessment.py:229-238).
+FULL_QUALITY_WEIGHTS: Dict[str, float] = {
+    "contrast": 0.20, "sharpness": 0.20, "entropy": 0.15,
+    "saturation": 0.15, "brightness": 0.10, "edge_density": 0.10,
+    "colorfulness": 0.05, "naturalness": 0.05,
+}
+
+
+@dataclasses.dataclass
+class Config:
+    """Phase-1 run configuration (config.py's paths and switches).  The port
+    runs on one device, so it has no data-parallel knobs."""
+
+    image_folder: str = "./data/raw"
+    output_folder: str = "./results/self_supervised_v1"
+    save_all_enhanced: bool = False  # config.py:123
+    batch_size: int = 8
+    # label with the throughput tier (banded airlight, fast guided filter,
+    # histogram percentiles, arithmetic LAB): near-tie winners may flip
+    fast_label: bool = False
+    quality_weights: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_QUALITY_WEIGHTS))
+
+    @property
+    def feature_folder(self) -> str:
+        return os.path.join(self.output_folder, "features")
+
+    @property
+    def strategy_folder(self) -> str:
+        return os.path.join(self.output_folder, "strategy_results")
+
+    @property
+    def model_folder(self) -> str:
+        return os.path.join(self.output_folder, "trained_models")
+
+    @property
+    def report_folder(self) -> str:
+        return os.path.join(self.output_folder, "reports")
+
+    def create_folders(self) -> None:
+        """config.py:131-147."""
+        for folder in (self.output_folder, self.feature_folder,
+                       self.strategy_folder, self.model_folder,
+                       self.report_folder):
+            Path(folder).mkdir(parents=True, exist_ok=True)

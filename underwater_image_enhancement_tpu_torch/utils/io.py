@@ -190,10 +190,11 @@ class AsyncWriter:
         return False
 
 
-def decode_iter(files, log=print):
+def decode_iter(files, log=print, min_size: int = 0):
     """Decode-ahead iterator: yields (path, float32 RGB [0, 1]) in order
     while a background thread decodes the next images (queue of 8).
-    Unreadable files are logged and skipped."""
+    Unreadable files, and images under ``min_size`` pixels on either side,
+    are logged and skipped."""
     import queue
     import threading
 
@@ -214,6 +215,9 @@ def decode_iter(files, log=print):
         path, img = item
         if img is None:
             log(f"warning: unreadable {path.name}")
+            continue
+        if min_size and (img.shape[0] < min_size or img.shape[1] < min_size):
+            log(f"warning: {path.name} too small, skipping")
             continue
         yield path, img
     t.join()
