@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Drives ``underwater_image_enhancement_tpu_torch`` (never JAX) through the
-``six`` exact tier, the ``six --fast`` tier, ``enhance`` and the Phase-1
-labeling path (``auto``, ``build-dataset``, ``build-dataset --fast``) at
-1920x1080.  Phases (each prints one line or more; a failed check raises and
-the script exits non-zero):
+``six`` exact tier, the ``six --fast`` tier, ``enhance``, the Phase-1
+labeling path (``auto``, ``build-dataset``, ``build-dataset --fast``),
+``assess`` and the colour and CLAHE entry points (the fused CLAHE legs, the
+u8 LAB round trip, the probe-corrected forward LAB) at 1920x1080.  Phases
+(each prints one line or more; a failed check raises and the script exits
+non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile ``csrc/`` into the package's PyTorch extension
@@ -15,21 +17,30 @@ the script exits non-zero):
    card: forward LAB, exact and approximate on f32 planes and exact on
    int32 planes (K1b, and K4's L alone), over all 2**24 u8 RGB triples (K4
    equal to K1b's L, K1b to K1 on the u8 grid, and both on int32 values
-   outside [0, 255]), inverse LAB (and its gamma variant for each recipe
-   gamma) over all 2**24 (L, a, b) triples, CLAHE apply at 1080x1920 and
-   1079x1917 for the five clip limits, hysteresis at 1080x1920 for 4 and 64
-   rounds, prefix sums on (6, 1080, 1920) rows, (7, 135, 1920) rows and
-   (18, 1920) along the last axis (each kernel again below on the main
-   path's own buffers);
+   outside [0, 255]), the surrogate probe K9 for both tables against the
+   CPU's (its corrections printed; None fails), the probe-corrected
+   forward LAB K8 ``_fast`` over all 2**24 u8 RGB triples (its mismatches
+   against K1 printed), inverse LAB (u8 K3b, unit K3 = K3b / 255, and the
+   gamma variant for each recipe gamma) over all 2**24 (L, a, b) triples,
+   CLAHE apply and the fused CLAHE + inverse K5 (also against K2 then K3b)
+   at 1080x1920 and 1079x1917 for the five clip limits, hysteresis at
+   1080x1920 for 4 and 64 rounds, prefix sums on (6, 1080, 1920) rows,
+   (7, 135, 1920) rows and (18, 1920) along the last axis (each kernel
+   again below on the main path's own buffers);
 4. slice: three seeded synthetic 1920x1080 underwater frames, written with
    the port's PNG codec, through ``cli six``, ``cli six --fast``, ``cli
-   enhance``, ``cli auto``, ``cli build-dataset`` and ``cli build-dataset
-   --fast`` in-process on ``cuda``; their outputs (18 + 18 + 3 PNGs and the
-   CSV logs; 3 winners; the dataset CSV with 5 scores a row and
-   ``dataset.pkl`` with three finite 79-value vectors); the kernel launch
-   counts of each run (counts set to 0 just before it, read just after);
-   every kernel call of the five runs but ``enhance`` replayed on its own
-   inputs against the plain version, bit-equal; frame 0 on the card against
+   enhance``, ``cli auto``, ``cli build-dataset``, ``cli build-dataset
+   --fast`` and ``cli assess`` in-process on ``cuda``, then the five CLAHE
+   legs of each frame fused (``impl="fused"``, K5) against split, and each
+   frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
+   probe run anew) back to RGB (K3b); their outputs (18 + 18 + 3 PNGs and
+   the CSV logs; 3 winners; the dataset CSV with 5 scores a row and
+   ``dataset.pkl`` with three finite 79-value vectors; the assess table);
+   the kernel launch counts of each run (counts set to 0 just before it,
+   read just after; every kernel launched at least once); every kernel
+   call of the runs but ``enhance`` replayed on its own inputs against the
+   plain version, bit-equal; UIQM and UCIQE of each frame on the card
+   within 1e-4 relative of the CPU path; frame 0 on the card against
    the port's CPU path: ``six`` in each tier (cast code, airlight A and
    final box equal; recipes 4-6 within 1e-6, 1-3 at >= 50 dB),
    ``enhance_batch`` within 1e-6, and the label program in each tier (the
@@ -42,9 +53,11 @@ the script exits non-zero):
    sums, ms per frame of ``auto_enhance_batch`` and of the label program
    (strategies, scores and features; each part alone too) in each tier,
    one ``torch.profiler``
-   frame of each of these (device busy and idle share, launches), and each
-   kernel on the main path's inputs beside its bound, its plain version
-   and, for the prefix sums, ``torch.cumsum``.
+   frame of each of these (device busy and idle share, launches), a CLAHE
+   leg fused against split (in turns), ms per frame of UIQM, UCIQE and the
+   assess command's work (one profiled frame), and each kernel on the main
+   path's inputs beside its bound, its plain version and, for the prefix
+   sums, ``torch.cumsum``.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -99,9 +112,25 @@ KERNELS = {
     "hysteresis_propagate": (SRC + "hysteresis.cu", PK + ":75", 10,
                              "hysteresis_propagate_plain"),
     "sat_rows": (SRC + "scan.cu", PK + ":267", 1, "sat_rows_plain"),
+    "lab_inverse_u8": (SRC + "lab_inverse.cu", PK + ":929", 60,
+                       "lab_inverse_u8_plain"),
+    # the blend (~30) and the inverse (~60)
+    "clahe_lab_apply": (SRC + "clahe_lab_apply.cu", PK + ":344", 90,
+                        "clahe_lab_apply_plain"),
+    # K1's work plus three 4-step surrogates (~35 ops each) and fix-ups
+    "lab_forward_unit_fast": (SRC + "lab_forward.cu", PK + ":912", 150,
+                              "lab_forward_unit_fast_plain"),
+    # timed as the cube-root probe it launches: ~50 f32 ops an index
+    "surrogate_corrections": (SRC + "probe.cu", PK + ":529", 50,
+                              "surrogate_corrections_plain"),
 }
+# the wrapper whose calls are captured and replayed: all but the probe's,
+# whose result is cached (its kernel launches on a device's first call)
+CAPTURED = tuple(k for k in KERNELS if k != "surrogate_corrections")
+NEW = ("lab_inverse_u8", "clahe_lab_apply", "lab_forward_unit_fast",
+       "surrogate_corrections")
 COMMON = {"clahe_apply": 15, "lab_inverse_unit": 6,
-          "lab_inverse_unit_gamma": 9}
+          "lab_inverse_unit_gamma": 9, **dict.fromkeys(NEW, 0)}
 EXPECTED_FAST = {**COMMON, "lab_forward_unit": 0,
                  "lab_forward_unit_approx": 15, "lab_forward_u8": 0,
                  "lab_forward_l_u8": 0, "hysteresis_propagate": 3,
@@ -109,7 +138,8 @@ EXPECTED_FAST = {**COMMON, "lab_forward_unit": 0,
 # the label runs on three frames: the shared launches (the exact tier's K7
 # and K6 add one call a descent level, checked apart)
 LABEL_COMMON = {"lab_forward_unit_approx": 0, "clahe_apply": 3,
-                "lab_inverse_unit": 3, "lab_inverse_unit_gamma": 0}
+                "lab_inverse_unit": 3, "lab_inverse_unit_gamma": 0,
+                **dict.fromkeys(NEW, 0)}
 EXPECTED_LABEL = {
     # 5 brightness L planes (K4) and 5 metric Cannys (K7) a frame
     "auto": {**LABEL_COMMON, "lab_forward_unit": 3, "lab_forward_l_u8": 15,
@@ -117,21 +147,32 @@ EXPECTED_LABEL = {
     # the features add one K1b and one Canny a frame
     "build": {**LABEL_COMMON, "lab_forward_unit": 3, "lab_forward_l_u8": 15,
               "lab_forward_u8": 3},
-    "build_fast": {"lab_forward_unit": 0, "lab_forward_unit_approx": 3,
-                   "lab_forward_u8": 0, "lab_forward_l_u8": 0,
-                   "clahe_apply": 3, "lab_inverse_unit": 3,
-                   "lab_inverse_unit_gamma": 0, "hysteresis_propagate": 21,
+    "build_fast": {**LABEL_COMMON, "lab_forward_unit": 0,
+                   "lab_forward_unit_approx": 3, "lab_forward_u8": 0,
+                   "lab_forward_l_u8": 0, "hysteresis_propagate": 21,
                    "sat_rows": 3},
 }
+# this slice's runs on three frames: cli assess (K4 for the brightness,
+# K7 for the edge density, K1b for UCIQE), the five CLAHE legs fused (K5
+# once a leg), and the u8 LAB round trip with the probe-corrected forward
+# LAB (K9 once: the first call on the card probes)
+NONE = dict.fromkeys(KERNELS, 0)
+EXPECTED_SLICE = {
+    "assess": {**NONE, "lab_forward_l_u8": 3, "hysteresis_propagate": 3,
+               "lab_forward_u8": 3},
+    "clahe_fused": {**NONE, "lab_forward_unit": 15, "clahe_lab_apply": 15},
+    "lab_u8": {**NONE, "lab_forward_u8": 3, "lab_forward_unit_fast": 3,
+               "surrogate_corrections": 1, "lab_inverse_u8": 3},
+}
+# (clip limit, gamma) of the six recipes' five CLAHE legs
+CLAHE_LEGS = ((3.0, 1.5), (2.0, None), (4.0, None), (1.5, 1.2), (3.5, 1.4))
 # K7 calls beyond one a descent level: the metric (and feature) Cannys
 EXTRA_CANNY = {"auto": 15, "build": 18}
 F32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores, ops per second
-OUR_KERNELS = ("lab_forward_kernel<float, false, false>",
-               "lab_forward_kernel<float, true, false>",
-               "lab_forward_kernel<int, false, false>",
-               "lab_forward_kernel<int, false, true>", "clahe_apply_kernel",
-               "lab_inverse_unit_kernel<false>",
-               "lab_inverse_unit_kernel<true>", "hysteresis_kernel",
+# the package's CUDA kernels by function name (instances counted apart)
+OUR_KERNELS = ("lab_forward_kernel", "clahe_apply_kernel",
+               "clahe_lab_apply_kernel", "lab_inverse_kernel",
+               "surrogate_probe_kernel", "hysteresis_kernel",
                "block_totals_kernel", "block_scan_kernel")
 
 
@@ -202,8 +243,8 @@ def capture_calls(torch, kernels):
     kept (tensors cloned) while it runs as before.  The pipeline looks the
     wrappers up on the module at each call, so it goes through these.
     Returns (calls by wrapper name, a function that restores the module)."""
-    calls = {name: [] for name in KERNELS}
-    originals = {name: getattr(kernels, name) for name in KERNELS}
+    calls = {name: [] for name in CAPTURED}
+    originals = {name: getattr(kernels, name) for name in CAPTURED}
 
     def keep(name):
         def wrapper(*args):
@@ -212,7 +253,7 @@ def capture_calls(torch, kernels):
             return originals[name](*args)
         return wrapper
 
-    for name in KERNELS:
+    for name in CAPTURED:
         setattr(kernels, name, keep(name))
 
     def restore():
@@ -232,7 +273,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from underwater_image_enhancement_tpu_torch import cli
     from underwater_image_enhancement_tpu_torch.ops import airlight
+    from underwater_image_enhancement_tpu_torch.ops import colorspace as tcs
     from underwater_image_enhancement_tpu_torch.ops import histeq, kernels
+    from underwater_image_enhancement_tpu_torch.ops.colorspace import (
+        quantize_u8,
+        u8_to_unit,
+    )
     from underwater_image_enhancement_tpu_torch.ops.layout import split_planes
     from underwater_image_enhancement_tpu_torch.ops.stretch import U8_GRID
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
@@ -247,8 +293,10 @@ def main() -> int:
         extract_all_features,
     )
     from underwater_image_enhancement_tpu_torch.metrics.quality import (
+        comprehensive_assessment,
         comprehensive_planes,
     )
+    from underwater_image_enhancement_tpu_torch.metrics.uiqm import uciqe, uiqm
     from underwater_image_enhancement_tpu_torch.pipeline.strategies import (
         DEHAZE,
         STRATEGY_DISPLAY,
@@ -315,6 +363,24 @@ def main() -> int:
     rgb = tuple(grid[t.long()] for t in trip)
     replay("lab_forward_unit", rgb, "all 2^24 u8 RGB triples")
     replay("lab_forward_unit_approx", rgb, "all 2^24 u8 RGB triples")
+    # K9: both probes on the card against the plain probe on the CPU
+    probes = {}
+    for tname in ("cbrt", "inv_gamma"):
+        got = kernels.surrogate_values(tname, dev)
+        expect_equal("surrogate_corrections", (got.cpu(),),
+                     (kernels.surrogate_values_plain(tname, "cpu"),),
+                     f"every {tname} table index")
+        probes[tname] = kernels.surrogate_corrections(tname, dev)
+        check(probes[tname] == kernels.surrogate_corrections_plain(tname, "cpu"),
+              f"{tname}: the card's corrections {probes[tname]} are not the CPU's")
+    check(probes["cbrt"] is not None, "the cube-root probe gave None on the "
+          "card: K8 _fast would read the table")
+    log("probe", cbrt_fixups=len(probes["cbrt"][0]),
+        cbrt=json.dumps(probes["cbrt"], separators=(",", ":")),
+        inv_gamma=json.dumps(probes["inv_gamma"], separators=(",", ":")))
+    replay("lab_forward_unit_fast", rgb, "all 2^24 u8 RGB triples")
+    fast_vs_k1 = sum(int((f != e).sum()) for f, e in zip(
+        kernels.lab_forward_unit_fast(*rgb), kernels.lab_forward_unit(*rgb)))
     approx_d = max(int((a - e).abs().max()) for a, e in zip(
         kernels.lab_forward_unit_approx(*rgb), kernels.lab_forward_unit(*rgb)))
     check(approx_d == 1, f"approximate LAB off exact by {approx_d}, not 1")
@@ -334,11 +400,10 @@ def main() -> int:
     replay("lab_forward_l_u8", wide, f"{H}x{W} int32 values in [-300, 600)")
     del wide
     replay("lab_inverse_unit", trip, "all 2^24 (L, a, b) triples")
-    expect_equal("lab_inverse_unit",
-                 [torch.round(g_ * 255.0).to(torch.int32)
-                  for g_ in kernels.lab_inverse_unit(*trip)],
-                 kernels.lab_inverse_u8_plain(*trip),
-                 "all 2^24 (L, a, b) triples, u8 values")
+    replay("lab_inverse_u8", trip, "all 2^24 (L, a, b) triples")
+    expect_equal("lab_inverse_unit", kernels.lab_inverse_unit(*trip),
+                 [u8_to_unit(v) for v in kernels.lab_inverse_u8(*trip)],
+                 "all 2^24 (L, a, b) triples, K3 = K3b / 255")
     for g in GAMMAS:
         replay("lab_inverse_unit_gamma", trip + (g,),
                f"all 2^24 (L, a, b) triples, gamma {g}")
@@ -350,10 +415,18 @@ def main() -> int:
         smooth = (yy * 255 // hh + xx * 64 // ww) % 256
         noise = torch.randint(-20, 21, (hh, ww), generator=rng, device=dev)
         plane = torch.clamp(smooth + noise, 0, 255).to(torch.int32)
+        a_p, b_p = (torch.randint(0, 256, (hh, ww), generator=rng, device=dev,
+                                  dtype=torch.int32) for _ in range(2))
         for clip in CLIPS:
             luts, ya, xa, geo = histeq.clahe_prep(plane, clip, 8, 8)
             replay("clahe_apply", (plane, luts, ya, xa, *geo),
                    f"{hh}x{ww} clip {clip}")
+            args = (plane, a_p, b_p, luts, ya, xa, *geo)
+            replay("clahe_lab_apply", args, f"{hh}x{ww} clip {clip}")
+            expect_equal("clahe_lab_apply", kernels.clahe_lab_apply(*args),
+                         kernels.lab_inverse_u8(kernels.clahe_apply(
+                             plane, luts, ya, xa, *geo), a_p, b_p),
+                         f"{hh}x{ww} clip {clip}, K5 = K2 then K3b")
     # sparse strong seeds in a dense weak field: long chains
     u = torch.rand((1, H, W), generator=rng, device=dev)
     strong = (u < 0.004).to(torch.int32)
@@ -368,7 +441,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log("kernels", result="bit-equal", checks=json.dumps(checked),
         max_abs_err=json.dumps(err, separators=(",", ":")),
-        approx_lab_vs_exact_max=approx_d)
+        approx_lab_vs_exact_max=approx_d,
+        fast_lab_vs_k1_mismatches=fast_vs_k1)
 
     # 4. the slice through the CLI ----------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -391,6 +465,9 @@ def main() -> int:
             restore()
         return calls, launches, time.perf_counter() - t0
 
+    def captured_match(calls, launches):
+        return all(len(calls[k]) == launches[k] for k in CAPTURED)
+
     want = sorted(f"frame{i}_{n}.png" for i in range(3) for n in SIX_ORDER)
     runs = {}
     for tier, extra in (("exact", []), ("fast", ["--fast"])):
@@ -407,7 +484,7 @@ def main() -> int:
             img = uio.imread_u8(str(out / p))
             check(img is not None and img.shape == (H, W, 3),
                   f"{tier}: bad PNG {p}")
-        check({k: len(v) for k, v in calls.items()} == launches,
+        check(captured_match(calls, launches),
               f"{tier}: captured calls {[len(v) for v in calls.values()]} "
               f"vs launches {launches}")
         runs[tier] = (calls, launches, rows)
@@ -489,7 +566,7 @@ def main() -> int:
             img = uio.imread_u8(str(out_dir / p))
             check(img is not None and img.shape == (H, W, 3),
                   f"{key}: bad PNG {p}")
-        check({k: len(v) for k, v in calls.items()} == launches,
+        check(captured_match(calls, launches),
               f"{key}: captured calls vs launches {launches}")
         check(all(launches[k] == v for k, v in EXPECTED_LABEL[key].items()),
               f"{key}: launches {launches}")
@@ -505,6 +582,107 @@ def main() -> int:
             launches=json.dumps(launches, separators=(",", ":")))
     check(runs["auto"][1]["sat_rows"] == runs["build"][1]["sat_rows"],
           "auto and build-dataset descend differently on the same frames")
+
+    # cli assess: the weighted total, UIQM, UCIQE and the eight metrics
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        calls, launches, secs = run_cli(["assess", "--input", str(src),
+                                         "--device", "cuda"], True)
+    text = printed.getvalue()
+    print(text, end="", flush=True)
+    lines = [ln.split() for ln in text.splitlines() if ln.strip()]
+    check(lines[0][:4] == ["file", "total", "uiqm", "uciqe"]
+          and len(lines[0]) == 12 and [ln[0] for ln in lines[1:]]
+          == [f"frame{i}.png" for i in range(3)]
+          and all(len(ln) == 12 and all(np.isfinite(float(v)) for v in ln[1:])
+                  for ln in lines[1:]), f"assess printed {lines}")
+    check(captured_match(calls, launches)
+          and launches == EXPECTED_SLICE["assess"],
+          f"assess: launches {launches}")
+    runs["assess"] = (calls, launches, None)
+    log("slice", command="assess", frames=3, seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    # UIQM and UCIQE of each frame: the card against the CPU path
+    metric_rel = {}
+    for i, f in enumerate(frames):
+        x = torch.from_numpy(f)
+        for mname, fn in (("uiqm", uiqm), ("uciqe", uciqe)):
+            g_, c_ = float(fn(x.to(dev))), float(fn(x))
+            rel = abs(g_ - c_) / abs(c_)
+            metric_rel[f"frame{i}_{mname}"] = rel
+            check(rel <= 1e-4, f"frame{i} {mname}: card {g_} vs CPU {c_}")
+    log("card_vs_cpu", command="assess",
+        rel=json.dumps(metric_rel, separators=(",", ":")))
+
+    def library_run(key, fn):
+        """fn() through the library entry points, its kernel calls captured
+        and its launches counted (set to 0 just before, read just after)."""
+        calls, restore = capture_calls(torch, kernels)
+        t0 = time.perf_counter()
+        try:
+            kernels.reset_launches()
+            result = fn()
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        finally:
+            restore()
+        secs = time.perf_counter() - t0
+        check(captured_match(calls, launches)
+              and launches == EXPECTED_SLICE[key], f"{key}: launches {launches}")
+        runs[key] = (calls, launches, None)
+        return result, launches, secs
+
+    # the five CLAHE legs of each frame, fused (K5) against split (K2, K3)
+    planes3 = [split_planes(torch.from_numpy(f).to(dev)) for f in frames]
+    fused, launches, secs = library_run("clahe_fused", lambda: [
+        histeq.clahe_enhancement_planes(p, clip, gamma=g, impl="fused")
+        for p in planes3 for clip, g in CLAHE_LEGS])
+    split = [histeq.clahe_enhancement_planes(p, clip, gamma=g, impl="split")
+             for p in planes3 for clip, g in CLAHE_LEGS]
+    for k, (fu, sp) in enumerate(zip(fused, split)):
+        check(all(a.shape == (H, W) and torch.equal(a, b)
+                  for a, b in zip(fu, sp)),
+              f"fused CLAHE leg {k} differs from the split leg")
+    log("slice", command="clahe_enhancement_planes(impl='fused')", frames=3,
+        legs=len(fused), fused_equals_split=True, seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    del fused, split
+
+    # the u8 LAB round trip of each frame, and its LAB from the unit planes
+    # through the probe-corrected forward LAB (the probe runs anew: its
+    # cache is emptied first)
+    kernels._CORRECTIONS.clear()
+    kernels._FIXUPS.clear()
+
+    def lab_round_trips():
+        out = []
+        for p in planes3:
+            rgb8 = torch.stack([quantize_u8(c) for c in p], dim=-1)
+            lab = tcs.rgb_to_lab_u8_exact(rgb8)
+            fast = tcs.rgb_unit_to_lab_planes_fast(*p)
+            out.append((rgb8, lab, fast, tcs.lab_to_rgb_u8_exact(lab)))
+        return out
+
+    trips, launches, secs = library_run("lab_u8", lab_round_trips)
+    fast_mismatch = 0
+    for rgb8, lab, fast, back in trips:
+        check(back.shape == (H, W, 3) and back.dtype == torch.int32
+              and int(back.min()) >= 0 and int(back.max()) <= 255,
+              "lab_to_rgb_u8_exact: shape, type or range")
+        fast_mismatch += sum(int((f != lab[..., c]).sum())
+                             for c, f in enumerate(fast))
+    rgb8, lab, _, back = trips[0]
+    check(torch.equal(back.cpu(), tcs.lab_to_rgb_u8_exact(
+        tcs.rgb_to_lab_u8_exact(rgb8.cpu()))),
+        "frame 0: the u8 LAB round trip on the card differs from the CPU's")
+    log("slice", command="lab_to_rgb_u8_exact(rgb_to_lab_u8_exact)",
+        frames=3, fast_lab_vs_k1b_mismatches=fast_mismatch,
+        round_trip_max_abs=max(int((t[3] - t[0]).abs().max()) for t in trips),
+        seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    del trips
+    unused = [k for k in KERNELS if not any(r[1][k] for r in runs.values())]
+    check(not unused, f"kernels the main path never launched: {unused}")
 
     # every kernel call of the two six runs, replayed on its own inputs
     replayed = {}
@@ -621,9 +799,10 @@ def main() -> int:
         busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
         ours = {}
         for e in ev:
-            for key in OUR_KERNELS:
-                if key in e.name:
-                    ours[key] = ours.get(key, 0) + 1
+            if any(k in e.name for k in OUR_KERNELS):
+                key = (e.name.replace("(anonymous namespace)::", "")
+                       .replace("void ", "").split("(")[0])
+                ours[key] = ours.get(key, 0) + 1
         return wall, busy, ev, ours
 
     # the two tiers in turns (exact, fast, exact, fast), FRAME_RUNS frames
@@ -671,6 +850,42 @@ def main() -> int:
                                else "not measured"),
             device_launches=len(ev),
             package_kernels=json.dumps(ours, separators=(",", ":")))
+
+    # this slice: one CLAHE leg (clip 3.0, gamma 1.5) fused against split,
+    # in turns; UIQM, UCIQE and the assess command's work a frame, and one
+    # profiled assess frame
+    leg_ms = {"fused": [], "split": []}
+    for impl in ("fused", "split") * 2:
+        leg_ms[impl] += event_ms(
+            torch, lambda: histeq.clahe_enhancement_planes(
+                planes3[0], 3.0, gamma=1.5, impl=impl), STAGE_RUNS)
+    log("clahe_leg", frame=f"{H}x{W}", clip=3.0, gamma=1.5,
+        **{f"{k}_ms_{s}": v for k in leg_ms
+           for s, v in spread(leg_ms[k]).items()},
+        fused_runs=",".join(f"{t:.3f}" for t in leg_ms["fused"]),
+        split_runs=",".join(f"{t:.3f}" for t in leg_ms["split"]))
+
+    def assess_frame(x):
+        total, scores = comprehensive_assessment(x)
+        return torch.stack([total, uiqm(x), uciqe(x)]
+                           + list(scores.values())).cpu()
+
+    for key, fn in (("uiqm", uiqm), ("uciqe", uciqe),
+                    ("assess", assess_frame)):
+        it = iter(range(10 ** 6))
+        ms = event_ms(torch, lambda: fn(imgs[next(it) % 3]), 6, warmup=2)
+        extra = {}
+        if key == "assess":
+            wall, busy, ev, ours = profile_frame(lambda: assess_frame(imgs[0]))
+            extra = dict(
+                profiled_wall_ms=f"{wall:.3f}",
+                device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+                device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                                   else "not measured"),
+                device_launches=len(ev),
+                package_kernels=json.dumps(ours, separators=(",", ":")))
+        log("frame", path=key, **{f"ms_{k}": v for k, v in spread(ms).items()},
+            runs=",".join(f"{t:.3f}" for t in ms), **extra)
 
     img = imgs[0]
     corrected, _ = cast_mod.detect_and_correct(img)
@@ -734,36 +949,46 @@ def main() -> int:
         "lab_inverse_unit": kernels._table("inv", dev).numel() * 4,
         "lab_inverse_unit_gamma": kernels._table("inv", dev).numel() * 4
         + 256 * 4,
+        "lab_inverse_u8": kernels._table("inv", dev).numel() * 4,
+        "clahe_lab_apply": kernels._table("inv", dev).numel() * 4,
+        # header, GAMMA and the fix-ups
+        "lab_forward_unit_fast": (11 + 256 + 2 * len(probes["cbrt"][0])) * 4,
     }
 
     def time_call(kname, args):
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        outs = getattr(kernels, kname)(*args)
+        if kname == "surrogate_corrections":
+            # the launch it makes: the probe of one table
+            fn, plain = kernels.surrogate_values, kernels.surrogate_values_plain
+            tensors = [kernels._probe_index(*args)]
+        else:
+            fn = getattr(kernels, kname)
+            plain = getattr(kernels, KERNELS[kname][3])
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        outs = fn(*args)
         outs = (outs,) if isinstance(outs, torch.Tensor) else outs
         nbytes = table_bytes.get(kname, 0) + sum(
             t.numel() * t.element_size() for t in tensors + list(outs))
-        ms = statistics.median(event_ms(
-            torch, lambda: getattr(kernels, kname)(*args), 30, 3, flush))
-        plain_ms = statistics.median(event_ms(
-            torch, lambda: getattr(kernels, KERNELS[kname][3])(*args), 10, 1,
-            flush))
+        ms = statistics.median(event_ms(torch, lambda: fn(*args), 30, 3, flush))
+        plain_ms = statistics.median(event_ms(torch, lambda: plain(*args), 10,
+                                              1, flush))
         lib_ms = None
         if kname == "sat_rows":
             lib_ms = statistics.median(event_ms(
                 torch, lambda: torch.cumsum(args[0], args[1]), 30, 3, flush))
         t_bytes = nbytes / bw * 1e3
-        t_ops = KERNELS[kname][2] * args[0].numel() / F32_PEAK * 1e3
+        t_ops = KERNELS[kname][2] * tensors[0].numel() / F32_PEAK * 1e3
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms, "bytes": nbytes,
-                "shape": list(args[0].shape)}
+                "shape": list(tensors[0].shape)}
 
     def us(v):
         return "null" if v is None else f"{v * 1e3:.2f}"
 
     # the first main-path call of each kernel, in run order
     calls = {k: next(r[0][k] for r in runs.values() if r[0][k])
-             for k in KERNELS}
+             for k in CAPTURED}
+    calls["surrogate_corrections"] = [("cbrt", dev)]
     records = []
     for kname, (source, replaces, _, _) in KERNELS.items():
         t = time_call(kname, calls[kname][0])

@@ -1,6 +1,7 @@
 """Kernel tests that need an NVIDIA GPU (marker ``gpu``): each CUDA
-kernel against its plain PyTorch version on the card, and the six exact
-and fast tiers and the Phase-1 label program on the card against the CPU
+kernel against its plain PyTorch version on the card (and the fused
+kernels against the kernels they fuse), and the six exact and fast tiers,
+the Phase-1 label program and UIQM/UCIQE on the card against the CPU
 path.  They skip where
 ``torch.cuda.is_available()`` is False.  On a GPU machine without JAX:
 
@@ -11,7 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from underwater_image_enhancement_tpu_torch.ops import airlight, histeq, kernels
+from underwater_image_enhancement_tpu_torch.ops import (
+    airlight,
+    colorspace,
+    histeq,
+    kernels,
+)
 from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
 from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
     six_strategy_tuple,
@@ -104,8 +110,10 @@ def test_six_on_card_matches_cpu(cuda):
     assert n.pop("sat_rows") == 1 + kernels.launches["hysteresis_propagate"]
     assert n == {"lab_forward_unit": 5, "lab_forward_unit_approx": 0,
                  "lab_forward_u8": 0, "lab_forward_l_u8": 0,
-                 "clahe_apply": 5, "lab_inverse_unit": 2,
-                 "lab_inverse_unit_gamma": 3}
+                 "lab_forward_unit_fast": 0, "surrogate_corrections": 0,
+                 "clahe_apply": 5, "clahe_lab_apply": 0,
+                 "lab_inverse_unit": 2, "lab_inverse_unit_gamma": 3,
+                 "lab_inverse_u8": 0}
     on_cpu, code_c = six_strategy_tuple(img, device="cpu")
     assert int(code_g) == int(code_c)
     _card_matches_cpu(on_card, on_cpu)
@@ -117,8 +125,10 @@ def test_six_fast_on_card_matches_cpu(cuda):
     on_card, code_g = six_strategy_tuple(img, fast=True)
     assert dict(kernels.launches) == {
         "lab_forward_unit": 0, "lab_forward_unit_approx": 5,
-        "lab_forward_u8": 0, "lab_forward_l_u8": 0, "clahe_apply": 5,
-        "lab_inverse_unit": 2, "lab_inverse_unit_gamma": 3,
+        "lab_forward_u8": 0, "lab_forward_l_u8": 0,
+        "lab_forward_unit_fast": 0, "surrogate_corrections": 0,
+        "clahe_apply": 5, "clahe_lab_apply": 0, "lab_inverse_unit": 2,
+        "lab_inverse_unit_gamma": 3, "lab_inverse_u8": 0,
         "hysteresis_propagate": 1, "sat_rows": 1}
     on_cpu, code_c = six_strategy_tuple(img, fast=True, device="cpu")
     assert int(code_g) == int(code_c)
@@ -217,3 +227,90 @@ def test_label_batch_on_card_matches_cpu(cuda, fast):
     err = (feats.cpu().double() - c_feats.double()).abs()
     assert bool(((err <= 1e-4 * c_feats.double().abs()) | (err <= 1e-5)).all())
     assert win.shape == c_win.shape
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lab_inverse_u8_kernel_equals_plain(cuda, shape):
+    """K3b against its plain version, and K3 = K3b / 255."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = [torch.randint(0, 256, shape, generator=g, device=cuda,
+                       dtype=torch.int32) for _ in range(3)]
+    before = kernels.launches["lab_inverse_u8"]
+    got = kernels.lab_inverse_u8(*q)
+    assert kernels.launches["lab_inverse_u8"] == before + 1
+    for a, b, u in zip(got, kernels.lab_inverse_u8_plain(*q),
+                       kernels.lab_inverse_unit(*q)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+        assert torch.equal(u, colorspace.u8_to_unit(a))
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2] + [(1079, 1917)])
+@pytest.mark.parametrize("clip", [1.5, 4.0])
+def test_clahe_lab_apply_kernel_equals_plain_and_split(cuda, shape, clip):
+    """K5 against its plain version and against K2 then K3b."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    L, a, b = (torch.randint(0, 256, shape, generator=g, device=cuda,
+                             dtype=torch.int32) for _ in range(3))
+    luts, ya, xa, geo = histeq.clahe_prep(L, clip, 8, 8)
+    before = kernels.launches["clahe_lab_apply"]
+    got = kernels.clahe_lab_apply(L, a, b, luts, ya, xa, *geo)
+    assert kernels.launches["clahe_lab_apply"] == before + 1
+    plain = kernels.clahe_lab_apply_plain(L, a, b, luts, ya, xa, *geo)
+    split = kernels.lab_inverse_u8(kernels.clahe_apply(L, luts, ya, xa, *geo),
+                                   a, b)
+    for x, p, s in zip(got, plain, split):
+        assert torch.equal(x, p) and torch.equal(x, s)
+
+
+@pytest.mark.parametrize("gamma", [None, 1.4])
+def test_fused_clahe_roundtrip_equals_split_on_card(cuda, gamma):
+    planes = tuple(torch.from_numpy(_frame()[..., c].copy()).to(cuda)
+                   for c in range(3))
+    kernels.reset_launches()
+    fused = histeq.clahe_enhancement_planes(planes, 3.0, gamma=gamma,
+                                            impl="fused")
+    assert kernels.launches["clahe_lab_apply"] == 1
+    assert kernels.launches["clahe_apply"] == 0
+    split = histeq.clahe_enhancement_planes(planes, 3.0, gamma=gamma)
+    for f, s in zip(fused, split):
+        assert torch.equal(f, s)
+
+
+@pytest.mark.parametrize("name", ["cbrt", "inv_gamma"])
+def test_probe_on_card_equals_plain_probe(cuda, name):
+    """K9 against its plain version on the card and on the CPU; the card's
+    corrections are the CPU's, and the cube root's are not None."""
+    before = kernels.launches["surrogate_corrections"]
+    got = kernels.surrogate_values(name, cuda)
+    assert kernels.launches["surrogate_corrections"] == before + 1
+    assert torch.equal(got, kernels.surrogate_values_plain(name, cuda))
+    assert torch.equal(got.cpu(), kernels.surrogate_values_plain(name, "cpu"))
+    corr = kernels.surrogate_corrections(name, cuda)
+    assert corr == kernels.surrogate_corrections_plain(name, "cpu")
+    assert corr is not None
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lab_forward_fast_kernel_equals_plain_and_exact(cuda, shape):
+    """K8 _fast against its plain version and against K1."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    p = [torch.rand(shape, generator=g, device=cuda) * 1.2 - 0.1
+         for _ in range(3)]
+    kernels.surrogate_corrections("cbrt", cuda)
+    before = kernels.launches["lab_forward_unit_fast"]
+    got = kernels.lab_forward_unit_fast(*p)
+    assert kernels.launches["lab_forward_unit_fast"] == before + 1
+    for a, b, e in zip(got, kernels.lab_forward_unit_fast_plain(*p),
+                       kernels.lab_forward_unit(*p)):
+        assert torch.equal(a, b) and torch.equal(a, e)
+
+
+def test_uiqm_uciqe_on_card_match_cpu(cuda):
+    from underwater_image_enhancement_tpu_torch.metrics import uiqm
+
+    img = torch.from_numpy(_frame())
+    kernels.reset_launches()
+    u_g, c_g = uiqm.uiqm(img.to(cuda)), uiqm.uciqe(img.to(cuda))
+    assert kernels.launches["lab_forward_u8"] == 1
+    for got, want in ((u_g, uiqm.uiqm(img)), (c_g, uiqm.uciqe(img))):
+        assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))

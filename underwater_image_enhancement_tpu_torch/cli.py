@@ -4,6 +4,7 @@
     python -m underwater_image_enhancement_tpu_torch.cli enhance --input PATH --output PATH
     python -m underwater_image_enhancement_tpu_torch.cli auto --input DIR --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli build-dataset --input DIR --output DIR [--fast]
+    python -m underwater_image_enhancement_tpu_torch.cli assess --input PATH
 
 Commands (reference counterparts):
   six            six_stadigy.py __main__: all six strategies per image +
@@ -17,6 +18,8 @@ Commands (reference counterparts):
   build-dataset  main.py Phase 1: label each image, save the winner, the
                  CSV report and ``dataset.pkl`` (``--fast``: the
                  throughput tier)
+  assess         quality_assessment on an image or a folder: the weighted
+                 total, UIQM, UCIQE and the eight metrics, one row a file
 
 Runs on the CUDA device by default (``--device cuda``); ``--device cpu``
 runs the plain PyTorch path.  On CUDA the kernels are built before the
@@ -26,7 +29,7 @@ become "failed" rows of ``processing_log.csv``, as in the JAX CLI.
 ``enhance --model`` (a learned predictor) and ``--devices`` (data
 parallelism) are not ported yet and are rejected, as are the JAX CLI's
 other subcommands (Phase 2's ``train-selector``, ``run`` and ``predict``
-among them).
+among them, and ``validate``).
 """
 
 from __future__ import annotations
@@ -184,6 +187,32 @@ def _cmd_build_dataset(args) -> None:
     for k, v in system.dataset_report().items():
         print(f"  {k:<24} {v['count']:>4} ({v['fraction'] * 100:.1f}%) "
               f"score {v['mean_score']:.2f}±{v['std_score']:.2f}")
+
+
+def _cmd_assess(args) -> None:
+    from underwater_image_enhancement_tpu_torch.metrics.quality import (
+        METRIC_NAMES,
+        comprehensive_assessment,
+    )
+    from underwater_image_enhancement_tpu_torch.metrics.uiqm import uciqe, uiqm
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    device = _start(args.device)
+    inp = Path(args.input)
+    files = uio.collect_images(args.input) if inp.is_dir() else [inp]
+    print(f"{'file':<28}{'total':>8}{'uiqm':>8}{'uciqe':>8}  " +
+          "".join(f"{m[:7]:>9}" for m in METRIC_NAMES))
+    for p in files:
+        img = uio.imread_unit(str(p))
+        if img is None:
+            continue
+        x = torch.from_numpy(img).to(device)
+        total, scores = comprehensive_assessment(x)
+        # one read of the frame's numbers
+        v = _to_host(torch.stack([total, uiqm(x), uciqe(x)]
+                                 + [scores[m] for m in METRIC_NAMES]))
+        print(f"{p.name:<28}{v[0]:>8.2f}{v[1]:>8.3f}{v[2]:>8.3f}  " +
+              "".join(f"{s:>9.2f}" for s in v[3:]))
 
 
 def _cmd_six(args) -> None:
@@ -364,6 +393,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help=device_help)
     p.add_argument("--devices", type=int, default=None, help=devices_help)
     p.set_defaults(fn=_cmd_build_dataset)
+
+    p = sub.add_parser("assess", help="quality scores for image(s)")
+    p.add_argument("--input", required=True, help="an image or a folder")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_assess)
     return ap
 
 

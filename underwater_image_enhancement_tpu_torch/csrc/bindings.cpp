@@ -9,13 +9,15 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
+#include <optional>
 #include <tuple>
 
 namespace uie {
 
 void launch_lab_forward_unit(const float* r, const float* g, const float* b,
-                             const int* tab, int* L, int* a, int* bb,
-                             long long n, bool approx, cudaStream_t stream);
+                             const int* tab, const int* fix, int n_fix,
+                             int* L, int* a, int* bb, long long n, int cbrt,
+                             cudaStream_t stream);
 void launch_lab_forward_u8(const int* r, const int* g, const int* b,
                            const int* tab, int* L, int* a, int* bb,
                            long long n, bool l_only, cudaStream_t stream);
@@ -27,6 +29,16 @@ void launch_lab_inverse_unit(const int* L, const int* a, const int* b,
                              const int* tab, const float* glut, float* r,
                              float* g, float* bb, long long n,
                              cudaStream_t stream);
+void launch_lab_inverse_u8(const int* L, const int* a, const int* b,
+                           const int* tab, int* r, int* g, int* bb,
+                           long long n, cudaStream_t stream);
+void launch_clahe_lab_apply(const int* L, const int* a, const int* b,
+                            const int* luts, const float* ya, const float* xa,
+                            const int* tab, int* r, int* g, int* bb, int H,
+                            int W, int th, int tw, int pt, int plf,
+                            int tiles_x, int tiles_y, cudaStream_t stream);
+void launch_surrogate_probe(const int* idx, int* out, int n, int which,
+                            cudaStream_t stream);
 long long hysteresis_smem_bytes(int iters, int tile);
 cudaError_t launch_hysteresis(const int* strong, const int* weak, int* out,
                               int N, int H, int W, int iters, int tile,
@@ -46,6 +58,9 @@ using Planes = std::tuple<at::Tensor, at::Tensor, at::Tensor>;
 // int32 table blocks of ops/lab_tables.py (FWD_TABLE, INV_TABLE)
 constexpr int64_t kFwdTable = 11 + 256 + 3072;
 constexpr int64_t kInvTable = 15 + 256 + 256 + 4096;
+// csrc/lab_forward.cu's cube-root policies and its largest fix-up set
+constexpr int kCbrtTable = 0, kCbrtApprox = 1, kCbrtCorrected = 2;
+constexpr int64_t kMaxFix = 32;
 
 void check(const at::Tensor& t, const at::Tensor& like, at::ScalarType dtype,
            const char* what) {
@@ -72,7 +87,8 @@ Planes empty_planes(const at::Tensor& like, at::ScalarType dtype) {
 }
 
 Planes lab_forward(const at::Tensor& r, const at::Tensor& g,
-                   const at::Tensor& b, const at::Tensor& tab, bool approx) {
+                   const at::Tensor& b, const at::Tensor& tab, int cbrt,
+                   const int* fix = nullptr, int n_fix = 0) {
   check_planes(r, g, b, at::kFloat);
   check(tab, r, at::kInt, "table");
   TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE");
@@ -80,21 +96,34 @@ Planes lab_forward(const at::Tensor& r, const at::Tensor& g,
   auto outs = empty_planes(r, at::kInt);
   uie::launch_lab_forward_unit(
       r.data_ptr<float>(), g.data_ptr<float>(), b.data_ptr<float>(),
-      tab.data_ptr<int>(), std::get<0>(outs).data_ptr<int>(),
+      tab.data_ptr<int>(), fix, n_fix, std::get<0>(outs).data_ptr<int>(),
       std::get<1>(outs).data_ptr<int>(), std::get<2>(outs).data_ptr<int>(),
-      r.numel(), approx, at::cuda::getCurrentCUDAStream());
+      r.numel(), cbrt, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return outs;
 }
 
 Planes lab_forward_unit(const at::Tensor& r, const at::Tensor& g,
                         const at::Tensor& b, const at::Tensor& tab) {
-  return lab_forward(r, g, b, tab, false);
+  return lab_forward(r, g, b, tab, kCbrtTable);
 }
 
 Planes lab_forward_unit_approx(const at::Tensor& r, const at::Tensor& g,
                                const at::Tensor& b, const at::Tensor& tab) {
-  return lab_forward(r, g, b, tab, true);
+  return lab_forward(r, g, b, tab, kCbrtApprox);
+}
+
+// fix: the probe's (2, k) int32 fix-ups (indices, deltas), k <= 32, or
+// None where the probe found more differences: then the table policy.
+Planes lab_forward_unit_fast(const at::Tensor& r, const at::Tensor& g,
+                             const at::Tensor& b, const at::Tensor& tab,
+                             const std::optional<at::Tensor>& fix) {
+  if (!fix.has_value()) return lab_forward(r, g, b, tab, kCbrtTable);
+  check(*fix, r, at::kInt, "fix");
+  TORCH_CHECK(fix->dim() == 2 && fix->size(0) == 2 && fix->size(1) <= kMaxFix,
+              "fix: expected (2, k <= 32) fix-ups");
+  return lab_forward(r, g, b, tab, kCbrtCorrected, fix->data_ptr<int>(),
+                     (int)fix->size(1));
 }
 
 Planes lab_forward_u8(const at::Tensor& r, const at::Tensor& g,
@@ -148,6 +177,67 @@ at::Tensor clahe_apply(const at::Tensor& src, const at::Tensor& luts,
       xa.data_ptr<float>(), out.data_ptr<int>(), (int)src.size(0),
       (int)src.size(1), (int)th, (int)tw, (int)pt, (int)plf, (int)tiles_x,
       (int)tiles_y, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+Planes lab_inverse_u8(const at::Tensor& L, const at::Tensor& a,
+                      const at::Tensor& b, const at::Tensor& tab) {
+  check_planes(L, a, b, at::kInt);
+  check(tab, L, at::kInt, "table");
+  TORCH_CHECK(tab.numel() == kInvTable, "table: expected INV_TABLE");
+  const c10::cuda::CUDAGuard guard(L.device());
+  auto outs = empty_planes(L, at::kInt);
+  uie::launch_lab_inverse_u8(
+      L.data_ptr<int>(), a.data_ptr<int>(), b.data_ptr<int>(),
+      tab.data_ptr<int>(), std::get<0>(outs).data_ptr<int>(),
+      std::get<1>(outs).data_ptr<int>(), std::get<2>(outs).data_ptr<int>(),
+      L.numel(), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return outs;
+}
+
+Planes clahe_lab_apply(const at::Tensor& L, const at::Tensor& a,
+                       const at::Tensor& b, const at::Tensor& luts,
+                       const at::Tensor& ya, const at::Tensor& xa,
+                       const at::Tensor& tab, int64_t th, int64_t tw,
+                       int64_t pt, int64_t plf, int64_t tiles_x,
+                       int64_t tiles_y) {
+  check_planes(L, a, b, at::kInt);
+  check(luts, L, at::kInt, "luts");
+  check(ya, L, at::kFloat, "ya");
+  check(xa, L, at::kFloat, "xa");
+  check(tab, L, at::kInt, "table");
+  TORCH_CHECK(tab.numel() == kInvTable, "table: expected INV_TABLE");
+  TORCH_CHECK(luts.numel() == tiles_y * tiles_x * 256 &&
+                  ya.numel() == (tiles_y + 1) * th &&
+                  xa.numel() == (tiles_x + 1) * tw,
+              "clahe_lab_apply: LUT or fraction sizes do not match the tiling");
+  TORCH_CHECK(L.numel() < (int64_t{1} << 31),
+              "clahe_lab_apply: expected fewer than 2^31 pixels");
+  const c10::cuda::CUDAGuard guard(L.device());
+  auto outs = empty_planes(L, at::kInt);
+  uie::launch_clahe_lab_apply(
+      L.data_ptr<int>(), a.data_ptr<int>(), b.data_ptr<int>(),
+      luts.data_ptr<int>(), ya.data_ptr<float>(), xa.data_ptr<float>(),
+      tab.data_ptr<int>(), std::get<0>(outs).data_ptr<int>(),
+      std::get<1>(outs).data_ptr<int>(), std::get<2>(outs).data_ptr<int>(),
+      (int)L.size(0), (int)L.size(1), (int)th, (int)tw, (int)pt, (int)plf,
+      (int)tiles_x, (int)tiles_y, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return outs;
+}
+
+// which: 0 = CBRT_TAB's surrogate, 1 = INV_GAMMA_TAB's; idx: int32 indices
+at::Tensor surrogate_probe(const at::Tensor& idx, int64_t which) {
+  check(idx, idx, at::kInt, "idx");
+  TORCH_CHECK(idx.dim() == 1 && idx.numel() > 0 && (which == 0 || which == 1),
+              "surrogate_probe: expected 1-D indices and a table 0 or 1");
+  const c10::cuda::CUDAGuard guard(idx.device());
+  auto out = at::empty_like(idx);
+  uie::launch_surrogate_probe(idx.data_ptr<int>(), out.data_ptr<int>(),
+                              (int)idx.numel(), (int)which,
+                              at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -257,6 +347,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("lab_forward_unit_approx", &lab_forward_unit_approx,
         "csrc/lab_forward.cu: f32 unit planes -> int32 (L, a, b), "
         "2-step Newton cube root");
+  m.def("lab_forward_unit_fast", &lab_forward_unit_fast,
+        "csrc/lab_forward.cu: f32 unit planes -> int32 (L, a, b), "
+        "4-step Newton cube root plus the probe's fix-ups");
   m.def("lab_forward_u8", &lab_forward_u8,
         "csrc/lab_forward.cu: u8-valued int32 planes -> int32 (L, a, b)");
   m.def("lab_forward_l_u8", &lab_forward_l_u8,
@@ -267,6 +360,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "csrc/lab_inverse.cu: int32 (L, a, b) -> f32 unit planes");
   m.def("lab_inverse_unit_gamma", &lab_inverse_unit_gamma,
         "csrc/lab_inverse.cu: int32 (L, a, b) -> gamma LUT of the u8 planes");
+  m.def("lab_inverse_u8", &lab_inverse_u8,
+        "csrc/lab_inverse.cu: int32 (L, a, b) -> u8-valued int32 planes");
+  m.def("clahe_lab_apply", &clahe_lab_apply,
+        "csrc/clahe_lab_apply.cu: CLAHE of L, then int32 (L', a, b) -> "
+        "u8-valued int32 planes");
+  m.def("surrogate_probe", &surrogate_probe,
+        "csrc/probe.cu: a LAB table's surrogate at each index");
   m.def("hysteresis_propagate", &hysteresis_propagate,
         "csrc/hysteresis.cu: bounded 8-connected flood of (N, H, W) planes");
   m.def("sat_rows", &prefix_scan,

@@ -1,6 +1,6 @@
 // Forward LAB: OpenCV's integer RGB2Lab_b, bit-exact, on float unit planes
-// or on u8-valued int32 planes, and the six --fast tier's approximate
-// variant.
+// or on u8-valued int32 planes, and the variants whose cube root is an
+// arithmetic surrogate of the CBRT table.
 //
 // Replaces (underwater_image_enhancement_tpu/ops/pallas_kernels.py, all
 // built by _make_lab_forward / _make_lab_fwd_kernel):
@@ -8,6 +8,10 @@
 //   lab_forward_planes_unit_approx (K8 _approx): K1 with cbrt_corr="approx2",
 //     CBRT_TAB evaluated by _cbrt_tab_surrogate(idx, steps=2), no
 //     corrections; within +-1 u8 LSB of the exact table;
+//   lab_forward_planes_unit_fast (K8 _fast): K1 with CBRT_TAB evaluated by
+//     _cbrt_tab_surrogate(idx, steps=4) plus the probe's (index, delta)
+//     fix-ups (_apply_corrections; the probe is csrc/probe.cu), so equal
+//     to the table by construction;
 //   lab_forward_planes (K1b): u8-valued int32 planes (clipped to [0, 255])
 //     -> (L, a, b);
 //   lab_forward_l_plane (K4): K1b's L plane alone (one CBRT gather, one
@@ -16,36 +20,38 @@
 // Per pixel: bring each channel to a u8 index (f32: quantize like
 // (v*255).astype(uint8), clip then truncate; int32: clip to [0, 255]),
 // GAMMA_TAB gather, fixed-point COEFFS dot, descale, the cube roots
-// (CBRT_TAB gathers, or the surrogate), L/a/b descale and clip.  Integer
-// arithmetic is the JAX kernel's, op for op; `>>` on a negative int is
-// arithmetic, as in XLA.  The surrogate rounds every multiply and add on
-// its own (__fmul_rn/__fsub_rn/__fadd_rn), in the JAX order, and rounds
-// half to even (jnp.round); its constants are the f32 values numpy gives,
-// written in hex.
+// (CBRT_TAB gathers, or the surrogate of csrc/surrogates.cuh), L/a/b
+// descale and clip.  Integer arithmetic is the JAX kernel's, op for op.
 //
 // Bound on an H100: memory.  K1, K8 and K1b read 3 planes and write 3
 // (24 bytes a pixel, 49.8 MB at 1920x1080, ~15 us at 3.35 TB/s); K4 reads
 // 3 and writes 1 (16 bytes a pixel, 33.2 MB, ~9.9 us).  The exact integer
 // work is ~40 ops a pixel (~20 for K4); the surrogate adds ~20 f32 ops per
-// cube root (~100 a pixel).  Design: one thread per pixel in a grid-stride
-// loop over a few blocks per SM, so the 6 KB CBRT table (u16) and the 1 KB
-// GAMMA table are staged into shared memory once per block rather than
-// once per 256 pixels; shared memory (not __constant__) because the gather
-// indices diverge within a warp.  One template serves the four kernels:
-// the input type, the cube root and the L-only epilogue are its
-// parameters; the approximate variant stages only GAMMA.  The TPU kernel's
-// 128-lane segment gathers and int32 packing are Mosaic workarounds and
-// are not carried over.  Built without --use_fast_math: the f32 multiply
-// must round.
+// cube root at 2 steps, ~35 at 4 (~100 and ~150 a pixel).  Design: one
+// thread per pixel in a grid-stride loop over a few blocks per SM, so the
+// 6 KB CBRT table (u16) and the 1 KB GAMMA table are staged into shared
+// memory once per block rather than once per 256 pixels; shared memory
+// (not __constant__) because the gather indices diverge within a warp.
+// One template serves the five kernels: the input type, the cube-root
+// policy and the L-only epilogue are its parameters; the surrogate
+// policies stage GAMMA and, for K8 _fast, the at most 32 fix-ups.  The
+// TPU kernel's 128-lane segment gathers and int32 packing are Mosaic
+// workarounds and are not carried over.  Built without --use_fast_math:
+// the f32 multiply must round.
 //
 // Table block (int32, ops/lab_tables.py FWD_TABLE):
 //   [0] L_SCALE  [1] L_SHIFT  [2..10] COEFFS (3x3 row-major)
 //   [11..266] GAMMA_TAB (256)  [267..3338] CBRT_TAB (3072)
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "common.cuh"
+#include "surrogates.cuh"
 
 namespace {
+
+using uie_detail::clamp_i;
+using uie_detail::descale;
 
 constexpr int kHeader = 11;
 constexpr int kGamma = kHeader;
@@ -54,69 +60,42 @@ constexpr int kNcbrt = 3072;
 constexpr int kLabShift = 12;
 constexpr int kLabShift2 = 15;
 constexpr int kThreads = 512;
+constexpr int kMaxFix = 32;  // ops/kernels.py MAX_CORRECTIONS
 
-// np.float32 constants of pallas_kernels._cbrt_tab_surrogate / _rcbrt
-constexpr float kInv2040 = 0x1.010102p-11f;    // 1.0 / 2040.0
-constexpr float kTiny = 0x1.4484cp-100f;       // 1e-30
-constexpr float kThird = 0x1.555556p-2f;       // 1.0 / 3.0
-constexpr float kLinThresh = 0x1.223184p-7f;   // 0.008856
-constexpr float kLinSlope = 0x1.f25e36p+2f;    // 7.787
-constexpr float kLinOffset = 0x1.1a7b96p-3f;   // 16.0 / 116.0
-
-__device__ __forceinline__ int descale(int v, int n) {
-  return (v + (1 << (n - 1))) >> n;
-}
-
-__device__ __forceinline__ int clamp_i(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
+// cube-root policies
+constexpr int kCbrtTable = 0;      // CBRT_TAB gather (K1, K1b, K4)
+constexpr int kCbrtApprox = 1;     // 2-step surrogate (K8 _approx)
+constexpr int kCbrtCorrected = 2;  // 4-step surrogate + fix-ups (K8 _fast)
 
 __device__ __forceinline__ int quantize_u8(float v) {
   // jnp.clip(v * 255, 0, 255).astype(int32): truncation toward zero
   return (int)fminf(fmaxf(__fmul_rn(v, 255.0f), 0.0f), 255.0f);
 }
 
-// _cbrt_tab_surrogate(idx, steps=2): round(labF(idx/2040) * 2^15), the
-// cube root as t * rcbrt(t)^2 with rcbrt from the bit-trick seed
-// 0x54A21D2A - bits/3 and two division-free Newton steps
-// r <- r * ((4 - t*r^2*r) * (1/3)).
-__device__ __forceinline__ int cbrt_approx(int idx) {
-  const float t = __fmul_rn((float)idx, kInv2040);
-  float f;
-  if (t < kLinThresh) {
-    f = __fadd_rn(__fmul_rn(t, kLinSlope), kLinOffset);
-  } else {
-    const float tc = fmaxf(t, kTiny);
-    // bits of a positive float: C's truncating / equals jnp's floor //
-    float r = __int_as_float(0x54A21D2A - __float_as_int(tc) / 3);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const float t_r3 = __fmul_rn(__fmul_rn(tc, __fmul_rn(r, r)), r);
-      r = __fmul_rn(r, __fmul_rn(__fsub_rn(4.0f, t_r3), kThird));
-    }
-    f = __fmul_rn(tc, __fmul_rn(r, r));
-  }
-  return __float2int_rn(__fmul_rn(f, 32768.0f));  // jnp.round: half to even
-}
-
 // A channel value -> its u8 index.
 __device__ __forceinline__ int to_u8(float v) { return quantize_u8(v); }
 __device__ __forceinline__ int to_u8(int v) { return clamp_i(v, 0, 255); }
 
-template <typename In, bool kApprox, bool kLOnly>
+// fix: (2, n_fix) int32, the probe's indices then deltas (kCbrtCorrected)
+template <typename In, int kCbrtPolicy, bool kLOnly>
 __global__ void __launch_bounds__(kThreads)
 lab_forward_kernel(const In* __restrict__ r, const In* __restrict__ g,
                    const In* __restrict__ b, const int* __restrict__ tab,
+                   const int* __restrict__ fix, int n_fix,
                    int* __restrict__ L_out, int* __restrict__ a_out,
                    int* __restrict__ b_out, long long n) {
+  constexpr bool kTable = kCbrtPolicy == kCbrtTable;
   __shared__ int s_gamma[256];
-  __shared__ unsigned short s_cbrt[kApprox ? 1 : kNcbrt];
+  __shared__ unsigned short s_cbrt[kTable ? kNcbrt : 1];
   __shared__ int s_head[kHeader];
+  __shared__ int s_fix[2 * kMaxFix];
   for (int i = threadIdx.x; i < 256; i += blockDim.x) s_gamma[i] = tab[kGamma + i];
-  if (!kApprox) {
+  if (kTable) {
     for (int i = threadIdx.x; i < kNcbrt; i += blockDim.x)
       s_cbrt[i] = (unsigned short)tab[kCbrt + i];
   }
+  if (kCbrtPolicy == kCbrtCorrected && threadIdx.x < 2 * n_fix)
+    s_fix[threadIdx.x] = fix[threadIdx.x];
   if (threadIdx.x < kHeader) s_head[threadIdx.x] = tab[threadIdx.x];
   __syncthreads();
 
@@ -127,8 +106,13 @@ lab_forward_kernel(const In* __restrict__ r, const In* __restrict__ g,
     const int idx = clamp_i(
         descale(R * C[3 * row] + G * C[3 * row + 1] + B * C[3 * row + 2], kLabShift),
         0, kNcbrt - 1);
-    if constexpr (kApprox) {
-      return cbrt_approx(idx);
+    if constexpr (kCbrtPolicy == kCbrtApprox) {
+      return uie_detail::cbrt_tab_surrogate<2>(idx);
+    } else if constexpr (kCbrtPolicy == kCbrtCorrected) {
+      int v = uie_detail::cbrt_tab_surrogate<4>(idx);
+      for (int k = 0; k < n_fix; ++k)
+        v += idx == s_fix[k] ? s_fix[n_fix + k] : 0;
+      return v;
     } else {
       return s_cbrt[idx];
     }
@@ -150,17 +134,13 @@ lab_forward_kernel(const In* __restrict__ r, const In* __restrict__ g,
   }
 }
 
-int grid_for(long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  long long blocks = (n + kThreads - 1) / kThreads;
-  long long cap = (long long)sms * 4;
-  return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+template <typename In, int kCbrtPolicy, bool kLOnly>
+void launch(const In* r, const In* g, const In* b, const int* tab,
+            const int* fix, int n_fix, int* L, int* a, int* bb, long long n,
+            cudaStream_t stream) {
+  lab_forward_kernel<In, kCbrtPolicy, kLOnly>
+      <<<uie_detail::grid_for(n, kThreads), kThreads, 0, stream>>>(
+          r, g, b, tab, fix, n_fix, L, a, bb, n);
 }
 
 }  // namespace
@@ -168,29 +148,29 @@ int grid_for(long long n) {
 namespace uie {
 
 // Launch only; csrc/bindings.cpp checks the tensors and the launch.
+// cbrt: 0 table (K1), 1 two-step surrogate (K8 _approx), 2 four-step
+// surrogate plus the (2, n_fix) fix-ups `fix` (K8 _fast).
 void launch_lab_forward_unit(const float* r, const float* g, const float* b,
-                             const int* tab, int* L, int* a, int* bb,
-                             long long n, bool approx, cudaStream_t stream) {
-  if (approx) {
-    lab_forward_kernel<float, true, false><<<grid_for(n), kThreads, 0, stream>>>(
-        r, g, b, tab, L, a, bb, n);
-  } else {
-    lab_forward_kernel<float, false, false><<<grid_for(n), kThreads, 0, stream>>>(
-        r, g, b, tab, L, a, bb, n);
-  }
+                             const int* tab, const int* fix, int n_fix,
+                             int* L, int* a, int* bb, long long n, int cbrt,
+                             cudaStream_t stream) {
+  if (cbrt == kCbrtApprox)
+    launch<float, kCbrtApprox, false>(r, g, b, tab, fix, 0, L, a, bb, n, stream);
+  else if (cbrt == kCbrtCorrected)
+    launch<float, kCbrtCorrected, false>(r, g, b, tab, fix, n_fix, L, a, bb, n,
+                                         stream);
+  else
+    launch<float, kCbrtTable, false>(r, g, b, tab, fix, 0, L, a, bb, n, stream);
 }
 
 // u8-valued int32 planes; l_only writes L alone (a and bb may be null).
 void launch_lab_forward_u8(const int* r, const int* g, const int* b,
                            const int* tab, int* L, int* a, int* bb,
                            long long n, bool l_only, cudaStream_t stream) {
-  if (l_only) {
-    lab_forward_kernel<int, false, true><<<grid_for(n), kThreads, 0, stream>>>(
-        r, g, b, tab, L, a, bb, n);
-  } else {
-    lab_forward_kernel<int, false, false><<<grid_for(n), kThreads, 0, stream>>>(
-        r, g, b, tab, L, a, bb, n);
-  }
+  if (l_only)
+    launch<int, kCbrtTable, true>(r, g, b, tab, nullptr, 0, L, a, bb, n, stream);
+  else
+    launch<int, kCbrtTable, false>(r, g, b, tab, nullptr, 0, L, a, bb, n, stream);
 }
 
 }  // namespace uie

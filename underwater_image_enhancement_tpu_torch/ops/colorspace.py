@@ -91,10 +91,38 @@ def rgb_to_hsv_u8(r8, g8, b8):
     return h, s, v
 
 
+def _rows(kernel, planes):
+    """A pointwise plane kernel on same-shape planes of any rank >= 2: the
+    leading dimensions fold into rows (the JAX package's row fold)."""
+    shp = planes[0].shape
+    outs = kernel(*(p.reshape(-1, shp[-1]).contiguous() for p in planes))
+    return tuple(o.reshape(shp) for o in outs)
+
+
 def rgb_to_lab_u8_exact_planes(r8, g8, b8):
-    """Bit-exact RGB2LAB on u8-valued int32 planes -> int32 L/a/b (kernel
-    K1b, ``kernels.lab_forward_u8``)."""
-    return kernels.lab_forward_u8(*(p.contiguous() for p in (r8, g8, b8)))
+    """Bit-exact RGB2LAB on u8-valued int32 planes (..., H, W) -> int32
+    L/a/b (kernel K1b, ``kernels.lab_forward_u8``)."""
+    return _rows(kernels.lab_forward_u8, (r8, g8, b8))
+
+
+def rgb_to_lab_u8_exact(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_RGB2LAB of a (..., 3) u8-valued int tensor, bit-exact
+    (kernel K1b) -> int32 (..., 3)."""
+    planes = tuple(rgb_u8[..., c].to(torch.int32) for c in range(3))
+    return torch.stack(rgb_to_lab_u8_exact_planes(*planes), dim=-1)
+
+
+def lab_to_rgb_u8_exact_planes(L, a, b):
+    """Bit-exact LAB2RGB on int32 planes (..., H, W) -> u8-valued int32
+    (r, g, b) (kernel K3b, ``kernels.lab_inverse_u8``)."""
+    return _rows(kernels.lab_inverse_u8, (L, a, b))
+
+
+def lab_to_rgb_u8_exact(lab_u8: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_LAB2RGB of a (..., 3) u8-valued int tensor, bit-exact
+    (kernel K3b) -> int32 (..., 3)."""
+    planes = tuple(lab_u8[..., c].to(torch.int32) for c in range(3))
+    return torch.stack(lab_to_rgb_u8_exact_planes(*planes), dim=-1)
 
 
 def rgb_to_lab_l_u8_exact(r8, g8, b8) -> torch.Tensor:
@@ -152,6 +180,14 @@ def rgb_unit_to_lab_planes(r, g, b):
     """quantize_u8 + bit-exact RGB2LAB on f32 unit planes -> int32 L/a/b
     (kernel K1, ``kernels.lab_forward_unit``)."""
     return kernels.lab_forward_unit(r, g, b)
+
+
+def rgb_unit_to_lab_planes_fast(r, g, b):
+    """rgb_unit_to_lab_planes with the cube-root table evaluated as the
+    probe-corrected 4-step surrogate (kernel K8 ``_fast``,
+    ``kernels.lab_forward_unit_fast``; the JAX
+    ``lab_forward_planes_unit_fast``): the same planes, by construction."""
+    return kernels.lab_forward_unit_fast(r, g, b)
 
 
 def lab_to_rgb_unit_planes(L, a, b):

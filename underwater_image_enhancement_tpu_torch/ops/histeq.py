@@ -6,8 +6,9 @@ integer counts from one ``scatter_add_`` (no host sync, unlike
 ``torch.bincount`` on a card).  CLAHE: REFLECT_101 padding to tile
 multiples, integer tile histograms, clip and redistribution with OpenCV's
 residual stepping, round-half-even LUTs (tensor ops), then the per-pixel
-LUT blend in the CLAHE-apply kernel (``kernels.clahe_apply``).  Bit-exact
-against cv2 on u8 planes.
+LUT blend in the CLAHE-apply kernel (``kernels.clahe_apply``), or in the
+LAB roundtrip's fused kernel with the inverse LAB
+(``kernels.clahe_lab_apply``).  Bit-exact against cv2 on u8 planes.
 """
 
 from __future__ import annotations
@@ -164,21 +165,48 @@ def clahe_u8(channel_u8: torch.Tensor, clip_limit: float = 2.0,
 def clahe_enhancement_planes(planes, clip_limit: float = 2.0,
                              tiles_x: int = 8, tiles_y: int = 8,
                              gamma: float | None = None,
-                             lab_fast: bool = False):
-    """LAB-L CLAHE roundtrip on (r, g, b) f32 unit planes -> same, bit-exact
-    vs cv2 on the u8 grid.  ``gamma`` folds a trailing ``out**gamma`` into
-    the inverse-LAB kernel's epilogue (a 256-entry LUT).
+                             lab_fast: bool = False, impl: str = "auto"):
+    """LAB-L CLAHE roundtrip on (r, g, b) f32 unit planes (H, W) -> same,
+    bit-exact vs cv2 on the u8 grid.  ``gamma`` applies a trailing
+    ``out**gamma`` as a 256-entry LUT (``kernels.gamma_lut``).
+
+    ``impl``: "split" runs CLAHE apply (K2), then the inverse LAB with the
+    /255 or the gamma LUT in its epilogue (K3, K3g); "fused" runs CLAHE
+    apply and the inverse as one kernel (K5, ``kernels.clahe_lab_apply``),
+    then ``u8_to_unit`` or the gamma LUT; "auto" is "split", as in the JAX
+    package.  The two give the same bits.
 
     ``lab_fast=True`` (the ``--fast`` tier) converts forward with the
     approximate kernel ``kernels.lab_forward_unit_approx`` (L, a, b within 1
     of exact) on every device.  The JAX package takes that branch only on a
     TPU and converts exactly elsewhere; the port follows the TPU program, so
     its CPU path runs the approximate kernel's plain version."""
+    if impl == "auto":
+        impl = "split"
+    if impl not in ("split", "fused"):
+        raise ValueError(f"clahe_enhancement_planes: impl must be 'auto', "
+                         f"'split' or 'fused', got {impl!r}")
     if lab_fast:
         L, a, b = kernels.lab_forward_unit_approx(*planes)
     else:
         L, a, b = cs.rgb_unit_to_lab_planes(*planes)
+    if impl == "fused":
+        luts, ya, xa, geo = clahe_prep(L, clip_limit, tiles_x, tiles_y)
+        rgb = kernels.clahe_lab_apply(L, a, b, luts, ya, xa, *geo)
+        if gamma is not None:
+            glut = kernels.gamma_lut(gamma, L.device)
+            return tuple(glut[c.long()] for c in rgb)
+        return tuple(cs.u8_to_unit(c) for c in rgb)
     L = clahe_u8(L, clip_limit, tiles_x, tiles_y)
     if gamma is not None:
         return cs.lab_to_rgb_unit_gamma_planes(L, a, b, gamma)
     return cs.lab_to_rgb_unit_planes(L, a, b)
+
+
+def clahe_enhancement(img: torch.Tensor, clip_limit: float = 2.0,
+                      tiles_x: int = 8, tiles_y: int = 8) -> torch.Tensor:
+    """LAB-L CLAHE roundtrip of an (H, W, 3) f32 unit image -> same
+    (enhancement_strategies.py:287-307, six_stadigy.py:201-208)."""
+    planes = tuple(img[..., c].contiguous() for c in range(3))
+    out = clahe_enhancement_planes(planes, clip_limit, tiles_x, tiles_y)
+    return torch.stack(out, dim=-1)

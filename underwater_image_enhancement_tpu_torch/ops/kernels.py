@@ -7,17 +7,21 @@ kernel through the extension built from ``csrc/`` (``utils/cuda_build.py``;
 a failed build or launch raises, nothing falls back).  ``launches[name]``
 counts kernel launches, and only those.
 
-| wrapper                  | CUDA source          | replaces (pallas_kernels.py)     |
-|--------------------------|----------------------|----------------------------------|
-| lab_forward_unit         | csrc/lab_forward.cu  | lab_forward_planes_unit          |
-| lab_forward_unit_approx  | csrc/lab_forward.cu  | lab_forward_planes_unit_approx   |
-| lab_forward_u8           | csrc/lab_forward.cu  | lab_forward_planes               |
-| lab_forward_l_u8         | csrc/lab_forward.cu  | lab_forward_l_plane              |
-| clahe_apply              | csrc/clahe_apply.cu  | clahe_apply                      |
-| lab_inverse_unit         | csrc/lab_inverse.cu  | lab_inverse_planes_unit          |
-| lab_inverse_unit_gamma   | csrc/lab_inverse.cu  | lab_inverse_planes_unit_gamma    |
-| hysteresis_propagate     | csrc/hysteresis.cu   | hysteresis_propagate             |
-| sat_rows                 | csrc/scan.cu         | sat_rows (in XLA:CPU's order)    |
+| wrapper                  | CUDA source             | replaces (pallas_kernels.py)   |
+|--------------------------|-------------------------|--------------------------------|
+| lab_forward_unit         | csrc/lab_forward.cu     | lab_forward_planes_unit        |
+| lab_forward_unit_approx  | csrc/lab_forward.cu     | lab_forward_planes_unit_approx |
+| lab_forward_unit_fast    | csrc/lab_forward.cu     | lab_forward_planes_unit_fast   |
+| lab_forward_u8           | csrc/lab_forward.cu     | lab_forward_planes             |
+| lab_forward_l_u8         | csrc/lab_forward.cu     | lab_forward_l_plane            |
+| surrogate_corrections    | csrc/probe.cu           | _corrections (the probe)       |
+| clahe_apply              | csrc/clahe_apply.cu     | clahe_apply                    |
+| clahe_lab_apply          | csrc/clahe_lab_apply.cu | clahe_lab_apply                |
+| lab_inverse_unit         | csrc/lab_inverse.cu     | lab_inverse_planes_unit        |
+| lab_inverse_unit_gamma   | csrc/lab_inverse.cu     | lab_inverse_planes_unit_gamma  |
+| lab_inverse_u8           | csrc/lab_inverse.cu     | lab_inverse_planes             |
+| hysteresis_propagate     | csrc/hysteresis.cu      | hysteresis_propagate           |
+| sat_rows                 | csrc/scan.cu            | sat_rows (in XLA:CPU's order)  |
 
 The plain versions repeat the kernels' integer and f32 arithmetic with
 tensor ops (table indexing, ``torch.div(..., rounding_mode="trunc")`` for
@@ -44,9 +48,13 @@ launches: Dict[str, int] = {
     "lab_forward_unit_approx": 0,
     "lab_forward_u8": 0,
     "lab_forward_l_u8": 0,
+    "lab_forward_unit_fast": 0,
+    "surrogate_corrections": 0,
     "clahe_apply": 0,
+    "clahe_lab_apply": 0,
     "lab_inverse_unit": 0,
     "lab_inverse_unit_gamma": 0,
+    "lab_inverse_u8": 0,
     "hysteresis_propagate": 0,
     "sat_rows": 0,
 }
@@ -90,11 +98,12 @@ def _check(name: str, tensors, dtype, ndim: int | None = 2) -> torch.device:
     return dev
 
 
-def _launch(name: str, *args):
+def _launch(name: str, *args, counter: str | None = None):
     """Run the extension's entry point ``name`` (csrc/bindings.cpp) on CUDA
-    tensors and count the launch; a build or launch error raises."""
+    tensors and count the launch under ``counter`` (default ``name``); a
+    build or launch error raises."""
     out = getattr(cuda_build.extension(), name)(*args)
-    launches[name] += 1
+    launches[counter or name] += 1
     return out
 
 
@@ -178,24 +187,51 @@ def lab_forward_unit(r, g, b):
     return _launch("lab_forward_unit", r, g, b, _table("fwd", dev))
 
 
-_F32 = np.float32
+def _c32(v: float) -> float:
+    """The f32 constant numpy gives for ``v``."""
+    return float(np.float32(v))
+
+
+def _newton_cbrt(t: torch.Tensor, steps: int) -> torch.Tensor:
+    """f32 cube root as t * rcbrt(t)**2 (the JAX ``_newton_cbrt``): t
+    clamped to 1e-30, rcbrt from the bit-trick seed ``0x54A21D2A - bits //
+    3`` and ``steps`` division-free Newton steps r * ((4 - t*r*r*r) / 3)."""
+    tc = torch.clamp(t, min=_c32(1e-30))
+    r = (0x54A21D2A - torch.div(tc.view(torch.int32), 3,
+                                rounding_mode="floor")).view(torch.float32)
+    for _ in range(steps):
+        r = r * ((4.0 - tc * (r * r) * r) * _c32(1.0 / 3.0))
+    return tc * (r * r)
+
+
+def cbrt_tab_surrogate(idx: torch.Tensor, steps: int = 4) -> torch.Tensor:
+    """The JAX ``_cbrt_tab_surrogate(idx, steps)``: CBRT_TAB[idx] evaluated
+    as round(labF(idx/2040) * 2**15), each f32 op rounded on its own in the
+    JAX order.  Two steps are within 1 of the table; four differ from it on
+    a few entries, which ``surrogate_corrections`` finds."""
+    t = idx.to(torch.float32) * _c32(1.0 / 2040.0)
+    f = torch.where(t < _c32(0.008856), t * _c32(7.787) + _c32(16.0 / 116.0),
+                    _newton_cbrt(t, steps))
+    return torch.round(f * 32768.0).to(torch.int32)
 
 
 def cbrt_tab_approx(idx: torch.Tensor) -> torch.Tensor:
-    """The JAX ``_cbrt_tab_surrogate(idx, steps=2)``: round(labF(idx/2040)
-    * 2**15) with the cube root t * rcbrt(t)**2, rcbrt from the bit-trick
-    seed ``0x54A21D2A - bits // 3`` and two division-free Newton steps, each
-    f32 op rounded on its own in the JAX order.  Within 1 of CBRT_TAB."""
-    c = lambda v: float(_F32(v))  # noqa: E731 - the f32 constant numpy gives
-    t = idx.to(torch.float32) * c(1.0 / 2040.0)
-    tc = torch.clamp(t, min=c(1e-30))
-    r = (0x54A21D2A - torch.div(tc.view(torch.int32), 3,
-                                rounding_mode="floor")).view(torch.float32)
-    for _ in range(2):
-        r = r * ((4.0 - tc * (r * r) * r) * c(1.0 / 3.0))
-    f = torch.where(t < c(0.008856), t * c(7.787) + c(16.0 / 116.0),
-                    tc * (r * r))
-    return torch.round(f * 32768.0).to(torch.int32)
+    """``cbrt_tab_surrogate(idx, 2)``: the six --fast tier's cube root."""
+    return cbrt_tab_surrogate(idx, 2)
+
+
+def ig_tab_surrogate(idx: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_ig_tab_surrogate``: INV_GAMMA_TAB[idx] evaluated as
+    clip(round(255 * sRGB-gamma(idx/4096))), x**(1/2.4) as
+    sqrt(sqrt(cbrt(x)))**5 with a 3-step Newton cube root and correctly
+    rounded square roots."""
+    x = idx.to(torch.float32) * _c32(1.0 / 4096.0)
+    s = torch.sqrt(torch.sqrt(_newton_cbrt(x, 3)))
+    s2 = s * s
+    p = s2 * s2 * s
+    g = torch.where(x <= _c32(0.0031308), x * _c32(12.92),
+                    _c32(1.055) * p - _c32(0.055))
+    return torch.clamp(torch.round(255.0 * g), 0, 255).to(torch.int32)
 
 
 def lab_forward_unit_approx_plain(r, g, b):
@@ -211,6 +247,116 @@ def lab_forward_unit_approx(r, g, b):
     if dev.type == "cpu":
         return lab_forward_unit_approx_plain(r, g, b)
     return _launch("lab_forward_unit_approx", r, g, b, _table("fwd", dev))
+
+
+def apply_corrections(v: torch.Tensor, idx: torch.Tensor, corr) -> torch.Tensor:
+    """The JAX ``_apply_corrections``: v + delta where idx == i, one fix-up
+    after the other."""
+    for i, d in zip(*corr):
+        v = v + torch.where(idx == i, d, 0).to(v.dtype)
+    return v
+
+
+def lab_forward_unit_fast_plain(r, g, b):
+    corr = surrogate_corrections("cbrt", r.device)
+    if corr is None:
+        return lab_forward_unit_plain(r, g, b)
+    return lab_forward_u8_plain(
+        quantize_u8(r), quantize_u8(g), quantize_u8(b),
+        cbrt_fn=lambda idx: apply_corrections(cbrt_tab_surrogate(idx), idx,
+                                              corr))
+
+
+_FIXUPS: Dict[str, torch.Tensor] = {}
+
+
+def _cbrt_fixups(dev: torch.device) -> torch.Tensor | None:
+    """The probe's cube-root fix-ups on ``dev`` as one (2, k) int32 tensor
+    (indices, deltas), copied once per device; None where the probe found
+    too many differences (the kernel then reads the table)."""
+    corr = surrogate_corrections("cbrt", dev)
+    if corr is None:
+        return None
+    if str(dev) not in _FIXUPS:
+        _FIXUPS[str(dev)] = torch.tensor(corr, dtype=torch.int32,
+                                         device=dev).reshape(2, -1)
+    return _FIXUPS[str(dev)]
+
+
+def lab_forward_unit_fast(r, g, b):
+    """lab_forward_unit with CBRT_TAB evaluated as the 4-step surrogate
+    plus the fix-ups the probe found on this device (kernel K8 ``_fast``):
+    bit-equal to lab_forward_unit by construction.  Where the probe returns
+    None the same kernel reads the table, as the JAX kernel does."""
+    dev = _check("lab_forward_unit_fast", (r, g, b), torch.float32)
+    if dev.type == "cpu":
+        return lab_forward_unit_fast_plain(r, g, b)
+    return _launch("lab_forward_unit_fast", r, g, b, _table("fwd", dev),
+                   _cbrt_fixups(dev))
+
+
+# ---------------------------------------------------------------------------
+# The surrogate probe (csrc/probe.cu)
+# ---------------------------------------------------------------------------
+
+# table name -> (its surrogate, the table, the probe kernel's selector)
+_SURROGATES = {
+    "cbrt": (cbrt_tab_surrogate, lt.CBRT_TAB, 0),
+    "inv_gamma": (ig_tab_surrogate, lt.INV_GAMMA_TAB, 1),
+}
+MAX_CORRECTIONS = 32
+_CORRECTIONS: Dict[Tuple[str, str], object] = {}
+
+
+def _probe_index(name: str, device) -> torch.Tensor:
+    n = len(_SURROGATES[name][1])
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def surrogate_values_plain(name: str, device):
+    """The surrogate of table ``name`` ("cbrt" or "inv_gamma") at every
+    index of the table, with tensor ops on ``device``."""
+    return _SURROGATES[name][0](_probe_index(name, device))
+
+
+def surrogate_values(name: str, device):
+    """``surrogate_values_plain``; on a CUDA device the probe kernel K9
+    computes it, with the arithmetic of the kernels that consume it."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return surrogate_values_plain(name, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"surrogate_values: unsupported device {dev}")
+    return _launch("surrogate_probe", _probe_index(name, dev),
+                   _SURROGATES[name][2], counter="surrogate_corrections")
+
+
+def _corrections_of(name: str, got: torch.Tensor):
+    delta = (np.asarray(_SURROGATES[name][1], np.int64)
+             - got.cpu().numpy().astype(np.int64))
+    nz = np.nonzero(delta)[0]
+    if len(nz) > MAX_CORRECTIONS:
+        return None
+    return tuple(int(i) for i in nz), tuple(int(d) for d in delta[nz])
+
+
+def surrogate_corrections_plain(name: str, device):
+    return _corrections_of(name, surrogate_values_plain(name, device))
+
+
+def surrogate_corrections(name: str, device):
+    """The JAX ``_corrections(name)``: the sparse ``(indices, deltas)``
+    that make the surrogate equal its table on ``device``, or None (read
+    the table) where more than 32 entries differ.  Probed once per table
+    and device, by that device's own arithmetic (kernel K9 on a card);
+    cached."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (name, str(dev))
+    if key not in _CORRECTIONS:
+        _CORRECTIONS[key] = _corrections_of(name, surrogate_values(name, dev))
+    return _CORRECTIONS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +418,27 @@ def clahe_apply(src, luts, ya, xa, th, tw, pt, plf, tiles_x, tiles_y):
     return _launch("clahe_apply", src, luts, ya, xa, *geom)
 
 
+def clahe_lab_apply_plain(L, a, b, luts, ya, xa, th, tw, pt, plf, tiles_x,
+                          tiles_y):
+    mapped = clahe_apply_plain(L, luts, ya, xa, th, tw, pt, plf, tiles_x,
+                               tiles_y)
+    return lab_inverse_u8_plain(mapped, a, b)
+
+
+def clahe_lab_apply(L, a, b, luts, ya, xa, th, tw, pt, plf, tiles_x, tiles_y):
+    """clahe_apply of the L plane followed by lab_inverse_u8 with the a and
+    b planes, in one pass (kernel K5): int32 (L, a, b) planes (H, W) and
+    clahe_apply's LUTs and fractions -> u8-valued int32 (r, g, b); the
+    mapped L never reaches device memory."""
+    geom = (th, tw, pt, plf, tiles_x, tiles_y)
+    dev = _check("clahe_lab_apply", (L, a, b), torch.int32)
+    _check_clahe(L, luts, ya, xa, *geom)
+    if dev.type == "cpu":
+        return clahe_lab_apply_plain(L, a, b, luts, ya, xa, *geom)
+    return _launch("clahe_lab_apply", L, a, b, luts, ya, xa,
+                   _table("inv", dev), *geom)
+
+
 # ---------------------------------------------------------------------------
 # Inverse LAB (csrc/lab_inverse.cu)
 # ---------------------------------------------------------------------------
@@ -300,6 +467,15 @@ def lab_inverse_u8_plain(L, a, b):
                        + z * int(C[ch, 2]), 14)
         outs.append(ig[torch.clamp(idx, 0, lt.INV_GAMMA_SIZE - 1).long()])
     return tuple(outs)
+
+
+def lab_inverse_u8(L, a, b):
+    """Bit-exact LAB2RGB on int32 (L, a, b) planes (H, W) -> u8-valued
+    int32 (r, g, b) planes (kernel K3b)."""
+    dev = _check("lab_inverse_u8", (L, a, b), torch.int32)
+    if dev.type == "cpu":
+        return lab_inverse_u8_plain(L, a, b)
+    return _launch("lab_inverse_u8", L, a, b, _table("inv", dev))
 
 
 def lab_inverse_unit_plain(L, a, b):
