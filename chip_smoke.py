@@ -26,7 +26,13 @@ non-zero):
    at 1080x1920 and 1079x1917 for the five clip limits, hysteresis at
    1080x1920 for 4 and 64 rounds, prefix sums on (6, 1080, 1920) rows,
    (7, 135, 1920) rows and (18, 1920) along the last axis (each kernel
-   again below on the main path's own buffers);
+   again below on the main path's own buffers); then hysteresis for 0, 1,
+   4, 63, 64 and the most rounds a tiled plan fits on planes from 1x1 to
+   1080x1920, N from 1 to 8, and along a serpentine weak path longer than
+   the rounds (exactly rounds + 1 cells lit), and the prefix sums over
+   every axis length of ``SCAN_LENGTHS`` and width of ``SCAN_WIDTHS``,
+   along the first, middle and last axis, with and without the leading
+   zero, one launch a call (counted with ``torch.profiler``);
 4. slice: three seeded synthetic 1920x1080 underwater frames, written with
    the port's PNG codec, through ``cli six``, ``cli six --fast``, ``cli
    enhance``, ``cli auto``, ``cli build-dataset``, ``cli build-dataset
@@ -57,7 +63,9 @@ non-zero):
    leg fused against split (in turns), ms per frame of UIQM, UCIQE and the
    assess command's work (one profiled frame), and each kernel on the main
    path's inputs beside its bound, its plain version and, for the prefix
-   sums, ``torch.cumsum``.
+   sums, ``torch.cumsum``; hysteresis and the prefix sums also on their
+   other main-path shapes, beside the earlier design's times
+   (``EARLIER_US``).
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -172,8 +180,24 @@ F32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores, ops per second
 # the package's CUDA kernels by function name (instances counted apart)
 OUR_KERNELS = ("lab_forward_kernel", "clahe_apply_kernel",
                "clahe_lab_apply_kernel", "lab_inverse_kernel",
-               "surrogate_probe_kernel", "hysteresis_kernel",
-               "block_totals_kernel", "block_scan_kernel")
+               "surrogate_probe_kernel", "hysteresis_pack_kernel",
+               "hysteresis_flood_kernel", "prefix_scan_kernel")
+# K6's sweep: every axis length up to the kernel's 2**16 and the widths
+# around a slab's, each scanned along the first, middle and last axis
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1080, 1920, 4097, 65536)
+SCAN_WIDTHS = (1, 3, 31, 33, 1920)
+# K7's sweep: planes smaller than a tile, whole planes in one block, widths
+# that are not a multiple of 32, N from 1 to 8
+K7_SHAPES = ((1, 1080, 1920), (4, 540, 960), (8, 97, 131), (3, 61, 83),
+             (2, 1, 1), (5, 20, 30), (1, 700, 1000), (4, 270, 480),
+             (6, 33, 2000), (7, 135, 240))
+# the earlier designs' times on the same calls (PR 5's chip run 2, "NVIDIA
+# H100 80GB HBM3, 700.00 W"), printed beside this run's
+EARLIER_US = {("hysteresis_propagate", "4x540x960", 64): 113.55,
+              ("hysteresis_propagate", "1x1080x1920", 4): 28.00,
+              ("sat_rows", "6x1080x1920", -2): 78.67,
+              ("sat_rows", "6x3x1920", -1): 22.37,
+              ("sat_rows", "7x135x1920", -2): 20.72}
 
 
 def log(phase: str, **kv) -> None:
@@ -236,6 +260,38 @@ def spread(times) -> dict:
     q1, med, q3 = statistics.quantiles(times, n=4)
     return {"median": f"{med:.3f}", "quartiles": f"{q1:.3f},{q3:.3f}",
             "min_max": f"{min(times):.3f},{max(times):.3f}"}
+
+
+def cuda_kernel_names(torch, fn, tries: int = 3) -> list:
+    """Names of the CUDA kernels that one call of fn launches.  The
+    profiler now and then records no device activity at all for a short
+    session; such a capture is taken again, up to ``tries`` times."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def serpentine(torch, hh: int, ww: int, dev, gap: int = 2):
+    """(strong, weak) (1, hh, ww) int32 planes: one strong seed at the head
+    of a weak path that snakes over every `gap`-th row, joined at
+    alternate ends."""
+    s = torch.zeros((1, hh, ww), dtype=torch.int32)
+    w = torch.zeros((1, hh, ww), dtype=torch.int32)
+    y, right = 1, True
+    while y + gap < hh - 1:
+        w[0, y, 1:ww - 1] = 1
+        w[0, y + 1:y + gap + 1, ww - 2 if right else 1] = 1
+        y, right = y + gap, not right
+    s[0, 1, 1] = 1
+    return s.to(dev), w.to(dev)
 
 
 def capture_calls(torch, kernels):
@@ -438,6 +494,58 @@ def main() -> int:
         x = torch.rand(shape, generator=rng, device=dev)
         replay("sat_rows", (x, dim), f"{shape} along {dim}")
     del u, strong, weak, x
+    k7_max = 64
+    while kernels.hysteresis_tile(k7_max + 1, H, W) is not None:
+        k7_max += 1
+    for it in (0, 1, 4, 63, 64, k7_max):
+        for k, shape in enumerate(K7_SHAPES):
+            u = torch.rand(shape, generator=rng, device=dev)
+            replay("hysteresis_propagate",
+                   ((u < 0.004).to(torch.int32),
+                    ((u >= 0.004) & (u < 0.5)).to(torch.int32), it),
+                   f"{shape} percolation field, {it} rounds")
+        # a weak path longer than `it` over tile borders, along rows and
+        # along columns: exactly `it` steps of it are lit
+        for hh, ww in ((400, 1000), (H, W)):
+            for t in (False, True):
+                sw = tuple(p.transpose(1, 2).contiguous() if t else p
+                           for p in serpentine(torch, hh, ww, dev))
+                replay("hysteresis_propagate", sw + (it,),
+                       f"{hh}x{ww} serpentine{' transposed' * t}, {it} rounds")
+                lit = int(kernels.hysteresis_propagate(*sw, it).sum())
+                check(lit == it + 1, f"serpentine {hh}x{ww}: {lit} cells lit "
+                      f"in {it} rounds, not {it + 1}")
+    scan_launch_names = set()
+    for L in SCAN_LENGTHS:
+        cases = []
+        for M in SCAN_WIDTHS:
+            base = torch.randn((2, L, M), generator=rng, device=dev)
+            base[0, 0, 0] = -0.0
+            for x, dim in ((base[0], 0), (base, 1),
+                           (base[0].t().contiguous(), 1)):
+                what = f"{tuple(x.shape)} along {dim}"
+                replay("sat_rows", (x, dim), what)
+                bare = ext.sat_rows(x, dim, False)
+                want = kernels.xla_cumsum(x, dim)
+                check(torch.equal(bare, want) and torch.equal(
+                    torch.signbit(bare), torch.signbit(want)),
+                    f"prefix sums without the leading zero differ on {what}")
+                cases.append((x, dim))
+        # the launches of the length's 15 calls, in one profiled session
+        names = cuda_kernel_names(
+            torch, lambda: [kernels.sat_rows(x, dim) for x, dim in cases])
+        check(len(names) == len(cases)
+              and all("prefix_scan_kernel" in n for n in names),
+              f"sat_rows along {L} values: {len(cases)} calls launched "
+              f"{len(names)} kernels")
+        scan_launch_names.update(names)
+        del cases, base
+    log("k6_k7_sweeps", k7_iters=f"0,1,4,63,64,{k7_max}",
+        k7_shapes=len(K7_SHAPES), k6_cases=len(SCAN_LENGTHS) * len(SCAN_WIDTHS) * 3,
+        k6_launches_per_call=1,
+        k6_kernel=",".join(sorted(
+            n.replace("(anonymous namespace)::", "").replace("void ", "")
+            .split("(")[0] for n in scan_launch_names)))
     torch.cuda.synchronize()
     log("kernels", result="bit-equal", checks=json.dumps(checked),
         max_abs_err=json.dumps(err, separators=(",", ":")),
@@ -910,13 +1018,10 @@ def main() -> int:
     log("stages", **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
     log("stages_min", **{k: f"{min(v):.3f}" for k, v in stages.items()})
 
-    def launches_of(fn) -> int:
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sum(e.device_type == torch.autograd.DeviceType.CUDA
-                   for e in prof.events())
+    def launches_of(fn):
+        """CUDA kernels one call of fn launches, or "not measured" where
+        the profiler recorded no device activity."""
+        return len(cuda_kernel_names(torch, fn)) or "not measured"
 
     stack = torch.stack([planes[0], planes[1], planes[2], planes[0] ** 2,
                          planes[1] ** 2, planes[2] ** 2])
@@ -931,9 +1036,10 @@ def main() -> int:
     }
     ps = {k: (statistics.median(event_ms(torch, fn, STAGE_RUNS)),
               launches_of(fn)) for k, fn in prefix.items()}
+    check(ps["sat_rows"][1] in (1, "not measured"),
+          f"the row table took {ps['sat_rows'][1]} launches, not 1")
     log("prefix_sums", levels=levels,
         per_frame_ms=f"{ps['sat_rows'][0] + levels * ps['corner_grid'][0]:.3f}",
-        per_frame_launches=ps["sat_rows"][1] + levels * ps["corner_grid"][1],
         **{f"{k}_ms": f"{v[0]:.3f}" for k, v in ps.items()},
         **{f"{k}_launches": v[1] for k, v in ps.items()})
 
@@ -985,6 +1091,14 @@ def main() -> int:
     def us(v):
         return "null" if v is None else f"{v * 1e3:.2f}"
 
+    def earlier(kname, t, args):
+        """The earlier design's time on the same call, where one was
+        taken (EARLIER_US)."""
+        key = (kname, "x".join(map(str, t["shape"])), args[-1])
+        if kname not in ("hysteresis_propagate", "sat_rows"):
+            return {}
+        return {"pr5_us": EARLIER_US.get(key, "not measured")}
+
     # the first main-path call of each kernel, in run order
     calls = {k: next(r[0][k] for r in runs.values() if r[0][k])
              for k in CAPTURED}
@@ -1000,19 +1114,29 @@ def main() -> int:
         log("timing", kernel=kname, shape="x".join(map(str, t["shape"])),
             us=us(t["ms"]), plain_us=us(t["plain_ms"]),
             bound_us=us(t["bound_ms"]), library_us=us(t["library_ms"]),
-            bytes=t["bytes"])
-    # the other main-path shapes of K7 and K6: the fast tier's global Canny
-    # (4 rounds) and band prefix, and the exact descent's corner strips
+            bytes=t["bytes"], **earlier(kname, t, calls[kname][0]))
+    # the other main-path shapes of K7 and K6: the metrics' Canny (64
+    # rounds on the frame), the fast tier's global Canny (4 rounds), the
+    # exact descent's second and third levels (whole planes in one block),
+    # the fast tier's band prefix and the exact descent's corner strips
+    exact_k7 = runs["exact"][0]["hysteresis_propagate"]
     for kname, args, what in (
+            ("hysteresis_propagate",
+             runs["assess"][0]["hysteresis_propagate"][0], "metric Canny"),
             ("hysteresis_propagate", runs["fast"][0]["hysteresis_propagate"][0],
              "fast global Canny"),
+            ("hysteresis_propagate", exact_k7[1], "exact descent level 2"),
+            ("hysteresis_propagate", exact_k7[2], "exact descent level 3"),
             ("sat_rows", runs["fast"][0]["sat_rows"][0], "fast band prefix"),
             ("sat_rows", runs["exact"][0]["sat_rows"][1], "exact corner strip")):
         t = time_call(kname, args)
+        extra = earlier(kname, t, args)
+        if kname == "sat_rows":
+            extra["below_cumsum"] = t["ms"] < t["library_ms"]
         log("timing", kernel=kname, on=repr(what),
             shape="x".join(map(str, t["shape"])), us=us(t["ms"]),
             plain_us=us(t["plain_ms"]), bound_us=us(t["bound_ms"]),
-            library_us=us(t["library_ms"]), bytes=t["bytes"])
+            library_us=us(t["library_ms"]), bytes=t["bytes"], **extra)
     shutil.rmtree(WORK, ignore_errors=True)
 
     print(smi, flush=True)

@@ -278,7 +278,7 @@ def test_lab_forward_u8_and_l_match_cv2():
     lab = tcs.rgb_to_lab_u8_exact_planes(*planes)
     np.testing.assert_array_equal(np.stack([x.numpy() for x in lab], -1), want)
     np.testing.assert_array_equal(
-        tcs.rgb_to_lab_l_u8_exact(*planes).numpy(), want[..., 0])
+        tcs.rgb_to_lab_l_u8_exact_planes(*planes).numpy(), want[..., 0])
 
 
 @pytest.mark.parametrize("name", ["lab_forward_u8", "lab_forward_l_u8"])
@@ -308,7 +308,7 @@ def test_hsv_bit_equal_to_jax_and_cv2(seed):
     rgb = rng.integers(0, 256, SHAPE + (3,)).astype(np.uint8)
     rgb[0, :4] = [[7, 7, 7], [255, 0, 0], [0, 255, 0], [0, 0, 255]]
     planes = [torch.from_numpy(rgb[..., c].astype(np.int32)) for c in range(3)]
-    got = np.stack([x.numpy() for x in tcs.rgb_to_hsv_u8(*planes)], -1)
+    got = np.stack([x.numpy() for x in tcs.rgb_to_hsv_u8_planes(*planes)], -1)
     np.testing.assert_array_equal(
         got, np.asarray(jcs.rgb_to_hsv_u8(jnp.asarray(rgb.astype(np.int32)))))
     np.testing.assert_array_equal(got, cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV))
@@ -328,7 +328,7 @@ def test_arith_lab_within_one_level_of_jax():
     rgb.reshape(-1, 3)[:256] = np.arange(256)[:, None]  # every grey
     planes = [torch.from_numpy(np.ascontiguousarray(rgb[..., c]))
               for c in range(3)]
-    got = np.stack([x.numpy() for x in tcs.rgb_to_lab_u8_arith(*planes)], -1)
+    got = np.stack([x.numpy() for x in tcs.rgb_to_lab_u8_arith_planes(*planes)], -1)
     want = np.asarray(jcs.rgb_to_lab_u8_arith(jnp.asarray(rgb)))
     assert got.dtype == np.float32
     assert np.abs(got - want).max() <= 1 and (got != want).mean() < 1e-3

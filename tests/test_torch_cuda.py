@@ -180,13 +180,115 @@ def test_sat_rows_kernel_equals_plain(cuda, shape, dim):
 
 
 def test_kernel_limits_raise(cuda):
-    s = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
+    # a plane wider than one block's region: tiles with an `iters` halo
+    s = torch.zeros((1, 8, 2048), dtype=torch.int32, device=cuda)
+    assert kernels.hysteresis_tile(K7_MAX_ITERS, 8, 2048) is not None
     with pytest.raises(ValueError):
-        kernels.hysteresis_propagate(s, s, 200)
+        kernels.hysteresis_propagate(s, s, K7_MAX_ITERS + 1)
+    with pytest.raises(ValueError):
+        kernels.sat_rows(torch.zeros((2, kernels.SCAN_MAX_LENGTH + 1),
+                                     device=cuda), -1)
     with pytest.raises(ValueError):
         kernels.sat_rows(torch.zeros((2, 0, 3), device=cuda))
     with pytest.raises(ValueError):
         kernels.sat_rows(torch.zeros((), device=cuda))
+
+
+K7_MAX_ITERS = 298  # the most rounds a tiled plan fits (hysteresis_tile)
+SCAN_LENGTHS = [1, 15, 16, 17, 255, 256, 257, 1080, 1920, 4097, 65536]
+SCAN_WIDTHS = [1, 3, 31, 33, 1920]
+
+
+def _cuda_kernels(fn, tries=3):
+    """Names of the CUDA kernels that fn launches (torch.profiler).  The
+    profiler now and then records no device activity at all for a short
+    session; such a capture is taken again, up to ``tries`` times."""
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+@pytest.mark.parametrize("L", SCAN_LENGTHS)
+def test_sat_rows_one_launch_equal_plain_sweep(cuda, L):
+    """K6 on (L, M) along dim 0, (2, L, M) along dim 1 and (M, L) along
+    the last dim, for every M of the sweep, with and without the leading
+    zero: bit-equal (signs of zeros too) and one CUDA launch a call."""
+    from underwater_image_enhancement_tpu_torch.utils import cuda_build
+
+    ext = cuda_build.extension()
+    g = torch.Generator(device=cuda).manual_seed(L)
+    cases = []
+    for M in SCAN_WIDTHS:
+        base = torch.randn((2, L, M), generator=g, device=cuda)
+        base[0, 0, 0] = -0.0
+        for x, dim in ((base[0], 0), (base, 1),
+                       (base[0].t().contiguous(), 1)):
+            got = kernels.sat_rows(x, dim)
+            want = kernels.sat_rows_plain(x, dim)
+            assert torch.equal(got, want)
+            assert torch.equal(torch.signbit(got), torch.signbit(want))
+            bare = ext.sat_rows(x, dim, False)
+            assert torch.equal(bare, kernels.xla_cumsum(x, dim))
+            assert torch.equal(torch.signbit(bare),
+                               torch.signbit(kernels.xla_cumsum(x, dim)))
+            cases.append((x, dim))
+    before = kernels.launches["sat_rows"]
+    names = _cuda_kernels(lambda: [kernels.sat_rows(x, d) for x, d in cases])
+    # one count a call (the session runs again where a capture was empty)
+    assert (kernels.launches["sat_rows"] - before) % len(cases) == 0
+    assert len(names) == len(cases)
+    assert all("prefix_scan_kernel" in n for n in names)
+
+
+def _serpentine(H, W, device, gap=2):
+    """One strong seed at the head of a weak path that snakes over the
+    plane's rows (every `gap`-th row, joined at alternate ends): its cells
+    lie one step apart along the path and farther apart across rows."""
+    s = torch.zeros((1, H, W), dtype=torch.int32)
+    w = torch.zeros((1, H, W), dtype=torch.int32)
+    y, right = 1, True
+    while y + gap < H - 1:
+        w[0, y, 1:W - 1] = 1
+        w[0, y + 1:y + gap + 1, W - 2 if right else 1] = 1
+        y, right = y + gap, not right
+    s[0, 1, 1] = 1
+    return s.to(device), w.to(device)
+
+
+K7_SHAPES = [(1, 1080, 1920), (4, 540, 960), (8, 97, 131), (3, 61, 83),
+             (2, 1, 1), (5, 20, 30), (1, 700, 1000), (4, 270, 480),
+             (6, 33, 2000), (7, 135, 240)]
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4, 63, 64, K7_MAX_ITERS])
+def test_hysteresis_sweep_equals_plain(cuda, iters):
+    """K7 on planes smaller than a tile, whole planes in one block, widths
+    that are not a multiple of 32 and N from 1 to 8, in a percolation
+    field (long chains), and along a serpentine longer than ``iters``
+    across tile borders: exactly ``iters`` steps of it are lit."""
+    for k, shape in enumerate(K7_SHAPES):
+        g = torch.Generator(device=cuda).manual_seed(k)
+        u = torch.rand(shape, generator=g, device=cuda)
+        strong = (u < 0.004).to(torch.int32)
+        weak = ((u >= 0.004) & (u < 0.5)).to(torch.int32)
+        got = kernels.hysteresis_propagate(strong, weak, iters)
+        assert torch.equal(got, kernels.hysteresis_propagate_plain(
+            strong, weak, iters)), shape
+    for H, W in ((400, 1000), (1080, 1920)):
+        for t in (False, True):  # along rows, and along columns
+            strong, weak = (p.transpose(1, 2).contiguous() if t else p
+                            for p in _serpentine(H, W, cuda))
+            got = kernels.hysteresis_propagate(strong, weak, iters)
+            assert torch.equal(got, kernels.hysteresis_propagate_plain(
+                strong, weak, iters)), (H, W, t)
+            assert int(got.sum()) == iters + 1
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -39,15 +39,14 @@ void launch_clahe_lab_apply(const int* L, const int* a, const int* b,
                             int tiles_x, int tiles_y, cudaStream_t stream);
 void launch_surrogate_probe(const int* idx, int* out, int n, int which,
                             cudaStream_t stream);
-long long hysteresis_smem_bytes(int iters, int tile);
-cudaError_t launch_hysteresis(const int* strong, const int* weak, int* out,
-                              int N, int H, int W, int iters, int tile,
-                              cudaStream_t stream);
-int scan_block();
-void launch_block_totals(const float* x, float* tot, int N, int L, int M,
-                         cudaStream_t stream);
-void launch_block_scan(const float* x, const float* excl, float* out, int N,
-                       int L, int M, bool lead, cudaStream_t stream);
+long long hysteresis_smem_bytes(int tile_h, int halo_rows, int group);
+cudaError_t launch_hysteresis(const int* strong, const int* weak,
+                              unsigned* bits, int* out, int N, int H, int W,
+                              int iters, int tile_h, int halo_rows,
+                              int halo_words, int group, cudaStream_t stream);
+int scan_max_length();
+cudaError_t launch_scan(const float* x, float* out, int N, int L, int M,
+                        bool lead, cudaStream_t stream);
 
 }  // namespace uie
 
@@ -278,51 +277,44 @@ Planes lab_inverse_unit_gamma(const at::Tensor& L, const at::Tensor& a,
 // The largest shared-memory block of an H100 (227 KB).
 constexpr long long kMaxSmem = 232448;
 
-// ops/kernels.py picks the tile (hysteresis_tile) and checks its fit.
+// ops/kernels.py picks the plan (hysteresis_tile); checked here: a halo of
+// at least `iters` cells on every side, or one region that holds the whole
+// plane, and a region that fits in shared memory.
 at::Tensor hysteresis_propagate(const at::Tensor& strong,
                                 const at::Tensor& weak, int64_t iters,
-                                int64_t tile) {
+                                int64_t tile_h, int64_t halo_rows,
+                                int64_t halo_words, int64_t group) {
   check(strong, strong, at::kInt, "strong");
   check(weak, strong, at::kInt, "weak");
   TORCH_CHECK(strong.dim() == 3 && weak.sizes() == strong.sizes(),
               "hysteresis: expected equal (N, H, W) planes");
-  TORCH_CHECK(iters >= 0 && tile > 0 &&
-                  uie::hysteresis_smem_bytes((int)iters, (int)tile) <= kMaxSmem,
+  const int64_t H = strong.size(1), W = strong.size(2);
+  const int64_t tile_w = group - 2 * halo_words;  // words
+  const bool whole = halo_rows == 0 && halo_words == 0 && tile_h >= H &&
+                     32 * group >= W;
+  TORCH_CHECK(iters >= 0 && iters < (int64_t{1} << 30) &&
+                  (group == 16 || group == 32) && tile_h > 0 && tile_w > 0 &&
+                  (whole || (halo_rows >= iters && 32 * halo_words >= iters)),
+              "hysteresis: the plan does not cover the rounds");
+  TORCH_CHECK(uie::hysteresis_smem_bytes((int)tile_h, (int)halo_rows,
+                                         (int)group) <= kMaxSmem,
               "hysteresis: the region does not fit in shared memory");
   const c10::cuda::CUDAGuard guard(strong.device());
   auto out = at::empty_like(strong);
   if (out.numel() == 0) return out;
+  // the packed strong and weak planes, 32 cells a word
+  auto bits = at::empty({2 * strong.size(0) * H * ((W + 31) / 32)},
+                        strong.options());
   C10_CUDA_CHECK(uie::launch_hysteresis(
-      strong.data_ptr<int>(), weak.data_ptr<int>(), out.data_ptr<int>(),
-      (int)strong.size(0), (int)strong.size(1), (int)strong.size(2),
-      (int)iters, (int)tile, at::cuda::getCurrentCUDAStream()));
+      strong.data_ptr<int>(), weak.data_ptr<int>(),
+      reinterpret_cast<unsigned*>(bits.data_ptr<int>()), out.data_ptr<int>(),
+      (int)strong.size(0), (int)H, (int)W, (int)iters, (int)tile_h,
+      (int)halo_rows, (int)halo_words, (int)group,
+      at::cuda::getCurrentCUDAStream()));
   return out;
 }
 
-// csrc/scan.cu's recursion on (N, L, M): L <= 16 is one sequential pass;
-// otherwise the block totals, their own scan (recursively), then each
-// block rescanned plus its exclusive prefix.
-at::Tensor scan_mid(const at::Tensor& x, int64_t N, int64_t L, int64_t M,
-                    bool lead) {
-  auto out = at::empty({N, L + (lead ? 1 : 0), M}, x.options());
-  const auto stream = at::cuda::getCurrentCUDAStream();
-  const float* excl = nullptr;
-  at::Tensor scanned;
-  if (L > uie::scan_block()) {
-    const int64_t nb = (L + uie::scan_block() - 1) / uie::scan_block();
-    auto tot = at::empty({N, nb, M}, x.options());
-    uie::launch_block_totals(x.data_ptr<float>(), tot.data_ptr<float>(),
-                             (int)N, (int)L, (int)M, stream);
-    C10_CUDA_KERNEL_LAUNCH_CHECK();
-    scanned = scan_mid(tot, N, nb, M, false);
-    excl = scanned.data_ptr<float>();
-  }
-  uie::launch_block_scan(x.data_ptr<float>(), excl, out.data_ptr<float>(),
-                         (int)N, (int)L, (int)M, lead, stream);
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return out;
-}
-
+// csrc/scan.cu on (N, L, M): one launch, L <= scan_max_length().
 at::Tensor prefix_scan(const at::Tensor& x, int64_t dim, bool lead) {
   check(x, x, at::kFloat, "x");
   TORCH_CHECK(x.dim() >= 1 && dim >= 0 && dim < x.dim(),
@@ -330,13 +322,20 @@ at::Tensor prefix_scan(const at::Tensor& x, int64_t dim, bool lead) {
   int64_t N = 1, M = 1;
   for (int64_t d = 0; d < dim; ++d) N *= x.size(d);
   for (int64_t d = dim + 1; d < x.dim(); ++d) M *= x.size(d);
-  TORCH_CHECK(x.size(dim) >= 1 && x.numel() < (int64_t{1} << 31),
-              "prefix_scan: empty axis or more than 2^31 values");
+  const int64_t L = x.size(dim);
+  TORCH_CHECK(L >= 1 && L <= uie::scan_max_length() &&
+                  x.numel() < (int64_t{1} << 31),
+              "prefix_scan: expected 1 to 2^16 values along dim and fewer "
+              "than 2^31 in all");
   auto sizes = x.sizes().vec();
   sizes[dim] += lead ? 1 : 0;
   const c10::cuda::CUDAGuard guard(x.device());
-  if (x.numel() == 0) return at::zeros(sizes, x.options());
-  return scan_mid(x, N, x.size(dim), M, lead).view(sizes);
+  auto out = at::empty(sizes, x.options());
+  if (x.numel() == 0) return out.zero_();
+  C10_CUDA_CHECK(uie::launch_scan(x.data_ptr<float>(), out.data_ptr<float>(),
+                                  (int)N, (int)L, (int)M, lead,
+                                  at::cuda::getCurrentCUDAStream()));
+  return out;
 }
 
 }  // namespace

@@ -130,11 +130,11 @@ def extract_all_features(img: torch.Tensor, fast: bool = False) -> torch.Tensor:
     planes = tuple(img[..., c] for c in range(3))
     u8 = tuple(cs.quantize_u8(p).contiguous() for p in planes)
     if fast:
-        lab_f = cs.rgb_to_lab_u8_arith(*u8)
+        lab_f = cs.rgb_to_lab_u8_arith_planes(*u8)
     else:
         lab_f = tuple(c.to(torch.float32)
                       for c in cs.rgb_to_lab_u8_exact_planes(*u8))
-    hsv_f = tuple(c.to(torch.float32) for c in cs.rgb_to_hsv_u8(*u8))
+    hsv_f = tuple(c.to(torch.float32) for c in cs.rgb_to_hsv_u8_planes(*u8))
     gray_u8 = cs.gray_u8_planes(*u8)
     gray_unit = cs.u8_to_unit(gray_u8)
     feats = (_color_features(planes, lab_f, hsv_f)

@@ -74,7 +74,8 @@ def assess_all_planes(planes, needed=None, fast: bool = False
         if fast:
             lab_l = cs.rgb_u8_to_lab_l_arith_planes(r8, g8, b8)
         else:
-            lab_l = cs.rgb_to_lab_l_u8_exact(r8, g8, b8).to(torch.float32)
+            lab_l = cs.rgb_to_lab_l_u8_exact_planes(r8, g8, b8).to(
+                torch.float32)
         dev = (lab_l.mean() - 128.0).abs()
         scores["brightness"] = 100.0 - _clip100(dev / 128.0 * 100.0)
     if "edge_density" in k:

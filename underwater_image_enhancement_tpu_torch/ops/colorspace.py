@@ -76,7 +76,7 @@ def hsv_s_u8_planes(r8, g8, b8) -> torch.Tensor:
     return _hsv_v_s(r8, g8, b8)[2]
 
 
-def rgb_to_hsv_u8(r8, g8, b8):
+def rgb_to_hsv_u8_planes(r8, g8, b8):
     """cv2 8U RGB2HSV on u8-valued int32 planes, bit-exact -> (h, s, v)
     planes: H in [0, 180), S and V in [0, 255].  h = (term * hdiv[diff] +
     2^11) >> 12 (+180 if negative), term chosen by the first channel equal
@@ -89,6 +89,18 @@ def rgb_to_hsv_u8(r8, g8, b8):
     h = torch.where(h < 0, h + 180, h)
     h = torch.where(diff == 0, 0, h)
     return h, s, v
+
+
+def _channels(rgb_u8: torch.Tensor):
+    """The three channel planes of a (..., 3) u8-valued tensor, int32."""
+    return tuple(rgb_u8[..., c].to(torch.int32) for c in range(3))
+
+
+def rgb_to_hsv_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_RGB2HSV of a (..., 3) u8-valued int tensor, bit-exact ->
+    int32 (..., 3): H in [0, 180), S and V in [0, 255] (the JAX
+    ``rgb_to_hsv_u8``)."""
+    return torch.stack(rgb_to_hsv_u8_planes(*_channels(rgb_u8)), dim=-1)
 
 
 def _rows(kernel, planes):
@@ -108,8 +120,7 @@ def rgb_to_lab_u8_exact_planes(r8, g8, b8):
 def rgb_to_lab_u8_exact(rgb_u8: torch.Tensor) -> torch.Tensor:
     """cv2.COLOR_RGB2LAB of a (..., 3) u8-valued int tensor, bit-exact
     (kernel K1b) -> int32 (..., 3)."""
-    planes = tuple(rgb_u8[..., c].to(torch.int32) for c in range(3))
-    return torch.stack(rgb_to_lab_u8_exact_planes(*planes), dim=-1)
+    return torch.stack(rgb_to_lab_u8_exact_planes(*_channels(rgb_u8)), dim=-1)
 
 
 def lab_to_rgb_u8_exact_planes(L, a, b):
@@ -121,14 +132,33 @@ def lab_to_rgb_u8_exact_planes(L, a, b):
 def lab_to_rgb_u8_exact(lab_u8: torch.Tensor) -> torch.Tensor:
     """cv2.COLOR_LAB2RGB of a (..., 3) u8-valued int tensor, bit-exact
     (kernel K3b) -> int32 (..., 3)."""
-    planes = tuple(lab_u8[..., c].to(torch.int32) for c in range(3))
-    return torch.stack(lab_to_rgb_u8_exact_planes(*planes), dim=-1)
+    return torch.stack(lab_to_rgb_u8_exact_planes(*_channels(lab_u8)), dim=-1)
 
 
-def rgb_to_lab_l_u8_exact(r8, g8, b8) -> torch.Tensor:
+def rgb_to_lab_l_u8_exact_planes(r8, g8, b8) -> torch.Tensor:
     """The L plane alone of ``rgb_to_lab_u8_exact_planes`` (kernel K4,
     ``kernels.lab_forward_l_u8``): the brightness metric reads only L."""
     return kernels.lab_forward_l_u8(*(p.contiguous() for p in (r8, g8, b8)))
+
+
+def rgb_to_lab_l_u8_exact(rgb_u8: torch.Tensor,
+                          impl: str = "auto") -> torch.Tensor:
+    """The L plane of cv2.COLOR_RGB2LAB of a (..., 3) u8-valued int tensor,
+    bit-exact -> int32 (...) (the JAX ``rgb_to_lab_l_u8_exact``).
+    ``impl``: "auto" or "pallas" run kernel K4 on a CUDA tensor (its plain
+    version on a CPU one), leading dimensions folded into rows; "xla" runs
+    the plain version on any device."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"rgb_to_lab_l_u8_exact: impl must be 'auto', "
+                         f"'pallas' or 'xla', got {impl!r}")
+    planes = _channels(rgb_u8)
+    if impl == "xla":
+        return kernels.lab_forward_l_u8_plain(*planes)
+    shp = planes[0].shape
+    if len(shp) < 2:
+        return rgb_to_lab_l_u8_exact(rgb_u8[None], impl)[0]
+    rows = (p.reshape(-1, shp[-1]).contiguous() for p in planes)
+    return kernels.lab_forward_l_u8(*rows).reshape(shp)
 
 
 def _srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
@@ -153,7 +183,7 @@ def _xyz_row(lin, k: int) -> torch.Tensor:
     return acc / float(lt.WHITE_F32[k])
 
 
-def rgb_to_lab_u8_arith(r8, g8, b8):
+def rgb_to_lab_u8_arith_planes(r8, g8, b8):
     """The fast tier's arithmetic RGB2LAB on u8-valued int planes -> f32
     (L, a, b) planes, rounded and clipped to [0, 255] but not cast: sRGB
     linearisation, the XYZ matrix, labF with a cube root.  Within a few u8
@@ -166,6 +196,12 @@ def rgb_to_lab_u8_arith(r8, g8, b8):
     a = 500.0 * (fx - fy) + 128.0
     b = 200.0 * (fy - fz) + 128.0
     return tuple(torch.clamp(torch.round(v), 0.0, 255.0) for v in (L, a, b))
+
+
+def rgb_to_lab_u8_arith(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """``rgb_to_lab_u8_arith_planes`` of a (..., 3) u8-valued int tensor ->
+    f32 (..., 3) (the JAX ``rgb_to_lab_u8_arith``)."""
+    return torch.stack(rgb_to_lab_u8_arith_planes(*_channels(rgb_u8)), dim=-1)
 
 
 def rgb_u8_to_lab_l_arith_planes(r8, g8, b8) -> torch.Tensor:

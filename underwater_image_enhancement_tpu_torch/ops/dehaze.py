@@ -45,12 +45,19 @@ def _gray_guide(planes) -> torch.Tensor:
 
 
 def estimate_transmission_planes(planes, A: torch.Tensor, omega: float,
-                                 r: int, eps: float) -> torch.Tensor:
+                                 r: int, eps: float,
+                                 guided_subsample: int = 1) -> torch.Tensor:
     """enhancement_strategies.py:208-234: t = 1 - omega * dark (A + 1e-10),
     refined by the guided filter on the u8 gray guide, then one clip to
-    [0.1, 1]."""
+    [0.1, 1].  guided_subsample > 1 refines with the row-subsampled fast
+    guided filter (the throughput tier's approximation)."""
     t = 1.0 - omega * _dark_channel(planes, A, 1e-10)
-    return torch.clamp(guided_filter(_gray_guide(planes), t, r, eps), 0.1, 1.0)
+    gray = _gray_guide(planes)
+    if guided_subsample > 1:
+        t = guided_filter_fast(gray, t, r, eps, guided_subsample)
+    else:
+        t = guided_filter(gray, t, r, eps)
+    return torch.clamp(t, 0.1, 1.0)
 
 
 def shared_refined_dark(planes, A: torch.Tensor, r: int, eps: float,

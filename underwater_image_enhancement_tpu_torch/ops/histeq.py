@@ -164,8 +164,8 @@ def clahe_u8(channel_u8: torch.Tensor, clip_limit: float = 2.0,
 
 def clahe_enhancement_planes(planes, clip_limit: float = 2.0,
                              tiles_x: int = 8, tiles_y: int = 8,
-                             gamma: float | None = None,
-                             lab_fast: bool = False, impl: str = "auto"):
+                             impl: str = "auto", lab_fast: bool = False,
+                             gamma: float | None = None):
     """LAB-L CLAHE roundtrip on (r, g, b) f32 unit planes (H, W) -> same,
     bit-exact vs cv2 on the u8 grid.  ``gamma`` applies a trailing
     ``out**gamma`` as a 256-entry LUT (``kernels.gamma_lut``).

@@ -531,17 +531,35 @@ def hysteresis_propagate_plain(strong, weak, iters: int):
 
 
 SMEM_BYTES = 232448  # shared memory a block of an H100 can have (227 KB)
+WHOLE_PLANE_CELLS = 270 * 480  # the largest plane run in one block
 
 
-def hysteresis_tile(iters: int) -> int:
-    """csrc/hysteresis.cu's output tile side for ``iters`` rounds: 64 for
-    long propagations (less halo a pixel), 32 for short ones or where the
-    64 tile's region, 3 bytes a cell of (tile + 2*iters)^2, overflows
-    shared memory; 0 where neither fits."""
-    for tile in ((64, 32) if iters > 16 else (32,)):
-        if 3 * (tile + 2 * iters) ** 2 <= SMEM_BYTES:
-            return tile
-    return 0
+def hysteresis_tile(iters: int, H: int, W: int):
+    """csrc/hysteresis.cu's plan for ``iters`` rounds on (H, W) planes:
+    (tile_h, halo_rows, halo_words, group), the region being tile_h + 2 *
+    halo_rows rows of ``group`` 32-cell words (3 words a cell of shared
+    memory), the output tile group - 2 * halo_words words wide; None where
+    no region fits.
+
+    A plane of at most 512 columns and 270x480 cells is one region, with no
+    halo.  Otherwise the halo is ``iters`` rows and ceil(iters / 32) words,
+    the region 16 words wide (32 where the halo leaves fewer than 4 words
+    of tile), and the tile ``iters`` rows high, within [32, 128], halved
+    until the region fits: 64x384 cells in a 192x512 region at 64 rounds,
+    32x448 in 40x512 at 4 (the regions' words are read from the packed
+    planes, so the halo costs rounds, not bytes)."""
+    if W <= 512 and H * W <= WHOLE_PLANE_CELLS and 12 * H * 16 <= SMEM_BYTES:
+        return H, 0, 0, 16
+    hw = -(-iters // 32)
+    for group in (16, 32):
+        if group - 2 * hw < (4 if group == 16 else 1):
+            continue
+        th = min(128, max(32, iters))
+        while th >= 8:
+            if 12 * (th + 2 * iters) * group <= SMEM_BYTES:
+                return th, iters, hw, group
+            th //= 2
+    return None
 
 
 def hysteresis_propagate(strong, weak, iters: int = 64):
@@ -552,11 +570,11 @@ def hysteresis_propagate(strong, weak, iters: int = 64):
         raise ValueError("hysteresis_propagate: iters must be >= 0")
     if dev.type == "cpu":
         return hysteresis_propagate_plain(strong, weak, iters)
-    tile = hysteresis_tile(iters)
-    if not tile:
+    plan = hysteresis_tile(iters, *strong.shape[1:])
+    if plan is None:
         raise ValueError(f"hysteresis_propagate: {iters} rounds need more "
                          "shared memory than a block has")
-    return _launch("hysteresis_propagate", strong, weak, int(iters), tile)
+    return _launch("hysteresis_propagate", strong, weak, int(iters), *plan)
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +582,7 @@ def hysteresis_propagate(strong, weak, iters: int = 64):
 # ---------------------------------------------------------------------------
 
 SCAN_BLOCK = 16
+SCAN_MAX_LENGTH = 1 << 16  # the longest axis csrc/scan.cu scans in one launch
 
 
 def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -609,4 +628,7 @@ def sat_rows(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
     d = dim % x.dim()
     if dev.type == "cpu":
         return sat_rows_plain(x, d)
+    if x.shape[d] > SCAN_MAX_LENGTH:
+        raise ValueError(f"sat_rows: {x.shape[d]} values along dim {dim}; "
+                         f"the kernel scans at most {SCAN_MAX_LENGTH}")
     return _launch("sat_rows", x, d, True)

@@ -24,13 +24,14 @@ def detect_cast(img: torch.Tensor) -> torch.Tensor:
     return code.to(torch.int32)
 
 
-def correct_cast(img: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
-    """Scale the offending channel by 0.85, then clip to [0, 1]."""
+def correct_cast(img: torch.Tensor, cast_code: torch.Tensor) -> torch.Tensor:
+    """Scale the offending channel of an (H, W, 3) image by 0.85 as
+    ``cast_code`` (``detect_cast``) says, then clip to [0, 1]."""
     one = torch.ones((), dtype=img.dtype, device=img.device)
     k = torch.full((), 0.85, dtype=img.dtype, device=img.device)
     scale = torch.stack([one,
-                         torch.where(code == CAST_GREENISH, k, one),
-                         torch.where(code == CAST_BLUISH, k, one)])
+                         torch.where(cast_code == CAST_GREENISH, k, one),
+                         torch.where(cast_code == CAST_BLUISH, k, one)])
     return torch.clamp(img * scale, 0.0, 1.0)
 
 

@@ -1,11 +1,16 @@
 """Host-side image IO with no image library: an 8-bit PNG codec built on
-``zlib`` + ``struct`` + numpy, plus the folder helpers of the JAX
-package's ``utils/io.py`` (collect, decode-ahead, write-behind).
+``zlib`` + ``struct`` + numpy, the JPEG and BMP decoders of ``jpeg.py``
+and ``bmp.py``, plus the folder helpers of the JAX package's
+``utils/io.py`` (collect, decode-ahead, write-behind).
 
-Reading follows the reference's load conventions (main.py:91-113): RGB
-out, grayscale replicated to RGB, alpha dropped, float32 in [0, 1];
-unreadable files (and formats other than 8-bit non-interlaced gray, gray
-+alpha, RGB or RGBA PNG) give None so callers can skip them.
+A file's format is found from its first bytes, not its suffix, as cv2
+does.  Reading follows the reference's load conventions (main.py:91-113)
+and gives what the JAX package's ``cv2.imread(path, IMREAD_UNCHANGED)``
+and channel handling give: RGB out, grayscale replicated to RGB, alpha
+dropped, float32 in [0, 1].  Unreadable files give None so callers can skip
+them; so do the files cv2 reads and the port does not (TIFF, progressive
+JPEG, 16-bit PNG and the other formats and variants that ``jpeg.py``,
+``bmp.py`` and ``decode_png`` leave out), which ``read_u8`` names.
 """
 
 from __future__ import annotations
@@ -17,7 +22,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from underwater_image_enhancement_tpu_torch.utils.bmp import decode_bmp
 from underwater_image_enhancement_tpu_torch.utils.config import SUPPORTED_FORMATS
+from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+    Unsupported,
+    decode_jpeg,
+)
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -95,8 +105,8 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG without IHDR")
     W, H, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"unsupported PNG (depth {depth}, colour type "
-                         f"{ctype}, interlace {interlace})")
+        raise Unsupported(f"PNG of depth {depth}, colour type {ctype}, "
+                          f"interlace {interlace}")
     bpp = _CHANNELS[ctype]
     stride = W * bpp
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -108,12 +118,35 @@ def decode_png(data: bytes) -> np.ndarray:
     return out.reshape(H, W) if bpp == 1 else out.reshape(H, W, bpp)
 
 
-def imread_u8(path: str) -> Optional[np.ndarray]:
-    """Read an image as (H, W, 3) uint8 RGB; None if unreadable."""
-    try:
-        img = decode_png(Path(path).read_bytes())
-    except (OSError, ValueError, zlib.error, struct.error):
-        return None
+# first bytes of the other formats cv2 reads
+_OTHER_FORMATS = (
+    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF8", "GIF"),
+    (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
+    (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
+    (b"v/1\x01", "OpenEXR"), (b"\x59\xa6\x6a\x95", "Sun raster"),
+)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image bytes -> (H, W, 3) uint8 RGB, the format found from the
+    signature.  Raises ``Unsupported`` for a format (or variant) that cv2
+    reads and the port does not, ValueError for anything else it cannot
+    read."""
+    if data[:8] == _SIGNATURE:
+        img = decode_png(data)
+    elif data[:3] == b"\xff\xd8\xff":
+        img = decode_jpeg(data)
+    elif data[:2] == b"BM":
+        return decode_bmp(data)
+    else:
+        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            raise Unsupported("WebP")
+        if data[:1] == b"P" and data[1:2] in b"1234567" and len(data) > 2:
+            raise Unsupported("PNM")
+        for sig, name in _OTHER_FORMATS:
+            if data.startswith(sig):
+                raise Unsupported(name)
+        raise ValueError("unknown image format")
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     elif img.shape[2] == 2:  # gray + alpha
@@ -121,6 +154,24 @@ def imread_u8(path: str) -> Optional[np.ndarray]:
     else:
         img = img[..., :3]
     return np.ascontiguousarray(img)
+
+
+def read_u8(path: str):
+    """(image, None) with the image as (H, W, 3) uint8 RGB; (None, reason)
+    where the file is a format cv2 reads and the port does not; (None,
+    None) where it is unreadable."""
+    try:
+        return decode_image(Path(path).read_bytes()), None
+    except Unsupported as e:
+        return None, str(e)
+    except (OSError, ValueError, IndexError, zlib.error, struct.error):
+        return None, None
+
+
+def imread_u8(path: str) -> Optional[np.ndarray]:
+    """Read an image as (H, W, 3) uint8 RGB; None if unreadable or of a
+    format the port does not read."""
+    return read_u8(path)[0]
 
 
 def imread_unit(path: str) -> Optional[np.ndarray]:
@@ -193,8 +244,9 @@ class AsyncWriter:
 def decode_iter(files, log=print, min_size: int = 0):
     """Decode-ahead iterator: yields (path, float32 RGB [0, 1]) in order
     while a background thread decodes the next images (queue of 8).
-    Unreadable files, and images under ``min_size`` pixels on either side,
-    are logged and skipped."""
+    Unreadable files, files of a format the port does not read ("unsupported
+    by the port: <format>"), and images under ``min_size`` pixels on either
+    side, are logged and skipped."""
     import queue
     import threading
 
@@ -203,7 +255,10 @@ def decode_iter(files, log=print, min_size: int = 0):
 
     def producer():
         for path in files:
-            q.put((path, imread_unit(str(path))))
+            img, why = read_u8(str(path))
+            if img is not None:
+                img = img.astype(np.float32) / 255.0
+            q.put((path, img, why))
         q.put(end)
 
     t = threading.Thread(target=producer, daemon=True)
@@ -212,9 +267,10 @@ def decode_iter(files, log=print, min_size: int = 0):
         item = q.get()
         if item is end:
             break
-        path, img = item
+        path, img, why = item
         if img is None:
-            log(f"warning: unreadable {path.name}")
+            log(f"warning: {path.name} unsupported by the port: {why}"
+                if why else f"warning: unreadable {path.name}")
             continue
         if min_size and (img.shape[0] < min_size or img.shape[1] < min_size):
             log(f"warning: {path.name} too small, skipping")
