@@ -64,8 +64,7 @@ non-zero):
    assess command's work (one profiled frame), and each kernel on the main
    path's inputs beside its bound, its plain version and, for the prefix
    sums, ``torch.cumsum``; hysteresis and the prefix sums also on their
-   other main-path shapes, beside the earlier design's times
-   (``EARLIER_US``).
+   other main-path shapes.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -177,27 +176,22 @@ CLAHE_LEGS = ((3.0, 1.5), (2.0, None), (4.0, None), (1.5, 1.2), (3.5, 1.4))
 # K7 calls beyond one a descent level: the metric (and feature) Cannys
 EXTRA_CANNY = {"auto": 15, "build": 18}
 F32_PEAK = 67e12  # H100 SXM f32 outside the tensor cores, ops per second
+SPIN_CYCLES = 1_000_000  # a spin kernel around a counted call, about 0.5 ms
 # the package's CUDA kernels by function name (instances counted apart)
 OUR_KERNELS = ("lab_forward_kernel", "clahe_apply_kernel",
                "clahe_lab_apply_kernel", "lab_inverse_kernel",
                "surrogate_probe_kernel", "hysteresis_pack_kernel",
                "hysteresis_flood_kernel", "prefix_scan_kernel")
-# K6's sweep: every axis length up to the kernel's 2**16 and the widths
-# around a slab's, each scanned along the first, middle and last axis
+# K6's sweep (also the gpu tests'): every axis length up to the kernel's
+# 2**16 and the widths around a slab's, each scanned along the first,
+# middle and last axis
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1080, 1920, 4097, 65536)
 SCAN_WIDTHS = (1, 3, 31, 33, 1920)
-# K7's sweep: planes smaller than a tile, whole planes in one block, widths
-# that are not a multiple of 32, N from 1 to 8
+# K7's sweep (also the gpu tests'): planes smaller than a tile, whole
+# planes in one block, widths that are not a multiple of 32, N from 1 to 8
 K7_SHAPES = ((1, 1080, 1920), (4, 540, 960), (8, 97, 131), (3, 61, 83),
              (2, 1, 1), (5, 20, 30), (1, 700, 1000), (4, 270, 480),
              (6, 33, 2000), (7, 135, 240))
-# the earlier designs' times on the same calls (PR 5's chip run 2, "NVIDIA
-# H100 80GB HBM3, 700.00 W"), printed beside this run's
-EARLIER_US = {("hysteresis_propagate", "4x540x960", 64): 113.55,
-              ("hysteresis_propagate", "1x1080x1920", 4): 28.00,
-              ("sat_rows", "6x1080x1920", -2): 78.67,
-              ("sat_rows", "6x3x1920", -1): 22.37,
-              ("sat_rows", "7x135x1920", -2): 20.72}
 
 
 def log(phase: str, **kv) -> None:
@@ -262,19 +256,25 @@ def spread(times) -> dict:
             "min_max": f"{min(times):.3f},{max(times):.3f}"}
 
 
-def cuda_kernel_names(torch, fn, tries: int = 3) -> list:
+def cuda_kernel_names(torch, fn, expect: int = 1, tries: int = 5) -> list:
     """Names of the CUDA kernels that one call of fn launches.  The
-    profiler now and then records no device activity at all for a short
-    session; such a capture is taken again, up to ``tries`` times."""
+    profiler now and then misses the first kernel of a session
+    (``tools/torch_profiler_loss.py``), so fn runs between two spin
+    kernels (``torch.cuda._sleep``), which are not counted.  It never
+    records more kernels than ran; a capture of fewer than ``expect`` is
+    taken again, up to ``tries`` times."""
     for _ in range(tries):
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
             fn()
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
+        if len(names) >= expect:
             break
     return names
 
@@ -282,7 +282,9 @@ def cuda_kernel_names(torch, fn, tries: int = 3) -> list:
 def serpentine(torch, hh: int, ww: int, dev, gap: int = 2):
     """(strong, weak) (1, hh, ww) int32 planes: one strong seed at the head
     of a weak path that snakes over every `gap`-th row, joined at
-    alternate ends."""
+    alternate ends.  Its cells lie one step apart along the path and
+    farther apart across rows, so ``r`` rounds light exactly r + 1 of them
+    while the path is longer than r."""
     s = torch.zeros((1, hh, ww), dtype=torch.int32)
     w = torch.zeros((1, hh, ww), dtype=torch.int32)
     y, right = 1, True
@@ -533,7 +535,8 @@ def main() -> int:
                 cases.append((x, dim))
         # the launches of the length's 15 calls, in one profiled session
         names = cuda_kernel_names(
-            torch, lambda: [kernels.sat_rows(x, dim) for x, dim in cases])
+            torch, lambda: [kernels.sat_rows(x, dim) for x, dim in cases],
+            expect=len(cases))
         check(len(names) == len(cases)
               and all("prefix_scan_kernel" in n for n in names),
               f"sat_rows along {L} values: {len(cases)} calls launched "
@@ -1019,9 +1022,9 @@ def main() -> int:
     log("stages_min", **{k: f"{min(v):.3f}" for k, v in stages.items()})
 
     def launches_of(fn):
-        """CUDA kernels one call of fn launches, or "not measured" where
-        the profiler recorded no device activity."""
-        return len(cuda_kernel_names(torch, fn)) or "not measured"
+        """CUDA kernels one call of fn launches (0 where the profiler
+        recorded no device activity in any of its tries)."""
+        return len(cuda_kernel_names(torch, fn))
 
     stack = torch.stack([planes[0], planes[1], planes[2], planes[0] ** 2,
                          planes[1] ** 2, planes[2] ** 2])
@@ -1036,10 +1039,11 @@ def main() -> int:
     }
     ps = {k: (statistics.median(event_ms(torch, fn, STAGE_RUNS)),
               launches_of(fn)) for k, fn in prefix.items()}
-    check(ps["sat_rows"][1] in (1, "not measured"),
+    check(ps["sat_rows"][1] == 1,
           f"the row table took {ps['sat_rows'][1]} launches, not 1")
     log("prefix_sums", levels=levels,
         per_frame_ms=f"{ps['sat_rows'][0] + levels * ps['corner_grid'][0]:.3f}",
+        per_frame_launches=ps["sat_rows"][1] + levels * ps["corner_grid"][1],
         **{f"{k}_ms": f"{v[0]:.3f}" for k, v in ps.items()},
         **{f"{k}_launches": v[1] for k, v in ps.items()})
 
@@ -1091,14 +1095,6 @@ def main() -> int:
     def us(v):
         return "null" if v is None else f"{v * 1e3:.2f}"
 
-    def earlier(kname, t, args):
-        """The earlier design's time on the same call, where one was
-        taken (EARLIER_US)."""
-        key = (kname, "x".join(map(str, t["shape"])), args[-1])
-        if kname not in ("hysteresis_propagate", "sat_rows"):
-            return {}
-        return {"pr5_us": EARLIER_US.get(key, "not measured")}
-
     # the first main-path call of each kernel, in run order
     calls = {k: next(r[0][k] for r in runs.values() if r[0][k])
              for k in CAPTURED}
@@ -1114,7 +1110,7 @@ def main() -> int:
         log("timing", kernel=kname, shape="x".join(map(str, t["shape"])),
             us=us(t["ms"]), plain_us=us(t["plain_ms"]),
             bound_us=us(t["bound_ms"]), library_us=us(t["library_ms"]),
-            bytes=t["bytes"], **earlier(kname, t, calls[kname][0]))
+            bytes=t["bytes"])
     # the other main-path shapes of K7 and K6: the metrics' Canny (64
     # rounds on the frame), the fast tier's global Canny (4 rounds), the
     # exact descent's second and third levels (whole planes in one block),
@@ -1130,9 +1126,8 @@ def main() -> int:
             ("sat_rows", runs["fast"][0]["sat_rows"][0], "fast band prefix"),
             ("sat_rows", runs["exact"][0]["sat_rows"][1], "exact corner strip")):
         t = time_call(kname, args)
-        extra = earlier(kname, t, args)
-        if kname == "sat_rows":
-            extra["below_cumsum"] = t["ms"] < t["library_ms"]
+        extra = ({"below_cumsum": t["ms"] < t["library_ms"]}
+                 if kname == "sat_rows" else {})
         log("timing", kernel=kname, on=repr(what),
             shape="x".join(map(str, t["shape"])), us=us(t["ms"]),
             plain_us=us(t["plain_ms"]), bound_us=us(t["bound_ms"]),

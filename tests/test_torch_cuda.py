@@ -12,6 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (
+    K7_SHAPES,
+    SCAN_LENGTHS,
+    SCAN_WIDTHS,
+    cuda_kernel_names,
+    serpentine,
+)
 from underwater_image_enhancement_tpu_torch.ops import (
     airlight,
     colorspace,
@@ -195,24 +202,6 @@ def test_kernel_limits_raise(cuda):
 
 
 K7_MAX_ITERS = 298  # the most rounds a tiled plan fits (hysteresis_tile)
-SCAN_LENGTHS = [1, 15, 16, 17, 255, 256, 257, 1080, 1920, 4097, 65536]
-SCAN_WIDTHS = [1, 3, 31, 33, 1920]
-
-
-def _cuda_kernels(fn, tries=3):
-    """Names of the CUDA kernels that fn launches (torch.profiler).  The
-    profiler now and then records no device activity at all for a short
-    session; such a capture is taken again, up to ``tries`` times."""
-    for _ in range(tries):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    return names
 
 
 @pytest.mark.parametrize("L", SCAN_LENGTHS)
@@ -240,31 +229,13 @@ def test_sat_rows_one_launch_equal_plain_sweep(cuda, L):
                                torch.signbit(kernels.xla_cumsum(x, dim)))
             cases.append((x, dim))
     before = kernels.launches["sat_rows"]
-    names = _cuda_kernels(lambda: [kernels.sat_rows(x, d) for x, d in cases])
-    # one count a call (the session runs again where a capture was empty)
+    names = cuda_kernel_names(
+        torch, lambda: [kernels.sat_rows(x, d) for x, d in cases],
+        expect=len(cases))
+    # one count a call (the session runs again where a capture was short)
     assert (kernels.launches["sat_rows"] - before) % len(cases) == 0
     assert len(names) == len(cases)
     assert all("prefix_scan_kernel" in n for n in names)
-
-
-def _serpentine(H, W, device, gap=2):
-    """One strong seed at the head of a weak path that snakes over the
-    plane's rows (every `gap`-th row, joined at alternate ends): its cells
-    lie one step apart along the path and farther apart across rows."""
-    s = torch.zeros((1, H, W), dtype=torch.int32)
-    w = torch.zeros((1, H, W), dtype=torch.int32)
-    y, right = 1, True
-    while y + gap < H - 1:
-        w[0, y, 1:W - 1] = 1
-        w[0, y + 1:y + gap + 1, W - 2 if right else 1] = 1
-        y, right = y + gap, not right
-    s[0, 1, 1] = 1
-    return s.to(device), w.to(device)
-
-
-K7_SHAPES = [(1, 1080, 1920), (4, 540, 960), (8, 97, 131), (3, 61, 83),
-             (2, 1, 1), (5, 20, 30), (1, 700, 1000), (4, 270, 480),
-             (6, 33, 2000), (7, 135, 240)]
 
 
 @pytest.mark.parametrize("iters", [0, 1, 4, 63, 64, K7_MAX_ITERS])
@@ -284,7 +255,7 @@ def test_hysteresis_sweep_equals_plain(cuda, iters):
     for H, W in ((400, 1000), (1080, 1920)):
         for t in (False, True):  # along rows, and along columns
             strong, weak = (p.transpose(1, 2).contiguous() if t else p
-                            for p in _serpentine(H, W, cuda))
+                            for p in serpentine(torch, H, W, cuda))
             got = kernels.hysteresis_propagate(strong, weak, iters)
             assert torch.equal(got, kernels.hysteresis_propagate_plain(
                 strong, weak, iters)), (H, W, t)
@@ -306,6 +277,22 @@ def test_lab_forward_u8_kernels_equal_plain(cuda, shape):
         assert torch.equal(a, b)
     assert torch.equal(L, kernels.lab_forward_l_u8_plain(*p))
     assert torch.equal(L, lab[0])
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas", "xla"])
+def test_lab_l_hwc_launches_k4_for_every_impl(cuda, impl):
+    """The HWC ``rgb_to_lab_l_u8_exact`` launches K4 once on a CUDA tensor
+    whichever of JAX's ``impl`` values it is given, and equals the CPU's
+    plain version."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rgb = torch.randint(0, 256, (2, 45, 67, 3), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = kernels.launches["lab_forward_l_u8"]
+    L = colorspace.rgb_to_lab_l_u8_exact(rgb, impl=impl)
+    assert kernels.launches["lab_forward_l_u8"] == before + 1
+    assert L.shape == (2, 45, 67) and L.dtype == torch.int32
+    assert torch.equal(L.cpu(),
+                       colorspace.rgb_to_lab_l_u8_exact(rgb.cpu(), impl=impl))
 
 
 @pytest.mark.parametrize("fast", [False, True])

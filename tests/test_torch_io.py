@@ -172,6 +172,20 @@ def test_bmp_built_by_hand_matches_cv2(tmp_path, bpp, top_down):
     _assert_reads_as_jax(tmp_path, "h.bmp", data)
 
 
+@pytest.mark.parametrize("restart", [None, 2])
+@pytest.mark.parametrize("cut", [3, 30, 200, 0.5, -10])
+def test_truncated_jpeg_is_unreadable(tmp_path, cut, restart):
+    """A JPEG cut short in its headers or its entropy-coded data raises
+    ValueError in the decoder (no IndexError) and reads as unreadable."""
+    data = _jpeg(_image(61, 83, seed=11), 95, "420", restart)
+    n = int(len(data) * cut) if isinstance(cut, float) else cut % len(data)
+    with pytest.raises(ValueError) as e:
+        tio.decode_image(data[:n])
+    assert not isinstance(e.value, tjpeg.Unsupported)
+    (tmp_path / "cut.jpg").write_bytes(data[:n])
+    assert tio.read_u8(str(tmp_path / "cut.jpg")) == (None, None)
+
+
 def test_formats_the_port_does_not_read_are_logged(tmp_path):
     img = _image(32, 48, seed=10)
     files = {

@@ -1,14 +1,16 @@
 """Time the PyTorch port's prefix-sum (K6) and hysteresis (K7) kernels on
 the calls a 1080p frame makes, for one checkout of the repository.
 
-    python3 tools/torch_k6_k7_times.py [--root DIR]
+    python3 tools/torch_k6_k7_times.py [--root DIR] [--kernel NAME]
 
 Imports ``underwater_image_enhancement_tpu_torch`` and ``chip_smoke`` from
 DIR (default: this checkout), builds its kernels, runs the exact and fast
 airlight descents and the quality metrics on ``chip_smoke.synthetic_frame(0)``
 on the card while capturing every ``kernels.sat_rows`` and
 ``kernels.hysteresis_propagate`` call, then times the first call of each
-shape (CUDA events, median of 30) and prints one JSON line per call: "us"
+shape (CUDA events, median of 30; ``--kernel sat_rows`` or
+``--kernel hysteresis_propagate`` times that one alone) and prints one
+JSON line per call: "us"
 with the L2 flushed before each call by zeroing 256 MB, as
 ``chip_smoke.py`` times its kernels (this leaves the L2 full of dirty
 lines, which a kernel that reads much then writes back), and "us_clean"
@@ -27,7 +29,9 @@ from pathlib import Path
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--kernel", choices=("sat_rows", "hysteresis_propagate"))
+    opts = ap.parse_args()
+    root = Path(opts.root).resolve()
     sys.path.insert(0, str(root))
     import torch
 
@@ -71,7 +75,7 @@ def main() -> int:
                          text=True).stdout.strip()
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     seen = set()
-    for k in names:
+    for k in (opts.kernel,) if opts.kernel else names:
         fn = originals[k]
         for args in calls[k]:
             key = (k, tuple(args[0].shape), args[-1])

@@ -144,16 +144,15 @@ def rgb_to_lab_l_u8_exact_planes(r8, g8, b8) -> torch.Tensor:
 def rgb_to_lab_l_u8_exact(rgb_u8: torch.Tensor,
                           impl: str = "auto") -> torch.Tensor:
     """The L plane of cv2.COLOR_RGB2LAB of a (..., 3) u8-valued int tensor,
-    bit-exact -> int32 (...) (the JAX ``rgb_to_lab_l_u8_exact``).
-    ``impl``: "auto" or "pallas" run kernel K4 on a CUDA tensor (its plain
-    version on a CPU one), leading dimensions folded into rows; "xla" runs
-    the plain version on any device."""
+    bit-exact -> int32 (...) (the JAX ``rgb_to_lab_l_u8_exact``), through
+    kernel K4 with the leading dimensions folded into rows.  ``impl`` is
+    JAX's: "auto", "pallas" and "xla" all give the same bits there, and
+    here all three run K4 on a CUDA tensor (its plain version on a CPU
+    one), which is bit-equal to its plain version."""
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"rgb_to_lab_l_u8_exact: impl must be 'auto', "
                          f"'pallas' or 'xla', got {impl!r}")
     planes = _channels(rgb_u8)
-    if impl == "xla":
-        return kernels.lab_forward_l_u8_plain(*planes)
     shp = planes[0].shape
     if len(shp) < 2:
         return rgb_to_lab_l_u8_exact(rgb_u8[None], impl)[0]

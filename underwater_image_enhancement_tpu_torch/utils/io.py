@@ -164,7 +164,7 @@ def read_u8(path: str):
         return decode_image(Path(path).read_bytes()), None
     except Unsupported as e:
         return None, str(e)
-    except (OSError, ValueError, IndexError, zlib.error, struct.error):
+    except (OSError, ValueError, zlib.error, struct.error):
         return None, None
 
 

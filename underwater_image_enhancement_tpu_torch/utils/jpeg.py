@@ -91,11 +91,17 @@ def _huffman_lut(counts, symbols, ac: bool):
     return fast, slow.tolist()
 
 
+# zero bytes past a segment's end: one block (at most 64 symbols of at
+# most 32 bits) started inside the segment reads no window past them
+_TAIL = 256
+
+
 def _windows(seg: bytes) -> list:
     """win[p] = the 40 bits of bytes p..p+4 of the segment (zeros past its
-    end, as libjpeg reads past a marker), as Python ints."""
-    b = np.frombuffer(seg + bytes(8), np.uint8).astype(np.int64)
-    n = len(seg) + 1
+    end, as libjpeg reads past a marker), as Python ints, for every p up
+    to ``_TAIL`` bytes past the end."""
+    b = np.frombuffer(seg + bytes(_TAIL + 8), np.uint8).astype(np.int64)
+    n = len(seg) + _TAIL + 1
     w = np.zeros(n, np.int64)
     for k in range(5):
         w = (w << 8) | b[k:k + n]
@@ -123,14 +129,18 @@ def _slow_symbol(win, pos, slow, ac):
     return n + s, (rs >> 4) if s else (15 if rs == 0xF0 else 64), v
 
 
-def _decode_segment(win, order, comps, coef_idx, coef_val):
+def _decode_segment(seg, order, comps, coef_idx, coef_val):
     """Decode the blocks ``order`` [(component, block index)] of one
-    restart interval from its windows, appending each nonzero
-    coefficient's (flat index, value) to the two lists."""
+    restart interval, appending each nonzero coefficient's (flat index,
+    value) to the two lists.  A segment whose blocks need more bits than
+    it holds (a truncated file) raises ValueError."""
+    win, nbits = _windows(seg), 8 * len(seg)
     pos = 0
     pred = [0] * len(comps)
     append_i, append_v = coef_idx.append, coef_val.append
     for ci, base in order:
+        if pos > nbits:
+            raise ValueError("corrupt JPEG: entropy-coded data ends early")
         (dc_fast, dc_slow), (ac_fast, ac_slow), out_base = comps[ci]
         adv, _, diff = dc_fast[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
         if not adv:
@@ -152,6 +162,8 @@ def _decode_segment(win, order, comps, coef_idx, coef_val):
                 append_i(flat + k)
                 append_v(v)
             k += 1
+    if pos > nbits:
+        raise ValueError("corrupt JPEG: entropy-coded data ends early")
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +344,8 @@ class _Frame:
 
     def __init__(self, body: bytes):
         prec, self.H, self.W, nc = struct.unpack(">BHHB", body[:6])
+        if len(body) < 6 + 3 * nc:
+            raise ValueError("corrupt JPEG: short frame header")
         if prec != 8:
             raise Unsupported(f"{prec}-bit JPEG")
         if nc not in (1, 3):
@@ -387,7 +401,9 @@ class _Frame:
 
 def _decode_scan(frame: _Frame, header: bytes, entropy: bytes, restart: int,
                  dc_tabs, ac_tabs) -> None:
-    ns = header[0]
+    ns = header[0] if header else 0
+    if ns == 0 or len(header) < 4 + 2 * ns:
+        raise ValueError("corrupt JPEG: short scan header")
     ids = [c[0] for c in frame.comps]
     members, luts = [], [None] * len(frame.comps)
     for j in range(ns):
@@ -409,8 +425,7 @@ def _decode_scan(frame: _Frame, header: bytes, entropy: bytes, restart: int,
         if r >= len(segs):
             raise ValueError("corrupt JPEG: missing restart interval")
         idx, val = [], []
-        _decode_segment(_windows(segs[r]), order[start:start + per], luts,
-                        idx, val)
+        _decode_segment(segs[r], order[start:start + per], luts, idx, val)
         frame.coef[np.asarray(idx, np.int64)] = val
 
 
@@ -447,6 +462,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
             continue
         (length,) = struct.unpack(">H", data[pos:pos + 2])
+        if length < 2 or pos + length > len(data):
+            raise ValueError("corrupt JPEG: truncated marker segment")
         body = data[pos + 2:pos + length]
         pos += length
         if marker == 0xE0 and body[:5] == b"JFIF\x00":
@@ -458,6 +475,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             while p < len(body):
                 wide = body[p] >> 4
                 n = 128 if wide else 64
+                if p + 1 + n > len(body):
+                    raise ValueError("corrupt JPEG: short quantisation table")
                 vals = np.frombuffer(body[p + 1:p + 1 + n],
                                      ">u2" if wide else np.uint8)
                 q = np.zeros(64, np.int64)
@@ -469,6 +488,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             while p < len(body):
                 counts = list(body[p + 1:p + 17])
                 n = sum(counts)
+                if p + 17 + n > len(body):
+                    raise ValueError("corrupt JPEG: short Huffman table")
                 ac = bool(body[p] >> 4)
                 lut = _huffman_lut(counts, list(body[p + 17:p + 17 + n]), ac)
                 (ac_tabs if ac else dc_tabs)[body[p] & 15] = lut
