@@ -26,13 +26,17 @@ non-zero):
    at 1080x1920 and 1079x1917 for the five clip limits, hysteresis at
    1080x1920 for 4 and 64 rounds, prefix sums on (6, 1080, 1920) rows,
    (7, 135, 1920) rows and (18, 1920) along the last axis (each kernel
-   again below on the main path's own buffers); then hysteresis for 0, 1,
-   4, 63, 64 and the most rounds a tiled plan fits on planes from 1x1 to
-   1080x1920, N from 1 to 8, and along a serpentine weak path longer than
-   the rounds (exactly rounds + 1 cells lit), and the prefix sums over
-   every axis length of ``SCAN_LENGTHS`` and width of ``SCAN_WIDTHS``,
-   along the first, middle and last axis, with and without the leading
-   zero, one launch a call (counted with ``torch.profiler``);
+   again below on the main path's own buffers); then the five forward-LAB
+   kernels on ``LAB_SHAPES`` (pixel counts of every residue mod 4, below 4,
+   1079x1917 and 1080x1920) with planes that are views 0-3 elements into
+   their buffers (``LAB_OFFSETS``), one launch a call, and each one's
+   registers, local bytes, resident blocks a SM and 1080p grid; hysteresis
+   for 0, 1, 4, 63, 64 and the most rounds a tiled plan fits on planes
+   from 1x1 to 1080x1920, N from 1 to 8, and along a serpentine weak path
+   longer than the rounds (exactly rounds + 1 cells lit), and the prefix
+   sums over every axis length of ``SCAN_LENGTHS`` and width of
+   ``SCAN_WIDTHS``, along the first, middle and last axis, with and without
+   the leading zero, one launch a call (counted with ``torch.profiler``);
 4. slice: three seeded synthetic 1920x1080 underwater frames, written with
    the port's PNG codec, through ``cli six``, ``cli six --fast``, ``cli
    enhance``, ``cli auto``, ``cli build-dataset``, ``cli build-dataset
@@ -192,6 +196,35 @@ SCAN_WIDTHS = (1, 3, 31, 33, 1920)
 K7_SHAPES = ((1, 1080, 1920), (4, 540, 960), (8, 97, 131), (3, 61, 83),
              (2, 1, 1), (5, 20, 30), (1, 700, 1000), (4, 270, 480),
              (6, 33, 2000), (7, 135, 240))
+
+
+# the forward-LAB kernels' sweep (also the gpu tests'): pixel counts of
+# every residue mod 4 and below 4 (the vector path's scalar tail), and
+# planes that are views starting 0-3 elements into their buffers, at equal
+# and at unequal offsets (misaligned planes take the scalar loop)
+LAB_WRAPPERS = ("lab_forward_unit", "lab_forward_unit_approx",
+                "lab_forward_unit_fast", "lab_forward_u8", "lab_forward_l_u8")
+LAB_SHAPES = ((1, 1), (1, 2), (1, 3), (1, 4), (2, 7), (3, 5), (33, 65),
+              (97, 131), (1079, 1917), (1080, 1920))
+LAB_OFFSETS = ((0, 0, 0), (1, 1, 1), (2, 2, 2), (3, 3, 3), (0, 1, 2),
+               (3, 0, 1), (0, 0, 2))
+
+
+def lab_planes(torch, kname: str, shape, offsets, gen, dev):
+    """Three planes of ``shape`` for forward-LAB wrapper ``kname``, each a
+    contiguous view ``offsets[k]`` elements into a buffer of its own: f32
+    values in [-0.1, 1.1) for the unit-plane kernels, int32 in [-300, 600)
+    for the u8 ones (both clipped by the kernels)."""
+    n = shape[0] * shape[1]
+    planes = []
+    for off in offsets:
+        if kname.startswith("lab_forward_unit"):
+            buf = torch.rand(n + 3, generator=gen, device=dev) * 1.2 - 0.1
+        else:
+            buf = torch.randint(-300, 600, (n + 3,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        planes.append(buf[off:off + n].view(shape))
+    return tuple(planes)
 
 
 def log(phase: str, **kv) -> None:
@@ -457,6 +490,28 @@ def main() -> int:
     replay("lab_forward_u8", wide, f"{H}x{W} int32 values in [-300, 600)")
     replay("lab_forward_l_u8", wide, f"{H}x{W} int32 values in [-300, 600)")
     del wide
+    # the forward-LAB kernels' vector path, its scalar tail and the scalar
+    # loop of misaligned planes, one launch a call
+    for shape in LAB_SHAPES:
+        cases = []
+        for offsets in LAB_OFFSETS:
+            for kname in LAB_WRAPPERS:
+                args = lab_planes(torch, kname, shape, offsets, gen, dev)
+                replay(kname, args, f"{shape} planes at offsets {offsets}")
+                cases.append((getattr(kernels, kname), args))
+        names = cuda_kernel_names(
+            torch, lambda: [fn(*args) for fn, args in cases], expect=len(cases))
+        check(len(names) == len(cases)
+              and all("lab_forward_kernel" in n for n in names),
+              f"forward LAB on {shape}: {len(cases)} calls launched "
+              f"{len(names)} kernels")
+        del cases
+    lab_info = {k: dict(zip(("regs", "local_bytes", "blocks_per_sm", "grid",
+                             "threads"), ext.lab_forward_info(i, H * W)))
+                for i, k in enumerate(LAB_WRAPPERS)}
+    log("kernels", lab_forward_sweep=len(LAB_SHAPES) * len(LAB_OFFSETS)
+        * len(LAB_WRAPPERS), launches_per_call=1,
+        lab_forward_1080p=json.dumps(lab_info, separators=(",", ":")))
     replay("lab_inverse_unit", trip, "all 2^24 (L, a, b) triples")
     replay("lab_inverse_u8", trip, "all 2^24 (L, a, b) triples")
     expect_equal("lab_inverse_unit", kernels.lab_inverse_unit(*trip),
@@ -1051,18 +1106,19 @@ def main() -> int:
     # call where the exact tier runs it); its bytes: the tensors and tables
     # it reads once and the tensors it writes once
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    fwd_bytes = kernels._table("fwd_u16", dev).numel() * 4
     table_bytes = {
-        "lab_forward_unit": kernels._table("fwd", dev).numel() * 4,
-        "lab_forward_unit_approx": (11 + 256) * 4,  # header and GAMMA only
-        "lab_forward_u8": kernels._table("fwd", dev).numel() * 4,
-        "lab_forward_l_u8": kernels._table("fwd", dev).numel() * 4,
+        "lab_forward_unit": fwd_bytes,
+        "lab_forward_unit_approx": (12 + 256) * 4,  # header and GAMMA only
+        "lab_forward_u8": fwd_bytes,
+        "lab_forward_l_u8": fwd_bytes,
         "lab_inverse_unit": kernels._table("inv", dev).numel() * 4,
         "lab_inverse_unit_gamma": kernels._table("inv", dev).numel() * 4
         + 256 * 4,
         "lab_inverse_u8": kernels._table("inv", dev).numel() * 4,
         "clahe_lab_apply": kernels._table("inv", dev).numel() * 4,
         # header, GAMMA and the fix-ups
-        "lab_forward_unit_fast": (11 + 256 + 2 * len(probes["cbrt"][0])) * 4,
+        "lab_forward_unit_fast": (12 + 256 + 2 * len(probes["cbrt"][0])) * 4,
     }
 
     def time_call(kname, args):

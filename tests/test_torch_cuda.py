@@ -14,9 +14,13 @@ import torch
 
 from chip_smoke import (
     K7_SHAPES,
+    LAB_OFFSETS,
+    LAB_SHAPES,
+    LAB_WRAPPERS,
     SCAN_LENGTHS,
     SCAN_WIDTHS,
     cuda_kernel_names,
+    lab_planes,
     serpentine,
 )
 from underwater_image_enhancement_tpu_torch.ops import (
@@ -277,6 +281,49 @@ def test_lab_forward_u8_kernels_equal_plain(cuda, shape):
         assert torch.equal(a, b)
     assert torch.equal(L, kernels.lab_forward_l_u8_plain(*p))
     assert torch.equal(L, lab[0])
+
+
+@pytest.mark.parametrize("shape", LAB_SHAPES)
+def test_lab_forward_sweep_equals_plain(cuda, shape):
+    """The five forward-LAB kernels on planes whose pixel count leaves each
+    residue mod 4 (the vector path's scalar tail) and on views 0-3
+    elements into their buffers (misaligned planes take the scalar loop):
+    bit-equal to the plain versions, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    kernels.surrogate_corrections("cbrt", cuda)  # K8 _fast's probe, first
+    cases = []
+    for offsets in LAB_OFFSETS:
+        for kname in LAB_WRAPPERS:
+            args = lab_planes(torch, kname, shape, offsets, g, cuda)
+            before = kernels.launches[kname]
+            got = getattr(kernels, kname)(*args)
+            assert kernels.launches[kname] == before + 1
+            want = getattr(kernels, kname + "_plain")(*args)
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (kname, offsets)
+            cases.append((getattr(kernels, kname), args))
+    names = cuda_kernel_names(
+        torch, lambda: [fn(*args) for fn, args in cases], expect=len(cases))
+    assert len(names) == len(cases)
+    assert all("lab_forward_kernel" in n for n in names)
+
+
+@pytest.mark.parametrize("kname", LAB_WRAPPERS)
+def test_lab_forward_repeats_equal_plain(cuda, kname):
+    """Each forward-LAB kernel, called again and again on 4096x4096 planes
+    (25 tiles a block, so each stage of a block's ring is refilled about
+    eight times), gives its plain version's bits every time."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    kernels.surrogate_corrections("cbrt", cuda)
+    args = lab_planes(torch, kname, (4096, 4096), (0, 0, 0), g, cuda)
+    want = getattr(kernels, kname + "_plain")(*args)
+    want = (want,) if isinstance(want, torch.Tensor) else want
+    for _ in range(12):
+        got = getattr(kernels, kname)(*args)
+        got = (got,) if isinstance(got, torch.Tensor) else got
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas", "xla"])

@@ -172,17 +172,65 @@ def test_bmp_built_by_hand_matches_cv2(tmp_path, bpp, top_down):
     _assert_reads_as_jax(tmp_path, "h.bmp", data)
 
 
-@pytest.mark.parametrize("restart", [None, 2])
-@pytest.mark.parametrize("cut", [3, 30, 200, 0.5, -10])
-def test_truncated_jpeg_is_unreadable(tmp_path, cut, restart):
-    """A JPEG cut short in its headers or its entropy-coded data raises
-    ValueError in the decoder (no IndexError) and reads as unreadable."""
-    data = _jpeg(_image(61, 83, seed=11), 95, "420", restart)
-    n = int(len(data) * cut) if isinstance(cut, float) else cut % len(data)
+# the truncation cases' files: 4:2:0 (ids "None" and "2", its restart
+# interval), 4:4:4 and gray, with and without restart markers, all q95
+TRUNCATED_FILES = {"None": ("420", None), "2": ("420", 2), "444": ("444", None),
+                   "444-1": ("444", 1), "gray": (None, None),
+                   "gray-3": (None, 3), "411": ("411", None),
+                   "422-1": ("422", 1)}
+# cuts in the headers (cv2 returns None): bytes 3, 30 and 200, and inside
+# the last component's tables of the scan header
+HEADER_CUTS = (3, 30, 200, "sos-4")
+# cuts cv2 reads: in the scan header's Ss, Se and Ah/Al (which a
+# sequential decoder ignores), at its end, one byte after it, halfway,
+# 10 bytes before the end, right after a stuffed 0xFF, right after RSTn
+DATA_CUTS = ("sos-3", "sos-1", "sos+0", "sos+1", 0.5, -10, "ff", "rst")
+# cuts whose MCU in progress decodes to a run past the block's end or to
+# samples out of range (the SIMD IDCT saturates where the C code wraps)
+FOUND_CUTS = ((5630, "444"), (8902, "444"), (5012, "411"), (1722, "422-1"),
+              (1787, "422-1"))
+
+
+def _cut_at(data: bytes, cut) -> int:
+    if not isinstance(cut, str):
+        return int(len(data) * cut) if isinstance(cut, float) else cut % len(data)
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+    if cut.startswith("sos"):
+        return start + int(cut[3:])
+    p = start
+    while not (data[p] == 0xFF and (data[p + 1] == 0 if cut == "ff"
+                                    else 0xD0 <= data[p + 1] <= 0xD7)):
+        p += 1
+    return p + 1 if cut == "ff" else p + 2
+
+
+@pytest.mark.parametrize("cut,file", [
+    pytest.param(cut, f, id=f"{cut}-{f}")
+    for cut in HEADER_CUTS + DATA_CUTS for f, (_, restart) in
+    list(TRUNCATED_FILES.items())[:6] if cut != "rst" or restart]
+    + [pytest.param(cut, f, id=f"{cut}-{f}") for cut, f in FOUND_CUTS])
+def test_truncated_jpeg_is_unreadable(tmp_path, cut, file):
+    """A JPEG cut short in its headers raises ValueError in the decoder
+    (no IndexError) and reads as unreadable, as cv2 returns None; one cut
+    short in (or just before) its entropy-coded data reads as cv2 reads it:
+    libjpeg pads the data with zero bits, so the MCU in progress decodes
+    from them and every later one is grey, with no restart marker to
+    clear that state."""
+    sampling, restart = TRUNCATED_FILES[file]
+    img = _image(61, 83, seed=11, channels=3 if sampling else 1)
+    data = _jpeg(img if sampling else img[..., 0], 95, sampling, restart)
+    n = _cut_at(data, cut)
+    assert 0 < n < len(data)
+    if cut not in HEADER_CUTS:
+        _assert_reads_as_jax(tmp_path, "cut.jpg", data[:n])
+        return
+    assert n < data.index(b"\xff\xda") + 14
     with pytest.raises(ValueError) as e:
         tio.decode_image(data[:n])
     assert not isinstance(e.value, tjpeg.Unsupported)
     (tmp_path / "cut.jpg").write_bytes(data[:n])
+    assert jio.imread_unit(str(tmp_path / "cut.jpg")) is None
     assert tio.read_u8(str(tmp_path / "cut.jpg")) == (None, None)
 
 

@@ -58,6 +58,19 @@ def test_kernel_table_blocks_hold_the_tables():
     np.testing.assert_array_equal(i[527:], jlt.INV_GAMMA_TAB)
 
 
+def test_forward_lab_u16_block_holds_the_tables():
+    """The block the forward-LAB kernels stage: the header padded to 12
+    ints, GAMMA_TAB, then CBRT_TAB as u16 pairs, each section on a 16-byte
+    boundary."""
+    f = tlt.FWD_TABLE_U16
+    assert f.dtype == np.int32 and f.size == 12 + 256 + 3072 // 2
+    np.testing.assert_array_equal(f[:11], tlt.FWD_TABLE[:11])
+    assert f[11] == 0
+    np.testing.assert_array_equal(f[12:268], jlt.GAMMA_TAB)
+    np.testing.assert_array_equal(f[268:].view(np.uint16), jlt.CBRT_TAB)
+    assert 12 * 4 % 16 == 0 and 268 * 4 % 16 == 0
+
+
 def test_u8_grid_and_config_constants():
     np.testing.assert_array_equal(tstretch.U8_GRID, jstretch._U8_GRID)
     assert tconfig.SUPPORTED_FORMATS == jconfig.SUPPORTED_FORMATS

@@ -8,9 +8,12 @@
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
+#include <pybind11/stl.h>
 
+#include <cstdint>
 #include <optional>
 #include <tuple>
+#include <vector>
 
 namespace uie {
 
@@ -21,6 +24,7 @@ void launch_lab_forward_unit(const float* r, const float* g, const float* b,
 void launch_lab_forward_u8(const int* r, const int* g, const int* b,
                            const int* tab, int* L, int* a, int* bb,
                            long long n, bool l_only, cudaStream_t stream);
+void lab_forward_info(int which, long long n, int* out);
 void launch_clahe_apply(const int* src, const int* luts, const float* ya,
                         const float* xa, int* out, int H, int W, int th,
                         int tw, int pt, int plf, int tiles_x, int tiles_y,
@@ -54,8 +58,8 @@ namespace {
 
 using Planes = std::tuple<at::Tensor, at::Tensor, at::Tensor>;
 
-// int32 table blocks of ops/lab_tables.py (FWD_TABLE, INV_TABLE)
-constexpr int64_t kFwdTable = 11 + 256 + 3072;
+// int32 table blocks of ops/lab_tables.py (FWD_TABLE_U16, INV_TABLE)
+constexpr int64_t kFwdTable = 12 + 256 + 3072 / 2;
 constexpr int64_t kInvTable = 15 + 256 + 256 + 4096;
 // csrc/lab_forward.cu's cube-root policies and its largest fix-up set
 constexpr int kCbrtTable = 0, kCbrtApprox = 1, kCbrtCorrected = 2;
@@ -79,6 +83,15 @@ void check_planes(const at::Tensor& p0, const at::Tensor& p1,
   }
 }
 
+// FWD_TABLE_U16 on the planes' device; csrc/lab_forward.cu reads it in
+// 16-byte chunks
+void check_fwd_table(const at::Tensor& tab, const at::Tensor& like) {
+  check(tab, like, at::kInt, "table");
+  TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE_U16");
+  TORCH_CHECK(reinterpret_cast<std::uintptr_t>(tab.data_ptr()) % 16 == 0,
+              "table: expected a 16-byte aligned FWD_TABLE_U16");
+}
+
 Planes empty_planes(const at::Tensor& like, at::ScalarType dtype) {
   auto opts = like.options().dtype(dtype);
   return {at::empty(like.sizes(), opts), at::empty(like.sizes(), opts),
@@ -89,8 +102,7 @@ Planes lab_forward(const at::Tensor& r, const at::Tensor& g,
                    const at::Tensor& b, const at::Tensor& tab, int cbrt,
                    const int* fix = nullptr, int n_fix = 0) {
   check_planes(r, g, b, at::kFloat);
-  check(tab, r, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE");
+  check_fwd_table(tab, r);
   const c10::cuda::CUDAGuard guard(r.device());
   auto outs = empty_planes(r, at::kInt);
   uie::launch_lab_forward_unit(
@@ -128,8 +140,7 @@ Planes lab_forward_unit_fast(const at::Tensor& r, const at::Tensor& g,
 Planes lab_forward_u8(const at::Tensor& r, const at::Tensor& g,
                       const at::Tensor& b, const at::Tensor& tab) {
   check_planes(r, g, b, at::kInt);
-  check(tab, r, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE");
+  check_fwd_table(tab, r);
   const c10::cuda::CUDAGuard guard(r.device());
   auto outs = empty_planes(r, at::kInt);
   uie::launch_lab_forward_u8(
@@ -144,8 +155,7 @@ Planes lab_forward_u8(const at::Tensor& r, const at::Tensor& g,
 at::Tensor lab_forward_l_u8(const at::Tensor& r, const at::Tensor& g,
                             const at::Tensor& b, const at::Tensor& tab) {
   check_planes(r, g, b, at::kInt);
-  check(tab, r, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE");
+  check_fwd_table(tab, r);
   const c10::cuda::CUDAGuard guard(r.device());
   auto L = at::empty(r.sizes(), r.options().dtype(at::kInt));
   uie::launch_lab_forward_u8(
@@ -154,6 +164,18 @@ at::Tensor lab_forward_l_u8(const at::Tensor& r, const at::Tensor& g,
       true, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return L;
+}
+
+// registers, local bytes a thread, resident blocks a SM, grid (for an
+// aligned call of n pixels) and threads a block of forward-LAB kernel
+// `which` (0 K1, 1 K8 _approx, 2 K8 _fast, 3 K1b, 4 K4) on the current
+// device
+std::vector<int64_t> lab_forward_info(int64_t which, int64_t n) {
+  TORCH_CHECK(which >= 0 && which <= 4, "which: expected 0 to 4");
+  int out[5] = {};
+  uie::lab_forward_info((int)which, n, out);
+  C10_CUDA_CHECK(cudaGetLastError());
+  return std::vector<int64_t>(out, out + 5);
 }
 
 at::Tensor clahe_apply(const at::Tensor& src, const at::Tensor& luts,
@@ -353,6 +375,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "csrc/lab_forward.cu: u8-valued int32 planes -> int32 (L, a, b)");
   m.def("lab_forward_l_u8", &lab_forward_l_u8,
         "csrc/lab_forward.cu: u8-valued int32 planes -> int32 L");
+  m.def("lab_forward_info", &lab_forward_info,
+        "csrc/lab_forward.cu: registers, local bytes, blocks a SM, grid and "
+        "threads of a forward-LAB kernel");
   m.def("clahe_apply", &clahe_apply,
         "csrc/clahe_apply.cu: int32 plane through its tile LUTs");
   m.def("lab_inverse_unit", &lab_inverse_unit,

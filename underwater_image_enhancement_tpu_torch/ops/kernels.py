@@ -70,7 +70,8 @@ def reset_launches() -> None:
 def _table(name: str, device: torch.device) -> torch.Tensor:
     key = (name, str(device))
     if key not in _TABLES:
-        src = {"fwd": lt.FWD_TABLE, "inv": lt.INV_TABLE}[name]
+        src = {"fwd": lt.FWD_TABLE, "fwd_u16": lt.FWD_TABLE_U16,
+               "inv": lt.INV_TABLE}[name]
         _TABLES[key] = torch.as_tensor(src, dtype=torch.int32).to(device)
     return _TABLES[key]
 
@@ -158,7 +159,7 @@ def lab_forward_u8(r8, g8, b8):
     dev = _check("lab_forward_u8", (r8, g8, b8), torch.int32)
     if dev.type == "cpu":
         return lab_forward_u8_plain(r8, g8, b8)
-    return _launch("lab_forward_u8", r8, g8, b8, _table("fwd", dev))
+    return _launch("lab_forward_u8", r8, g8, b8, _table("fwd_u16", dev))
 
 
 def lab_forward_l_u8_plain(r8, g8, b8):
@@ -171,7 +172,7 @@ def lab_forward_l_u8(r8, g8, b8):
     dev = _check("lab_forward_l_u8", (r8, g8, b8), torch.int32)
     if dev.type == "cpu":
         return lab_forward_l_u8_plain(r8, g8, b8)
-    return _launch("lab_forward_l_u8", r8, g8, b8, _table("fwd", dev))
+    return _launch("lab_forward_l_u8", r8, g8, b8, _table("fwd_u16", dev))
 
 
 def lab_forward_unit_plain(r, g, b):
@@ -184,7 +185,7 @@ def lab_forward_unit(r, g, b):
     dev = _check("lab_forward_unit", (r, g, b), torch.float32)
     if dev.type == "cpu":
         return lab_forward_unit_plain(r, g, b)
-    return _launch("lab_forward_unit", r, g, b, _table("fwd", dev))
+    return _launch("lab_forward_unit", r, g, b, _table("fwd_u16", dev))
 
 
 def _c32(v: float) -> float:
@@ -246,7 +247,7 @@ def lab_forward_unit_approx(r, g, b):
     dev = _check("lab_forward_unit_approx", (r, g, b), torch.float32)
     if dev.type == "cpu":
         return lab_forward_unit_approx_plain(r, g, b)
-    return _launch("lab_forward_unit_approx", r, g, b, _table("fwd", dev))
+    return _launch("lab_forward_unit_approx", r, g, b, _table("fwd_u16", dev))
 
 
 def apply_corrections(v: torch.Tensor, idx: torch.Tensor, corr) -> torch.Tensor:
@@ -273,9 +274,10 @@ _FIXUPS: Dict[str, torch.Tensor] = {}
 def _cbrt_fixups(dev: torch.device) -> torch.Tensor | None:
     """The probe's cube-root fix-ups on ``dev`` as one (2, k) int32 tensor
     (indices, deltas), copied once per device; None where the probe found
-    too many differences (the kernel then reads the table)."""
+    too many differences, or a delta outside int16, the type in which the
+    kernel keeps them (the kernel then reads the table)."""
     corr = surrogate_corrections("cbrt", dev)
-    if corr is None:
+    if corr is None or any(not -32768 <= d < 32768 for d in corr[1]):
         return None
     if str(dev) not in _FIXUPS:
         _FIXUPS[str(dev)] = torch.tensor(corr, dtype=torch.int32,
@@ -291,7 +293,7 @@ def lab_forward_unit_fast(r, g, b):
     dev = _check("lab_forward_unit_fast", (r, g, b), torch.float32)
     if dev.type == "cpu":
         return lab_forward_unit_fast_plain(r, g, b)
-    return _launch("lab_forward_unit_fast", r, g, b, _table("fwd", dev),
+    return _launch("lab_forward_unit_fast", r, g, b, _table("fwd_u16", dev),
                    _cbrt_fixups(dev))
 
 

@@ -87,6 +87,12 @@ COEFFS_INV = np.round(
 # plain versions), so every constant the kernels use comes from here.
 FWD_HEADER = np.concatenate([[L_SCALE, L_SHIFT], COEFFS.reshape(-1)])
 FWD_TABLE = np.concatenate([FWD_HEADER, GAMMA_TAB, CBRT_TAB]).astype(np.int32)
+# FWD_TABLE as csrc/lab_forward.cu stages it: the header padded to 12 ints,
+# GAMMA_TAB, then CBRT_TAB (values 4520..37555) as u16 pairs in int32 words,
+# entry 2k in the low half: sections on 16-byte boundaries, 7216 bytes
+FWD_TABLE_U16 = np.concatenate([
+    FWD_HEADER, [0], GAMMA_TAB,
+    CBRT_TAB.astype(np.uint16).view(np.int32)]).astype(np.int32)
 INV_HEADER = np.concatenate([
     COEFFS_INV.reshape(-1),
     [MIN_AB, AB_MAX, AB_LIN_THRESH, AB_LIN_K, ADIV_OFFSET, BDIV_OFFSET]])

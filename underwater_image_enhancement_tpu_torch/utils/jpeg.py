@@ -5,12 +5,16 @@ Covers sequential Huffman JPEG (SOF0 baseline and SOF1 extended), 8-bit,
 with 1 or 3 components, any sampling factors whose ratios libjpeg
 upsamples (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and the like), restart
 intervals, one or several scans.  Anything else (progressive or arithmetic
-coding, 12 bits, lossless, CMYK) raises ``Unsupported``.
+coding, 12 bits, lossless, CMYK) raises ``Unsupported``.  A file cut short
+in its entropy-coded data decodes as ``cv2.imread`` decodes it (libjpeg
+pads the data with zero bits and leaves the MCUs after the one in progress
+grey); one cut short before its first scan's data raises ValueError.
 
 The arithmetic is libjpeg's, integer for integer:
 
-- the ``islow`` inverse DCT (``jidctint.c``: CONST_BITS 13, PASS1_BITS 2,
-  the 1024-entry post-IDCT range limit with its wrap-around);
+- the ``islow`` inverse DCT (``jidctint.c``: CONST_BITS 13, PASS1_BITS 2)
+  with the int16 lanes of libjpeg-turbo's x86 SIMD version, which cv2
+  runs: wrapping dequantisation and sums, saturating passes and samples;
 - fancy upsampling (``jdsample.c``): the h2v1 and h2v2 triangle filters
   with their biases (box replication where the component is at most 2
   samples wide), libjpeg-turbo's h1v2 filter, replication for other
@@ -108,6 +112,9 @@ def _windows(seg: bytes) -> list:
     return w.tolist()
 
 
+_ZERO_WINDOWS = [0] * (_TAIL + 1)
+
+
 def _unstuff(data: bytes) -> bytes:
     return data.replace(b"\xff\x00", b"\xff")
 
@@ -129,18 +136,23 @@ def _slow_symbol(win, pos, slow, ac):
     return n + s, (rs >> 4) if s else (15 if rs == 0xF0 else 64), v
 
 
-def _decode_segment(seg, order, comps, coef_idx, coef_val):
+def _decode_segment(seg, order, per_mcu, comps, coef_idx, coef_val) -> bool:
     """Decode the blocks ``order`` [(component, block index)] of one
-    restart interval, appending each nonzero coefficient's (flat index,
-    value) to the two lists.  A segment whose blocks need more bits than
-    it holds (a truncated file) raises ValueError."""
+    restart interval, ``per_mcu`` blocks an MCU, appending each nonzero
+    coefficient's (flat index, value) to the two lists.  Where the blocks
+    need more bits than the segment holds (a truncated file), decode as
+    libjpeg does (``jdhuff.c``): the MCU in progress reads zero bits, and
+    the later MCUs stay zero.  Returns whether the data ran out."""
     win, nbits = _windows(seg), 8 * len(seg)
     pos = 0
     pred = [0] * len(comps)
     append_i, append_v = coef_idx.append, coef_val.append
-    for ci, base in order:
+    for j, (ci, base) in enumerate(order):
         if pos > nbits:
-            raise ValueError("corrupt JPEG: entropy-coded data ends early")
+            if j % per_mcu == 0:
+                return True
+            # the rest of the MCU reads zero bits only
+            win, pos, nbits = _ZERO_WINDOWS, 0, -1
         (dc_fast, dc_slow), (ac_fast, ac_slow), out_base = comps[ci]
         adv, _, diff = dc_fast[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
         if not adv:
@@ -158,16 +170,16 @@ def _decode_segment(seg, order, comps, coef_idx, coef_val):
                 adv, run, v = _slow_symbol(win, pos, ac_slow, True)
             pos += adv
             k += run
-            if v and k < 64:
-                append_i(flat + k)
+            if v:  # a run past the block's end lands on its last position,
+                # as in libjpeg (jpeg_natural_order's 16 extra entries)
+                append_i(flat + min(k, 63))
                 append_v(v)
             k += 1
-    if pos > nbits:
-        raise ValueError("corrupt JPEG: entropy-coded data ends early")
+    return pos > nbits
 
 
 # ---------------------------------------------------------------------------
-# The inverse DCT (jidctint.c, jpeg_idct_islow)
+# The inverse DCT (jpeg_idct_islow as libjpeg-turbo's x86 SIMD code runs it)
 # ---------------------------------------------------------------------------
 
 CONST_BITS, PASS1_BITS = 13, 2
@@ -177,19 +189,27 @@ FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
 FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
 
 
+def _wrap16(v):
+    """The low 16 bits of ``v`` as a signed value (an int16 store)."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
 def _idct_1d(c, shift):
-    """One pass of jpeg_idct_islow on the eight inputs c[0..7] (arrays of
-    equal shape) -> the eight outputs, each DESCALEd by ``shift``."""
+    """One pass of jpeg_idct_islow on the eight int16 inputs c[0..7]
+    (arrays of equal shape) -> the eight outputs, each DESCALEd by
+    ``shift`` and saturated to int16.  The products are exact; the sums
+    in0 +- in4, in7 + in3 and in5 + in1 wrap at 16 bits, where the SIMD
+    code adds int16 lanes (jidctint-avx2.asm, jidctint-sse2.asm)."""
     z2, z3 = c[2], c[6]
     z1 = (z2 + z3) * FIX_0_541196100
     tmp2 = z1 + z3 * -FIX_1_847759065
     tmp3 = z1 + z2 * FIX_0_765366865
-    tmp0 = (c[0] + c[4]) << CONST_BITS
-    tmp1 = (c[0] - c[4]) << CONST_BITS
+    tmp0 = _wrap16(c[0] + c[4]) << CONST_BITS
+    tmp1 = _wrap16(c[0] - c[4]) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, _wrap16(t0 + t2), _wrap16(t1 + t3)
     z5 = (z3 + z4) * FIX_1_175875602
     t0 = t0 * FIX_0_298631336
     t1 = t1 * FIX_2_053119869
@@ -206,32 +226,31 @@ def _idct_1d(c, shift):
     half = 1 << (shift - 1)
     outs = (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
             tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
-    return [(o + half) >> shift for o in outs]
-
-
-def _idct_range_limit() -> np.ndarray:
-    """libjpeg's post-IDCT table, indexed by the descaled value & 1023:
-    v + 128 for v in [0, 128), 255 up to 383, 0 up to 895, then v - 896
-    (the negative values -128..-1 mapped to 0..127)."""
-    v = np.arange(1024)
-    return np.select([v < 128, v < 384, v < 896], [v + 128, 255, 0],
-                     v - 896).astype(np.uint8)
-
-
-_RANGE = _idct_range_limit()
+    return [np.clip((o + half) >> shift, -32768, 32767) for o in outs]
 
 
 def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """(B, 64) natural-order coefficients and a (64,) natural-order
-    quantisation table -> (B, 8, 8) uint8 samples, as jpeg_idct_islow."""
-    deq = (coefs.astype(np.int64) * quant.astype(np.int64)).reshape(-1, 8, 8)
-    # pass 1: columns (inputs deq[:, k, :], k the vertical frequency)
+    quantisation table -> (B, 8, 8) uint8 samples, as libjpeg-turbo's x86
+    SIMD jpeg_idct_islow computes them (what cv2 runs): int16
+    coefficients and products of the quantisation (wrapping), int16
+    passes (saturating), and the samples saturated to [0, 255] where the C
+    code's range-limit table would wrap.  On the data an encoder writes
+    the two agree; on the garbage a truncated file decodes to they do
+    not."""
+    c = _wrap16(coefs.astype(np.int64)).reshape(-1, 8, 8)
+    deq = _wrap16(c * quant.astype(np.int64).reshape(8, 8))
+    # pass 1: columns (inputs deq[:, k, :], k the vertical frequency); a
+    # block with no coefficient beyond its first row takes the SIMD code's
+    # shortcut, row 0 << PASS1_BITS in int16
     ws = np.stack(_idct_1d([deq[:, k, :] for k in range(8)],
                            CONST_BITS - PASS1_BITS), axis=1)
-    # pass 2: rows (inputs ws[:, :, j]), with the range limit
+    flat = ~c[:, 1:, :].any(axis=(1, 2))
+    ws[flat] = _wrap16(deq[flat, :1, :] << PASS1_BITS)
+    # pass 2: rows (inputs ws[:, :, j]), then the samples
     out = _idct_1d([ws[:, :, j] for j in range(8)],
                    CONST_BITS + PASS1_BITS + 3)
-    return _RANGE[np.stack(out, axis=2) & 1023]
+    return (np.clip(np.stack(out, axis=2), -128, 127) + 128).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -308,11 +327,15 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 def _scan_end(data: bytes, pos: int) -> int:
     """Offset of the marker that ends the entropy-coded data at ``pos``
-    (not a stuffed 0xFF00 and not a restart marker)."""
+    (not a stuffed 0xFF00 and not a restart marker), or of the file's end.
+    0xFF bytes at the very end are no data: libjpeg reads them as the
+    fill bytes of the EOI marker it supplies at the end of the file."""
     while True:
         pos = data.find(b"\xff", pos)
-        if pos < 0 or pos + 1 >= len(data):
+        if pos < 0:
             return len(data)
+        if pos + 1 >= len(data):
+            return pos
         nxt = data[pos + 1]
         if nxt == 0x00 or 0xD0 <= nxt <= 0xD7:
             pos += 2
@@ -416,16 +439,23 @@ def _decode_scan(frame: _Frame, header: bytes, entropy: bytes, restart: int,
             raise ValueError("corrupt JPEG: missing Huffman table")
         luts[k] = (dc_tabs[tables >> 4], ac_tabs[tables & 15],
                    frame.offset[k])
-    if tuple(header[1 + 2 * ns:4 + 2 * ns]) != (0, 63, 0):
-        raise Unsupported("progressive JPEG scan")
     order, per_mcu = frame.scan_order(members)
     per = (restart * per_mcu) if restart else len(order)
     segs = _split_restarts(entropy)
+    # libjpeg's out-of-data flag: set where an MCU needs bits past its
+    # segment's end, cleared by a restart marker.  An interval whose
+    # marker never came reads zero bits until the flag is set; once it is
+    # set with no marker to come, every later MCU of the scan stays zero.
+    out = False
     for r, start in enumerate(range(0, len(order), per)):
-        if r >= len(segs):
-            raise ValueError("corrupt JPEG: missing restart interval")
+        if r < len(segs):
+            out = False
+        elif out:
+            break
         idx, val = [], []
-        _decode_segment(segs[r], order[start:start + per], luts, idx, val)
+        out = _decode_segment(segs[r] if r < len(segs) else b"",
+                              order[start:start + per], per_mcu, luts, idx,
+                              val)
         frame.coef[np.asarray(idx, np.int64)] = val
 
 
@@ -447,6 +477,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError("not a JPEG file")
     qt, dc_tabs, ac_tabs = {}, {}, {}
     frame, restart, jfif, adobe_transform = None, 0, False, None
+    scanned = False
     pos = 2
     while pos < len(data):
         if data[pos] != 0xFF:
@@ -461,7 +492,16 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             break
         if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
             continue
+        if pos + 2 > len(data):
+            raise ValueError("corrupt JPEG: truncated marker segment")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
+        short = pos + length - len(data)
+        if marker == 0xDA and 0 < short <= 3:
+            # cut in the scan's Ss, Se and Ah/Al, which a sequential
+            # decoder ignores (libjpeg warns): libjpeg's file source
+            # supplies FF D9 again and again past the end, so these bytes
+            # are read from that, and an odd count leaves a D9 as data
+            data += b"\xff\xd9\xff\xd9"[:short] + b"\xd9" * (short % 2)
         if length < 2 or pos + length > len(data):
             raise ValueError("corrupt JPEG: truncated marker segment")
         body = data[pos + 2:pos + length]
@@ -506,9 +546,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             stop = _scan_end(data, pos)
             _decode_scan(frame, body, data[pos:stop], restart, dc_tabs,
                          ac_tabs)
-            pos = stop
+            pos, scanned = stop, True
     if frame is None:
         raise ValueError("corrupt JPEG: no frame")
+    if not scanned:  # libjpeg: "JPEG datastream contains no image"
+        raise ValueError("corrupt JPEG: no scan")
     planes = []
     for k, (_, h, v, tq) in enumerate(frame.comps):
         if tq not in qt:
