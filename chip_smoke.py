@@ -30,8 +30,15 @@ non-zero):
    kernels on ``LAB_SHAPES`` (pixel counts of every residue mod 4, below 4,
    1079x1917 and 1080x1920) with planes that are views 0-3 elements into
    their buffers (``LAB_OFFSETS``), one launch a call, and each one's
-   registers, local bytes, resident blocks a SM and 1080p grid; hysteresis
-   for 0, 1, 4, 63, 64 and the most rounds a tiled plan fits on planes
+   registers, local bytes, resident blocks a SM and 1080p grid; the three
+   inverse-LAB kernels over the same sweep, and CLAHE apply over
+   ``CLAHE_SHAPES`` (every residue of H and W mod 8, planes smaller than a
+   tile, 1079x1917, 1080x1920) for clip limits 1.5 and 4.0, tilings 8x8
+   and 4x6, planes at offsets 0 and 1, values past both ends of [0, 255]
+   and LUTs outside 0..255, one launch a call; K3, K3g, K3b and K2 twelve
+   times each on 4096x4096 planes; their registers, blocks a SM, grid and
+   K2's strips at 1080p (checked against ``kernels.clahe_strip_rows``);
+   hysteresis for 0, 1, 4, 63, 64 and the most rounds a tiled plan fits on planes
    from 1x1 to 1080x1920, N from 1 to 8, and along a serpentine weak path
    longer than the rounds (exactly rounds + 1 cells lit), and the prefix
    sums over every axis length of ``SCAN_LENGTHS`` and width of
@@ -66,9 +73,11 @@ non-zero):
    frame of each of these (device busy and idle share, launches), a CLAHE
    leg fused against split (in turns), ms per frame of UIQM, UCIQE and the
    assess command's work (one profiled frame), and each kernel on the main
-   path's inputs beside its bound, its plain version and, for the prefix
-   sums, ``torch.cumsum``; hysteresis and the prefix sums also on their
-   other main-path shapes.
+   path's inputs beside its bound, its plain version, a PyTorch copy of
+   its planes (``copy_us``: ``torch.stack``, ``torch.addcmul`` or
+   ``torch.clone``, ``COPY_FLOORS``) and, for the prefix sums,
+   ``torch.cumsum``; hysteresis and the prefix sums also on their other
+   main-path shapes.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -135,6 +144,16 @@ KERNELS = {
     "surrogate_corrections": (SRC + "probe.cu", PK + ":529", 50,
                               "surrogate_corrections_plain"),
 }
+# the copy that moves a kernel's planes and computes nothing, timed beside
+# it as the floor of its timing: ``torch.stack`` of its three input planes
+# (3 in, 3 out), ``torch.addcmul`` of them (3 in, 1 out: K4) or
+# ``torch.clone`` of its first (1 in, 1 out: K2)
+COPY_FLOORS = {
+    **dict.fromkeys(("lab_forward_unit", "lab_forward_unit_approx",
+                     "lab_forward_unit_fast", "lab_forward_u8",
+                     "lab_inverse_unit", "lab_inverse_unit_gamma",
+                     "lab_inverse_u8", "clahe_lab_apply"), "stack"),
+    "lab_forward_l_u8": "addcmul", "clahe_apply": "clone"}
 # the wrapper whose calls are captured and replayed: all but the probe's,
 # whose result is cached (its kernel launches on a device's first call)
 CAPTURED = tuple(k for k in KERNELS if k != "surrogate_corrections")
@@ -210,21 +229,65 @@ LAB_OFFSETS = ((0, 0, 0), (1, 1, 1), (2, 2, 2), (3, 3, 3), (0, 1, 2),
                (3, 0, 1), (0, 0, 2))
 
 
+# the inverse-LAB kernels' sweep (also the gpu tests'): the same shapes
+# and offsets; K3g with gamma 1.4
+INV_WRAPPERS = ("lab_inverse_unit", "lab_inverse_unit_gamma",
+                "lab_inverse_u8")
+# CLAHE apply's sweep (also the gpu tests'): every residue of H and W mod 8,
+# planes smaller than a tile, 1079x1917 and 1080x1920, for each clip limit
+# and (tiles_x, tiles_y); planes at offsets 0 and 1 elements into their
+# buffers (offset 1 takes the scalar path), values past both ends of
+# [0, 255], and LUTs with entries outside 0..255 (read from global memory)
+CLAHE_SHAPES = tuple((64 + rh, 96 + rw) for rh in range(8)
+                     for rw in range(8)) + ((1, 1), (2, 7), (7, 2), (3, 5),
+                                            (1079, 1917), (1080, 1920))
+CLAHE_CLIPS = (1.5, 4.0)
+CLAHE_TILES = ((8, 8), (4, 6))
+CLAHE_OFFSETS = (0, 1)
+
+
 def lab_planes(torch, kname: str, shape, offsets, gen, dev):
-    """Three planes of ``shape`` for forward-LAB wrapper ``kname``, each a
+    """Three planes of ``shape`` for LAB wrapper ``kname``, each a
     contiguous view ``offsets[k]`` elements into a buffer of its own: f32
-    values in [-0.1, 1.1) for the unit-plane kernels, int32 in [-300, 600)
-    for the u8 ones (both clipped by the kernels)."""
+    values in [-0.1, 1.1) for the forward unit-plane kernels, int32 in
+    [-300, 600) for the forward u8 ones (both clipped by the kernels),
+    int32 (L, a, b) in [-64, 320) for the inverse ones, with K3g's gamma
+    after them."""
     n = shape[0] * shape[1]
+    lo, hi = (-64, 320) if kname.startswith("lab_inverse") else (-300, 600)
     planes = []
     for off in offsets:
         if kname.startswith("lab_forward_unit"):
             buf = torch.rand(n + 3, generator=gen, device=dev) * 1.2 - 0.1
         else:
-            buf = torch.randint(-300, 600, (n + 3,), generator=gen, device=dev,
+            buf = torch.randint(lo, hi, (n + 3,), generator=gen, device=dev,
                                 dtype=torch.int32)
         planes.append(buf[off:off + n].view(shape))
-    return tuple(planes)
+    return tuple(planes) + ((1.4,) if kname == "lab_inverse_unit_gamma" else ())
+
+
+def clahe_cases(torch, histeq, shape, gen, dev):
+    """CLAHE apply's arguments on a plane of ``shape``: for each clip limit,
+    tiling and offset, a smooth plane with noise whose LUTs come from its
+    values clipped to [0, 255] while the kernel gets values in [-20, 280),
+    and once a tiling the same with LUTs spread outside 0..255."""
+    hh, ww = shape
+    yy = torch.arange(hh, device=dev)[:, None]
+    xx = torch.arange(ww, device=dev)[None, :]
+    smooth = (yy * 255 // hh + xx * 64 // ww) % 256
+    cases = []
+    for off in CLAHE_OFFSETS:
+        noise = torch.randint(-20, 21, (hh, ww), generator=gen, device=dev)
+        buf = torch.empty(hh * ww + 1, dtype=torch.int32, device=dev)
+        plane = buf[off:off + hh * ww].view(hh, ww)
+        plane.copy_(smooth + noise)
+        u8 = torch.clamp(plane, 0, 255)
+        for tx, ty in CLAHE_TILES:
+            for clip in CLAHE_CLIPS:
+                luts, ya, xa, geo = histeq.clahe_prep(u8, clip, tx, ty)
+                cases.append((plane, luts, ya, xa, *geo))
+            cases.append((plane, (luts * 3 - 200).contiguous(), ya, xa, *geo))
+    return cases
 
 
 def log(phase: str, **kv) -> None:
@@ -512,6 +575,71 @@ def main() -> int:
     log("kernels", lab_forward_sweep=len(LAB_SHAPES) * len(LAB_OFFSETS)
         * len(LAB_WRAPPERS), launches_per_call=1,
         lab_forward_1080p=json.dumps(lab_info, separators=(",", ":")))
+    # the inverse-LAB kernels over the same sweep, and CLAHE apply over its
+    # own, one launch a call
+    for shape in LAB_SHAPES:
+        cases = []
+        for offsets in LAB_OFFSETS:
+            for kname in INV_WRAPPERS:
+                args = lab_planes(torch, kname, shape, offsets, gen, dev)
+                replay(kname, args, f"{shape} planes at offsets {offsets}")
+                cases.append((getattr(kernels, kname), args))
+        names = cuda_kernel_names(
+            torch, lambda: [fn(*args) for fn, args in cases], expect=len(cases))
+        check(len(names) == len(cases)
+              and all("lab_inverse_kernel" in n for n in names),
+              f"inverse LAB on {shape}: {len(cases)} calls launched "
+              f"{len(names)} kernels")
+        del cases
+    n_clahe = 0
+    for shape in CLAHE_SHAPES:
+        cases = clahe_cases(torch, histeq, shape, gen, dev)
+        for args in cases:
+            replay("clahe_apply", args,
+                   f"{shape} at offset {args[0].storage_offset()}, tiles "
+                   f"{args[8]}x{args[9]}, LUTs {int(args[1].min())}.."
+                   f"{int(args[1].max())}")
+        names = cuda_kernel_names(
+            torch, lambda: [kernels.clahe_apply(*args) for args in cases],
+            expect=len(cases))
+        check(len(names) == len(cases)
+              and all("clahe_apply_kernel" in n for n in names),
+              f"CLAHE apply on {shape}: {len(cases)} calls launched "
+              f"{len(names)} kernels")
+        n_clahe += len(cases)
+        del cases
+    # the ring refilled again and again, and K2's strips on a large plane:
+    # each kernel 12 times on 4096x4096 planes
+    big = lab_planes(torch, "lab_inverse_u8", (4096, 4096), (0, 0, 0), gen,
+                     dev)
+    big_clahe = clahe_cases(torch, histeq, (4096, 4096), gen, dev)[0]
+    for kname, args in (("lab_inverse_unit", big),
+                        ("lab_inverse_unit_gamma", big + (1.4,)),
+                        ("lab_inverse_u8", big), ("clahe_apply", big_clahe)):
+        want = getattr(kernels, KERNELS[kname][3])(*args)
+        want = (want,) if isinstance(want, torch.Tensor) else want
+        for k in range(12):
+            got = getattr(kernels, kname)(*args)
+            got = (got,) if isinstance(got, torch.Tensor) else got
+            expect_equal(kname, got, want, f"4096x4096 planes, call {k}")
+    del big, big_clahe, want, got
+    inv_info = {k: dict(zip(("regs", "local_bytes", "blocks_per_sm", "grid",
+                             "threads"), ext.lab_inverse_info(i, H * W)))
+                for i, k in enumerate(("lab_inverse_unit_and_gamma",
+                                       "lab_inverse_u8"))}
+    geo = histeq._geometry(H, W, 8, 8)
+    clahe_info = dict(zip(("regs", "local_bytes", "blocks_per_sm", "grid_x",
+                           "grid_y", "strip_rows", "threads"),
+                          ext.clahe_apply_info(geo.th, 8, 8)))
+    check(clahe_info["strip_rows"] == kernels.clahe_strip_rows(
+        geo.th, 8, 8, clahe_info["blocks_per_sm"]
+        * torch.cuda.get_device_properties(0).multi_processor_count),
+        f"CLAHE apply's strips {clahe_info} differ from clahe_strip_rows")
+    log("kernels", lab_inverse_sweep=len(LAB_SHAPES) * len(LAB_OFFSETS)
+        * len(INV_WRAPPERS), clahe_apply_sweep=n_clahe, launches_per_call=1,
+        repeats_4096x4096=12,
+        lab_inverse_1080p=json.dumps(inv_info, separators=(",", ":")),
+        clahe_apply_1080p=json.dumps(clahe_info, separators=(",", ":")))
     replay("lab_inverse_unit", trip, "all 2^24 (L, a, b) triples")
     replay("lab_inverse_u8", trip, "all 2^24 (L, a, b) triples")
     expect_equal("lab_inverse_unit", kernels.lab_inverse_unit(*trip),
@@ -1112,11 +1240,13 @@ def main() -> int:
         "lab_forward_unit_approx": (12 + 256) * 4,  # header and GAMMA only
         "lab_forward_u8": fwd_bytes,
         "lab_forward_l_u8": fwd_bytes,
-        "lab_inverse_unit": kernels._table("inv", dev).numel() * 4,
-        "lab_inverse_unit_gamma": kernels._table("inv", dev).numel() * 4
+        # INV_TABLE_U8 and the epilogue's f32 table
+        "lab_inverse_unit": kernels._table("inv_u8", dev).numel() * 4
         + 256 * 4,
-        "lab_inverse_u8": kernels._table("inv", dev).numel() * 4,
-        "clahe_lab_apply": kernels._table("inv", dev).numel() * 4,
+        "lab_inverse_unit_gamma": kernels._table("inv_u8", dev).numel() * 4
+        + 256 * 4,
+        "lab_inverse_u8": kernels._table("inv_u8", dev).numel() * 4,
+        "clahe_lab_apply": kernels._table("inv_u8", dev).numel() * 4,
         # header, GAMMA and the fix-ups
         "lab_forward_unit_fast": (12 + 256 + 2 * len(probes["cbrt"][0])) * 4,
     }
@@ -1141,11 +1271,17 @@ def main() -> int:
         if kname == "sat_rows":
             lib_ms = statistics.median(event_ms(
                 torch, lambda: torch.cumsum(args[0], args[1]), 30, 3, flush))
+        # the floor of this timing: a PyTorch copy of the kernel's planes
+        copy = COPY_FLOORS.get(kname)
+        copy_ms = None if copy is None else statistics.median(event_ms(
+            torch, lambda: getattr(torch, copy)(
+                *([tensors[:3]] if copy == "stack" else tensors[:3]
+                  if copy == "addcmul" else tensors[:1])), 30, 3, flush))
         t_bytes = nbytes / bw * 1e3
         t_ops = KERNELS[kname][2] * tensors[0].numel() / F32_PEAK * 1e3
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms, "bytes": nbytes,
+                "library_ms": lib_ms, "copy_ms": copy_ms, "bytes": nbytes,
                 "shape": list(tensors[0].shape)}
 
     def us(v):
@@ -1166,7 +1302,7 @@ def main() -> int:
         log("timing", kernel=kname, shape="x".join(map(str, t["shape"])),
             us=us(t["ms"]), plain_us=us(t["plain_ms"]),
             bound_us=us(t["bound_ms"]), library_us=us(t["library_ms"]),
-            bytes=t["bytes"])
+            copy_us=us(t["copy_ms"]), bytes=t["bytes"])
     # the other main-path shapes of K7 and K6: the metrics' Canny (64
     # rounds on the frame), the fast tier's global Canny (4 rounds), the
     # exact descent's second and third levels (whole planes in one block),

@@ -13,12 +13,15 @@ import pytest
 import torch
 
 from chip_smoke import (
+    CLAHE_SHAPES,
+    INV_WRAPPERS,
     K7_SHAPES,
     LAB_OFFSETS,
     LAB_SHAPES,
     LAB_WRAPPERS,
     SCAN_LENGTHS,
     SCAN_WIDTHS,
+    clahe_cases,
     cuda_kernel_names,
     lab_planes,
     serpentine,
@@ -450,3 +453,83 @@ def test_uiqm_uciqe_on_card_match_cpu(cuda):
     assert kernels.launches["lab_forward_u8"] == 1
     for got, want in ((u_g, uiqm.uiqm(img)), (c_g, uiqm.uciqe(img))):
         assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+
+
+@pytest.mark.parametrize("shape", LAB_SHAPES)
+def test_lab_inverse_sweep_equals_plain(cuda, shape):
+    """K3, K3g and K3b on planes whose pixel count leaves each residue mod 4
+    (the vector path's scalar tail) and on views 0-3 elements into their
+    buffers (misaligned planes take the scalar loop): bit-equal to the
+    plain versions, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    cases = []
+    for offsets in LAB_OFFSETS:
+        for kname in INV_WRAPPERS:
+            args = lab_planes(torch, kname, shape, offsets, g, cuda)
+            before = kernels.launches[kname]
+            got = getattr(kernels, kname)(*args)
+            assert kernels.launches[kname] == before + 1
+            for a, b in zip(got, getattr(kernels, kname + "_plain")(*args)):
+                assert torch.equal(a, b), (kname, offsets)
+            cases.append((getattr(kernels, kname), args))
+    names = cuda_kernel_names(
+        torch, lambda: [fn(*args) for fn, args in cases], expect=len(cases))
+    assert len(names) == len(cases)
+    assert all("lab_inverse_kernel" in n for n in names)
+
+
+@pytest.mark.parametrize("shape", CLAHE_SHAPES)
+def test_clahe_apply_sweep_equals_plain(cuda, shape):
+    """K2 for clip limits 1.5 and 4.0 and tilings 8x8 and 4x6, on planes at
+    offsets 0 and 1 into their buffers with values past both ends of
+    [0, 255], and with LUTs outside 0..255: bit-equal to the plain version,
+    one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    cases = clahe_cases(torch, histeq, shape, g, cuda)
+    for args in cases:
+        before = kernels.launches["clahe_apply"]
+        got = kernels.clahe_apply(*args)
+        assert kernels.launches["clahe_apply"] == before + 1
+        assert torch.equal(got, kernels.clahe_apply_plain(*args)), args[4:]
+    names = cuda_kernel_names(
+        torch, lambda: [kernels.clahe_apply(*args) for args in cases],
+        expect=len(cases))
+    assert len(names) == len(cases)
+    assert all("clahe_apply_kernel" in n for n in names)
+
+
+@pytest.mark.parametrize("kname", INV_WRAPPERS + ("clahe_apply",))
+def test_inverse_and_clahe_repeats_equal_plain(cuda, kname):
+    """Each inverse-LAB kernel and CLAHE apply, called again and again on
+    4096x4096 planes (each stage of a block's ring is refilled many
+    times), gives its plain version's bits every time."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    if kname == "clahe_apply":
+        args = clahe_cases(torch, histeq, (4096, 4096), g, cuda)[0]
+    else:
+        args = lab_planes(torch, kname, (4096, 4096), (0, 0, 0), g, cuda)
+    want = getattr(kernels, kname + "_plain")(*args)
+    want = (want,) if isinstance(want, torch.Tensor) else want
+    for _ in range(12):
+        got = getattr(kernels, kname)(*args)
+        got = (got,) if isinstance(got, torch.Tensor) else got
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("shape,tiles", [((1080, 1920), (8, 8)),
+                                         ((1079, 1917), (4, 6)),
+                                         ((2, 7), (8, 8))])
+def test_clahe_apply_info_matches_plan(cuda, shape, tiles):
+    """The strips csrc/clahe_apply.cu launches are clahe_strip_rows' for
+    its resident blocks, and its grid is clahe_apply_plan's."""
+    from underwater_image_enhancement_tpu_torch.utils import cuda_build
+
+    geo = histeq._geometry(*shape, *tiles)
+    regs, local, per_sm, gx, gy, rows, threads = (
+        cuda_build.extension().clahe_apply_info(geo.th, *tiles))
+    resident = per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    assert local == 0 and threads == 256
+    assert rows == kernels.clahe_strip_rows(geo.th, *tiles, resident)
+    plan = kernels.clahe_apply_plan(*shape, *geo, rows)
+    assert len(plan) == gx * gy == (tiles[0] + 1) * (tiles[1] + 1) * gy

@@ -1,40 +1,48 @@
-"""Time the PyTorch port's five forward-LAB kernels (K1, K8 ``_approx``,
-K8 ``_fast``, K1b, K4: ``csrc/lab_forward.cu``) at the main path's 1080p
+"""Time the PyTorch port's per-pixel kernels at the main path's 1080p
 shapes for one checkout, and read each one's registers, spills and
-occupancy.
+occupancy: the five forward-LAB kernels (K1, K8 ``_approx``, K8
+``_fast``, K1b, K4: ``csrc/lab_forward.cu``), and with ``--kernels`` also
+the three inverse-LAB kernels (K3, K3g, K3b: ``csrc/lab_inverse.cu``),
+CLAHE apply (K2: ``csrc/clahe_apply.cu``) and the fused CLAHE + inverse
+LAB (K5: ``csrc/clahe_lab_apply.cu``).
 
-    python3 tools/torch_lab_forward_times.py [--root DIR]
+    python3 tools/torch_lab_forward_times.py [--root DIR] [--kernels LIST]
 
-Imports ``underwater_image_enhancement_tpu_torch`` and ``chip_smoke`` from
-DIR (default: this checkout), builds its kernels, and calls each wrapper
-on the planes of ``chip_smoke.synthetic_frame(0)``: f32 unit planes for
-K1 and the two K8, their u8-valued int32 planes for K1b and K4.  Prints
-one JSON line a kernel:
+LIST is ``forward`` (the default), ``all``, or wrapper names separated by
+commas (``lab_inverse_unit,lab_inverse_unit_gamma,lab_inverse_u8,
+clahe_apply,clahe_lab_apply``).  Imports ``underwater_image_enhancement_tpu_torch`` and
+``chip_smoke`` from DIR (default: this checkout), builds its kernels, and
+calls each wrapper on the planes of ``chip_smoke.synthetic_frame(0)``:
+f32 unit planes for K1 and the two K8, their u8-valued int32 planes for
+K1b and K4, their LAB planes (K1b) for K3, K3g (gamma 1.5) and K3b, for
+K2 the L plane with its CLAHE LUTs and fractions (clip 3.0, 8x8 tiles,
+``histeq.clahe_prep``), and for K5 the LAB planes with those.  Prints one JSON line a kernel:
 
 - "us": median of 30 calls (CUDA events) with the L2 flushed before each
   by zeroing 256 MB, as ``chip_smoke.py`` times its kernels; "us_clean"
   with it flushed by reading 256 MB (no dirty lines to write back);
 - "gb_s": the planes' bytes (inputs read once, outputs written once; the
-  table, at most 13 KB, left out so that checkouts compare) over "us";
+  tables, LUTs and fractions, at most 64 KB, left out so that checkouts
+  compare) over "us";
 - "regs", "spill_stores", "spill_loads", "stack": ``nvcc -Xptxas -v`` of
-  DIR's ``csrc/lab_forward.cu`` with the package's nvcc flags, into a
-  cubin;
+  DIR's source of the kernel with the package's nvcc flags, into a cubin;
 - "threads", "blocks_per_sm": the kernel's ``__launch_bounds__`` and
   ``cuOccupancyMaxActiveBlocksPerMultiprocessor`` for it, on that cubin;
 - "grid", "block": what one call launched (``torch.profiler``'s trace).
 
-Two PyTorch calls that move the same bytes and do no other work are timed
-the same way beside them, as the floor this timing can show:
-``torch.stack`` of the three f32 planes (3 planes in, 3 out, as K1, K8
-and K1b) and ``torch.addcmul`` of the three int32 planes (3 in, 1 out, as
-K4).
+PyTorch calls that move the same bytes and do no other work are timed the
+same way beside them, as the floor this timing can show: ``torch.stack``
+of the three f32 planes (3 planes in, 3 out, as K1, K8 and K1b),
+``torch.addcmul`` of the three int32 planes (3 in, 1 out, as K4),
+``torch.stack`` of the three int32 LAB planes (as K3, K3g, K3b and K5)
+and ``torch.clone`` of the int32 L plane (1 in, 1 out, as K2).
 
 To compare two checkouts on one card, run it for each in turns (A, B,
 B, A) within one command, the parent unpacked with ``git archive`` into a
 directory that git ignores::
 
     for r in build/parent . . build/parent; do
-        python3 tools/torch_lab_forward_times.py --root $r; done
+        python3 tools/torch_lab_forward_times.py --root $r --kernels all; done
 
 Needs a CUDA device and ``nvcc``."""
 
@@ -47,20 +55,37 @@ import subprocess
 import sys
 from pathlib import Path
 
-# wrapper -> (template arguments of lab_forward_kernel, f32 input)
+# wrapper -> (CUDA source, pattern of its kernel's mangled name in this
+# design or the parent's, inputs); the inverse kernels' template was
+# <Out, epilogue number> before it became <Out, table epilogue>
 WRAPPERS = {
-    "lab_forward_unit": ("float, 0, false", True),
-    "lab_forward_unit_approx": ("float, 1, false", True),
-    "lab_forward_unit_fast": ("float, 2, false", True),
-    "lab_forward_u8": ("int, 0, false", False),
-    "lab_forward_l_u8": ("int, 0, true", False),
+    "lab_forward_unit": ("lab_forward.cu", r"lab_forward_kernelIfLi0ELb0EE",
+                         "unit"),
+    "lab_forward_unit_approx": ("lab_forward.cu",
+                                r"lab_forward_kernelIfLi1ELb0EE", "unit"),
+    "lab_forward_unit_fast": ("lab_forward.cu",
+                              r"lab_forward_kernelIfLi2ELb0EE", "unit"),
+    "lab_forward_u8": ("lab_forward.cu", r"lab_forward_kernelIiLi0ELb0EE",
+                       "u8"),
+    "lab_forward_l_u8": ("lab_forward.cu", r"lab_forward_kernelIiLi0ELb1EE",
+                         "u8"),
+    "lab_inverse_unit": ("lab_inverse.cu",
+                         r"lab_inverse_kernelIfL(i1|b1)EE", "lab"),
+    "lab_inverse_unit_gamma": ("lab_inverse.cu",
+                               r"lab_inverse_kernelIfL(i2|b1)EE", "lab_gamma"),
+    "lab_inverse_u8": ("lab_inverse.cu", r"lab_inverse_kernelIiL(i0|b0)EE",
+                       "lab"),
+    "clahe_apply": ("clahe_apply.cu", r"clahe_apply_kernel", "clahe"),
+    "clahe_lab_apply": ("clahe_lab_apply.cu", r"clahe_lab_apply_kernel",
+                        "clahe_lab"),
 }
+FORWARD = tuple(k for k in WRAPPERS if k.startswith("lab_forward"))
 NVCC = "/usr/local/cuda/bin/nvcc"
 
 
 def ptxas_report(src: Path, flags, cubin: Path) -> dict:
-    """{template arguments: (mangled name, regs, stack bytes, spill
-    stores, spill loads)} of each lab_forward_kernel in ``src``."""
+    """{mangled name: (regs, stack bytes, spill stores, spill loads)} of
+    each kernel in ``src``."""
     out = subprocess.run(
         [NVCC, *flags, "-std=c++17", "-cubin", "-Xptxas", "-v", "-o",
          str(cubin), str(src)], check=True, capture_output=True,
@@ -78,16 +103,8 @@ def ptxas_report(src: Path, flags, cubin: Path) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             entry["regs"] = int(m.group(1))
-    report = {}
-    for name, e in entries.items():
-        # lab_forward_kernel<float|int, policy, false|true>, mangled
-        m = re.search(r"lab_forward_kernelI([fi])Li(\d+)ELb([01])EE", name)
-        if m:
-            args = "{}, {}, {}".format("float" if m.group(1) == "f" else "int",
-                                       m.group(2), "true" if m.group(3) == "1"
-                                       else "false")
-            report[args] = (name, e["regs"], *e["props"])
-    return report
+    return {name: (e["regs"], *e["props"]) for name, e in entries.items()
+            if "regs" in e}
 
 
 def occupancy(cubin: Path, names) -> dict:
@@ -121,7 +138,14 @@ def occupancy(cubin: Path, names) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--kernels", default="forward",
+                    help="forward, all, or wrapper names separated by commas")
     opts = ap.parse_args()
+    names = {"forward": FORWARD, "all": tuple(WRAPPERS)}.get(
+        opts.kernels, tuple(opts.kernels.split(",")))
+    unknown = [k for k in names if k not in WRAPPERS]
+    if unknown:
+        ap.error(f"unknown kernels {unknown}; known: {list(WRAPPERS)}")
     root = Path(opts.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -130,7 +154,7 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
-    from underwater_image_enhancement_tpu_torch.ops import kernels
+    from underwater_image_enhancement_tpu_torch.ops import histeq, kernels
     from underwater_image_enhancement_tpu_torch.ops.layout import split_planes
     from underwater_image_enhancement_tpu_torch.utils import cuda_build
 
@@ -141,14 +165,22 @@ def main() -> int:
                          text=True).stdout.strip()
     work = root / "build" / "lab_forward_times"
     work.mkdir(parents=True, exist_ok=True)
-    cubin = work / "lab_forward.cubin"
-    report = ptxas_report(cuda_build.CSRC_DIR / "lab_forward.cu",
-                          cuda_build.NVCC_FLAGS, cubin)
-    occ = occupancy(cubin, [v[0] for v in report.values()])
+    # {source: ({mangled name: ptxas numbers}, {mangled name: occupancy})}
+    built = {}
+    for src in sorted({WRAPPERS[k][0] for k in names}):
+        cubin = work / (Path(src).stem + ".cubin")
+        report = ptxas_report(cuda_build.CSRC_DIR / src,
+                              cuda_build.NVCC_FLAGS, cubin)
+        built[src] = (report, occupancy(cubin, list(report)))
 
     img = torch.from_numpy(chip_smoke.synthetic_frame(0)).to(dev)
     unit = split_planes(img)
     u8 = tuple(kernels.quantize_u8(p) for p in unit)
+    lab = kernels.lab_forward_u8(*u8)
+    luts, ya, xa, geo = histeq.clahe_prep(lab[0], 3.0, 8, 8)
+    inputs = {"unit": unit, "u8": u8, "lab": lab, "lab_gamma": lab + (1.5,),
+              "clahe": (lab[0], luts, ya, xa, *geo),
+              "clahe_lab": (*lab, luts, ya, xa, *geo)}
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
 
     def times_of(fn):
@@ -170,19 +202,27 @@ def main() -> int:
 
     for name, fn, nbytes in (
             ("torch.stack", lambda: torch.stack(unit), 6 * unit[0].nbytes),
-            ("torch.addcmul", lambda: torch.addcmul(*u8), 4 * u8[0].nbytes)):
+            ("torch.addcmul", lambda: torch.addcmul(*u8), 4 * u8[0].nbytes),
+            ("torch.stack_int32", lambda: torch.stack(lab),
+             6 * lab[0].nbytes),
+            ("torch.clone", lambda: torch.clone(lab[0]), 2 * lab[0].nbytes)):
         us, us_clean = times_of(fn)
         print(json.dumps({
             "root": root.name, "card": smi, "kernel": name,
             "shape": "x".join(map(str, unit[0].shape)), "us": round(us, 2),
             "us_clean": round(us_clean, 2), "bytes": nbytes,
             "gb_s": round(nbytes / us / 1e3, 1)}), flush=True)
-    for wname, (targs, f32) in WRAPPERS.items():
+    for wname in names:
+        src, pattern, key = WRAPPERS[wname]
         fn = getattr(kernels, wname)
-        args = unit if f32 else u8
+        args = inputs[key]
         outs = fn(*args)
         outs = (outs,) if isinstance(outs, torch.Tensor) else outs
-        nbytes = sum(t.numel() * t.element_size() for t in args + tuple(outs))
+        # the planes: the LUTs and fractions of K2 are left out
+        planes = [t for t in args if isinstance(t, torch.Tensor)
+                  and t.shape == args[0].shape]
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in planes + list(outs))
         us, us_clean = times_of(lambda: fn(*args))
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -191,11 +231,13 @@ def main() -> int:
             torch.cuda.synchronize()
         trace = work / "trace.json"
         prof.export_chrome_trace(str(trace))
+        kname = pattern.split("I")[0].split("(")[0]
         launched = [e.get("args", {}) for e in json.loads(
             trace.read_text()).get("traceEvents", [])
-            if e.get("cat") == "kernel"
-            and "lab_forward_kernel" in e.get("name", "")]
-        name, regs, stack, spill_st, spill_ld = report[targs]
+            if e.get("cat") == "kernel" and kname in e.get("name", "")]
+        report, occ = built[src]
+        name = next(m for m in report if re.search(pattern, m))
+        regs, stack, spill_st, spill_ld = report[name]
         threads, blocks = occ[name]
         print(json.dumps({
             "root": root.name, "card": smi, "kernel": wname,

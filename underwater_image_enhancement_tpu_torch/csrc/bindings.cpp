@@ -29,13 +29,15 @@ void launch_clahe_apply(const int* src, const int* luts, const float* ya,
                         const float* xa, int* out, int H, int W, int th,
                         int tw, int pt, int plf, int tiles_x, int tiles_y,
                         cudaStream_t stream);
-void launch_lab_inverse_unit(const int* L, const int* a, const int* b,
-                             const int* tab, const float* glut, float* r,
-                             float* g, float* bb, long long n,
-                             cudaStream_t stream);
+void clahe_apply_info(int th, int tiles_x, int tiles_y, int* out);
+void launch_lab_inverse_lut(const int* L, const int* a, const int* b,
+                            const int* tab, const float* lut, float* r,
+                            float* g, float* bb, long long n,
+                            cudaStream_t stream);
 void launch_lab_inverse_u8(const int* L, const int* a, const int* b,
                            const int* tab, int* r, int* g, int* bb,
                            long long n, cudaStream_t stream);
+void lab_inverse_info(int which, long long n, int* out);
 void launch_clahe_lab_apply(const int* L, const int* a, const int* b,
                             const int* luts, const float* ya, const float* xa,
                             const int* tab, int* r, int* g, int* bb, int H,
@@ -58,9 +60,9 @@ namespace {
 
 using Planes = std::tuple<at::Tensor, at::Tensor, at::Tensor>;
 
-// int32 table blocks of ops/lab_tables.py (FWD_TABLE_U16, INV_TABLE)
+// int32 table blocks of ops/lab_tables.py (FWD_TABLE_U16, INV_TABLE_U8)
 constexpr int64_t kFwdTable = 12 + 256 + 3072 / 2;
-constexpr int64_t kInvTable = 15 + 256 + 256 + 4096;
+constexpr int64_t kInvTableU8 = 16 + 256 + 256 + 4096 / 4;
 // csrc/lab_forward.cu's cube-root policies and its largest fix-up set
 constexpr int kCbrtTable = 0, kCbrtApprox = 1, kCbrtCorrected = 2;
 constexpr int64_t kMaxFix = 32;
@@ -83,13 +85,19 @@ void check_planes(const at::Tensor& p0, const at::Tensor& p1,
   }
 }
 
-// FWD_TABLE_U16 on the planes' device; csrc/lab_forward.cu reads it in
-// 16-byte chunks
-void check_fwd_table(const at::Tensor& tab, const at::Tensor& like) {
+// A table block of `ints` int32 on the planes' device, 16-byte aligned:
+// csrc/lab_forward.cu and csrc/lab_inverse.cu read theirs in 16-byte
+// chunks
+void check_table16(const at::Tensor& tab, const at::Tensor& like,
+                   int64_t ints, const char* name) {
   check(tab, like, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kFwdTable, "table: expected FWD_TABLE_U16");
+  TORCH_CHECK(tab.numel() == ints, "table: expected ", name);
   TORCH_CHECK(reinterpret_cast<std::uintptr_t>(tab.data_ptr()) % 16 == 0,
-              "table: expected a 16-byte aligned FWD_TABLE_U16");
+              "table: expected a 16-byte aligned ", name);
+}
+
+void check_fwd_table(const at::Tensor& tab, const at::Tensor& like) {
+  check_table16(tab, like, kFwdTable, "FWD_TABLE_U16");
 }
 
 Planes empty_planes(const at::Tensor& like, at::ScalarType dtype) {
@@ -202,11 +210,24 @@ at::Tensor clahe_apply(const at::Tensor& src, const at::Tensor& luts,
   return out;
 }
 
+// registers, local bytes a thread, resident blocks a SM, grid x (band
+// blocks), grid y (strips), strip rows and threads a block of the CLAHE
+// apply kernel for a plane of tile height th on the current device
+std::vector<int64_t> clahe_apply_info(int64_t th, int64_t tiles_x,
+                                      int64_t tiles_y) {
+  TORCH_CHECK(th >= 1 && tiles_x >= 1 && tiles_y >= 1,
+              "clahe_apply_info: expected a positive tile height and counts");
+  int out[7] = {};
+  uie::clahe_apply_info((int)th, (int)tiles_x, (int)tiles_y, out);
+  C10_CUDA_CHECK(cudaGetLastError());
+  return std::vector<int64_t>(out, out + 7);
+}
+
+// tab: INV_TABLE_U8
 Planes lab_inverse_u8(const at::Tensor& L, const at::Tensor& a,
                       const at::Tensor& b, const at::Tensor& tab) {
   check_planes(L, a, b, at::kInt);
-  check(tab, L, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kInvTable, "table: expected INV_TABLE");
+  check_table16(tab, L, kInvTableU8, "INV_TABLE_U8");
   const c10::cuda::CUDAGuard guard(L.device());
   auto outs = empty_planes(L, at::kInt);
   uie::launch_lab_inverse_u8(
@@ -228,8 +249,7 @@ Planes clahe_lab_apply(const at::Tensor& L, const at::Tensor& a,
   check(luts, L, at::kInt, "luts");
   check(ya, L, at::kFloat, "ya");
   check(xa, L, at::kFloat, "xa");
-  check(tab, L, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kInvTable, "table: expected INV_TABLE");
+  check_table16(tab, L, kInvTableU8, "INV_TABLE_U8");
   TORCH_CHECK(luts.numel() == tiles_y * tiles_x * 256 &&
                   ya.numel() == (tiles_y + 1) * th &&
                   xa.numel() == (tiles_x + 1) * tw,
@@ -263,37 +283,38 @@ at::Tensor surrogate_probe(const at::Tensor& idx, int64_t which) {
   return out;
 }
 
-Planes lab_inverse(const at::Tensor& L, const at::Tensor& a,
-                   const at::Tensor& b, const at::Tensor& tab,
-                   const float* glut) {
+// tab: INV_TABLE_U8; lut: the (256,) f32 value of each u8 result, 16-byte
+// aligned (stretch.U8_GRID for K3, a gamma table for K3g)
+Planes lab_inverse_lut(const at::Tensor& L, const at::Tensor& a,
+                       const at::Tensor& b, const at::Tensor& tab,
+                       const at::Tensor& lut) {
+  check_planes(L, a, b, at::kInt);
+  check_table16(tab, L, kInvTableU8, "INV_TABLE_U8");
+  check(lut, L, at::kFloat, "lut");
+  TORCH_CHECK(lut.numel() == 256 &&
+                  reinterpret_cast<std::uintptr_t>(lut.data_ptr()) % 16 == 0,
+              "lut: expected 256 16-byte aligned entries");
   const c10::cuda::CUDAGuard guard(L.device());
   auto outs = empty_planes(L, at::kFloat);
-  uie::launch_lab_inverse_unit(
+  uie::launch_lab_inverse_lut(
       L.data_ptr<int>(), a.data_ptr<int>(), b.data_ptr<int>(),
-      tab.data_ptr<int>(), glut, std::get<0>(outs).data_ptr<float>(),
-      std::get<1>(outs).data_ptr<float>(), std::get<2>(outs).data_ptr<float>(),
-      L.numel(), at::cuda::getCurrentCUDAStream());
+      tab.data_ptr<int>(), lut.data_ptr<float>(),
+      std::get<0>(outs).data_ptr<float>(), std::get<1>(outs).data_ptr<float>(),
+      std::get<2>(outs).data_ptr<float>(), L.numel(),
+      at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return outs;
 }
 
-Planes lab_inverse_unit(const at::Tensor& L, const at::Tensor& a,
-                        const at::Tensor& b, const at::Tensor& tab) {
-  check_planes(L, a, b, at::kInt);
-  check(tab, L, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kInvTable, "table: expected INV_TABLE");
-  return lab_inverse(L, a, b, tab, nullptr);
-}
-
-Planes lab_inverse_unit_gamma(const at::Tensor& L, const at::Tensor& a,
-                              const at::Tensor& b, const at::Tensor& tab,
-                              const at::Tensor& glut) {
-  check_planes(L, a, b, at::kInt);
-  check(tab, L, at::kInt, "table");
-  TORCH_CHECK(tab.numel() == kInvTable, "table: expected INV_TABLE");
-  check(glut, L, at::kFloat, "glut");
-  TORCH_CHECK(glut.numel() == 256, "glut: expected 256 entries");
-  return lab_inverse(L, a, b, tab, glut.data_ptr<float>());
+// registers, local bytes a thread, resident blocks a SM, grid (for an
+// aligned call of n pixels) and threads a block of inverse-LAB kernel
+// `which` (0 K3 and K3g, 1 K3b) on the current device
+std::vector<int64_t> lab_inverse_info(int64_t which, int64_t n) {
+  TORCH_CHECK(which == 0 || which == 1, "which: expected 0 or 1");
+  int out[5] = {};
+  uie::lab_inverse_info((int)which, n, out);
+  C10_CUDA_CHECK(cudaGetLastError());
+  return std::vector<int64_t>(out, out + 5);
 }
 
 // The largest shared-memory block of an H100 (227 KB).
@@ -380,12 +401,16 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "threads of a forward-LAB kernel");
   m.def("clahe_apply", &clahe_apply,
         "csrc/clahe_apply.cu: int32 plane through its tile LUTs");
-  m.def("lab_inverse_unit", &lab_inverse_unit,
-        "csrc/lab_inverse.cu: int32 (L, a, b) -> f32 unit planes");
-  m.def("lab_inverse_unit_gamma", &lab_inverse_unit_gamma,
-        "csrc/lab_inverse.cu: int32 (L, a, b) -> gamma LUT of the u8 planes");
+  m.def("clahe_apply_info", &clahe_apply_info,
+        "csrc/clahe_apply.cu: registers, local bytes, blocks a SM, grid "
+        "(band blocks, strips), strip rows and threads");
+  m.def("lab_inverse_lut", &lab_inverse_lut,
+        "csrc/lab_inverse.cu: int32 (L, a, b) -> f32 table of the u8 planes");
   m.def("lab_inverse_u8", &lab_inverse_u8,
         "csrc/lab_inverse.cu: int32 (L, a, b) -> u8-valued int32 planes");
+  m.def("lab_inverse_info", &lab_inverse_info,
+        "csrc/lab_inverse.cu: registers, local bytes, blocks a SM, grid and "
+        "threads of an inverse-LAB kernel");
   m.def("clahe_lab_apply", &clahe_lab_apply,
         "csrc/clahe_lab_apply.cu: CLAHE of L, then int32 (L', a, b) -> "
         "u8-valued int32 planes");

@@ -17,11 +17,11 @@
 //
 // Bound on an H100: memory.  Reads 3 i32 planes and writes 3 (24 bytes a
 // pixel, 49.8 MB at 1920x1080, ~15 us at 3.35 TB/s); the split path (CLAHE
-// apply then the u8 inverse) moves 32 bytes a pixel.  Design: as the
-// inverse kernels, one thread per pixel in a grid-stride loop over a few
-// blocks per SM, so the inverse's 6 KB of tables are staged in shared
-// memory once per block; the 64 KB of LUTs and the fractions are read
-// through the read-only cache.
+// apply then the u8 inverse) moves 32 bytes a pixel.  Design: one thread
+// per pixel in a grid-stride loop over a few blocks per SM, so the
+// inverse's 6 KB of tables (INV_TABLE_U8) are staged in shared memory
+// once per block; the 64 KB of LUTs and the fractions are read through
+// the read-only cache.
 
 #include <cuda_runtime.h>
 
@@ -41,8 +41,8 @@ clahe_lab_apply_kernel(const int* __restrict__ L, const int* __restrict__ a,
                        const int* __restrict__ tab, int* __restrict__ r_out,
                        int* __restrict__ g_out, int* __restrict__ b_out,
                        int H, int W, uie_detail::ClaheGeometry geo) {
-  __shared__ uie_detail::LabInvTables s;
-  uie_detail::stage_lab_inv_tables(s, tab);
+  __shared__ __align__(16) uie_detail::LabInvTables s;
+  uie_detail::stage_lab_inv_tables<kThreads>(s, tab);
   __syncthreads();
 
   const long long n = (long long)H * W;

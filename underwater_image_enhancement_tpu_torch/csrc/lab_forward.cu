@@ -30,7 +30,8 @@
 // cube root at 2 steps, ~35 at 4 (~100 and ~150 a pixel).
 //
 // Design (one template for the five kernels: the input type, the
-// cube-root policy and the L-only epilogue are its parameters):
+// cube-root policy and the L-only epilogue are its parameters; the ring's
+// pieces are csrc/bulk_ring.cuh, shared with csrc/lab_inverse.cu):
 // - one wave: the grid is the instantiation's resident blocks
 //   (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, once a device),
 //   so no block starts late, and each block stages its tables once;
@@ -64,15 +65,23 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
+#include "bulk_ring.cuh"
 #include "common.cuh"
 #include "surrogates.cuh"
 
 namespace {
 
+using uie_detail::aligned16;
+using uie_detail::bar_expect;
+using uie_detail::bar_fence_init;
+using uie_detail::bar_init;
+using uie_detail::bar_wait;
+using uie_detail::bulk_load;
 using uie_detail::clamp_i;
 using uie_detail::descale;
+using uie_detail::lane;
+using uie_detail::proxy_fence;
+using uie_detail::Vec4;
 
 constexpr int kGamma = 12;
 constexpr int kHead = kGamma + 256;
@@ -84,7 +93,6 @@ constexpr int kThreads = 256;
 constexpr int kTile = 4 * kThreads;  // pixels a tile: a 16-byte vector a thread
 constexpr int kStages = 3;           // tiles in flight a block
 constexpr int kMaxFix = 32;  // ops/kernels.py MAX_CORRECTIONS
-constexpr int kMaxDevices = 64;
 
 // cube-root policies
 constexpr int kCbrtTable = 0;      // CBRT_TAB gather (K1, K1b, K4)
@@ -99,65 +107,6 @@ __device__ __forceinline__ int quantize_u8(float v) {
 // A channel value -> its u8 index.
 __device__ __forceinline__ int to_u8(float v) { return quantize_u8(v); }
 __device__ __forceinline__ int to_u8(int v) { return clamp_i(v, 0, 255); }
-
-// 4 adjacent pixels of a plane, one 16-byte read
-template <typename In> struct Vec4;
-template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<int> { using type = int4; };
-
-template <typename V>
-__device__ __forceinline__ auto lane(const V& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// The shared-memory address of p, and the mbarrier and bulk-copy (1D TMA)
-// instructions of sm_90.
-__device__ __forceinline__ unsigned smem(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar)));
-}
-
-// the inits visible to the bulk copies
-__device__ __forceinline__ void bar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// this thread's shared-memory accesses ordered against the async proxy's
-// (the bulk copies)
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_expect(unsigned long long* bar,
-                                           unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(unsigned long long* bar,
-                                         unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@!P1 bra WAIT;\n"
-      "}\n" ::"r"(smem(bar)), "r"(parity) : "memory");
-}
-
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
-// shared memory, completing on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      ::"r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar)) : "memory");
-}
 
 // n pixels: ntiles whole tiles of kTile from the planes' start (0 where a
 // plane is not 16-byte aligned), streamed through a ring of kStages tiles
@@ -310,22 +259,9 @@ lab_forward_kernel(const In* __restrict__ r, const In* __restrict__ g,
 // together: its grid, so that every block runs in the first wave.
 template <typename In, int kCbrtPolicy, bool kLOnly>
 int resident_blocks() {
-  static int cache[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices) dev = kMaxDevices - 1;
-  if (cache[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lab_forward_kernel<In, kCbrtPolicy, kLOnly>, kThreads, 0);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cache[dev] = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
-  }
-  return cache[dev];
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  static int cache[uie_detail::kMaxDevices] = {};
+  return uie_detail::resident_blocks(
+      lab_forward_kernel<In, kCbrtPolicy, kLOnly>, kThreads, cache);
 }
 
 // The launch of n pixels: its whole tiles (0 unless every plane starts
@@ -361,9 +297,6 @@ template <typename In, int kCbrtPolicy, bool kLOnly>
 void info(long long n, int* out) {
   cudaFuncAttributes attr{};
   cudaFuncGetAttributes(&attr, lab_forward_kernel<In, kCbrtPolicy, kLOnly>);
-  int sms = 1, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   long long ntiles = 0;
   alignas(16) static const int kAligned[4] = {};
   const In* p = reinterpret_cast<const In*>(kAligned);
@@ -371,7 +304,7 @@ void info(long long n, int* out) {
                                 &ntiles, &out[3]);
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[2] = resident_blocks<In, kCbrtPolicy, kLOnly>() / (sms > 0 ? sms : 1);
+  out[2] = resident_blocks<In, kCbrtPolicy, kLOnly>() / uie_detail::device_sms();
   out[4] = kThreads;
 }
 

@@ -5,10 +5,12 @@
 // pallas_kernels.py), op for op; its _ctrunc_div is an exact emulation of
 // C's truncating integer division, so here it is plain `/`.
 //
-// Table block (int32, ops/lab_tables.py INV_TABLE):
+// Table block (int32, ops/lab_tables.py INV_TABLE_U8, the bytes of
+// LabInvTables):
 //   [0..8] COEFFS_INV (3x3 row-major)  [9] MIN_AB  [10] AB_MAX
 //   [11] AB_LIN_THRESH  [12] AB_LIN_K  [13] ADIV_OFFSET  [14] BDIV_OFFSET
-//   [15..270] L2Y  [271..526] L2IFY  [527..4622] INV_GAMMA_TAB (4096)
+//   [15] 0  [16..271] L2Y  [272..527] L2IFY
+//   [528..1551] INV_GAMMA_TAB (4096) as bytes, four a word
 
 #pragma once
 
@@ -19,30 +21,39 @@
 namespace uie_detail {
 
 constexpr int kInvHeader = 15;
-constexpr int kInvL2y = kInvHeader;
-constexpr int kInvIfy = kInvL2y + 256;
-constexpr int kInvIg = kInvIfy + 256;
 constexpr int kInvIgSize = 4096;
 constexpr int kInvBase = 1 << 14;
 
-// The inverse's tables in shared memory, 6.1 KB (INV_GAMMA as u8).
+// The inverse's tables in shared memory, laid out as INV_TABLE_U8 (6208
+// bytes, INV_GAMMA as u8, sections on 16-byte boundaries; declare it
+// __align__(16)).
 struct LabInvTables {
-  int head[kInvHeader];
+  int head[kInvHeader + 1];
   int y[256];
   int ify[256];
   unsigned char ig[kInvIgSize];
 };
+static_assert(sizeof(LabInvTables) == 6208, "INV_TABLE_U8's layout");
 
-// Every thread of the block takes part; the caller synchronises after.
+// INV_TABLE_U8 (16-byte aligned) into s, 16 bytes a thread, all loads
+// before the stores.  Every thread of the block (kThreads of them) takes
+// part; the caller synchronises after.
+template <int kThreads>
 __device__ __forceinline__ void stage_lab_inv_tables(LabInvTables& s,
                                                      const int* tab) {
-  if (threadIdx.x < kInvHeader) s.head[threadIdx.x] = tab[threadIdx.x];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    s.y[i] = tab[kInvL2y + i];
-    s.ify[i] = tab[kInvIfy + i];
+  constexpr int kChunks = sizeof(LabInvTables) / 16;
+  constexpr int kPer = (kChunks + kThreads - 1) / kThreads;
+  int4 chunk[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    if (c < kChunks) chunk[k] = __ldg(reinterpret_cast<const int4*>(tab) + c);
   }
-  for (int i = threadIdx.x; i < kInvIgSize; i += blockDim.x)
-    s.ig[i] = (unsigned char)tab[kInvIg + i];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    if (c < kChunks) reinterpret_cast<int4*>(&s)[c] = chunk[k];
+  }
 }
 
 __device__ __forceinline__ int ab_to_xz(int v, const int* h) {

@@ -71,7 +71,7 @@ def _table(name: str, device: torch.device) -> torch.Tensor:
     key = (name, str(device))
     if key not in _TABLES:
         src = {"fwd": lt.FWD_TABLE, "fwd_u16": lt.FWD_TABLE_U16,
-               "inv": lt.INV_TABLE}[name]
+               "inv": lt.INV_TABLE, "inv_u8": lt.INV_TABLE_U8}[name]
         _TABLES[key] = torch.as_tensor(src, dtype=torch.int32).to(device)
     return _TABLES[key]
 
@@ -407,6 +407,34 @@ def clahe_apply_plain(src, luts, ya, xa, th, tw, pt, plf, tiles_x, tiles_y):
     return torch.clamp(torch.round(val), 0, 255).to(torch.int32)
 
 
+def clahe_strip_rows(th: int, tiles_x: int, tiles_y: int,
+                     resident: int) -> int:
+    """The rows of a strip of csrc/clahe_apply.cu: as many strips of equal
+    height a band block ((tiles_y+1)*(tiles_x+1) of them) as one wave of
+    ``resident`` blocks holds, at most one a row."""
+    bands = (tiles_x + 1) * (tiles_y + 1)
+    strips = min(-(-resident // bands), th)
+    return -(-th // strips)
+
+
+def clahe_apply_plan(H, W, th, tw, pt, plf, tiles_x, tiles_y, strip_rows):
+    """The rectangles (y0, y1, x0, x1) of the (H, W) plane that the blocks
+    of csrc/clahe_apply.cu map, in grid order: block (band block i*(tiles_x
+    +1)+j, strip s) takes rows s*strip_rows.. of band block (i, j), cropped
+    to the plane; an empty one (None) maps nothing."""
+    rects = []
+    for i in range(tiles_y + 1):
+        for j in range(tiles_x + 1):
+            band_y1 = min((i + 1) * th - pt, H)
+            x0, x1 = max(j * tw - plf, 0), min((j + 1) * tw - plf, W)
+            for s in range(-(-th // strip_rows)):
+                y0 = max(i * th - pt, 0) + s * strip_rows
+                y1 = min(y0 + strip_rows, band_y1)
+                rects.append((y0, y1, x0, x1) if y0 < y1 and x0 < x1
+                             else None)
+    return rects
+
+
 def clahe_apply(src, luts, ya, xa, th, tw, pt, plf, tiles_x, tiles_y):
     """Map a u8-valued int32 plane (H, W) through its (tiles_y*tiles_x,
     256) int32 tile LUTs with OpenCV's f32 bilinear blend.  ya/xa are the
@@ -438,7 +466,7 @@ def clahe_lab_apply(L, a, b, luts, ya, xa, th, tw, pt, plf, tiles_x, tiles_y):
     if dev.type == "cpu":
         return clahe_lab_apply_plain(L, a, b, luts, ya, xa, *geom)
     return _launch("clahe_lab_apply", L, a, b, luts, ya, xa,
-                   _table("inv", dev), *geom)
+                   _table("inv_u8", dev), *geom)
 
 
 # ---------------------------------------------------------------------------
@@ -477,12 +505,19 @@ def lab_inverse_u8(L, a, b):
     dev = _check("lab_inverse_u8", (L, a, b), torch.int32)
     if dev.type == "cpu":
         return lab_inverse_u8_plain(L, a, b)
-    return _launch("lab_inverse_u8", L, a, b, _table("inv", dev))
+    return _launch("lab_inverse_u8", L, a, b, _table("inv_u8", dev))
 
 
 def lab_inverse_unit_plain(L, a, b):
     return tuple(div(v.to(torch.float32), 255.0)
                  for v in lab_inverse_u8_plain(L, a, b))
+
+
+@functools.lru_cache(maxsize=None)
+def unit_lut(device: torch.device) -> torch.Tensor:
+    """(256,) f32 table k / 255 (IEEE, ``stretch.U8_GRID``) on ``device``
+    (read-only): K3's epilogue gathers its unit output from it."""
+    return torch.as_tensor(U8_GRID, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -504,7 +539,8 @@ def lab_inverse_unit(L, a, b):
     dev = _check("lab_inverse_unit", (L, a, b), torch.int32)
     if dev.type == "cpu":
         return lab_inverse_unit_plain(L, a, b)
-    return _launch("lab_inverse_unit", L, a, b, _table("inv", dev))
+    return _launch("lab_inverse_lut", L, a, b, _table("inv_u8", dev),
+                   unit_lut(dev), counter="lab_inverse_unit")
 
 
 def lab_inverse_unit_gamma(L, a, b, gamma: float):
@@ -514,8 +550,8 @@ def lab_inverse_unit_gamma(L, a, b, gamma: float):
     dev = _check("lab_inverse_unit_gamma", (L, a, b), torch.int32)
     if dev.type == "cpu":
         return lab_inverse_unit_gamma_plain(L, a, b, gamma)
-    return _launch("lab_inverse_unit_gamma", L, a, b, _table("inv", dev),
-                   gamma_lut(gamma, dev))
+    return _launch("lab_inverse_lut", L, a, b, _table("inv_u8", dev),
+                   gamma_lut(gamma, dev), counter="lab_inverse_unit_gamma")
 
 
 # ---------------------------------------------------------------------------

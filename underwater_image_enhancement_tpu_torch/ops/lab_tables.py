@@ -98,6 +98,14 @@ INV_HEADER = np.concatenate([
     [MIN_AB, AB_MAX, AB_LIN_THRESH, AB_LIN_K, ADIV_OFFSET, BDIV_OFFSET]])
 INV_TABLE = np.concatenate([INV_HEADER, L2YF_TAB[:, 0], L2YF_TAB[:, 1],
                             INV_GAMMA_TAB]).astype(np.int32)
+# INV_TABLE as the inverse-LAB kernels (csrc/lab_inverse.cu, and K5 in
+# csrc/clahe_lab_apply.cu) stage it: the header padded to 16 ints,
+# L2Y, L2IFY, then INV_GAMMA_TAB (values 0..255) as bytes, four an int32
+# word, entry 4k in the low byte: the layout of its shared-memory tables,
+# copied in 16-byte chunks, 6208 bytes
+INV_TABLE_U8 = np.concatenate([
+    INV_HEADER, [0], L2YF_TAB[:, 0], L2YF_TAB[:, 1],
+    INV_GAMMA_TAB.astype(np.uint8).view(np.int32)]).astype(np.int32)
 
 # cv2 8U RGB2HSV fixed-point division tables (hsv_shift 12), np.round (half
 # to even): sdiv[i] = round((255 << 12) / i), hdiv[i] = round((180 << 12) /
