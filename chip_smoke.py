@@ -5,8 +5,9 @@
 Drives ``underwater_image_enhancement_tpu_torch`` (never JAX) through the
 ``six`` exact tier, the ``six --fast`` tier, ``enhance``, the Phase-1
 labeling path (``auto``, ``build-dataset``, ``build-dataset --fast``),
-``assess`` and the colour and CLAHE entry points (the fused CLAHE legs, the
-u8 LAB round trip, the probe-corrected forward LAB) at 1920x1080.  Phases
+``assess``, the colour and CLAHE entry points (the fused CLAHE legs, the
+u8 LAB round trip, the probe-corrected forward LAB), the Ancuti ``fusion``
+and the batch forms of CLAHE at 1920x1080.  Phases
 (each prints one line or more; a failed check raises and the script exits
 non-zero):
 
@@ -50,7 +51,14 @@ non-zero):
    --fast`` and ``cli assess`` in-process on ``cuda``, then the five CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
-   probe run anew) back to RGB (K3b); their outputs (18 + 18 + 3 PNGs and
+   probe run anew) back to RGB (K3b), then ``cli fusion`` on the three
+   frames as one batch (K1 and K3 once, K2 once a frame; the batch equal
+   to three single-frame calls, the PNGs to the batch, frame 0 on the card
+   within ``FUSION_MAX_ABS`` and ``FUSION_PSNR_DB`` of the CPU path), and
+   the batch forms of CLAHE (``clahe_u8_batch`` with per-image limits,
+   ``clahe_enhancement_planes_multi`` over the five recipe limits of the
+   three frames, ``_clahe_lab_fused_batched``), each image bit-equal to
+   the single-plane calls; their outputs (18 + 18 + 3 PNGs and
    the CSV logs; 3 winners; the dataset CSV with 5 scores a row and
    ``dataset.pkl`` with three finite 79-value vectors; the assess table);
    the kernel launch counts of each run (counts set to 0 just before it,
@@ -70,7 +78,9 @@ non-zero):
    sums, ms per frame of ``auto_enhance_batch`` and of the label program
    (strategies, scores and features; each part alone too) in each tier,
    one ``torch.profiler``
-   frame of each of these (device busy and idle share, launches), a CLAHE
+   frame of each of these (device busy and idle share, launches), ms per
+   frame of ``ancuti_fusion`` (one frame a call, and the batch of three)
+   with one profiled frame, a CLAHE
    leg fused against split (in turns), ms per frame of UIQM, UCIQE and the
    assess command's work (one profiled frame), and each kernel on the main
    path's inputs beside its bound, its plain version, a PyTorch copy of
@@ -193,7 +203,22 @@ EXPECTED_SLICE = {
     "clahe_fused": {**NONE, "lab_forward_unit": 15, "clahe_lab_apply": 15},
     "lab_u8": {**NONE, "lab_forward_u8": 3, "lab_forward_unit_fast": 3,
                "surrogate_corrections": 1, "lab_inverse_u8": 3},
+    # cli fusion on the three frames, one batch: the forward and inverse
+    # LAB fold the batch into rows (one launch each), CLAHE apply runs
+    # once a frame
+    "fusion": {**NONE, "lab_forward_unit": 1, "clahe_apply": 3,
+               "lab_inverse_unit": 1},
+    # the batch forms of CLAHE: clahe_u8_batch of the three L planes, the
+    # five recipe limits of the three frames through
+    # clahe_enhancement_planes_multi (15 legs), and the fused batch (K5)
+    "clahe_u8_batch": {**NONE, "clahe_apply": 3},
+    "clahe_multi": {**NONE, "lab_forward_unit": 1, "clahe_apply": 15,
+                    "lab_inverse_unit": 1},
+    "clahe_fused_batch": {**NONE, "clahe_lab_apply": 3},
 }
+# card against CPU gate of the fused frame (the JAX suite's 50 dB)
+FUSION_PSNR_DB = 50.0
+FUSION_MAX_ABS = 1e-5
 # (clip limit, gamma) of the six recipes' five CLAHE legs
 CLAHE_LEGS = ((3.0, 1.5), (2.0, None), (4.0, None), (1.5, 1.2), (3.5, 1.4))
 # K7 calls beyond one a descent level: the metric (and feature) Cannys
@@ -436,6 +461,9 @@ def main() -> int:
     from underwater_image_enhancement_tpu_torch.ops.layout import split_planes
     from underwater_image_enhancement_tpu_torch.ops.stretch import U8_GRID
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
+    from underwater_image_enhancement_tpu_torch.pipeline.fusion import (
+        ancuti_fusion,
+    )
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
         CONFIG_ORDER,
         SIX_ORDER,
@@ -975,10 +1003,91 @@ def main() -> int:
         seconds=f"{secs:.2f}",
         launches=json.dumps(launches, separators=(",", ":")))
     del trips
+
+    # cli fusion: the three frames as one batch (the default batch size 4),
+    # 5 pyramid levels at 1080p; the batch against single frames and frame
+    # 0 against the CPU path
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        calls, launches, secs = run_cli(["fusion", "--input", str(src),
+                                         "--output", str(WORK / "fusion")],
+                                        True)
+    text = printed.getvalue()
+    print(text, end="", flush=True)
+    pngs = sorted(p.name for p in (WORK / "fusion").glob("*.png"))
+    check(pngs == [f"frame{i}_fusion.png" for i in range(3)]
+          and f"fused 3 images -> {WORK / 'fusion'}" in text,
+          f"fusion outputs {pngs}, printed {text!r}")
+    written = [uio.imread_u8(str(WORK / "fusion" / p)) for p in pngs]
+    check(all(w is not None and w.shape == (H, W, 3) for w in written),
+          "fusion: bad PNG")
+    check(captured_match(calls, launches)
+          and launches == EXPECTED_SLICE["fusion"],
+          f"fusion: launches {launches}")
+    runs["fusion"] = (calls, launches, None)
+    log("slice", command="fusion", frames=3, outputs=len(pngs),
+        seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    fused_b = ancuti_fusion(torch.from_numpy(np.stack(frames)).to(dev))
+    singles = [ancuti_fusion(torch.from_numpy(f).to(dev)) for f in frames]
+    check(all(torch.equal(fused_b[i], singles[i]) for i in range(3)),
+          "fusion: the batch differs from the single frames on the card")
+    check(all(np.array_equal(w, (fused_b[i].clamp(0, 1) * 255).to(
+        torch.uint8).cpu().numpy()) for i, w in enumerate(written)),
+        "fusion: the PNGs differ from the batch result")
+    cpu0 = ancuti_fusion(torch.from_numpy(frames[0]))
+    d = (singles[0].cpu().double() - cpu0.double()).abs()
+    mse = float((d ** 2).mean())
+    psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    check(bool(torch.isfinite(singles[0]).all()) and psnr >= FUSION_PSNR_DB
+          and float(d.max()) <= FUSION_MAX_ABS,
+          f"fusion frame 0: card vs CPU {psnr:.1f} dB, max |d| {float(d.max())}")
+    log("card_vs_cpu", command="fusion", frame=0, max_abs=float(d.max()),
+        pixels_differing=int((d > 0).sum()), psnr_db=f"{psnr:.2f}",
+        gate=f">= {FUSION_PSNR_DB} dB and max |d| <= {FUSION_MAX_ABS}",
+        batch_equals_single=True)
+    del fused_b, singles, cpu0, written
+
+    # the batch forms of CLAHE, each image against the single-plane calls
+    lab3 = tcs.rgb_unit_to_lab_planes(
+        *(torch.stack([p[c] for p in planes3]) for c in range(3)))
+    limits = (3.0, 2.0, 4.0)
+    got, launches, secs = library_run(
+        "clahe_u8_batch", lambda: histeq.clahe_u8_batch(lab3[0], limits))
+    check(all(torch.equal(got[i], histeq.clahe_u8(lab3[0][i], c))
+              for i, c in enumerate(limits)),
+          "clahe_u8_batch differs from clahe_u8 of an image")
+    log("slice", command="clahe_u8_batch", limits=",".join(map(str, limits)),
+        equals_single=True, seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    legs = [(p, clip) for p in planes3 for clip in CLIPS]
+    got, launches, secs = library_run(
+        "clahe_multi", lambda: histeq.clahe_enhancement_planes_multi(
+            [p for p, _ in legs], [c for _, c in legs]))
+    check(all(all(torch.equal(a, b) for a, b in zip(
+        g_, histeq.clahe_enhancement_planes(p, clip)))
+        for g_, (p, clip) in zip(got, legs)),
+        "clahe_enhancement_planes_multi differs from a single leg")
+    log("slice", command="clahe_enhancement_planes_multi", legs=len(legs),
+        equals_single=True, seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    got, launches, secs = library_run(
+        "clahe_fused_batch",
+        lambda: histeq._clahe_lab_fused_batched(*lab3, 3.0, 8, 8))
+    for i in range(3):
+        luts, ya, xa, geo = histeq.clahe_prep(lab3[0][i], 3.0, 8, 8)
+        one = kernels.clahe_lab_apply(*(c[i] for c in lab3), luts, ya, xa,
+                                      *geo)
+        check(all(torch.equal(got[c][i], one[c]) for c in range(3)),
+              f"_clahe_lab_fused_batched differs from K5 on image {i}")
+    log("slice", command="_clahe_lab_fused_batched", images=3,
+        equals_single=True, seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    del got, lab3
     unused = [k for k in KERNELS if not any(r[1][k] for r in runs.values())]
     check(not unused, f"kernels the main path never launched: {unused}")
 
-    # every kernel call of the two six runs, replayed on its own inputs
+    # every kernel call of the runs, replayed on its own inputs
     replayed = {}
     for tier in runs:
         for kname, arglists in runs[tier][0].items():
@@ -1181,6 +1290,24 @@ def main() -> int:
         log("frame", path=key, **{f"ms_{k}": v for k, v in spread(ms).items()},
             runs=",".join(f"{t:.3f}" for t in ms), **extra)
 
+    # Ancuti fusion a frame (one frame a call), and the CLI's batch of 3
+    it = iter(range(10 ** 6))
+    ms = event_ms(torch, lambda: ancuti_fusion(imgs[next(it) % 3][None]), 6,
+                  warmup=2)
+    batch3 = torch.stack(imgs)
+    ms3 = event_ms(torch, lambda: ancuti_fusion(batch3), 3, warmup=1)
+    wall, busy, ev, ours = profile_frame(lambda: ancuti_fusion(imgs[0][None]))
+    log("frame", path="fusion", **{f"ms_{k}": v for k, v in spread(ms).items()},
+        runs=",".join(f"{t:.3f}" for t in ms),
+        batch3_ms_per_frame=f"{statistics.median(ms3) / 3:.3f}",
+        profiled_wall_ms=f"{wall:.3f}",
+        device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+        device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                           else "not measured"),
+        device_launches=len(ev),
+        package_kernels=json.dumps(ours, separators=(",", ":")))
+    del batch3
+
     img = imgs[0]
     corrected, _ = cast_mod.detect_and_correct(img)
     planes = split_planes(corrected)
@@ -1287,6 +1414,15 @@ def main() -> int:
     def us(v):
         return "null" if v is None else f"{v * 1e3:.2f}"
 
+    # the floor of a launch under this timing: a kernel that does next to
+    # nothing (a one-element fill_, one thread, one 4-byte store), flushed
+    # and timed as the kernels are; the bound of K9, whose bytes take less
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = statistics.median(event_ms(
+        torch, lambda: one.fill_(1.0), 30, 3, flush))
+    log("timing", kernel="launch_floor", on="'one-element fill_'",
+        us=us(launch_floor_ms))
+
     # the first main-path call of each kernel, in run order
     calls = {k: next(r[0][k] for r in runs.values() if r[0][k])
              for k in CAPTURED}
@@ -1299,6 +1435,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(r[1][kname] for r in runs.values()),
             "max_abs_err": err[kname], **t})
+        if kname == "surrogate_corrections":
+            records[-1]["launch_floor_ms"] = launch_floor_ms
         log("timing", kernel=kname, shape="x".join(map(str, t["shape"])),
             us=us(t["ms"]), plain_us=us(t["plain_ms"]),
             bound_us=us(t["bound_ms"]), library_us=us(t["library_ms"]),

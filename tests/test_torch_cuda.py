@@ -25,6 +25,7 @@ from chip_smoke import (
     cuda_kernel_names,
     lab_planes,
     serpentine,
+    synthetic_frame,
 )
 from underwater_image_enhancement_tpu_torch.ops import (
     airlight,
@@ -533,3 +534,50 @@ def test_clahe_apply_info_matches_plan(cuda, shape, tiles):
     assert rows == kernels.clahe_strip_rows(geo.th, *tiles, resident)
     plan = kernels.clahe_apply_plan(*shape, *geo, rows)
     assert len(plan) == gx * gy == (tiles[0] + 1) * (tiles[1] + 1) * gy
+
+
+def test_ancuti_fusion_on_card_matches_cpu(cuda):
+    """Fusion of a 1079x1917 frame (odd sizes, 5 levels) on the card
+    against the port's CPU path: K1, K2 and K3 launched, the gray-world
+    planes and the CLAHE leg bit-equal, the output within 1e-5 and 50 dB;
+    a batch of two equal to the single calls."""
+    from underwater_image_enhancement_tpu_torch.pipeline import fusion
+
+    img = torch.from_numpy(np.ascontiguousarray(
+        synthetic_frame(3)[:1079, :1917]))
+    kernels.reset_launches()
+    got = fusion.ancuti_fusion(img.to(cuda))
+    assert (kernels.launches["lab_forward_unit"],
+            kernels.launches["clahe_apply"],
+            kernels.launches["lab_inverse_unit"]) == (1, 1, 1)
+    want = fusion.ancuti_fusion(img)
+    d = (got.cpu().double() - want.double()).abs()
+    mse = float((d ** 2).mean())
+    assert float(d.max()) <= 1e-5 and (mse == 0 or 10 * np.log10(1 / mse) >= 50)
+    planes = tuple(img[..., c].contiguous() for c in range(3))
+    wb_c = fusion.gray_world_wb_planes(planes)
+    wb_g = fusion.gray_world_wb_planes(tuple(p.to(cuda) for p in planes))
+    for a, b in zip(wb_g, wb_c):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(histeq.clahe_enhancement_planes(wb_g, 2.0),
+                    histeq.clahe_enhancement_planes(wb_c, 2.0)):
+        assert torch.equal(a.cpu(), b)
+    batch = torch.stack([img, img.flip(0)]).to(cuda)
+    both = fusion.ancuti_fusion(batch)
+    assert torch.equal(both[0], got)
+    assert torch.equal(both[1], fusion.ancuti_fusion(batch[1]))
+
+
+def test_clahe_u8_batch_on_card_equals_per_image(cuda):
+    """clahe_u8_batch with per-image limits: K2 once an image, each image
+    equal to clahe_u8 of it and to the CPU path."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randint(0, 256, (3, 1079, 1917), generator=g, device=cuda,
+                      dtype=torch.int32)
+    clips = (3.0, 2.0, 4.0)
+    before = kernels.launches["clahe_apply"]
+    got = histeq.clahe_u8_batch(x, clips)
+    assert kernels.launches["clahe_apply"] == before + 3
+    assert torch.equal(got.cpu(), histeq.clahe_u8_batch(x.cpu(), clips))
+    for i, clip in enumerate(clips):
+        assert torch.equal(got[i], histeq.clahe_u8(x[i], clip))

@@ -5,6 +5,7 @@
     python -m underwater_image_enhancement_tpu_torch.cli auto --input DIR --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli build-dataset --input DIR --output DIR [--fast]
     python -m underwater_image_enhancement_tpu_torch.cli assess --input PATH
+    python -m underwater_image_enhancement_tpu_torch.cli fusion --input PATH --output DIR
 
 Commands (reference counterparts):
   six            six_stadigy.py __main__: all six strategies per image +
@@ -20,6 +21,8 @@ Commands (reference counterparts):
                  throughput tier)
   assess         quality_assessment on an image or a folder: the weighted
                  total, UIQM, UCIQE and the eight metrics, one row a file
+  fusion         Ancuti multi-scale fusion of an image or a folder, in
+                 same-shape batches (``<stem>_fusion.png``)
 
 Runs on the CUDA device by default (``--device cuda``); ``--device cpu``
 runs the plain PyTorch path.  On CUDA the kernels are built before the
@@ -215,6 +218,35 @@ def _cmd_assess(args) -> None:
               "".join(f"{s:>9.2f}" for s in v[3:]))
 
 
+def _cmd_fusion(args) -> None:
+    """Ancuti multi-scale fusion (the JAX CLI's ``fusion``): same-shape
+    batches decoded ahead, written behind."""
+    from underwater_image_enhancement_tpu_torch.pipeline.fusion import (
+        ancuti_fusion,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    device = _start(args.device)
+    inp = Path(args.input)
+    files = uio.collect_images(args.input) if inp.is_dir() else [inp]
+    outdir = Path(args.output)
+    outdir.mkdir(parents=True, exist_ok=True)
+    done = 0
+    with uio.AsyncWriter() as writer:
+        for chunk in _stream_shape_batches(
+                files, args.batch_size,
+                log=lambda m: print(f"  {m.replace('warning: ', '')}")):
+            batch = torch.from_numpy(np.stack([im for _, im in chunk]))
+            outs = _to_host(ancuti_fusion(batch.to(device)))
+            for j, (p, _) in enumerate(chunk):
+                writer.write(str(outdir / f"{p.stem}_fusion.png"), outs[j])
+                done += 1
+    for path, err in writer.close():
+        done -= 1
+        print(f"  write failed: {Path(path).name} - {err[:50]}")
+    print(f"fused {done} images -> {args.output}")
+
+
 def _cmd_six(args) -> None:
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
@@ -398,6 +430,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input", required=True, help="an image or a folder")
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=_cmd_assess)
+
+    p = sub.add_parser("fusion", help="Ancuti multi-scale fusion enhancement")
+    p.add_argument("--input", required=True, help="an image or a folder")
+    p.add_argument("--output", required=True)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_fusion)
     return ap
 
 

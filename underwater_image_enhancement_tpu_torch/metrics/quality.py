@@ -143,3 +143,14 @@ def comprehensive_batch(imgs: torch.Tensor, weights=None,
     """(B, H, W, 3) -> (B,) weighted totals."""
     return comprehensive_batch_planes(
         tuple(imgs[..., c] for c in range(3)), weights, fast)
+
+
+def assess_all_vector(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) -> (8,) scores in METRIC_NAMES order."""
+    s = assess_all(img)
+    return torch.stack([s[k] for k in METRIC_NAMES])
+
+
+def assess_batch(imgs: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, 8)."""
+    return torch.stack([assess_all_vector(im) for im in imgs])

@@ -20,7 +20,9 @@ prefix-summed, and each corner row is rebuilt from the band prefix plus
 the masked sum of the fewer than ``_BAND`` rows left.
 
 Both descents run on the host: one device-to-host read per quadtree level
-(about log2(min(H, W)) of them).
+(about log2(min(H, W)) of them).  ``quadtree_airlight[_exact|_batch]`` are
+the JAX package's forms on (H, W, 3) images and batches, and
+``quadtree_descend`` its descent on a caller's SAT corners.
 
 Summation order matters here (near-tie descents flip on last-bit
 differences), so every f32 sum repeats the association XLA:CPU gives the
@@ -242,3 +244,52 @@ def _brightest_pixel(planes, r0: int, c0: int, h: int, w: int) -> torch.Tensor:
     flat = int(torch.argmax((crop[0] + crop[1] + crop[2]).reshape(-1)))
     i, j = r0 + flat // w, c0 + flat % w
     return torch.stack([p[i, j] for p in planes])
+
+
+def quadtree_descend(corners_fn, H: int, W: int, min_size: int = 1):
+    """The quadtree descent on SAT corners: score the 4 children of each
+    level from 9 corners, take the first best child, repeat down to
+    ``min_size``.  corners_fn(rows (3,), cols (3,)) (host int arrays) ->
+    (7, 3, 3) corners of the [r, g, b, r^2, g^2, b^2, edges] stack over
+    [0, rows[t]) x [0, cols[s]) (a tensor or a numpy array; read to the
+    host once a level).  Returns the final (r0, c0, h, w) box as ints."""
+    r0, c0, h, w = 0, 0, H, W
+    for _ in _level_plan(H, W, min_size):
+        if not (h > min_size and w > min_size):
+            break
+        mh, mw = h // 2, w // 2
+        cand = [(r0, c0, mh, mw), (r0, c0 + mw, mh, w - mw),
+                (r0 + mh, c0, h - mh, mw), (r0 + mh, c0 + mw, h - mh, w - mw)]
+        grid = corners_fn(np.array([r0, r0 + mh, r0 + h]),
+                          np.array([c0, c0 + mw, c0 + w]))
+        if isinstance(grid, torch.Tensor):
+            grid = grid.cpu().numpy()
+        grid = np.asarray(grid, np.float32)
+        se = (grid[6, 1:, 1:] - grid[6, :-1, 1:] - grid[6, 1:, :-1]
+              + grid[6, :-1, :-1]).reshape(-1)
+        k = int(np.argmax(_scores(grid[:6], se, cand)))
+        r0, c0, h, w = cand[k]
+    return r0, c0, h, w
+
+
+def _split(img: torch.Tensor):
+    return tuple(img[..., c].contiguous() for c in range(3))
+
+
+def quadtree_airlight(img: torch.Tensor, min_size: int = 1) -> torch.Tensor:
+    """Airlight RGB (3,) of one (H, W, 3) image in [0, 1]: the banded-SAT
+    descent with one global Canny edge map (``quadtree_airlight_planes``)."""
+    return quadtree_airlight_planes(_split(img), min_size)
+
+
+def quadtree_airlight_batch(imgs: torch.Tensor, min_size: int = 1
+                            ) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, 3), ``quadtree_airlight`` of each image."""
+    return torch.stack([quadtree_airlight(im, min_size) for im in imgs])
+
+
+def quadtree_airlight_exact(img: torch.Tensor, min_size: int = 1
+                            ) -> torch.Tensor:
+    """Airlight RGB (3,) of one (H, W, 3) image by the exact descent, Canny
+    rerun on every child crop (``quadtree_airlight_exact_planes``)."""
+    return quadtree_airlight_exact_planes(_split(img), min_size)

@@ -1,8 +1,8 @@
 """Colour-space conversions with OpenCV-compatible integer semantics.
 
-Counterpart of the JAX package's ``ops/colorspace.py``, limited to what the
-ported paths run.  Integer images are int32 tensors holding u8 values, as
-channel planes.  The exact LAB conversions go through the hand-written
+Counterpart of the JAX package's ``ops/colorspace.py``: its public
+functions, and the ``*_planes`` forms the ported paths run.  Integer
+images are int32 tensors holding u8 values, as channel planes.  The exact LAB conversions go through the hand-written
 kernels of ``ops/kernels.py`` (plain versions on CPU tensors), which also
 hold ``quantize_u8`` and ``ctrunc_div`` (the JAX ``_ctrunc_div``).  HSV is
 cv2's fixed-point 8U path with its division tables (``lab_tables``); the
@@ -12,6 +12,12 @@ of the exact one.
 ``u8_to_unit`` is IEEE ``/ 255``, the values of ``stretch.U8_GRID`` and of
 a decoded frame.  Jitted JAX compiles the same division to a multiply by
 the reciprocal (1 ulp off on 126 of the 256 values); eager JAX divides.
+
+The float conversions (``rgb_to_gray_f32``, ``rgb_to_hsv_f32``,
+``rgb_to_lab_u8``, ``lab_to_rgb_u8``) are the exact formulas in f32 (no
+kernel); torch's ``pow`` rounds its last bit otherwise than XLA's
+``cbrt`` and ``pow``, so the float LAB lands one u8 level off JAX's on
+rare pixels.
 """
 
 from __future__ import annotations
@@ -111,10 +117,20 @@ def _rows(kernel, planes):
     return tuple(o.reshape(shp) for o in outs)
 
 
-def rgb_to_lab_u8_exact_planes(r8, g8, b8):
+def _impl(name: str, impl: str) -> None:
+    """The JAX ``impl`` choice: "auto", "pallas" and "xla" give the same
+    bits there; here all three run the kernel on a CUDA tensor (its plain
+    version on a CPU one)."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"{name}: impl must be 'auto', 'pallas' or 'xla', "
+                         f"got {impl!r}")
+
+
+def rgb_to_lab_u8_exact_planes(r, g, b_, impl: str = "auto"):
     """Bit-exact RGB2LAB on u8-valued int32 planes (..., H, W) -> int32
     L/a/b (kernel K1b, ``kernels.lab_forward_u8``)."""
-    return _rows(kernels.lab_forward_u8, (r8, g8, b8))
+    _impl("rgb_to_lab_u8_exact_planes", impl)
+    return _rows(kernels.lab_forward_u8, (r, g, b_))
 
 
 def rgb_to_lab_u8_exact(rgb_u8: torch.Tensor) -> torch.Tensor:
@@ -123,9 +139,10 @@ def rgb_to_lab_u8_exact(rgb_u8: torch.Tensor) -> torch.Tensor:
     return torch.stack(rgb_to_lab_u8_exact_planes(*_channels(rgb_u8)), dim=-1)
 
 
-def lab_to_rgb_u8_exact_planes(L, a, b):
+def lab_to_rgb_u8_exact_planes(L, a, b, impl: str = "auto"):
     """Bit-exact LAB2RGB on int32 planes (..., H, W) -> u8-valued int32
     (r, g, b) (kernel K3b, ``kernels.lab_inverse_u8``)."""
+    _impl("lab_to_rgb_u8_exact_planes", impl)
     return _rows(kernels.lab_inverse_u8, (L, a, b))
 
 
@@ -211,10 +228,12 @@ def rgb_u8_to_lab_l_arith_planes(r8, g8, b8) -> torch.Tensor:
     return (116.0 * _lab_f(y) - 16.0) * 255.0 / 100.0
 
 
-def rgb_unit_to_lab_planes(r, g, b):
-    """quantize_u8 + bit-exact RGB2LAB on f32 unit planes -> int32 L/a/b
-    (kernel K1, ``kernels.lab_forward_unit``)."""
-    return kernels.lab_forward_unit(r, g, b)
+def rgb_unit_to_lab_planes(r, g, b_, impl: str = "auto"):
+    """quantize_u8 + bit-exact RGB2LAB on f32 unit planes (..., H, W) ->
+    int32 L/a/b (kernel K1, ``kernels.lab_forward_unit``; leading
+    dimensions fold into rows)."""
+    _impl("rgb_unit_to_lab_planes", impl)
+    return _rows(kernels.lab_forward_unit, (r, g, b_))
 
 
 def rgb_unit_to_lab_planes_fast(r, g, b):
@@ -225,13 +244,96 @@ def rgb_unit_to_lab_planes_fast(r, g, b):
     return kernels.lab_forward_unit_fast(r, g, b)
 
 
-def lab_to_rgb_unit_planes(L, a, b):
-    """Bit-exact LAB2RGB + u8_to_unit (kernel K3)."""
-    return kernels.lab_inverse_unit(L, a, b)
+def lab_to_rgb_unit_planes(L, a, b, impl: str = "auto"):
+    """Bit-exact LAB2RGB + u8_to_unit on int32 planes (..., H, W) (kernel
+    K3)."""
+    _impl("lab_to_rgb_unit_planes", impl)
+    return _rows(kernels.lab_inverse_unit, (L, a, b))
 
 
-def lab_to_rgb_unit_gamma_planes(L, a, b, gamma: float):
+def lab_to_rgb_unit_gamma_planes(L, a, b, gamma: float, impl: str = "auto"):
     """lab_to_rgb_unit_planes followed by ``out**gamma`` (six_stadigy's
     post-CLAHE gamma): the outputs lie on the u8 grid, so the power is a
     256-entry LUT gathered in the inverse kernel's epilogue (kernel K3g)."""
-    return kernels.lab_inverse_unit_gamma(L, a, b, gamma)
+    _impl("lab_to_rgb_unit_gamma_planes", impl)
+    return _rows(lambda *p: kernels.lab_inverse_unit_gamma(*p, gamma),
+                 (L, a, b))
+
+
+# ---------------------------------------------------------------------------
+# float-math conversions (the JAX package's non-kernel helpers)
+# ---------------------------------------------------------------------------
+
+def rgb_to_gray_f32(rgb: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_RGB2GRAY's float path: 0.299 R + 0.587 G + 0.114 B."""
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
+def unit_to_gray_unit(img: torch.Tensor) -> torch.Tensor:
+    """The reference's ``cvtColor((img*255).u8, RGB2GRAY) / 255``: f32 gray
+    on the u8 grid."""
+    return u8_to_unit(rgb_to_gray_u8(quantize_u8(img)))
+
+
+def rgb_to_hsv_f32(rgb: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_RGB2HSV on float input: H in [0, 360), S and V in [0, 1]
+    (IEEE divisions, as the JAX function's traced ones)."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = torch.maximum(torch.maximum(r, g), b)
+    diff = v - torch.minimum(torch.minimum(r, g), b)
+    safe_diff = torch.where(diff == 0, 1.0, diff)
+    safe_v = torch.where(v == 0, 1.0, v)
+    s = torch.where(v == 0, 0.0, div(diff, safe_v))
+    term = torch.where(v == r, g - b,
+                       torch.where(v == g, b - r + 2.0 * diff,
+                                   r - g + 4.0 * diff))
+    h = torch.where(diff == 0, 0.0, div(60.0 * term, safe_diff))
+    h = torch.where(h < 0, h + 360.0, h)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def rgb_to_lab_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_RGB2LAB of a (..., 3) u8-valued tensor by the exact float
+    formulas (sRGB companding, D65) -> int32 (..., 3): L*255/100, a and b
+    offset by 128; within ~2 u8 levels of cv2's tables.  The JAX function
+    is ``rgb_to_lab_u8_arith`` cast to int32, and so is this one."""
+    return rgb_to_lab_u8_arith(rgb_u8).to(torch.int32)
+
+
+def _lab_f_inv(ft: torch.Tensor) -> torch.Tensor:
+    d = 6.0 / 29.0
+    return torch.where(ft > d, ft ** 3, 3.0 * d * d * (ft - 4.0 / 29.0))
+
+
+def _linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    c = torch.clamp(c, min=0.0)
+    return torch.where(c <= 0.0031308, c * 12.92,
+                       1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+
+
+# the f32 inverse of the f64 RGB2XYZ matrix (the JAX package's _XYZ2RGB)
+_XYZ2RGB_F32 = np.linalg.inv(lt._M_RGB2XYZ).astype(np.float32)
+
+
+def lab_to_rgb_u8(lab_u8: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_LAB2RGB of a (..., 3) int tensor by the exact float
+    formulas (the inverse of ``rgb_to_lab_u8``) -> int32 (..., 3)."""
+    lab = lab_u8.to(torch.float32)
+    L = div(lab[..., 0] * 100.0, 255.0)
+    a = lab[..., 1] - 128.0
+    b = lab[..., 2] - 128.0
+    fy = div(L + 16.0, 116.0)
+    fx = fy + div(a, 500.0)
+    fz = fy - div(b, 200.0)
+    xyz = [_lab_f_inv(f) * float(w) for f, w in zip((fx, fy, fz), lt.WHITE_F32)]
+    m = _XYZ2RGB_F32
+    lin = [xyz[0] * float(m[k, 0]) + xyz[1] * float(m[k, 1])
+           + xyz[2] * float(m[k, 2]) for k in range(3)]
+    srgb = torch.stack([_linear_to_srgb(c) for c in lin], dim=-1)
+    return torch.clamp(torch.round(srgb * 255.0), 0, 255).to(torch.int32)
+
+
+def rgb_u8_to_lab_l_arith(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """``rgb_u8_to_lab_l_arith_planes`` of a (..., 3) u8-valued tensor ->
+    f32 (...): the arithmetic L plane (u8 scale, not rounded)."""
+    return rgb_u8_to_lab_l_arith_planes(*_channels(rgb_u8))

@@ -2,7 +2,11 @@
 flavours: six_stadigy's (six_stadigy.py:167-188; eps 1e-6 on A, the
 transmission clipped before and after the guided-filter refinement) and
 enhancement_strategies' (:208-249; eps 1e-10 on A, one final clip), with
-the fast tier's refinement shared across every omega."""
+the fast tier's refinement shared across every omega.  The ``*_planes``
+functions take (r, g, b) planes (H, W); ``dark_channel``,
+``estimate_transmission[_six]`` and ``recover_image`` are the JAX
+package's forms on (..., H, W, 3) images (A (3,), or one (3,) an
+image)."""
 
 from __future__ import annotations
 
@@ -87,3 +91,45 @@ def recover_planes(planes, t: torch.Tensor, A: torch.Tensor):
     """J = (I - A) / t + A per plane, clipped to [0, 1]."""
     return tuple(torch.clamp((p - A[c]) / t + A[c], 0.0, 1.0)
                  for c, p in enumerate(planes))
+
+
+def dark_channel(img: torch.Tensor, A, a_eps: float) -> torch.Tensor:
+    """Per-pixel channel minimum of img / (A + a_eps); A broadcasts over
+    (..., 3)."""
+    A = torch.as_tensor(A, dtype=torch.float32, device=img.device)
+    return torch.amin(img / (A + a_eps), dim=-1)
+
+
+def _transmission(img: torch.Tensor, A, planes_fn) -> torch.Tensor:
+    """planes_fn(planes, A_i) of each (H, W, 3) image of (..., H, W, 3),
+    with A (3,) or one (3,) an image (..., 3) -> (..., H, W)."""
+    A = torch.as_tensor(A, dtype=torch.float32, device=img.device)
+    lead = img.shape[:-3]
+    ims = img.reshape((-1,) + img.shape[-3:])
+    As = A.expand(lead + (3,)).reshape(-1, 3)
+    outs = [planes_fn(tuple(im[..., c].contiguous() for c in range(3)), a)
+            for im, a in zip(ims, As)]
+    return torch.stack(outs).reshape(img.shape[:-1])
+
+
+def estimate_transmission(img: torch.Tensor, A, omega=0.95, r: int = 15,
+                          eps: float = 0.001) -> torch.Tensor:
+    """enhancement_strategies.py:208-234 of (..., H, W, 3) images and A (3,)
+    -> (..., H, W): one final clip to [0.1, 1]."""
+    return _transmission(img, A, lambda p, a: estimate_transmission_planes(
+        p, a, omega, r, eps))
+
+
+def estimate_transmission_six(img: torch.Tensor, A, omega, r: int,
+                              eps: float) -> torch.Tensor:
+    """six_stadigy.py:167-180 of (..., H, W, 3) images and A (3,) ->
+    (..., H, W): clipped before and after the refinement."""
+    return _transmission(img, A, lambda p, a: estimate_transmission_six_planes(
+        p, a, omega, r, eps))
+
+
+def recover_image(img: torch.Tensor, t: torch.Tensor, A) -> torch.Tensor:
+    """Scene radiance J = (I - A) / t + A, clipped to [0, 1]; img (..., H,
+    W, 3), t (..., H, W), A broadcastable to img."""
+    A = torch.as_tensor(A, dtype=torch.float32, device=img.device)
+    return torch.clamp((img - A) / t[..., None] + A, 0.0, 1.0)

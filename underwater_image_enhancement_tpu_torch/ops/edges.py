@@ -82,15 +82,24 @@ def _shift_zero(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 
 def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
-             hysteresis_iters: int = 64, valid_hw=None) -> torch.Tensor:
+             hysteresis_iters: int = 64, use_pallas="auto",
+             valid_hw=None) -> torch.Tensor:
     """cv2.Canny(gray, low, high) on u8-valued int planes (H, W) or
     (N, H, W) -> int32 {0, 1} edge map of the same shape.
+
+    use_pallas is the JAX choice between its hysteresis kernel and the
+    row-packed XLA loop, which give the same bits; here the hysteresis is
+    kernel K7 on a CUDA tensor and its plain version on a CPU one for every
+    value.
 
     valid_hw=(h, w), ints or (N,) int tensors, restricts each plane to its
     top-left (h, w) region: with row h-1 and column w-1 replicated beyond
     it, zeroing the gradient magnitude outside makes the result inside
     exactly cv2.Canny of the (h, w) crop and zero outside (see the JAX
     package's canny_u8)."""
+    if use_pallas not in ("auto", True, False):
+        raise ValueError(f"canny_u8: use_pallas must be 'auto', True or "
+                         f"False, got {use_pallas!r}")
     single = gray_u8.dim() == 2
     g = (gray_u8[None] if single else gray_u8).to(torch.int32)
     dx = conv3x3(g, _SOBEL_X, "edge")
@@ -128,3 +137,11 @@ def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
     e = kernels.hysteresis_propagate(strong.to(torch.int32),
                                      weak.to(torch.int32), hysteresis_iters)
     return e[0] if single else e
+
+
+def canny_unit(img_gray_unit: torch.Tensor, low: int = 50,
+               high: int = 150) -> torch.Tensor:
+    """Canny of a [0, 1] gray plane through the reference's (g*255).u8
+    quantisation."""
+    g = torch.clamp(img_gray_unit * 255.0, 0, 255).to(torch.int32)
+    return canny_u8(g, low, high)

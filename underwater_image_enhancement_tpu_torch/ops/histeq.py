@@ -9,6 +9,14 @@ residual stepping, round-half-even LUTs (tensor ops), then the per-pixel
 LUT blend in the CLAHE-apply kernel (``kernels.clahe_apply``), or in the
 LAB roundtrip's fused kernel with the inverse LAB
 (``kernels.clahe_lab_apply``).  Bit-exact against cv2 on u8 planes.
+
+Batches (the JAX package's vmap rules and batch forms): ``clahe_u8_batch``
+(a clip limit an image), ``clahe_u8`` and ``clahe_enhancement_planes`` on
+planes with leading dimensions, ``clahe_enhancement_planes_multi`` and
+``_clahe_lab_fused_batched`` build the LUTs of the batch in one pass, fold
+the LAB conversions into rows, and call CLAHE apply (K2, or K5) once an
+image: the kernels keep their one-plane contract, and each image equals
+the single-plane call bit for bit.
 """
 
 from __future__ import annotations
@@ -82,6 +90,14 @@ def histogram_equalization_planes(planes):
                  for p in planes)
 
 
+def histogram_equalization(img: torch.Tensor) -> torch.Tensor:
+    """Per-channel equalizeHist of an (H, W, 3) f32 unit image, back to
+    unit floats (enhancement_strategies.py:330-345)."""
+    u8 = cs.quantize_u8(img)
+    return cs.u8_to_unit(torch.stack([equalize_hist_u8(u8[..., c])
+                                      for c in range(3)], dim=-1))
+
+
 class ClaheGeometry(NamedTuple):
     th: int
     tw: int
@@ -109,16 +125,28 @@ def _clahe_weights(geo: ClaheGeometry):
     return (tyf - np.floor(tyf)).astype(f32), (txf - np.floor(txf)).astype(f32)
 
 
-def _clahe_luts(x: torch.Tensor, geo: ClaheGeometry, clip_limit: float):
-    """Per-tile CLAHE LUTs of the REFLECT_101-padded plane x (th*tiles_y,
-    tw*tiles_x) int32 -> (T, 256) int32, OpenCV integer arithmetic."""
+def _clip_counts(clip_limit, area: int) -> int:
+    """OpenCV's clip count of one tile: max(int(limit * area / 256), 1)."""
+    return max(int(clip_limit * area / 256.0), 1)
+
+
+def _clahe_luts(x: torch.Tensor, geo: ClaheGeometry, clip_limits):
+    """Per-tile CLAHE LUTs of the REFLECT_101-padded planes x (B,
+    th*tiles_y, tw*tiles_x) int32 -> (B, T, 256) int32, OpenCV integer
+    arithmetic; ``clip_limits`` holds one limit an image."""
     ty, tx, th, tw = geo.tiles_y, geo.tiles_x, geo.th, geo.tw
-    T = ty * tx
-    area = th * tw
-    tiles = x.reshape(ty, th, tx, tw).permute(0, 2, 1, 3).reshape(T, area)
+    B, T, area = x.shape[0], ty * tx, th * tw
+    tiles = (x.reshape(B, ty, th, tx, tw).permute(0, 1, 3, 2, 4)
+             .reshape(B * T, area))
     hist = histogram256(tiles)
-    clip = max(int(clip_limit * area / 256.0), 1)
-    clipped = torch.clamp(hist, max=clip)
+    counts = [_clip_counts(c, area) for c in clip_limits]
+    if len(set(counts)) == 1:
+        # one count for the batch: a scalar clamp, no copy to the card
+        clipped = torch.clamp(hist, max=counts[0])
+    else:
+        clip = torch.as_tensor(np.repeat(counts, T).astype(np.int32),
+                               device=x.device)
+        clipped = torch.minimum(hist, clip[:, None])
     excess = (hist - clipped).sum(dim=1, dtype=torch.int32)
     redist = excess // 256
     residual = excess - redist * 256
@@ -131,7 +159,28 @@ def _clahe_luts(x: torch.Tensor, geo: ClaheGeometry, clip_limit: float):
     clipped = clipped + hits.to(torch.int32)
     cdf = torch.cumsum(clipped, dim=1).to(torch.float32)
     lut = torch.round(cdf * (255.0 / float(area)))
-    return torch.clamp(lut, 0, 255).to(torch.int32).contiguous()
+    return torch.clamp(lut, 0, 255).to(torch.int32).reshape(B, T, 256)
+
+
+def _clahe_prep_batch(batch_u8: torch.Tensor, clip_limits,
+                      tiles_x: int, tiles_y: int):
+    """The front half of CLAHE on u8-valued int32 planes (B, H, W): the
+    REFLECT_101 pad to tile multiples, the (B, T, 256) tile LUTs (one
+    histogram pass for the batch, each image with its own clip limit) and
+    the band frame's f32 weights -> (luts, ya, xa, geometry)."""
+    H, W = batch_u8.shape[-2:]
+    dev = batch_u8.device
+    geo = _geometry(H, W, tiles_x, tiles_y)
+    if (geo.th * tiles_y, geo.tw * tiles_x) == (H, W):
+        x = batch_u8
+    else:
+        rows = _reflect101_index(H, geo.th * tiles_y)
+        cols = _reflect101_index(W, geo.tw * tiles_x)
+        x = batch_u8[:, torch.as_tensor(rows, device=dev)][
+            :, :, torch.as_tensor(cols, device=dev)]
+    luts = _clahe_luts(x, geo, clip_limits)
+    ya, xa = (torch.as_tensor(w).to(dev) for w in _clahe_weights(geo))
+    return luts, ya, xa, geo
 
 
 def clahe_prep(channel_u8: torch.Tensor, clip_limit: float,
@@ -140,35 +189,84 @@ def clahe_prep(channel_u8: torch.Tensor, clip_limit: float,
     REFLECT_101 pad to tile multiples, the (T, 256) tile LUTs and the band
     frame's f32 weights -> (luts, ya, xa, geometry), the arguments of
     ``kernels.clahe_apply`` after the plane."""
-    H, W = channel_u8.shape
-    dev = channel_u8.device
-    geo = _geometry(H, W, tiles_x, tiles_y)
-    if (geo.th * tiles_y, geo.tw * tiles_x) == (H, W):
-        x = channel_u8
-    else:
-        rows = _reflect101_index(H, geo.th * tiles_y)
-        cols = _reflect101_index(W, geo.tw * tiles_x)
-        x = channel_u8[torch.as_tensor(rows, device=dev)][
-            :, torch.as_tensor(cols, device=dev)]
-    luts = _clahe_luts(x, geo, clip_limit)
-    ya, xa = (torch.as_tensor(w).to(dev) for w in _clahe_weights(geo))
-    return luts, ya, xa, geo
+    luts, ya, xa, geo = _clahe_prep_batch(channel_u8[None], (clip_limit,),
+                                          tiles_x, tiles_y)
+    return luts[0], ya, xa, geo
+
+
+_IMPLS = ("auto", "pallas", "xla")
+
+
+def _check_impl(name: str, impl: str) -> None:
+    """The JAX ``impl`` of CLAHE apply: "pallas" (the kernel), "xla" (its
+    one-hot-matmul twin) or "auto"; they give the same bits.  Here each
+    runs K2 on a CUDA tensor and its plain version on a CPU one."""
+    if impl not in _IMPLS:
+        raise ValueError(f"{name}: impl must be 'auto', 'pallas' or 'xla', "
+                         f"got {impl!r}")
 
 
 def clahe_u8(channel_u8: torch.Tensor, clip_limit: float = 2.0,
-             tiles_x: int = 8, tiles_y: int = 8) -> torch.Tensor:
-    """cv2 CLAHE on a u8-valued int32 plane (H, W), bit-exact."""
+             tiles_x: int = 8, tiles_y: int = 8,
+             impl: str = "auto") -> torch.Tensor:
+    """cv2 CLAHE on a u8-valued int32 plane (H, W), bit-exact.  Planes
+    with leading dimensions (..., H, W) go through ``clahe_u8_batch``, as
+    the JAX function's vmap rule folds them into one batch."""
+    _check_impl("clahe_u8", impl)
+    if channel_u8.ndim > 2:
+        shape = channel_u8.shape
+        out = clahe_u8_batch(channel_u8.reshape((-1,) + shape[-2:]),
+                             float(clip_limit), tiles_x, tiles_y, impl)
+        return out.reshape(shape)
     luts, ya, xa, geo = clahe_prep(channel_u8, clip_limit, tiles_x, tiles_y)
     return kernels.clahe_apply(channel_u8.contiguous(), luts, ya, xa, *geo)
+
+
+def clahe_u8_batch(batch_u8: torch.Tensor, clip_limit=2.0,
+                   tiles_x: int = 8, tiles_y: int = 8,
+                   impl: str = "auto") -> torch.Tensor:
+    """cv2 CLAHE on u8-valued int32 planes (B, H, W) -> (B, H, W), each
+    image bit-equal to ``clahe_u8`` of it.  ``clip_limit`` is one limit or
+    a length-B tuple of per-image limits.  One histogram and LUT pass
+    serves the batch; the apply is K2 once an image (the kernel's contract
+    is one plane a call)."""
+    _check_impl("clahe_u8_batch", impl)
+    B = batch_u8.shape[0]
+    clips = (clip_limit if isinstance(clip_limit, tuple)
+             else (float(clip_limit),) * B)
+    if len(clips) != B:
+        raise ValueError(f"clahe_u8_batch: {len(clips)} clip limits for "
+                         f"{B} images")
+    luts, ya, xa, geo = _clahe_prep_batch(batch_u8, clips, tiles_x, tiles_y)
+    return torch.stack([kernels.clahe_apply(batch_u8[i].contiguous(), luts[i],
+                                            ya, xa, *geo) for i in range(B)])
+
+
+def _clahe_lab_fused_batched(Lb, ab, bb, clip_limit: float,
+                             tiles_x: int, tiles_y: int):
+    """CLAHE of L and the inverse LAB to u8 in one kernel (K5,
+    ``kernels.clahe_lab_apply``) on int32 planes (B, H, W) -> u8-valued
+    int32 (r, g, b), each (B, H, W).  Bit-equal to ``clahe_u8`` then
+    ``lab_to_rgb_u8_exact_planes``.  One LUT pass for the batch, then K5
+    once an image."""
+    B = Lb.shape[0]
+    luts, ya, xa, geo = _clahe_prep_batch(Lb, (float(clip_limit),) * B,
+                                          tiles_x, tiles_y)
+    outs = [kernels.clahe_lab_apply(Lb[i].contiguous(), ab[i].contiguous(),
+                                    bb[i].contiguous(), luts[i], ya, xa,
+                                    *geo) for i in range(B)]
+    return tuple(torch.stack([o[c] for o in outs]) for c in range(3))
 
 
 def clahe_enhancement_planes(planes, clip_limit: float = 2.0,
                              tiles_x: int = 8, tiles_y: int = 8,
                              impl: str = "auto", lab_fast: bool = False,
                              gamma: float | None = None):
-    """LAB-L CLAHE roundtrip on (r, g, b) f32 unit planes (H, W) -> same,
-    bit-exact vs cv2 on the u8 grid.  ``gamma`` applies a trailing
-    ``out**gamma`` as a 256-entry LUT (``kernels.gamma_lut``).
+    """LAB-L CLAHE roundtrip on (r, g, b) f32 unit planes (..., H, W) ->
+    same, bit-exact vs cv2 on the u8 grid.  ``gamma`` applies a trailing
+    ``out**gamma`` as a 256-entry LUT (``kernels.gamma_lut``).  Leading
+    dimensions are a batch (the JAX function's vmap rules): the LAB
+    conversions fold them into rows, CLAHE runs once an image.
 
     ``impl``: "split" runs CLAHE apply (K2), then the inverse LAB with the
     /255 or the gamma LUT in its epilogue (K3, K3g); "fused" runs CLAHE
@@ -187,12 +285,14 @@ def clahe_enhancement_planes(planes, clip_limit: float = 2.0,
         raise ValueError(f"clahe_enhancement_planes: impl must be 'auto', "
                          f"'split' or 'fused', got {impl!r}")
     if lab_fast:
-        L, a, b = kernels.lab_forward_unit_approx(*planes)
+        L, a, b = cs._rows(kernels.lab_forward_unit_approx, planes)
     else:
         L, a, b = cs.rgb_unit_to_lab_planes(*planes)
     if impl == "fused":
-        luts, ya, xa, geo = clahe_prep(L, clip_limit, tiles_x, tiles_y)
-        rgb = kernels.clahe_lab_apply(L, a, b, luts, ya, xa, *geo)
+        shape = L.shape
+        flat = tuple(x.reshape((-1,) + shape[-2:]) for x in (L, a, b))
+        rgb = tuple(c.reshape(shape) for c in _clahe_lab_fused_batched(
+            *flat, clip_limit, tiles_x, tiles_y))
         if gamma is not None:
             glut = kernels.gamma_lut(gamma, L.device)
             return tuple(glut[c.long()] for c in rgb)
@@ -201,6 +301,24 @@ def clahe_enhancement_planes(planes, clip_limit: float = 2.0,
     if gamma is not None:
         return cs.lab_to_rgb_unit_gamma_planes(L, a, b, gamma)
     return cs.lab_to_rgb_unit_planes(L, a, b)
+
+
+def clahe_enhancement_planes_multi(planes_list, clip_limits,
+                                   tiles_x: int = 8, tiles_y: int = 8):
+    """N independent CLAHE-LAB roundtrips of same-shape (r, g, b) plane
+    tuples, each with its own clip limit -> a list of N plane tuples, each
+    bit-equal to ``clahe_enhancement_planes`` of it.  The LAB conversions
+    fold the N images into rows (K1 and K3 once for all), the LUTs are one
+    pass, and CLAHE apply is K2 once an image."""
+    N = len(planes_list)
+    H, W = planes_list[0][0].shape[-2:]
+    stacked = tuple(torch.cat([pl[c].reshape(H, W) for pl in planes_list])
+                    for c in range(3))                  # 3 x (N*H, W)
+    L, a, b = cs.rgb_unit_to_lab_planes(*stacked)
+    Lb = clahe_u8_batch(L.reshape(N, H, W), tuple(float(c) for c in clip_limits),
+                        tiles_x, tiles_y)
+    rgb = cs.lab_to_rgb_unit_planes(Lb.reshape(N * H, W), a, b)
+    return [tuple(c[i * H:(i + 1) * H] for c in rgb) for i in range(N)]
 
 
 def clahe_enhancement(img: torch.Tensor, clip_limit: float = 2.0,

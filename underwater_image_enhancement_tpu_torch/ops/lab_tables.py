@@ -118,3 +118,66 @@ HDIV_TAB[1:] = np.round((180 << 12) / (6.0 * np.arange(1, 256))).astype(np.int32
 # the arithmetic (fast-tier) LAB's sRGB -> XYZ matrix and D65 white, f32
 RGB2XYZ_F32 = _M_RGB2XYZ.astype(np.float32)
 WHITE_F32 = _WHITE_D65.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# numpy oracles of the two integer pipelines (bit-exact against cv2 8U)
+# ---------------------------------------------------------------------------
+
+def _descale(v, n):
+    return (v + (1 << (n - 1))) >> n
+
+
+def rgb_to_lab_u8_exact_np(rgb_u8: np.ndarray) -> np.ndarray:
+    """Numpy reference of the integer forward (cv2 RGB2LAB 8U): (..., 3)
+    u8 values -> int32 (..., 3)."""
+    rgb = rgb_u8.astype(np.int64)
+    R, G, B = (GAMMA_TAB[rgb[..., c]].astype(np.int64) for c in range(3))
+    C = COEFFS.astype(np.int64)
+    fX, fY, fZ = (CBRT_TAB[np.clip(_descale(
+        R * C[k, 0] + G * C[k, 1] + B * C[k, 2], LAB_SHIFT), 0, NCBRT - 1)]
+        .astype(np.int64) for k in range(3))
+    L = _descale(L_SCALE * fY + L_SHIFT, LAB_SHIFT2)
+    a = _descale(500 * (fX - fY) + 128 * (1 << LAB_SHIFT2), LAB_SHIFT2)
+    b = _descale(200 * (fY - fZ) + 128 * (1 << LAB_SHIFT2), LAB_SHIFT2)
+    return np.clip(np.stack([L, a, b], -1), 0, 255).astype(np.int32)
+
+
+def _ctrunc_div(a, b):
+    """C integer division (truncation toward zero) of array a by int b > 0."""
+    q = np.abs(a) // b
+    return np.where(a < 0, -q, q)
+
+
+def ab_to_xz_np(v: np.ndarray) -> np.ndarray:
+    """abToXZ_b as arithmetic (no table): v in BASE scale (may be
+    negative)."""
+    v = np.clip(v, MIN_AB, AB_MAX)
+    lin = _ctrunc_div(v * 108, 841) - AB_LIN_K
+    cub = _ctrunc_div(_ctrunc_div(v * v, BASE) * v, BASE)
+    return np.where(v <= AB_LIN_THRESH, lin, cub)
+
+
+def adiv_np(a):
+    return ((5 * a * 53687 + (1 << 7)) >> 13) - ADIV_OFFSET
+
+
+def bdiv_np(b):
+    return ((b * 41943 + (1 << 4)) >> 9) - BDIV_OFFSET
+
+
+def lab_to_rgb_u8_exact_np(lab_u8: np.ndarray) -> np.ndarray:
+    """Numpy reference of the integer inverse (cv2 LAB2RGB 8U): (..., 3)
+    int values -> u8-valued int32 (..., 3)."""
+    lab = lab_u8.astype(np.int64)
+    L, a, b = lab[..., 0], lab[..., 1], lab[..., 2]
+    y = L2YF_TAB[L, 0].astype(np.int64)
+    ify = L2YF_TAB[L, 1].astype(np.int64)
+    x = ab_to_xz_np(ify + adiv_np(a))
+    z = ab_to_xz_np(ify - bdiv_np(b))
+    C = COEFFS_INV.astype(np.int64)
+    out = []
+    for ch in range(3):
+        idx = _descale(C[ch, 0] * x + C[ch, 1] * y + C[ch, 2] * z, 14)
+        out.append(INV_GAMMA_TAB[np.clip(idx, 0, INV_GAMMA_SIZE - 1)])
+    return np.stack(out, -1).astype(np.int32)

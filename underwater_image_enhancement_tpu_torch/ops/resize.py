@@ -7,7 +7,8 @@ quantized to 2^-11 (round half to even), a horizontal pass in int32 with
 single-tap border columns, then cv2's 8U vertical descale (each tap's
 ``(beta * (row >> 4)) >> 16`` summed, + 2, >> 2) with clamped border rows
 that keep their fractional weights.  Integer arithmetic throughout, so
-every device gives the same bytes.
+every device gives the same bytes.  ``resize_bilinear`` is the JAX
+float form: two f32 interpolation matrices.
 """
 
 from __future__ import annotations
@@ -76,3 +77,29 @@ def resize_u8(img_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     v = (((ay0[:, None] * (r0 >> 4)) >> 16)
          + ((ay1[:, None] * (r1 >> 4)) >> 16) + 2) >> 2
     return torch.clamp(v, 0, 255)
+
+
+def _interp_matrix(dst: int, src: int) -> np.ndarray:
+    """(dst, src) row-interpolation operator, cv2 INTER_LINEAR mapping."""
+    scale = src / dst
+    x = (np.arange(dst) + 0.5) * scale - 0.5
+    x0 = np.floor(x).astype(np.int64)
+    frac = x - x0
+    x0c = np.clip(x0, 0, src - 1)
+    x1c = np.clip(x0 + 1, 0, src - 1)
+    m = np.zeros((dst, src), np.float32)
+    m[np.arange(dst), x0c] += (1.0 - frac).astype(np.float32)
+    m[np.arange(dst), x1c] += frac.astype(np.float32)
+    return m
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(H, W) or (H, W, C) float -> (out_h, out_w[, C]), cv2 INTER_LINEAR
+    as two f32 interpolation matrices (the JAX package's formulation; the
+    matrix products sum in another order than XLA's)."""
+    H, W = img.shape[0], img.shape[1]
+    mh = torch.as_tensor(_interp_matrix(out_h, H), device=img.device)
+    mw = torch.as_tensor(_interp_matrix(out_w, W), device=img.device)
+    if img.ndim == 2:
+        return mh @ img @ mw.T
+    return torch.einsum("hH,HWc,wW->hwc", mh, img, mw)

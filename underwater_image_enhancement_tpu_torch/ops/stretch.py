@@ -16,6 +16,11 @@ methods:
 - ``_perc_pair_index_u8`` (``enhance_batch``): the sorted-index percentile
   ``sorted[int(pct/100*n)]`` from an exact 256-bin histogram.
 
+The HWC forms (``color_enhancement``, ``enhance_contrast``,
+``white_balance``) stretch each image of (..., H, W, C) per channel;
+``gray_world_white_balance`` scales by the channel means (in XLA:CPU's
+summation order, ``reduce.xla_mean``).
+
 Percentile ranks and indices are host f32 arithmetic, in the order the
 jitted JAX program computes them on XLA:CPU: with the six recipes' constant
 percentiles XLA folds ``pct/100*(n-1)+1`` at compile time with an IEEE
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from underwater_image_enhancement_tpu_torch.ops.layout import div
+from underwater_image_enhancement_tpu_torch.ops.reduce import xla_mean
 
 _f32 = np.float32
 
@@ -70,6 +76,19 @@ def percentiles(channel: torch.Tensor, pcts) -> torch.Tensor:
     """Exact np.percentile-convention percentiles of one plane ->
     (len(pcts),) f32 (the JAX ``percentiles_radix``)."""
     return percentiles_planes((channel,), pcts)[0]
+
+
+def percentiles_radix_planes(planes, pcts):
+    """The JAX ``percentiles_radix_planes``: exact np.percentile-convention
+    percentiles of same-shape planes -> one (len(pcts),) f32 tensor a plane.
+    The JAX package selects the order statistics by an O(n) radix select
+    bit-equal to its sort; here one ``torch.sort`` gives them."""
+    return tuple(percentiles_planes(planes, pcts).unbind(0))
+
+
+def percentiles_radix(channel: torch.Tensor, pcts) -> torch.Tensor:
+    """Single-plane ``percentiles_radix_planes``: (len(pcts),) f32."""
+    return percentiles(channel, pcts)
 
 
 def perc_pairs_hist(planes, l_low: float, l_high: float, k: int = 32,
@@ -153,21 +172,95 @@ def _stretch(planes, pairs, eps: float):
                  for p, (lo, hi) in zip(planes, pairs))
 
 
+def _pair(channel: torch.Tensor, l_low, l_high, method: str):
+    """(p_low, p_high) of one plane by ``method`` (``stretch_channel``)."""
+    if method in ("sort", "radix"):
+        p = percentiles(channel, (l_low, l_high))
+        return p[0], p[1]
+    if method == "index-u8":
+        return _perc_pair_index_u8(channel, l_low, l_high)
+    if method == "hist-fast":
+        return _perc_pair_hist(channel, l_low, l_high, subsample=8)
+    if method == "hist":
+        return _perc_pair_hist(channel, l_low, l_high)
+    raise ValueError(f"unknown percentile method {method!r}")
+
+
+def stretch_channel(channel: torch.Tensor, l_low, l_high, eps: float = 1e-10,
+                    method: str = "sort") -> torch.Tensor:
+    """(channel - p_low) / (p_high - p_low + eps), clipped to [0, 1].
+    method: "sort"/"radix" (exact np.percentile), "index-u8" (the
+    sorted-index percentile of a u8-grid plane), "hist" (two-level
+    histogram) or "hist-fast" (the histogram on every 8th row)."""
+    return _stretch((channel,), (_pair(channel, l_low, l_high, method),),
+                    eps)[0]
+
+
 def color_enhancement_planes(planes, l_low=15.0, l_high=95.0,
                              eps: float = 1e-10, method: str = "sort"):
     """Per-channel percentile stretch (p - lo) / (hi - lo + eps), clipped to
     [0, 1] (enhancement_strategies.py:251-273).  method: "sort" or "radix"
-    (exact np.percentile) or "hist-fast" (``perc_pairs_hist`` on every 8th
-    row)."""
+    (exact np.percentile, one sort for the planes), "hist-fast"
+    (``perc_pairs_hist`` on every 8th row, one pass for the planes), or
+    "index-u8" or "hist" (``stretch_channel``, a plane at a time)."""
     if method in ("sort", "radix"):
         pr = percentiles_planes(planes, (l_low, l_high))
-        pairs = [(pr[c, 0], pr[c, 1]) for c in range(len(planes))]
     elif method == "hist-fast":
         pr = perc_pairs_hist(planes, l_low, l_high, subsample=8)
-        pairs = [(pr[c, 0], pr[c, 1]) for c in range(len(planes))]
+    elif method in ("index-u8", "hist"):
+        return tuple(stretch_channel(p, l_low, l_high, eps, method)
+                     for p in planes)
     else:
         raise ValueError(f"unknown percentile method {method!r}")
+    pairs = [(pr[c, 0], pr[c, 1]) for c in range(len(planes))]
     return _stretch(planes, pairs, eps)
+
+
+def color_enhancement(img: torch.Tensor, l_low=15.0, l_high=95.0,
+                      eps: float = 1e-10, method: str = "sort") -> torch.Tensor:
+    """Per-channel percentile stretch of (..., H, W, C) images
+    (enhancement_strategies.py:251-273): percentiles per leading-batch
+    element and channel.  ``eps=1e-6`` is six_stadigy's enhance_contrast."""
+    lead, hwc = img.shape[:-3], img.shape[-3:]
+    flat = img.reshape((-1,) + hwc)
+    outs = [torch.stack(color_enhancement_planes(
+        tuple(im[..., c] for c in range(hwc[-1])), l_low, l_high, eps,
+        method), dim=-1) for im in flat]
+    return torch.stack(outs).reshape(lead + hwc)
+
+
+def enhance_contrast(img: torch.Tensor, l_low=15.0, l_high=95.0,
+                     method: str = "sort") -> torch.Tensor:
+    """six_stadigy.py:190-199 flavour (eps 1e-6)."""
+    return color_enhancement(img, l_low, l_high, eps=1e-6, method=method)
+
+
+def white_balance(img: torch.Tensor, percentile=5.0,
+                  method: str = "sort") -> torch.Tensor:
+    """Symmetric percentile stretch (six_stadigy.py:210-219, eps 1e-6)."""
+    return color_enhancement(img, percentile, 100.0 - percentile, eps=1e-6,
+                             method=method)
+
+
+def gray_world_white_balance_planes(planes):
+    """Gray-world white balance of (r, g, b) planes (..., H, W): each
+    channel scaled so that its mean matches the mean of the three channel
+    means (``(m0 + m1 + m2) / 3``), clipped to [0, 1]; the means are per
+    image, in XLA:CPU's summation order (``reduce.xla_mean``), and the /3
+    is the f32 reciprocal multiply of the jitted JAX program."""
+    means = xla_mean(torch.stack(tuple(planes)))           # (3, ...)
+    target = (means[0] + means[1] + means[2]) * float(_f32(1.0) / _f32(3.0))
+    return tuple(torch.clamp(c * div(target, torch.clamp(m, min=1e-6))
+                             [..., None, None], 0.0, 1.0)
+                 for c, m in zip(planes, means))
+
+
+def gray_world_white_balance(img: torch.Tensor) -> torch.Tensor:
+    """Gray-world white balance by channel-mean scaling of (..., H, W, 3)
+    images (``gray_world_white_balance_planes``)."""
+    out = gray_world_white_balance_planes(tuple(img[..., c]
+                                                for c in range(3)))
+    return torch.stack(out, dim=-1)
 
 
 def enhance_contrast_planes(planes, l_low=15.0, l_high=95.0,

@@ -156,3 +156,11 @@ def auto_enhance_batch(imgs, device: Union[str, torch.device] = "cuda"):
         best_idx.append(best)
         all_scores.append(scores)
     return torch.stack(best_imgs), torch.stack(best_idx), torch.stack(all_scores)
+
+
+def six_strategy_batch(imgs, device: Union[str, torch.device] = "cuda"):
+    """(B, H, W, 3) -> ((B, 6, H, W, 3) outputs, (B,) int32 cast codes),
+    ``six_strategy_single`` of each image (exact tier)."""
+    outs = [six_strategy_single(im, device=device) for im in imgs]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([torch.as_tensor(c) for _, c in outs]))

@@ -10,6 +10,11 @@ steps are the package's CUDA kernels.  Constants live in
 (pipeline/six.py there): the banded-SAT airlight with 4 hysteresis rounds
 (``airlight``), the fast guided filter on every 4th row, the hist-fast
 percentiles, and the approximate forward LAB in the CLAHE legs.
+
+``run_strategy(name, img, A, fast)`` is the pipeline's entry; the public
+``strategy1_strong_dehazing`` ... ``strategy6_histogram_eq`` (and
+``SIX_STRATEGIES``) take the JAX contract ``fn(img, *, method="radix"[,
+A=None])`` on one image or a batch.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ def _clahe(planes, p, fast, gamma=None):
                                            lab_fast=fast)
 
 
-def strategy1_strong_dehazing(img, A, fast: bool = False):
+def _strategy1_strong_dehazing(img, A, fast: bool = False):
     """Dehaze .3/r20/eps .5 -> stretch 5-98 -> CLAHE 3.0 -> gamma**1.5."""
     p = SIX_PARAMS["strong_dehazing"]
     e = _restore(split_planes(img), A, *p["dehaze"], fast)
@@ -63,7 +68,7 @@ def strategy1_strong_dehazing(img, A, fast: bool = False):
     return stack_planes(_clahe(e, p, fast, gamma=p["gamma"]))
 
 
-def strategy2_medium_dehazing(img, A, fast: bool = False):
+def _strategy2_medium_dehazing(img, A, fast: bool = False):
     """Dehaze .5/r15/eps .5 -> stretch 15-95 -> CLAHE 2.0."""
     p = SIX_PARAMS["medium_dehazing"]
     e = _restore(split_planes(img), A, *p["dehaze"], fast)
@@ -71,7 +76,7 @@ def strategy2_medium_dehazing(img, A, fast: bool = False):
     return stack_planes(_clahe(e, p, fast))
 
 
-def strategy3_light_dehazing(img, A, fast: bool = False):
+def _strategy3_light_dehazing(img, A, fast: bool = False):
     """Dehaze .7/r10/eps .1 -> stretch 20-85 -> white balance p2."""
     p = SIX_PARAMS["light_dehazing"]
     e = _restore(split_planes(img), A, *p["dehaze"], fast)
@@ -80,7 +85,7 @@ def strategy3_light_dehazing(img, A, fast: bool = False):
                                                      method=_method(fast)))
 
 
-def strategy4_clahe_enhancement(img, fast: bool = False):
+def _strategy4_clahe_enhancement(img, fast: bool = False):
     """CLAHE 4.0 -> stretch 10-95 -> white balance p3 -> gamma**1.3."""
     p = SIX_PARAMS["clahe_enhancement"]
     e = _clahe(split_planes(img), p, fast)
@@ -89,7 +94,7 @@ def strategy4_clahe_enhancement(img, fast: bool = False):
     return stack_planes(_gamma_pow(e, p["gamma"]))
 
 
-def strategy5_white_balance(img, fast: bool = False):
+def _strategy5_white_balance(img, fast: bool = False):
     """White balance p2 -> stretch 15-90 -> CLAHE 1.5 -> gamma**1.2."""
     p = SIX_PARAMS["white_balance"]
     e = stretch.white_balance_planes(split_planes(img), p["wb"],
@@ -98,7 +103,7 @@ def strategy5_white_balance(img, fast: bool = False):
     return stack_planes(_clahe(e, p, fast, gamma=p["gamma"]))
 
 
-def strategy6_histogram_eq(img, fast: bool = False):
+def _strategy6_histogram_eq(img, fast: bool = False):
     """Stretch 5-98 -> CLAHE 3.5 -> gamma**1.4."""
     p = SIX_PARAMS["histogram_eq"]
     e = stretch.enhance_contrast_planes(split_planes(img), *p["stretch"],
@@ -107,18 +112,54 @@ def strategy6_histogram_eq(img, fast: bool = False):
 
 
 # reference order; the dehaze recipes take the shared airlight A
-SIX_STRATEGIES = {
-    "strong_dehazing": strategy1_strong_dehazing,
-    "medium_dehazing": strategy2_medium_dehazing,
-    "light_dehazing": strategy3_light_dehazing,
-    "clahe_enhancement": strategy4_clahe_enhancement,
-    "white_balance": strategy5_white_balance,
-    "histogram_eq": strategy6_histogram_eq,
+_BUILDERS = {
+    "strong_dehazing": _strategy1_strong_dehazing,
+    "medium_dehazing": _strategy2_medium_dehazing,
+    "light_dehazing": _strategy3_light_dehazing,
+    "clahe_enhancement": _strategy4_clahe_enhancement,
+    "white_balance": _strategy5_white_balance,
+    "histogram_eq": _strategy6_histogram_eq,
 }
 DEHAZE_STRATEGIES = ("strong_dehazing", "medium_dehazing", "light_dehazing")
 
 
 def run_strategy(name: str, img: torch.Tensor, A: torch.Tensor,
                  fast: bool = False):
-    fn = SIX_STRATEGIES[name]
+    fn = _BUILDERS[name]
     return fn(img, A, fast) if name in DEHAZE_STRATEGIES else fn(img, fast)
+
+
+def _public(name: str):
+    """The JAX contract of a recipe: ``fn(img, *, method="radix"[, A=None])``
+    on an (H, W, 3) image or a (B, H, W, 3) batch; ``method`` "hist-fast"
+    is the fast tier, and a dehaze recipe without A runs the tier's
+    airlight of the image."""
+    def one(im, fast, A):
+        if name in DEHAZE_STRATEGIES and A is None:
+            A = airlight(split_planes(im), fast)
+        return run_strategy(name, im, A, fast)
+
+    def fn(img: torch.Tensor, *, method: str = "radix", A=None):
+        if method not in ("radix", "sort", "hist-fast"):
+            raise ValueError(f"{name}: method must be 'radix' or "
+                             f"'hist-fast', got {method!r}")
+        fast = method == "hist-fast"
+        if img.ndim == 3:
+            return one(img, fast, A)
+        return torch.stack([one(im, fast, A) for im in img])
+
+    def fn_no_a(img: torch.Tensor, *, method: str = "radix"):
+        return fn(img, method=method)
+
+    out = fn if name in DEHAZE_STRATEGIES else fn_no_a
+    out.__doc__ = _BUILDERS[name].__doc__
+    return out
+
+
+SIX_STRATEGIES = {k: _public(k) for k in _BUILDERS}
+strategy1_strong_dehazing = SIX_STRATEGIES["strong_dehazing"]
+strategy2_medium_dehazing = SIX_STRATEGIES["medium_dehazing"]
+strategy3_light_dehazing = SIX_STRATEGIES["light_dehazing"]
+strategy4_clahe_enhancement = SIX_STRATEGIES["clahe_enhancement"]
+strategy5_white_balance = SIX_STRATEGIES["white_balance"]
+strategy6_histogram_eq = SIX_STRATEGIES["histogram_eq"]

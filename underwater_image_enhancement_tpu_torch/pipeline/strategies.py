@@ -25,7 +25,10 @@ Two tiers:
 ``strategy_planes`` runs all five in label order with one airlight (and, in
 the fast tier, one refined dark channel) per frame: the same function of
 the same frame gives the same A, so each output equals the strategy run
-alone (``STRATEGY_FNS_PLANES``).
+alone (``STRATEGY_FNS_PLANES``).  ``strong_dehazing`` ...
+``histogram_equalization`` (``STRATEGY_FNS``) and ``apply_strategy`` are
+the JAX package's forms on an (H, W, 3) image or a batch, with the
+reference's parameter overrides.
 """
 
 from __future__ import annotations
@@ -125,3 +128,91 @@ def strategy_planes(img: torch.Tensor, fast: bool = False):
                     if fast else None)
     return [_apply(name, planes, fast, A, dark_refined)
             for name in LABEL_ORDER]
+
+
+def _per_image(fn, img: torch.Tensor) -> torch.Tensor:
+    """fn of an (H, W, 3) image, on one image or each of a (B, H, W, 3)
+    batch."""
+    if img.ndim == 3:
+        return fn(img)
+    return torch.stack([fn(im) for im in img])
+
+
+def _strategy_fn(name: str):
+    def fn(img: torch.Tensor, *, method: str = "radix") -> torch.Tensor:
+        if method not in ("radix", "hist-fast"):
+            raise ValueError(f"{name}: method must be 'radix' or "
+                             f"'hist-fast', got {method!r}")
+        fast = method == "hist-fast"
+        return _per_image(
+            lambda im: torch.stack(run_strategy(name, im, fast), dim=-1), img)
+    fn.__name__ = name
+    fn.__doc__ = (f"``{name}`` of an (H, W, 3) image or a (B, H, W, 3) batch "
+                  "-> the same shape; ``method`` \"radix\" is the exact tier, "
+                  "\"hist-fast\" the throughput tier.")
+    return fn
+
+
+strong_dehazing = _strategy_fn("strong_dehazing")
+medium_dehazing = _strategy_fn("medium_dehazing")
+light_enhancement = _strategy_fn("light_enhancement")
+clahe_enhancement = _strategy_fn("clahe_enhancement")
+histogram_equalization = _strategy_fn("histogram_equalization")
+STRATEGY_FNS = {name: globals()[name] for name in DEFAULT_STRATEGIES}
+
+# the defaults of apply_strategy's parameter overrides (the JAX
+# _apply_custom's: apply_gamma is off unless the parameters say so)
+_CUSTOM_DEHAZE = {
+    "strong_dehazing": (0.5, 15, 10.0, 95.0, False, 1.2),
+    "medium_dehazing": (0.6, 20, 15.0, 92.0, False, 1.2),
+    "light_enhancement": (0.4, 10, 15.0, 95.0, False, 1.2),
+}
+
+
+def _apply_custom(img: torch.Tensor, name: str, p: dict) -> torch.Tensor:
+    """One strategy with overridden parameters (the reference's
+    params.get(...) paths), exact tier."""
+    def one(im):
+        planes = split_planes(im)
+        if name in DEHAZE:
+            d = _CUSTOM_DEHAZE[name]
+            A = airlight(planes)
+            t = dehaze.estimate_transmission_planes(
+                planes, A, p.get("omega", d[0]),
+                int(p.get("guided_radius", d[1])), _GUIDED_EPS)
+            out = stretch.color_enhancement_planes(
+                dehaze.recover_planes(planes, t, A),
+                float(p.get("L_low", d[2])), float(p.get("L_high", d[3])),
+                method="radix")
+            gamma_on, gamma = bool(p.get("apply_gamma", d[4])), d[5]
+        else:
+            if name == "clahe_enhancement":
+                src = histeq.clahe_enhancement_planes(
+                    planes, float(p.get("clip_limit", 2.0)),
+                    *p.get("tile_grid_size", (8, 8)))
+                lo, hi = 20.0, 85.0
+            else:
+                src = histeq.histogram_equalization_planes(planes)
+                lo, hi = 10.0, 95.0
+            out = stretch.color_enhancement_planes(
+                src, float(p.get("L_low", lo)), float(p.get("L_high", hi)),
+                method="radix")
+            gamma_on = bool(p.get("apply_gamma", False))
+        if gamma_on:
+            g = float(p.get("gamma", 1.2))
+            out = tuple(stretch.gamma_correction_inv(c, g) for c in out)
+        return torch.stack(out, dim=-1)
+
+    return _per_image(one, img)
+
+
+def apply_strategy(img: torch.Tensor, strategy_name: str,
+                   params: dict | None = None) -> torch.Tensor:
+    """Dispatch by name (enhancement_strategies.py:477-508): an unknown
+    strategy raises, failures propagate (the reference's silent fallback
+    to the input is not reproduced, as in the JAX package)."""
+    if strategy_name not in STRATEGY_FNS:
+        raise ValueError(f"unknown strategy: {strategy_name}")
+    if params:
+        return _apply_custom(img, strategy_name, dict(params))
+    return STRATEGY_FNS[strategy_name](img)
