@@ -42,6 +42,17 @@ LEFT_OUT = {
     ("utils.config", "Config.random_seed"): "Queue 1 item 3: Phase 2",
     ("utils.config", "Config.cv_folds"): "Queue 1 item 3: Phase 2",
     ("utils.config", "Config.classifiers"): "Queue 1 item 3: Phase 2",
+    ("utils.config", "Config.strategies"):
+        "Queue 1 item 10: read only by the JAX examples module",
+    ("utils.config", "Config.use_deep_features"):
+        "declared but never read in JAX either",
+    ("utils.config", "Config.deep_feature_model"):
+        "declared but never read in JAX either",
+    ("utils.config", "Config.show_progress"):
+        "declared but never read in JAX either",
+    ("utils.config", "Config.log_level"):
+        "declared but never read in JAX either",
+    ("utils.config", "Config.dtype"): "declared but never read in JAX either",
     ("ops.dct", "dct2.precision"):
         "the TPU MXU's matmul precision; the port's f32 products run in "
         "full f32 (no TF32)",

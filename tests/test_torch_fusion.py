@@ -6,9 +6,10 @@ The JAX ``ancuti_fusion`` is jitted; its gray-world planes are quantised to
 u8 by the CLAHE leg, so the port repeats the jitted program's means
 (XLA:CPU's summation order, times the reciprocal of the count) and its
 literal divisions (reciprocal multiplies), and the gray-world planes are
-bit-equal.  The rest differs from JAX only by the last bits of ``pow`` and
-``cbrt`` in the saliency's Lab: on the fixture frame the fused output is
-within 2.4e-7 of JAX's (about 150 dB); the gate here is 1e-6 and 50 dB.
+bit-equal.  The rest differs from JAX only in the last bits of the
+saliency's Lab (``pow`` and ``cbrt``, the sRGB curve's divisions, and its
+means, one ``torch.mean`` an image): on the fixture frame the fused output
+is within 2.4e-7 of JAX's (about 150 dB); the gate here is 1e-6 and 50 dB.
 """
 
 import cv2

@@ -32,11 +32,11 @@ reference:
   plain version ``kernels.xla_cumsum``): blocks of 16 summed in order,
   block totals scanned recursively and added as an exclusive prefix;
 - sums over fewer than 32 values (the band sums, the in-band remainders):
-  in order, x0 + x1 + ...;
+  in order, x0 + x1 + ... (``reduce.seq_sum``);
 - longer sums (the corners' masked sums over W): XLA:CPU's tree-reduction
   rewrite, windows of 32 with the axis zero-padded to a multiple of 32
   (half the padding in front), each window summed in order, repeated on
-  the window sums while 32 or more remain (``_xla_row_sum``).
+  the window sums while more than 32 remain (``reduce.xla_sum``).
 
 The prefix sums run as one kernel on the card; the short sums are
 elementwise adds of tensors, and the long ones host numpy f32 adds, so the
@@ -55,9 +55,9 @@ from underwater_image_enhancement_tpu_torch.ops.colorspace import (
     quantize_u8,
 )
 from underwater_image_enhancement_tpu_torch.ops.edges import canny_u8
+from underwater_image_enhancement_tpu_torch.ops.reduce import seq_sum, xla_sum
 
 _BAND = 8        # banded-SAT row stride (the JAX package's _BAND)
-_TREE_WINDOW = 32  # XLA:CPU's tree-reduction window
 
 
 def _sat_rows(x: torch.Tensor) -> torch.Tensor:
@@ -129,32 +129,6 @@ def _scores(grid: np.ndarray, ec: np.ndarray, cand) -> np.ndarray:
     return t1 + t2 - t3 - ec.astype(np.float32) / ns
 
 
-def _seq_sum(x, axis: int):
-    """Sum along ``axis`` in order, x0 + x1 + ... (XLA:CPU's short
-    reductions); tensors or numpy arrays."""
-    index = [slice(None)] * x.ndim
-
-    def take(k):
-        index[axis] = k
-        return x[tuple(index)]
-
-    acc = take(0)
-    for k in range(1, x.shape[axis]):
-        acc = acc + take(k)
-    return acc
-
-
-def _xla_row_sum(x: np.ndarray) -> np.ndarray:
-    """f32 sum over the last axis in XLA:CPU's tree-reduction order (module
-    docstring)."""
-    while x.shape[-1] >= _TREE_WINDOW:
-        pad = -x.shape[-1] % _TREE_WINDOW
-        if pad:
-            x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(pad // 2, pad - pad // 2)])
-        x = _seq_sum(x.reshape(x.shape[:-1] + (-1, _TREE_WINDOW)), -1)
-    return _seq_sum(x, -1)
-
-
 def _stats7(x):
     """The descent's statistic planes [r, g, b, r^2, g^2, b^2, e] from
     [r, g, b, e] stacked on the first axis (tensor or numpy array)."""
@@ -177,7 +151,7 @@ def quadtree_airlight_planes(planes, min_size: int = 1, edge_iters: int = 64,
     nb = -(-H // S)
     src = torch.stack([r, g, b, edge])                      # (4, H, W)
     stats = F.pad(_stats7(src), (0, 0, 0, nb * S - H)).reshape(7, nb, S, W)
-    band_prefix = kernels.sat_rows(_seq_sum(stats, 2).contiguous(), -2)
+    band_prefix = kernels.sat_rows(seq_sum(stats, 2).contiguous(), -2)
     offs = np.arange(S)
     lanes = np.arange(W)
     r0, c0, h, w = 0, 0, H, W
@@ -201,10 +175,10 @@ def quadtree_airlight_planes(planes, min_size: int = 1, edge_iters: int = 64,
         base = host[:21].reshape(7, 3, W)
         seg = host[21:].reshape(4, 3, S, W)
         m = (offs[None, :] < (rows - bidx * S)[:, None]).astype(np.float32)
-        part = _seq_sum(_stats7(seg) * m[None, :, :, None], 2)  # (7, 3, W)
+        part = seq_sum(_stats7(seg) * m[None, :, :, None], 2)  # (7, 3, W)
         strip = base + part
         cmask = (lanes[None, :] < cols[:, None]).astype(np.float32)
-        grid = _xla_row_sum(strip[:, :, None, :] * cmask[None, None])
+        grid = xla_sum(strip[:, :, None, :] * cmask[None, None], 1)
         se = (grid[6, 1:, 1:] - grid[6, :-1, 1:] - grid[6, 1:, :-1]
               + grid[6, :-1, :-1]).reshape(-1)
         k = int(np.argmax(_scores(grid[:6], se, cand)))

@@ -111,8 +111,11 @@ def rgb_to_hsv_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
 
 def _rows(kernel, planes):
     """A pointwise plane kernel on same-shape planes of any rank >= 2: the
-    leading dimensions fold into rows (the JAX package's row fold)."""
+    leading dimensions fold into rows (the JAX package's row fold); planes
+    (H, W) go to the kernel unchanged."""
     shp = planes[0].shape
+    if len(shp) == 2:
+        return kernel(*(p.contiguous() for p in planes))
     outs = kernel(*(p.reshape(-1, shp[-1]).contiguous() for p in planes))
     return tuple(o.reshape(shp) for o in outs)
 

@@ -288,11 +288,15 @@ def clahe_enhancement_planes(planes, clip_limit: float = 2.0,
         L, a, b = cs._rows(kernels.lab_forward_unit_approx, planes)
     else:
         L, a, b = cs.rgb_unit_to_lab_planes(*planes)
-    if impl == "fused":
+    if impl == "fused" and L.ndim == 2:
+        luts, ya, xa, geo = clahe_prep(L, clip_limit, tiles_x, tiles_y)
+        rgb = kernels.clahe_lab_apply(L, a, b, luts, ya, xa, *geo)
+    elif impl == "fused":
         shape = L.shape
         flat = tuple(x.reshape((-1,) + shape[-2:]) for x in (L, a, b))
         rgb = tuple(c.reshape(shape) for c in _clahe_lab_fused_batched(
             *flat, clip_limit, tiles_x, tiles_y))
+    if impl == "fused":
         if gamma is not None:
             glut = kernels.gamma_lut(gamma, L.device)
             return tuple(glut[c.long()] for c in rgb)

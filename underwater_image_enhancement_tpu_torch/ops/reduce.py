@@ -11,11 +11,16 @@ rewrite of a division by a constant).  Where such a mean is later
 quantised (gray-world's channel means feed CLAHE's u8 planes), its last
 bit moves pixels across u8 levels, so the port repeats the order.
 
-The first level runs on the tensor's device as one elementwise add a
+A sum over at most 32 values is the plain sequential x0 + x1 + ...
+(``seq_sum``).  This module owns both orders; ``ops/airlight`` and
+``features/basic`` use them too.
+
+On a tensor the first level runs on its device as one elementwise add a
 window position (1023 launches for a 2-D window of two long axes; a
 position that is padding in every window adds zero and is skipped); the
 few window sums left go to the host once and finish in numpy, so the CPU
-path and the card give the same bits.
+path and the card give the same bits.  A numpy array is summed on the
+host throughout.
 """
 
 from __future__ import annotations
@@ -73,25 +78,42 @@ def _window_sums(x, nd: int):
     return acc
 
 
-def _xla_sum(x: torch.Tensor, nd: int = 2) -> torch.Tensor:
+def seq_sum(x, axis: int):
+    """Sum along ``axis`` in order, x0 + x1 + ... (XLA:CPU's reductions of
+    at most 32 values); a tensor or a numpy array."""
+    index = [slice(None)] * x.ndim
+
+    def take(k):
+        index[axis] = k
+        return x[tuple(index)]
+
+    acc = take(0)
+    for k in range(1, x.shape[axis]):
+        acc = acc + take(k)
+    return acc
+
+
+def xla_sum(x, nd: int = 2):
     """f32 sum over the trailing ``nd`` axes of ``x`` in XLA:CPU's order ->
-    the leading shape, on ``x``'s device."""
+    the leading shape: a tensor on ``x``'s device, or a numpy array."""
     lead, dims = x.shape[:-nd], tuple(x.shape[-nd:])
-    flat = x.reshape((-1,) + dims).to(torch.float32)
-    if max(dims) > WINDOW:
-        flat = _window_sums(flat, nd)
-    host = flat.cpu().numpy()
+    if isinstance(x, torch.Tensor):
+        flat = x.reshape((-1,) + dims).to(torch.float32)
+        if max(dims) > WINDOW:
+            flat = _window_sums(flat, nd)
+        host = flat.cpu().numpy()
+    else:
+        host = np.asarray(x, np.float32).reshape((-1,) + dims)
     while max(host.shape[1:]) > WINDOW:
         host = _window_sums(host, nd)
-    host = host.reshape(host.shape[0], -1)
-    acc = host[:, 0]
-    for k in range(1, host.shape[1]):
-        acc = acc + host[:, k]
-    return torch.as_tensor(acc.astype(np.float32), device=x.device).reshape(lead)
+    acc = seq_sum(host.reshape(host.shape[0], -1), 1).reshape(lead)
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(acc, device=x.device)
+    return acc
 
 
 def xla_mean(x: torch.Tensor, nd: int = 2) -> torch.Tensor:
     """``jnp.mean`` over the trailing ``nd`` axes as jitted XLA:CPU
     computes it: the ordered sum times the f32 reciprocal of the count."""
     n = int(np.prod(x.shape[-nd:]))
-    return _xla_sum(x, nd) * float(np.float32(1.0) / np.float32(n))
+    return xla_sum(x, nd) * float(np.float32(1.0) / np.float32(n))

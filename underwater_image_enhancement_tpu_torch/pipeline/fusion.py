@@ -13,12 +13,15 @@ Counterpart of the JAX package's ``pipeline/fusion.py`` (Ancuti et al.,
 4. the pyramid blend (``ops/pyramid.blend_pyramids``), at most 5 levels.
 
 The JAX function is jitted, and the port repeats that program's arithmetic
-where its last bit matters: the means are ``reduce.xla_mean`` (XLA:CPU's
-summation order, times the reciprocal of the count), and the divisions by
-literals (``/ 3.0``, ``/ white``, ``/ 100.0``, the sRGB curve's) are
-multiplies by the f32 reciprocal, as XLA rewrites them.  The gray-world
-planes, which CLAHE quantises to u8, then equal the JAX program's bit for
-bit; a division by a traced value stays IEEE (``layout.div``).
+where its last bit matters: the gray-world means, which CLAHE quantises to
+u8, are ``reduce.xla_mean`` (XLA:CPU's summation order, times the
+reciprocal of the count), so the gray-world planes equal the JAX
+program's bit for bit; a division by a traced value stays IEEE
+(``layout.div``).  The saliency weights are never quantised: their Lab
+means are one ``torch.mean`` an image, and their Lab the colour module's
+sRGB curve and Lab f; fusion's own literal divisions (``/ 3.0``,
+``/ white``, ``/ 100.0``) are multiplies by the f32 reciprocal, as XLA
+rewrites them.
 
 ``(B, H, W, 3)`` inputs run as one batch (the JAX function vmaps): the LAB
 conversions fold the batch into rows, CLAHE runs once an image, and each
@@ -33,12 +36,15 @@ import torch
 
 from underwater_image_enhancement_tpu_torch.ops import lab_tables as lt
 from underwater_image_enhancement_tpu_torch.ops import pyramid
+from underwater_image_enhancement_tpu_torch.ops.colorspace import (
+    _lab_f,
+    _srgb_to_linear,
+)
 from underwater_image_enhancement_tpu_torch.ops.edges import laplacian
 from underwater_image_enhancement_tpu_torch.ops.histeq import (
     clahe_enhancement_planes,
 )
 from underwater_image_enhancement_tpu_torch.ops.layout import div
-from underwater_image_enhancement_tpu_torch.ops.reduce import xla_mean
 from underwater_image_enhancement_tpu_torch.ops.stretch import (
     gray_world_white_balance_planes,
 )
@@ -66,18 +72,6 @@ def gray_world_wb(img: torch.Tensor) -> torch.Tensor:
                                                   for c in range(3))), dim=-1)
 
 
-def _srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
-    return torch.where(c <= 0.04045, c * _recip(12.92),
-                       torch.pow((c + 0.055) * _recip(1.055), 2.4))
-
-
-def _lab_f(t: torch.Tensor) -> torch.Tensor:
-    d = 6.0 / 29.0
-    cbrt = torch.pow(torch.clamp(t, min=0.0), 1.0 / 3.0)
-    return torch.where(t > d ** 3, cbrt,
-                       t * _recip(3.0 * d * d) + 4.0 / 29.0)
-
-
 def _lab_float(p):
     """Continuous Lab of [0, 1] RGB planes: L in [0, 100], a and b near 0."""
     lin = [_srgb_to_linear(c) for c in p]
@@ -94,11 +88,23 @@ def _lab_float(p):
     return L, a, b
 
 
+def _plane_means(planes):
+    """Means over (H, W) of same-shape planes (..., H, W) -> (..., P): one
+    reduction an image, over its planes stacked into a fresh tensor, so
+    that a batch equals its single frames bit for bit (the card's
+    reduction order depends on the number of outputs and on the
+    alignment of the data)."""
+    flat = [p.reshape((-1,) + p.shape[-2:]) for p in planes]
+    means = torch.stack([torch.stack([p[n] for p in flat]).mean(dim=(-2, -1))
+                         for n in range(flat[0].shape[0])])
+    return means.reshape(planes[0].shape[:-2] + (len(planes),))
+
+
 def _weight_maps_all(inputs):
     """Laplacian contrast + saturation + saliency weights of each (r, g, b)
-    input; one ordered-mean pass serves every input's Lab means."""
+    input; one mean reduction an image serves every input's Lab means."""
     labs = [_lab_float(p) for p in inputs]
-    means = xla_mean(torch.stack([c for lab in labs for c in lab]))
+    means = _plane_means([c for lab in labs for c in lab])   # (..., 6)
     out = []
     for k, (p, (L, a, b)) in enumerate(zip(inputs, labs)):
         lum = 0.299 * p[0] + 0.587 * p[1] + 0.114 * p[2]
@@ -106,7 +112,7 @@ def _weight_maps_all(inputs):
         d = [c - lum for c in p]
         w_sat = torch.sqrt((d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
                            * _recip(3.0))
-        mL, ma, mb = (means[3 * k + i][..., None, None] for i in range(3))
+        mL, ma, mb = (means[..., 3 * k + i, None, None] for i in range(3))
         dL = pyramid.blur5(L) - mL
         da = pyramid.blur5(a) - ma
         db = pyramid.blur5(b) - mb

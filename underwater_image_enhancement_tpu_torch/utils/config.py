@@ -83,18 +83,9 @@ class Config:
     image_folder: str = "./data/raw"
     output_folder: str = "./results/self_supervised_v1"
     save_all_enhanced: bool = False  # config.py:123
-    # config.py:89-92, 126 and the JAX package's dtype: declared, never read
-    use_deep_features: bool = False
-    deep_feature_model: str = "vgg16"
-    show_progress: bool = True
-    log_level: str = "INFO"
-    strategies: Dict[str, Dict[str, Any]] = dataclasses.field(
-        default_factory=lambda: {k: dict(v)
-                                 for k, v in DEFAULT_STRATEGIES.items()})
     quality_weights: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_QUALITY_WEIGHTS))
     batch_size: int = 8
-    dtype: str = "float32"
     # label with the throughput tier (banded airlight, fast guided filter,
     # histogram percentiles, arithmetic LAB): near-tie winners may flip
     fast_label: bool = False
