@@ -6,8 +6,9 @@ Drives ``underwater_image_enhancement_tpu_torch`` (never JAX) through the
 ``six`` exact tier, the ``six --fast`` tier, ``enhance``, the Phase-1
 labeling path (``auto``, ``build-dataset``, ``build-dataset --fast``),
 ``assess``, the colour and CLAHE entry points (the fused CLAHE legs, the
-u8 LAB round trip, the probe-corrected forward LAB), the Ancuti ``fusion``
-and the batch forms of CLAHE at 1920x1080.  Phases
+u8 LAB round trip, the probe-corrected forward LAB), the Ancuti ``fusion``,
+the batch forms of CLAHE, the VGG parameter predictor (``enhance
+--model``) and the selector's MLP classifier at 1920x1080.  Phases
 (each prints one line or more; a failed check raises and the script exits
 non-zero):
 
@@ -58,7 +59,18 @@ non-zero):
    the batch forms of CLAHE (``clahe_u8_batch`` with per-image limits,
    ``clahe_enhancement_planes_multi`` over the five recipe limits of the
    three frames, ``_clahe_lab_fused_batched``), each image bit-equal to
-   the single-plane calls; their outputs (18 + 18 + 3 PNGs and
+   the single-plane calls, then ``[predictor]``: ``cli enhance --model``
+   at full width (VGG16 to conv4_3, hidden 256, input 224) on the three
+   frames from an ``.npz`` written through ``models/bridge`` from seeded
+   numpy parameters (``predictor_tree``), K1b and K7 once a frame, the
+   PNGs equal to ``EnhancementPredictor.enhance_image`` on the card, each
+   frame's parameters on the card within ``PREDICTOR_PARAM_MAX_ABS`` of
+   the CPU path and its frame under equal parameters within
+   ``PREDICTOR_FRAME_MAX_ABS`` (and, for the record, what TF32 convs
+   would move), and ``[selector_mlp]``: the MLP classifier fitted on the
+   card and on the CPU from equal parameters on 2000 seeded rows of 79
+   features in five classes, ``predict_proba`` within
+   ``MLP_PROBA_MAX_ABS``, and both fit times; their outputs (18 + 18 + 3 PNGs and
    the CSV logs; 3 winners; the dataset CSV with 5 scores a row and
    ``dataset.pkl`` with three finite 79-value vectors; the assess table);
    the kernel launch counts of each run (counts set to 0 just before it,
@@ -80,7 +92,10 @@ non-zero):
    one ``torch.profiler``
    frame of each of these (device busy and idle share, launches), ms per
    frame of ``ancuti_fusion`` (one frame a call, and the batch of three)
-   with one profiled frame, a CLAHE
+   with one profiled frame, ms per frame of the predictor
+   (``enhance_image`` with its parameters predicted) and of its parts
+   (the features, the preprocess, the VGG and MLP at 224^2, the 1080p
+   enhance) with one profiled frame, a CLAHE
    leg fused against split (in turns), ms per frame of UIQM, UCIQE and the
    assess command's work (one profiled frame), and each kernel on the main
    path's inputs beside its bound, its plain version, a PyTorch copy of
@@ -215,7 +230,22 @@ EXPECTED_SLICE = {
     "clahe_multi": {**NONE, "lab_forward_unit": 1, "clahe_apply": 15,
                     "lab_inverse_unit": 1},
     "clahe_fused_batch": {**NONE, "clahe_lab_apply": 3},
+    # cli enhance --model on the three frames: the 79 features' LAB (K1b)
+    # and Canny (K7) once a frame; the VGG, the fusion MLP and the enhance
+    # launch none of the package's kernels
+    "predictor": {**NONE, "lab_forward_u8": 3, "hysteresis_propagate": 3},
 }
+# the predictor's card against its CPU path: the parameters (the VGG in
+# full f32 on both) and, under equal parameters, the enhanced frames
+PREDICTOR_PARAM_MAX_ABS = 1e-4
+PREDICTOR_FRAME_MAX_ABS = 1e-5
+PREDICTOR_HIDDEN = 256  # ImprovedVGGParameterNet's published width
+# the selector MLP on the card against the CPU from equal parameters:
+# 2000 rows of 79 features, five classes, the class's defaults (hidden
+# 128, 200 full-batch Adam steps); cuBLAS and the CPU's BLAS sum in other
+# orders and the steps compound it
+MLP_ROWS, MLP_CLASSES = 2000, 5
+MLP_PROBA_MAX_ABS = 1e-3
 # card against CPU gate of the fused frame (the JAX suite's 50 dB)
 FUSION_PSNR_DB = 50.0
 FUSION_MAX_ABS = 1e-5
@@ -351,6 +381,29 @@ def synthetic_frame(seed: int) -> np.ndarray:
     return (np.floor(img * 255.0) / 255.0).astype(np.float32)
 
 
+def predictor_tree(bridge, vgg, seed: int = 0) -> dict:
+    """Seeded numpy parameters of the full-width ImprovedVGGParameterNet
+    (VGG16 to conv4_3, hidden 256) as a Flax variable tree: kernels normal
+    of variance 1/fan_in, biases and BatchNorm means normal(0, 0.01),
+    scales and variances uniform in [0.5, 1.5).  The fusion layer's rows
+    for the 79 features are scaled by 1e-4, so that the heads do not
+    saturate on features of up to 2e5 and every parameter moves."""
+    rng = np.random.default_rng(seed)
+    net = vgg.ImprovedVGGParameterNet(hidden_dim=PREDICTOR_HIDDEN)
+    flat = {}
+    for key, shape in bridge.expected_shapes(net).items():
+        leaf = key.rsplit("/", 1)[1]
+        if leaf == "kernel":
+            v = rng.normal(0, np.sqrt(1.0 / np.prod(shape[:-1])), shape)
+        elif leaf in ("bias", "mean"):
+            v = rng.normal(0, 0.01, shape)
+        else:
+            v = rng.uniform(0.5, 1.5, shape)
+        flat[key] = v.astype(np.float32)
+    flat["params/Dense_0/kernel"][1024:] *= np.float32(1e-4)
+    return bridge.unflatten(flat)
+
+
 def event_ms(torch, fn, runs: int, warmup: int = 1, flush=None) -> list:
     """Device ms of each of ``runs`` calls of fn (CUDA events around the
     call, then a synchronise), after ``warmup`` calls.  ``flush`` (a
@@ -483,6 +536,14 @@ def main() -> int:
         DEHAZE,
         STRATEGY_DISPLAY,
         strategy_planes,
+    )
+    from underwater_image_enhancement_tpu_torch.models import bridge
+    from underwater_image_enhancement_tpu_torch.models import vgg as tvgg
+    from underwater_image_enhancement_tpu_torch.models.predictor import (
+        EnhancementPredictor,
+    )
+    from underwater_image_enhancement_tpu_torch.select.mlp_classifier import (
+        FlaxMLPClassifier,
     )
     from underwater_image_enhancement_tpu_torch.select.system import (
         label_batch,
@@ -1084,6 +1145,105 @@ def main() -> int:
         equals_single=True, seconds=f"{secs:.2f}",
         launches=json.dumps(launches, separators=(",", ":")))
     del got, lab3
+    # [predictor] cli enhance --model at full width (hidden 256, input
+    # 224, VGG16 to conv4_3) on the three frames, from an .npz written
+    # through the bridge from seeded numpy parameters
+    npz = WORK / "predictor.npz"
+    bridge.save_npz(str(npz), predictor_tree(bridge, tvgg))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        calls, launches, secs = run_cli(
+            ["enhance", "--input", str(src), "--output",
+             str(WORK / "predictor"), "--model", str(npz)], True)
+    text = printed.getvalue()
+    print(text, end="", flush=True)
+    pngs = sorted(p.name for p in (WORK / "predictor").glob("*.png"))
+    check(pngs == [f"frame{i}_enhanced.png" for i in range(3)]
+          and f"enhanced 3 images -> {WORK / 'predictor'}" in text,
+          f"enhance --model outputs {pngs}, printed {text!r}")
+    check(captured_match(calls, launches)
+          and launches == EXPECTED_SLICE["predictor"],
+          f"predictor: launches {launches}")
+    runs["predictor"] = (calls, launches, None)
+    log("predictor", command="enhance --model", frames=3, hidden=256,
+        input_size=224, seconds=f"{secs:.2f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    pred_gpu = EnhancementPredictor(str(npz), pretrained_vgg=None, device=dev)
+    pred_cpu = EnhancementPredictor(str(npz), pretrained_vgg=None,
+                                    device="cpu")
+    pred_params = []
+    for i, f in enumerate(frames):
+        p_g = pred_gpu.predict_parameters(f)
+        p_c = pred_cpu.predict_parameters(f)
+        dp = max(abs(p_g[k] - p_c[k]) for k in p_c)
+        check(set(p_g) == set(p_c) and dp <= PREDICTOR_PARAM_MAX_ABS,
+              f"predictor frame {i}: card {p_g} vs CPU {p_c}")
+        out_g = pred_gpu.enhance_image(f, p_c)
+        out_c = pred_cpu.enhance_image(f, p_c)
+        d = np.abs(out_g.astype(np.float64) - out_c)
+        mse = float((d ** 2).mean())
+        psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+        check(out_g.shape == (H, W, 3) and bool(np.isfinite(out_g).all())
+              and float(d.max()) <= PREDICTOR_FRAME_MAX_ABS,
+              f"predictor frame {i}: card vs CPU max |d| {float(d.max())}")
+        written = uio.imread_u8(str(WORK / "predictor"
+                                    / f"frame{i}_enhanced.png"))
+        check(np.array_equal(written, (pred_gpu.enhance_image(f) * 255)
+                             .astype(np.uint8)),
+              f"predictor frame {i}: the PNG differs from enhance_image")
+        pred_params.append(p_g)
+        log("card_vs_cpu", command="predictor", frame=i,
+            card=json.dumps({k: round(v, 7) for k, v in p_g.items()}),
+            cpu=json.dumps({k: round(v, 7) for k, v in p_c.items()}),
+            param_max_abs=dp, frame_max_abs=float(d.max()),
+            psnr_db=f"{psnr:.2f}",
+            gate=f"params <= {PREDICTOR_PARAM_MAX_ABS}, frame <= "
+                 f"{PREDICTOR_FRAME_MAX_ABS}")
+    # what TF32 convs would move: the same frame with cuDNN's TF32 on
+    saved = tvgg._no_tf32
+    try:
+        tvgg._no_tf32 = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = True
+        p_tf32 = pred_gpu.predict_parameters(frames[0])
+    finally:
+        tvgg._no_tf32 = saved
+        torch.backends.cudnn.allow_tf32 = False
+    log("predictor", frame=0, tf32_param_max_abs=max(
+        abs(p_tf32[k] - pred_params[0][k]) for k in p_tf32),
+        note="'not the port's path: its convs run in full f32'")
+    del pred_cpu
+
+    # [selector_mlp] the MLP classifier fitted on the card and on the CPU
+    # from equal parameters (both draw them on the CPU from the seed)
+    rng = np.random.default_rng(0)
+    centres = rng.normal(0, 1, (MLP_CLASSES, 79))
+    y_mlp = rng.integers(0, MLP_CLASSES, MLP_ROWS)
+    X_mlp = (centres[y_mlp] + rng.normal(0, 1.5, (MLP_ROWS, 79))).astype(
+        np.float32)
+    labels_mlp = np.array([f"class{k}" for k in y_mlp])
+    FlaxMLPClassifier(epochs=2, device=dev).fit(X_mlp, labels_mlp)  # warm-up
+    fit_s = {}
+    clfs = {}
+    for key, d_ in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        clfs[key] = FlaxMLPClassifier(device=d_).fit(X_mlp, labels_mlp)
+        fit_s[key] = time.perf_counter() - t0
+    pr_g = clfs["card"].predict_proba(X_mlp)
+    pr_c = clfs["cpu"].predict_proba(X_mlp)
+    dpr = float(np.abs(pr_g - pr_c).max())
+    acc = {k: float((c.predict(X_mlp) == labels_mlp).mean())
+           for k, c in clfs.items()}
+    check(pr_g.shape == (MLP_ROWS, MLP_CLASSES)
+          and bool(np.isfinite(pr_g).all()) and dpr <= MLP_PROBA_MAX_ABS
+          and float(np.abs(pr_g.sum(1) - 1).max()) <= 1e-5,
+          f"selector MLP: card vs CPU predict_proba max |d| {dpr}")
+    log("selector_mlp", rows=MLP_ROWS, features=79, classes=MLP_CLASSES,
+        hidden=128, epochs=200, proba_max_abs=dpr,
+        gate=f"<= {MLP_PROBA_MAX_ABS}", train_accuracy=json.dumps(acc),
+        fit_s_card=f"{fit_s['card']:.3f}", fit_s_cpu=f"{fit_s['cpu']:.3f}",
+        card=repr(smi))
+    del clfs
+
     unused = [k for k in KERNELS if not any(r[1][k] for r in runs.values())]
     check(not unused, f"kernels the main path never launched: {unused}")
 
@@ -1307,6 +1467,39 @@ def main() -> int:
         device_launches=len(ev),
         package_kernels=json.dumps(ours, separators=(",", ":")))
     del batch3
+
+    # the predictor a frame: its three parts alone (the 79 features, the
+    # VGG and MLP at 224^2, enhance_image at 1080p), the whole frame, and
+    # one profiled frame
+    vin = pred_gpu._preprocess(imgs[0])[None]
+    feats0 = extract_all_features(imgs[0])[None]
+    with torch.no_grad():
+        parts = {
+            "features": lambda: extract_all_features(imgs[0]),
+            "preprocess": lambda: pred_gpu._preprocess(imgs[0]),
+            "vgg_224": lambda: pred_gpu.model(vin, feats0),
+            "enhance_1080p": lambda: pred_gpu.enhance_image(
+                imgs[0], pred_params[0]),
+        }
+        part_ms = {k: statistics.median(event_ms(torch, fn, 6, warmup=2))
+                   for k, fn in parts.items()}
+        it = iter(range(10 ** 6))
+        ms = event_ms(torch, lambda: pred_gpu.enhance_image(
+            imgs[next(it) % 3]), 6, warmup=2)
+        wall, busy, ev, ours = profile_frame(
+            lambda: pred_gpu.enhance_image(imgs[0]))
+    log("frame", path="predictor", **{f"ms_{k}": v
+                                      for k, v in spread(ms).items()},
+        runs=",".join(f"{t:.3f}" for t in ms),
+        **{f"{k}_ms": f"{v:.3f}" for k, v in part_ms.items()},
+        profiled_wall_ms=f"{wall:.3f}",
+        device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+        device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                           else "not measured"),
+        device_launches=len(ev),
+        package_kernels=json.dumps(ours, separators=(",", ":")),
+        card=repr(smi))
+    del pred_gpu, vin, feats0
 
     img = imgs[0]
     corrected, _ = cast_mod.detect_and_correct(img)

@@ -25,7 +25,17 @@ from underwater_image_enhancement_tpu_torch import cli as tcli
 # (module, name) or (module, "name.parameter") -> why the port leaves it out
 LEFT_OUT = {
     ("models.diff_enhance", "enhance_mlp"):
-        "Queue 1 item 4: the MLP parameter predictor (models/mlp)",
+        "Queue 1 item 6: read only by the MLP trainer (models/mlp)",
+    ("models.predictor", "ZooPredictor"):
+        "Queue 1 item 5: the zoo predictors (models/zoo)",
+    ("models.vgg", "VGGFeatures.parent"):
+        "Flax's module-tree field; a torch nn.Module has none",
+    ("models.vgg", "VGGFeatures.name"):
+        "Flax's module-tree field; a torch nn.Module has none",
+    ("models.vgg", "ImprovedVGGParameterNet.parent"):
+        "Flax's module-tree field; a torch nn.Module has none",
+    ("models.vgg", "ImprovedVGGParameterNet.name"):
+        "Flax's module-tree field; a torch nn.Module has none",
     ("models.diff_enhance", "enhance_zoo"):
         "Queue 1 item 5: the zoo predictors (models/zoo)",
     ("pipeline.enhance", "enhance_batch_dp"):
@@ -38,10 +48,6 @@ LEFT_OUT = {
         "Queue 1 item 9: data parallelism (--devices)",
     ("utils.config", "Config.n_devices"):
         "Queue 1 item 9: data parallelism (--devices)",
-    ("utils.config", "Config.test_size"): "Queue 1 item 3: Phase 2",
-    ("utils.config", "Config.random_seed"): "Queue 1 item 3: Phase 2",
-    ("utils.config", "Config.cv_folds"): "Queue 1 item 3: Phase 2",
-    ("utils.config", "Config.classifiers"): "Queue 1 item 3: Phase 2",
     ("utils.config", "Config.strategies"):
         "Queue 1 item 10: read only by the JAX examples module",
     ("utils.config", "Config.use_deep_features"):
@@ -60,9 +66,8 @@ LEFT_OUT = {
 
 # JAX modules the port does not have yet -> the Queue 1 item that brings it
 MODULES_TO_PORT = {
-    "select.mlp_classifier": 3, "models.mlp": 4, "models.vgg": 4,
-    "models.losses": 4, "models.predictor": 4, "utils.weights": 4,
-    "models.zoo": 5, "train": 6, "train.data": 6, "train.trainer": 6,
+    "models.zoo": 5, "models.mlp": 6, "models.losses": 6, "train": 6,
+    "train.data": 6, "train.trainer": 6,
     "models.waternet": 7, "validate": 8, "parallel": 9, "parallel.mesh": 9,
     "parallel.spatial": 9, "parallel.six_spatial": 9,
     "parallel.fusion_spatial": 9, "examples": 10, "utils.profiling": 10,
@@ -76,9 +81,8 @@ MODULES_TO_PORT = {
 }
 
 # JAX CLI subcommands the port does not have yet -> Queue 1 item
-SUBCOMMANDS_TO_PORT = {"train-selector": 3, "run": 3, "predict": 3,
-                       "convert-vgg": 4, "train-mlp": 6, "train-vgg": 6,
-                       "train-zoo": 6, "waternet": 7, "validate": 8}
+SUBCOMMANDS_TO_PORT = {"train-mlp": 6, "train-vgg": 6, "train-zoo": 6,
+                       "waternet": 7, "validate": 8}
 
 
 def _modules(pkg):
@@ -157,8 +161,9 @@ def _subcommands(cli):
 
 def test_cli_subcommands():
     """The port's CLI has every JAX subcommand but those still to port
-    (``fusion`` among those it has)."""
+    (``fusion`` and Phase 2's among those it has)."""
     jax_cmds, port_cmds = _subcommands(jcli), _subcommands(tcli)
-    assert "fusion" in port_cmds
+    assert {"fusion", "train-selector", "run", "predict",
+            "convert-vgg"} <= port_cmds
     assert jax_cmds - port_cmds == set(SUBCOMMANDS_TO_PORT)
     assert port_cmds <= jax_cmds

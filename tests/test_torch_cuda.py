@@ -1,8 +1,8 @@
 """Kernel tests that need an NVIDIA GPU (marker ``gpu``): each CUDA
 kernel against its plain PyTorch version on the card (and the fused
 kernels against the kernels they fuse), and the six exact and fast tiers,
-the Phase-1 label program and UIQM/UCIQE on the card against the CPU
-path.  They skip where
+the Phase-1 label program, UIQM/UCIQE, the VGG predictor and the
+selector's MLP classifier on the card against the CPU path.  They skip where
 ``torch.cuda.is_available()`` is False.  On a GPU machine without JAX:
 
     python -m pytest -o addopts="" --noconftest -m gpu tests/test_torch_cuda.py
@@ -14,6 +14,9 @@ import torch
 
 from chip_smoke import (
     CLAHE_SHAPES,
+    MLP_PROBA_MAX_ABS,
+    PREDICTOR_FRAME_MAX_ABS,
+    PREDICTOR_PARAM_MAX_ABS,
     INV_WRAPPERS,
     K7_SHAPES,
     LAB_OFFSETS,
@@ -24,6 +27,7 @@ from chip_smoke import (
     clahe_cases,
     cuda_kernel_names,
     lab_planes,
+    predictor_tree,
     serpentine,
     synthetic_frame,
 )
@@ -581,3 +585,52 @@ def test_clahe_u8_batch_on_card_equals_per_image(cuda):
     assert torch.equal(got.cpu(), histeq.clahe_u8_batch(x.cpu(), clips))
     for i, clip in enumerate(clips):
         assert torch.equal(got[i], histeq.clahe_u8(x[i], clip))
+
+
+def test_predictor_on_card_matches_cpu(cuda, tmp_path):
+    """The full-width VGG predictor (hidden 256, input 224) on a 1080p
+    frame: one K1b and one K7 launch a frame (the features), the
+    parameters within PREDICTOR_PARAM_MAX_ABS of the CPU path (the convs in
+    full f32 on the card), the frame within PREDICTOR_FRAME_MAX_ABS under
+    equal parameters; cuDNN's TF32 setting is restored."""
+    from underwater_image_enhancement_tpu_torch.models import bridge
+    from underwater_image_enhancement_tpu_torch.models import vgg
+    from underwater_image_enhancement_tpu_torch.models.predictor import (
+        EnhancementPredictor,
+    )
+
+    npz = str(tmp_path / "p.npz")
+    bridge.save_npz(npz, predictor_tree(bridge, vgg, seed=1))
+    img = synthetic_frame(4)
+    gpu = EnhancementPredictor(npz, pretrained_vgg=None, device=cuda)
+    cpu = EnhancementPredictor(npz, pretrained_vgg=None, device="cpu")
+    torch.backends.cudnn.allow_tf32 = True
+    kernels.reset_launches()
+    p_g = gpu.predict_parameters(img)
+    assert torch.backends.cudnn.allow_tf32
+    assert kernels.launches["lab_forward_u8"] == 1
+    assert kernels.launches["hysteresis_propagate"] == 1
+    assert sum(kernels.launches.values()) == 2
+    p_c = cpu.predict_parameters(img)
+    assert all(abs(p_g[k] - p_c[k]) <= PREDICTOR_PARAM_MAX_ABS for k in p_c)
+    d = np.abs(gpu.enhance_image(img, p_c).astype(np.float64)
+               - cpu.enhance_image(img, p_c))
+    assert float(d.max()) <= PREDICTOR_FRAME_MAX_ABS
+
+
+def test_mlp_classifier_on_card_matches_cpu(cuda):
+    """The selector's MLP fitted on the card and on the CPU from equal
+    parameters: one step within 1e-6, 200 steps within MLP_PROBA_MAX_ABS
+    in predict_proba."""
+    from underwater_image_enhancement_tpu_torch.select.mlp_classifier import (
+        FlaxMLPClassifier,
+    )
+
+    rng = np.random.default_rng(2)
+    y = rng.integers(0, 5, 500)
+    X = (rng.normal(0, 1, (5, 79))[y] + rng.normal(0, 1.5, (500, 79))
+         ).astype(np.float32)
+    for epochs, tol in ((1, 1e-6), (200, MLP_PROBA_MAX_ABS)):
+        a = FlaxMLPClassifier(epochs=epochs, device=cuda).fit(X, y)
+        b = FlaxMLPClassifier(epochs=epochs, device="cpu").fit(X, y)
+        assert np.abs(a.predict_proba(X) - b.predict_proba(X)).max() <= tol

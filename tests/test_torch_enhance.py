@@ -142,7 +142,7 @@ def test_cli_enhance_file_and_folder_match_jax_cli(tmp_path, batch):
     assert max(diffs.values()) <= 1
 
 
-@pytest.mark.parametrize("flag", [["--model", "ckpt.msgpack"],
+@pytest.mark.parametrize("flag", [["--model", "m.npz", "--arch", "resnet"],
                                   ["--devices", "2"]])
 def test_cli_enhance_rejects_what_is_not_ported(tmp_path, flag):
     with pytest.raises(SystemExit, match="not yet ported") as e:

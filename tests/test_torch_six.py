@@ -240,6 +240,14 @@ def test_port_runs_without_jax_in_subprocess(tmp_path):
         "import underwater_image_enhancement_tpu_torch.metrics.quality\n"
         "import underwater_image_enhancement_tpu_torch.features.full\n"
         "import underwater_image_enhancement_tpu_torch.select.system\n"
+        "import underwater_image_enhancement_tpu_torch.models.predictor\n"
+        "import underwater_image_enhancement_tpu_torch.models.bridge\n"
+        "import underwater_image_enhancement_tpu_torch.utils.weights\n"
+        "from underwater_image_enhancement_tpu_torch.select.mlp_classifier "
+        "import FlaxMLPClassifier\n"
+        "X = rng.normal(0, 1, (40, 79)).astype(np.float32)\n"
+        "clf = FlaxMLPClassifier(hidden_dim=8, epochs=3, device='cpu')\n"
+        "assert clf.fit(X, X[:, 0] > 0).predict_proba(X).shape == (40, 2)\n"
         "from underwater_image_enhancement_tpu_torch.pipeline.enhance "
         "import auto_enhance_batch\n"
         "best, k, scores = auto_enhance_batch(img[None], device='cpu')\n"
@@ -281,6 +289,11 @@ def test_source_imports_neither_jax_nor_the_jax_package():
             "underwater_image_enhancement_tpu_torch/metrics/quality.py",
             "underwater_image_enhancement_tpu_torch/features/full.py",
             "underwater_image_enhancement_tpu_torch/select/system.py",
+            "underwater_image_enhancement_tpu_torch/select/mlp_classifier.py",
+            "underwater_image_enhancement_tpu_torch/models/bridge.py",
+            "underwater_image_enhancement_tpu_torch/models/vgg.py",
+            "underwater_image_enhancement_tpu_torch/models/predictor.py",
+            "underwater_image_enhancement_tpu_torch/utils/weights.py",
             "underwater_image_enhancement_tpu_torch/cli.py"} <= names
     for path in files:
         for mod in _imported_modules(path):

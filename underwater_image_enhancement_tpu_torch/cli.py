@@ -1,16 +1,22 @@
 """Command-line interface of the port.
 
     python -m underwater_image_enhancement_tpu_torch.cli six --input DIR --output DIR [--fast]
-    python -m underwater_image_enhancement_tpu_torch.cli enhance --input PATH --output PATH
+    python -m underwater_image_enhancement_tpu_torch.cli enhance --input PATH --output PATH [--model NPZ]
     python -m underwater_image_enhancement_tpu_torch.cli auto --input DIR --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli build-dataset --input DIR --output DIR [--fast]
     python -m underwater_image_enhancement_tpu_torch.cli assess --input PATH
     python -m underwater_image_enhancement_tpu_torch.cli fusion --input PATH --output DIR
+    python -m underwater_image_enhancement_tpu_torch.cli train-selector --output DIR
+    python -m underwater_image_enhancement_tpu_torch.cli run --input DIR --output DIR
+    python -m underwater_image_enhancement_tpu_torch.cli predict --input FILE --model PKL
+    python -m underwater_image_enhancement_tpu_torch.cli convert-vgg --torch-ckpt PTH --out NPZ
 
 Commands (reference counterparts):
   six            six_stadigy.py __main__: all six strategies per image +
                  CSV log (``--fast``: the histogram-percentile tier)
-  enhance        use_trained_model.py __main__ without a model: the
+  enhance        use_trained_model.py __main__: with ``--model`` (a
+                 predictor checkpoint in the port's ``.npz``) the VGG
+                 parameter predictor per image; without, the
                  fixed-parameter enhance of one file, or of a folder in
                  same-shape batches (``*_enhanced.png``)
   auto           main.py's Phase-1 choice per image: the best of the five
@@ -23,22 +29,30 @@ Commands (reference counterparts):
                  total, UIQM, UCIQE and the eight metrics, one row a file
   fusion         Ancuti multi-scale fusion of an image or a folder, in
                  same-shape batches (``<stem>_fusion.png``)
+  train-selector main.py Phase 2: the classifiers on ``dataset.pkl``
+                 (sklearn, which the port imports only here)
+  run            Phase 1 + Phase 2 in one command
+  predict        main.py predict: the best strategy for an image from
+                 a ``trained_model.pkl``
+  convert-vgg    a torch vgg16 checkpoint -> the ``.npz`` trunk weights
 
 Runs on the CUDA device by default (``--device cuda``); ``--device cpu``
 runs the plain PyTorch path.  On CUDA the kernels are built before the
 frame loop, and a ``RuntimeError`` from the build or from a kernel launch
 ends the run with a non-zero exit; other per-image errors of ``six``
 become "failed" rows of ``processing_log.csv``, as in the JAX CLI.
-``enhance --model`` (a learned predictor) and ``--devices`` (data
-parallelism) are not ported yet and are rejected, as are the JAX CLI's
-other subcommands (Phase 2's ``train-selector``, ``run`` and ``predict``
-among them, and ``validate``).
+``--devices`` (data parallelism) and ``enhance --arch`` other than
+``vgg`` (the zoo predictors) are not ported yet and are rejected, as are
+the JAX CLI's other subcommands (the trainers, ``waternet`` and
+``validate``).
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import json
+import pickle
 import time
 import traceback
 from pathlib import Path
@@ -94,16 +108,27 @@ def _cmd_enhance(args) -> None:
     )
     from underwater_image_enhancement_tpu_torch.utils import io as uio
 
-    if args.model is not None:
-        raise SystemExit("enhance --model: the learned parameter predictor "
-                         "is not yet ported; run without --model for the "
-                         "fixed parameters")
-    if args.devices is not None:
-        raise SystemExit("enhance --devices: data parallelism over several "
-                         "cards is not yet ported; the port runs on one "
-                         "device (--device)")
+    _reject_devices(args)
+    if args.model and args.arch != "vgg":
+        raise SystemExit(f"enhance --arch {args.arch}: the zoo predictors "
+                         "are not yet ported (ROADMAP Queue 1 item 5); "
+                         "--arch vgg runs the VGG predictor")
     device = _start(args.device)
     inp = Path(args.input)
+    if args.model:
+        from underwater_image_enhancement_tpu_torch.models.predictor import (
+            EnhancementPredictor,
+        )
+
+        pred = EnhancementPredictor(checkpoint_path=args.model, device=device)
+        if inp.is_dir():
+            n = pred.process_folder(args.input, args.output)
+            print(f"enhanced {n} images -> {args.output}")
+        else:
+            params = pred.process_single_image(args.input, args.output)
+            print("predicted params:",
+                  {k: round(v, 4) for k, v in params.items()})
+        return
     if not inp.is_dir():
         img = uio.imread_unit(str(inp))
         if img is None:
@@ -140,8 +165,8 @@ def _cmd_enhance(args) -> None:
 def _reject_devices(args) -> None:
     if args.devices is not None:
         raise SystemExit(f"{args.cmd} --devices: data parallelism over "
-                         "several cards is not yet ported; the port runs on "
-                         "one device (--device)")
+                         "several cards is not yet ported (ROADMAP Queue 1 "
+                         "item 9); the port runs on one device (--device)")
 
 
 def _cmd_auto(args) -> None:
@@ -190,6 +215,78 @@ def _cmd_build_dataset(args) -> None:
     for k, v in system.dataset_report().items():
         print(f"  {k:<24} {v['count']:>4} ({v['fraction'] * 100:.1f}%) "
               f"score {v['mean_score']:.2f}±{v['std_score']:.2f}")
+
+
+def _load_dataset(system) -> None:
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        DatasetItem,
+    )
+
+    with open(Path(system.config.model_folder) / "dataset.pkl", "rb") as f:
+        system.dataset = [DatasetItem(**d) for d in pickle.load(f)]
+
+
+def _cmd_train_selector(args) -> None:
+    """main.py Phase 2 on ``<output>/trained_models/dataset.pkl`` (the
+    JAX CLI's ``train-selector``); sklearn on the host."""
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        SelfSupervisedSystem,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.config import Config
+
+    cfg = Config(image_folder=args.input or ".", output_folder=args.output)
+    system = SelfSupervisedSystem(cfg)
+    _load_dataset(system)
+    print(json.dumps(system.train_classifier(), indent=2))
+
+
+def _cmd_run(args) -> None:
+    """Phase 1 + Phase 2 in one command (main.py:436-456)."""
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        SelfSupervisedSystem,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.config import Config
+
+    _reject_devices(args)
+    device = _start(args.device)
+    cfg = Config(image_folder=args.input, output_folder=args.output,
+                 fast_label=bool(args.fast),
+                 batch_size=int(args.batch_size or 8))
+    system = SelfSupervisedSystem(cfg, device=device)
+    rows = system.build_dataset()
+    if not rows:
+        print("error: could not build dataset (no readable images)")
+        return
+    print(f"labeled {len(rows)} images")
+    print(json.dumps(system.train_classifier(), indent=2))
+    print(f"output folder: {cfg.output_folder}")
+
+
+def _cmd_predict(args) -> None:
+    """The best strategy for an image (main.py predict): its features on
+    the device, the classifier from ``--model``."""
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        SelfSupervisedSystem,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.config import Config
+
+    device = _start(args.device)
+    system = SelfSupervisedSystem(Config(output_folder=args.output or "."),
+                                  device=device)
+    system.load_model(args.model)
+    label, probs = system.predict(args.input)
+    print(f"best strategy: {label}")
+    for k, v in sorted(probs.items(), key=lambda kv: -kv[1]):
+        print(f"  {k:<24} {v:.3f}")
+
+
+def _cmd_convert_vgg(args) -> None:
+    from underwater_image_enhancement_tpu_torch.models.vgg import (
+        convert_torch_vgg_to_npz,
+    )
+
+    n = convert_torch_vgg_to_npz(args.torch_ckpt, args.out)
+    print(f"exported {n} conv layers -> {args.out}")
 
 
 def _cmd_assess(args) -> None:
@@ -367,10 +464,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="underwater_image_enhancement_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("enhance", help="fixed-parameter enhance of image(s)")
+    p = sub.add_parser("enhance", help="enhance image(s)")
     p.add_argument("--input", required=True, help="an image or a folder")
     p.add_argument("--output", required=True,
                    help="the output image, or a folder for a folder input")
+    p.add_argument("--model", default=None,
+                   help="predictor checkpoint: the port's .npz "
+                        "(tools/jax_ckpt_to_npz.py converts a JAX one)")
+    p.add_argument("--arch", default="vgg",
+                   choices=("vgg", "resnet", "efficientnet", "vit"),
+                   help="the predictor the checkpoint belongs to (only vgg "
+                        "is ported; the zoo archs are rejected)")
+    p.add_argument("--variant", default="b0", choices=("b0", "b3"),
+                   help="efficientnet scale (with --arch efficientnet)")
+    p.add_argument("--input-size", type=int, default=224,
+                   help="parameter-prediction resolution (zoo archs)")
     p.add_argument("--omega", type=float, default=0.6)
     p.add_argument("--gamma", type=float, default=1.2)
     p.add_argument("--l-low", type=float, default=10.0)
@@ -380,8 +488,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
-    p.add_argument("--model", default=None,
-                   help="predictor checkpoint: not yet ported, rejected")
     p.add_argument("--devices", type=int, default=None,
                    help="data-parallel device count: not yet ported, "
                         "rejected")
@@ -437,6 +543,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=_cmd_fusion)
+
+    p = sub.add_parser("train-selector", help="Phase 2 classifier training")
+    p.add_argument("--input", default=None)
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=_cmd_train_selector)
+
+    p = sub.add_parser("run", help="Phase 1 + Phase 2 in one command")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--fast", action="store_true",
+                   help="throughput-tier Phase-1 labeling (see build-dataset)")
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="frames per labeling call (same-shape groups)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.add_argument("--devices", type=int, default=None, help=devices_help)
+    p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser("convert-vgg",
+                       help="torch vgg16 checkpoint -> .npz weights")
+    p.add_argument("--torch-ckpt", required=True)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=_cmd_convert_vgg)
+
+    p = sub.add_parser("predict", help="predict best strategy for an image")
+    p.add_argument("--input", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--output", default=None)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_predict)
     return ap
 
 

@@ -8,9 +8,10 @@ term for term, so the f32 association, and hence every bit, matches it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def _window_sum(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
@@ -42,10 +43,27 @@ def _window_sum(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _reflect_101(n: int, lo: int, hi: int, device) -> torch.Tensor:
+    """Source indices of a REFLECT_101 pad of ``lo`` and ``hi`` around an
+    axis of length ``n``, for any pad: the reflection repeats (an index
+    folds onto [0, n-1] with period 2(n-1), as ``jnp.pad(mode="reflect")``
+    and cv2's BORDER_REFLECT_101 do), and a side of 1 maps every index to
+    0.  Kept per device, so a frame's filters copy no index to the card."""
+    i = np.arange(-lo, n + hi)
+    if n == 1:
+        i = np.zeros_like(i)
+    else:
+        i = np.remainder(i, 2 * (n - 1))
+        i = np.where(i >= n, 2 * (n - 1) - i, i)
+    return torch.from_numpy(i).to(device)
+
+
 def box_filter(x: torch.Tensor, r: int, rx: int | None = None) -> torch.Tensor:
     """Mean over an r x rx window (rx defaults to r) of x (..., H, W)
     float32, cv2.boxFilter compatible in the square case (REFLECT_101
-    border; needs r//2 <= H - 1 and rx//2 <= W - 1).
+    border, repeated where the pad reaches past a side, as JAX and cv2
+    do).
 
     The JAX reference divides by the literal r*rx, which XLA compiles to a
     multiply by its f32 reciprocal; the port multiplies by the same f32
@@ -53,10 +71,9 @@ def box_filter(x: torch.Tensor, r: int, rx: int | None = None) -> torch.Tensor:
     rx = r if rx is None else rx
     if r == 1 and rx == 1:
         return x
-    lead = x.shape[:-2]
-    x4 = x.reshape((-1, 1) + tuple(x.shape[-2:]))
-    xp = F.pad(x4, (rx // 2, rx - 1 - rx // 2, r // 2, r - 1 - r // 2),
-               mode="reflect")  # == REFLECT_101
-    s = _window_sum(_window_sum(xp, r, 2), rx, 3)
-    s = s.reshape(lead + tuple(s.shape[-2:]))
+    hh, ww = x.shape[-2:]
+    rows = _reflect_101(hh, r // 2, r - 1 - r // 2, x.device)
+    cols = _reflect_101(ww, rx // 2, rx - 1 - rx // 2, x.device)
+    xp = x.index_select(-2, rows).index_select(-1, cols)
+    s = _window_sum(_window_sum(xp, r, x.dim() - 2), rx, x.dim() - 1)
     return s * float(np.float32(1.0) / np.float32(r * rx))

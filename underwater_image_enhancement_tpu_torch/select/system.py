@@ -1,16 +1,28 @@
-"""Phase 1 of the self-supervised strategy selector (main.py:63-218):
-label every image of a folder with the strategy whose output scores best.
+"""The self-supervised strategy selector (main.py:28-456), the JAX
+package's ``select/system.py``.
 
-Counterpart of the JAX package's ``select/system.py``, Phase 1 only: for
-each frame, the five strategies (``pipeline/strategies.py``), their
-weighted quality totals (``metrics/quality.py``), the 79 features
-(``features/full.py``) and the argmax, all on the device; the host reads
-each batch back once (features, scores and labels in one transfer, the
-winning images quantized to u8 in another), writes the winners' PNGs, the
-CSV and ``dataset.pkl``.  ``dataset.pkl`` holds the same pickled list of
-dicts as the JAX package's (numpy features), so its ``train-selector``
-reads the port's file.  Phase 2 (the sklearn classifiers, ``predict``, the
-reports) is not ported.
+Phase 1 (build_dataset, main.py:63-218) labels every image of a folder
+with the strategy whose output scores best: for each frame, the five
+strategies (``pipeline/strategies.py``), their weighted quality totals
+(``metrics/quality.py``), the 79 features (``features/full.py``) and the
+argmax, all on the device; the host reads each batch back once (features,
+scores and labels in one transfer, the winning images quantized to u8 in
+another), writes the winners' PNGs, the CSV and ``dataset.pkl``.
+``dataset.pkl`` holds the same pickled list of dicts as the JAX package's
+(numpy features), so either package's Phase 2 reads either's file.
+
+Phase 2 (train_classifier, main.py:225-335) is host-side sklearn, as in
+JAX: a stratified 80/20 split, StandardScaler, RandomForest,
+GradientBoosting and SVC with config.py:100-119's settings, 5-fold CV, the
+best by test accuracy pickled to ``trained_model.pkl``;
+``include_mlp=True`` adds the MLP classifier on the system's device
+(``select/mlp_classifier.py``).  sklearn and matplotlib are imported
+inside the functions, so the module imports without them.  ``predict``
+(main.py:398-434) takes the features on the system's device, then scales
+and classifies on the host.  ``load_model`` reads pickles of either
+package; of the JAX package's classes it maps only the MLP classifier
+with a plain numpy parameter tree, and refuses any other with a clear
+error.
 """
 
 from __future__ import annotations
@@ -38,6 +50,9 @@ from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
 from underwater_image_enhancement_tpu_torch.pipeline.strategies import (
     LABEL_ORDER,
     STRATEGY_DISPLAY,
+)
+from underwater_image_enhancement_tpu_torch.select.mlp_classifier import (
+    FlaxMLPClassifier,
 )
 from underwater_image_enhancement_tpu_torch.utils import io as uio
 from underwater_image_enhancement_tpu_torch.utils.config import Config
@@ -81,6 +96,10 @@ class SelfSupervisedSystem:
 
     def __post_init__(self):
         self.dataset: List[DatasetItem] = []
+        self.classifier = None
+        self.scaler = None
+        self.classes_: List[str] = []
+        self.results: Dict[str, Dict[str, float]] = {}
 
     def _label_batch_np(self, imgs: np.ndarray, return_all: bool = False,
                         u8: bool = False):
@@ -213,3 +232,224 @@ class SelfSupervisedSystem:
                 "std_score": float(np.std(scores)),
             }
         return out
+
+    # ---------------- Phase 2 ----------------
+
+    def _split(self):
+        """The held-out split of main.py:233-245 (stratified where every
+        class has >= 2 members, as sklearn requires)."""
+        from sklearn.model_selection import train_test_split
+
+        X = np.stack([d.features for d in self.dataset])
+        y = np.array([d.best_strategy for d in self.dataset])
+        counts = {c: int((y == c).sum()) for c in set(y)}
+        strat = y if min(counts.values()) >= 2 else None
+        return train_test_split(X, y, test_size=self.config.test_size,
+                                random_state=self.config.random_seed,
+                                stratify=strat)
+
+    def train_classifier(self, log=print, include_mlp: bool = False
+                         ) -> Dict[str, Dict[str, float]]:
+        """main.py:225-335: scale, fit RF/GB/SVC, 5-fold CV, pick best.
+        include_mlp adds the MLP classifier on the system's device to the
+        candidates (not in the reference)."""
+        from sklearn.ensemble import (
+            GradientBoostingClassifier,
+            RandomForestClassifier,
+        )
+        from sklearn.metrics import accuracy_score
+        from sklearn.model_selection import cross_val_score
+        from sklearn.preprocessing import StandardScaler
+        from sklearn.svm import SVC
+
+        if not self.dataset:
+            raise RuntimeError("dataset empty; run build_dataset() first")
+        y = np.array([d.best_strategy for d in self.dataset])
+        X_tr, X_te, y_tr, y_te = self._split()
+        self.scaler = StandardScaler().fit(X_tr)
+        X_trs = self.scaler.transform(X_tr)
+        X_tes = self.scaler.transform(X_te)
+
+        zoo = {
+            "random_forest": RandomForestClassifier(
+                **self.config.classifiers["random_forest"]),
+            "gradient_boosting": GradientBoostingClassifier(
+                **self.config.classifiers["gradient_boosting"]),
+            "svm": SVC(probability=True, **self.config.classifiers["svm"]),
+        }
+        if include_mlp:
+            zoo["mlp"] = FlaxMLPClassifier(device=self.device)
+        if len(set(y)) < 2:
+            log("warning: every image got the same best strategy — "
+                "classifiers that require >=2 classes will be skipped")
+        best_name, best_acc = None, -1.0
+        for name, clf in zoo.items():
+            try:
+                clf.fit(X_trs, y_tr)
+            except ValueError as e:  # e.g. single-class GB/SVC
+                log(f"{name}: skipped ({e})")
+                self.results[name] = {"test_accuracy": float("nan"),
+                                      "cv_mean": float("nan"),
+                                      "cv_std": float("nan")}
+                continue
+            acc = accuracy_score(y_te, clf.predict(X_tes))
+            # folds bounded by the train split's smallest class
+            tr_counts = {c: int((y_tr == c).sum()) for c in set(y_tr)}
+            cv_folds = min(self.config.cv_folds, min(tr_counts.values()),
+                           len(X_tr))
+            if cv_folds >= 2 and len(set(y_tr)) >= 2 and name != "mlp":
+                cv = cross_val_score(clf, X_trs, y_tr, cv=cv_folds)
+                cv_mean, cv_std = float(cv.mean()), float(cv.std())
+            else:
+                cv_mean = cv_std = float("nan")
+            self.results[name] = {"test_accuracy": float(acc),
+                                  "cv_mean": cv_mean, "cv_std": cv_std}
+            log(f"{name}: test acc {acc:.3f}")
+            if acc > best_acc:
+                best_name, best_acc = name, acc
+                self.classifier = clf
+        if self.classifier is None:
+            raise RuntimeError("no classifier could be trained on this dataset")
+        self.classes_ = sorted(set(y))
+        self._save_model(best_name)
+        return self.results
+
+    def _save_model(self, best_name: str) -> None:
+        path = Path(self.config.model_folder) / "trained_model.pkl"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump({
+                "classifier": self.classifier,
+                "scaler": self.scaler,
+                "results": self.results,
+                "classes": self.classes_,
+                "best_name": best_name,
+            }, f)
+
+    def load_model(self, path: Optional[str] = None) -> None:
+        """A ``trained_model.pkl`` of either package.  The MLP classifier
+        runs on the system's device."""
+        p = path or str(Path(self.config.model_folder) / "trained_model.pkl")
+        with open(p, "rb") as f:
+            blob = _PortUnpickler(f, p).load()
+        self.classifier = blob["classifier"]
+        self.scaler = blob["scaler"]
+        self.results = blob.get("results", {})
+        self.classes_ = blob.get("classes", [])
+        clf = self.classifier
+        if isinstance(clf, FlaxMLPClassifier):
+            _check_plain_tree(clf._params, p)
+            clf.device = str(self.device)
+            # the bridge refuses a tree that does not fit the network
+            n_in = clf._params["params"]["Dense_0"]["kernel"].shape[0]
+            clf._net(n_in, clf._params)
+
+    def predict(self, image_path: str) -> Tuple[str, Dict[str, float]]:
+        """main.py:398-434: label + per-class probabilities for one image;
+        the features on the system's device."""
+        if self.classifier is None:
+            raise RuntimeError("no classifier; train or load one first")
+        img = uio.imread_unit(image_path)
+        if img is None:
+            raise ValueError(f"unreadable image: {image_path}")
+        x = _on_device(img, resolve_device(self.device))
+        feats = extract_all_features(x).cpu().numpy()[None]
+        scaled = self.scaler.transform(feats)
+        label = str(self.classifier.predict(scaled)[0])
+        probs = {}
+        if hasattr(self.classifier, "predict_proba"):
+            pr = self.classifier.predict_proba(scaled)[0]
+            probs = {str(c): float(q)
+                     for c, q in zip(self.classifier.classes_, pr)}
+        return label, probs
+
+    # ---------------- Reports (main.py:337-396) ----------------
+
+    def classification_report(self) -> str:
+        """Text report + confusion matrix on the held-out split
+        (main.py:337-374)."""
+        from sklearn.metrics import classification_report as cr
+        from sklearn.metrics import confusion_matrix
+
+        _, X_te, _, y_te = self._split()
+        pred = self.classifier.predict(self.scaler.transform(X_te))
+        rep = cr(y_te, pred, zero_division=0)
+        cm = confusion_matrix(y_te, pred, labels=self.classes_)
+        lines = [rep, "", "confusion matrix (rows=true, cols=pred):",
+                 "  " + " ".join(f"{c[:10]:>12}" for c in self.classes_)]
+        for c, row in zip(self.classes_, cm):
+            lines.append(f"{c[:12]:>12} " + " ".join(f"{v:>12}" for v in row))
+        text = "\n".join(lines)
+        path = Path(self.config.report_folder) / "classification_report.txt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+        self._confusion_png(cm)
+        return text
+
+    def _confusion_png(self, cm: np.ndarray) -> None:
+        """Confusion-matrix heatmap PNG (main.py:376-396, matplotlib in
+        place of seaborn); skipped where matplotlib is missing."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        fig, ax = plt.subplots(figsize=(6, 5))
+        im = ax.imshow(cm, cmap="Blues")
+        ax.set_xticks(range(len(self.classes_)))
+        ax.set_yticks(range(len(self.classes_)))
+        ax.set_xticklabels(self.classes_, rotation=45, ha="right", fontsize=7)
+        ax.set_yticklabels(self.classes_, fontsize=7)
+        for i in range(cm.shape[0]):
+            for j in range(cm.shape[1]):
+                ax.text(j, i, str(cm[i, j]), ha="center", va="center",
+                        fontsize=8)
+        ax.set_xlabel("predicted")
+        ax.set_ylabel("true")
+        fig.colorbar(im)
+        fig.tight_layout()
+        fig.savefig(Path(self.config.report_folder) / "confusion_matrix.png",
+                    dpi=150)
+        plt.close(fig)
+
+
+_JAX_PACKAGE = "underwater_image_enhancement_tpu"
+_JAX_MLP = (_JAX_PACKAGE + ".select.mlp_classifier", "FlaxMLPClassifier")
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Unpickles a ``trained_model.pkl`` without JAX: the JAX package's
+    MLP classifier becomes the port's (its parameters are carried over by
+    ``load_model``); any other class of the JAX package, or of JAX, Flax
+    or Optax, raises."""
+
+    def __init__(self, f, path: str):
+        super().__init__(f)
+        self.path = path
+
+    def find_class(self, module: str, name: str):
+        if (module, name) == _JAX_MLP:
+            return FlaxMLPClassifier
+        top = module.split(".")[0]
+        if top in (_JAX_PACKAGE, "jax", "jaxlib", "flax", "optax", "orbax"):
+            raise pickle.UnpicklingError(
+                f"{self.path} holds {module}.{name}, which the PyTorch port "
+                "cannot load: it reads sklearn classifiers and the MLP "
+                "classifier with a numpy parameter tree; retrain with the "
+                "port's train-selector")
+        return super().find_class(module, name)
+
+
+def _check_plain_tree(tree, path: str) -> None:
+    """Raise unless ``tree`` is nested plain dicts of numpy arrays."""
+    if isinstance(tree, np.ndarray):
+        return
+    if type(tree) is not dict or not tree:
+        raise pickle.UnpicklingError(
+            f"{path}: the MLP classifier's parameters are a "
+            f"{type(tree).__name__}, not a tree of numpy arrays; retrain "
+            "with the port's train-selector")
+    for v in tree.values():
+        _check_plain_tree(v, path)

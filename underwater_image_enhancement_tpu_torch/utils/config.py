@@ -1,5 +1,5 @@
-"""Configuration of the ported paths: constants and the Phase-1 run
-configuration.
+"""Configuration of the ported paths: constants and the run configuration
+of the selector's two phases.
 
 Values mirror the reference's config.py and six_stadigy.py; the JAX
 package's ``utils/config.py`` carries the same numbers (the port keeps its
@@ -74,17 +74,33 @@ FULL_QUALITY_WEIGHTS: Dict[str, float] = {
     "colorfulness": 0.05, "naturalness": 0.05,
 }
 
+# Phase-2 classifier hyperparameters (config.py:100-119).
+DEFAULT_CLASSIFIERS: Dict[str, Dict[str, Any]] = {
+    "random_forest": {"n_estimators": 200, "max_depth": 20,
+                      "min_samples_split": 5, "random_state": 42},
+    "gradient_boosting": {"n_estimators": 100, "learning_rate": 0.1,
+                          "max_depth": 5, "random_state": 42},
+    "svm": {"kernel": "rbf", "C": 1.0, "gamma": "scale", "random_state": 42},
+}
+
 
 @dataclasses.dataclass
 class Config:
-    """Phase-1 run configuration (config.py's paths and switches).  The port
-    runs on one device, so it has no data-parallel knobs."""
+    """Run configuration of both phases (config.py's paths, switches and
+    Phase-2 settings).  The port runs on one device, so it has no
+    data-parallel knobs."""
 
     image_folder: str = "./data/raw"
     output_folder: str = "./results/self_supervised_v1"
+    test_size: float = 0.2          # config.py:95
+    random_seed: int = 42           # config.py:96
+    cv_folds: int = 5               # config.py:97
     save_all_enhanced: bool = False  # config.py:123
     quality_weights: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_QUALITY_WEIGHTS))
+    classifiers: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=lambda: {k: dict(v)
+                                 for k, v in DEFAULT_CLASSIFIERS.items()})
     batch_size: int = 8
     # label with the throughput tier (banded airlight, fast guided filter,
     # histogram percentiles, arithmetic LAB): near-tie winners may flip
