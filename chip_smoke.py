@@ -66,13 +66,16 @@ non-zero):
    PNGs equal to ``EnhancementPredictor.enhance_image`` on the card, each
    frame's parameters on the card within ``PREDICTOR_PARAM_MAX_ABS`` of
    the CPU path and its frame under equal parameters within
-   ``PREDICTOR_FRAME_MAX_ABS`` (and, for the record, what TF32 convs
-   would move), and ``[selector_mlp]``: the MLP classifier fitted on the
-   card and on the CPU from equal parameters on 2000 seeded rows of 79
-   features in five classes, ``predict_proba`` within
-   ``MLP_PROBA_MAX_ABS``, and both fit times; their outputs (18 + 18 + 3 PNGs and
-   the CSV logs; 3 winners; the dataset CSV with 5 scores a row and
-   ``dataset.pkl`` with three finite 79-value vectors; the assess table);
+   ``PREDICTOR_FRAME_MAX_ABS`` (the phase runs under PyTorch's default of
+   TF32 cuDNN convs, which the predictor turns off itself; a control with
+   that guard taken away must move the parameters past the gate), and
+   ``[selector_mlp]``: the MLP classifier fitted on the card and on the
+   CPU from equal parameters on 2000 seeded rows of 79 features in five
+   classes, ``predict_proba`` within ``MLP_PROBA_MAX_ABS`` (a control fit
+   with TF32 matmuls must land past it), and both fit times; their
+   outputs (18 + 18 + 3 PNGs and the CSV logs; 3 winners; the dataset
+   CSV with 5 scores a row and ``dataset.pkl`` with three finite 79-value
+   vectors; the assess table);
    the kernel launch counts of each run (counts set to 0 just before it,
    read just after; every kernel launched at least once); every kernel
    call of the runs but ``enhance`` replayed on its own inputs against the
@@ -236,16 +239,21 @@ EXPECTED_SLICE = {
     "predictor": {**NONE, "lab_forward_u8": 3, "hysteresis_propagate": 3},
 }
 # the predictor's card against its CPU path: the parameters (the VGG in
-# full f32 on both) and, under equal parameters, the enhanced frames
-PREDICTOR_PARAM_MAX_ABS = 1e-4
+# full f32 on both) and, under equal parameters, the enhanced frames.  The
+# parameter gate lies between the card's f32 reading (max |d| 0.0 on the
+# three frames on an H100) and what TF32 convs move there (4.58e-5 to
+# 5.34e-5), so it fails the lower precision
+PREDICTOR_PARAM_MAX_ABS = 1e-6
 PREDICTOR_FRAME_MAX_ABS = 1e-5
 PREDICTOR_HIDDEN = 256  # ImprovedVGGParameterNet's published width
 # the selector MLP on the card against the CPU from equal parameters:
 # 2000 rows of 79 features, five classes, the class's defaults (hidden
 # 128, 200 full-batch Adam steps); cuBLAS and the CPU's BLAS sum in other
-# orders and the steps compound it
+# orders and the steps compound it.  The gate lies between the card's f32
+# reading (2.15e-6 on an H100) and what TF32 matmuls move there
+# (5.42e-5), so it fails the lower precision
 MLP_ROWS, MLP_CLASSES = 2000, 5
-MLP_PROBA_MAX_ABS = 1e-3
+MLP_PROBA_MAX_ABS = 1e-5
 # card against CPU gate of the fused frame (the JAX suite's 50 dB)
 FUSION_PSNR_DB = 50.0
 FUSION_MAX_ABS = 1e-5
@@ -402,6 +410,22 @@ def predictor_tree(bridge, vgg, seed: int = 0) -> dict:
         flat[key] = v.astype(np.float32)
     flat["params/Dense_0/kernel"][1024:] *= np.float32(1e-4)
     return bridge.unflatten(flat)
+
+
+@contextlib.contextmanager
+def tf32(torch, cudnn=None, matmul=None):
+    """cuDNN's and cuBLAS's TF32 flags set for the block (None: left as
+    found), and the values found before it restored after it."""
+    found = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = found[0] if cudnn is None else cudnn
+    torch.backends.cuda.matmul.allow_tf32 = (found[1] if matmul is None
+                                             else matmul)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = found
 
 
 def event_ms(torch, fn, runs: int, warmup: int = 1, flush=None) -> list:
@@ -1147,69 +1171,80 @@ def main() -> int:
     del got, lab3
     # [predictor] cli enhance --model at full width (hidden 256, input
     # 224, VGG16 to conv4_3) on the three frames, from an .npz written
-    # through the bridge from seeded numpy parameters
-    npz = WORK / "predictor.npz"
-    bridge.save_npz(str(npz), predictor_tree(bridge, tvgg))
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        calls, launches, secs = run_cli(
-            ["enhance", "--input", str(src), "--output",
-             str(WORK / "predictor"), "--model", str(npz)], True)
-    text = printed.getvalue()
-    print(text, end="", flush=True)
-    pngs = sorted(p.name for p in (WORK / "predictor").glob("*.png"))
-    check(pngs == [f"frame{i}_enhanced.png" for i in range(3)]
-          and f"enhanced 3 images -> {WORK / 'predictor'}" in text,
-          f"enhance --model outputs {pngs}, printed {text!r}")
-    check(captured_match(calls, launches)
-          and launches == EXPECTED_SLICE["predictor"],
-          f"predictor: launches {launches}")
-    runs["predictor"] = (calls, launches, None)
-    log("predictor", command="enhance --model", frames=3, hidden=256,
-        input_size=224, seconds=f"{secs:.2f}",
-        launches=json.dumps(launches, separators=(",", ":")))
-    pred_gpu = EnhancementPredictor(str(npz), pretrained_vgg=None, device=dev)
-    pred_cpu = EnhancementPredictor(str(npz), pretrained_vgg=None,
-                                    device="cpu")
-    pred_params = []
-    for i, f in enumerate(frames):
-        p_g = pred_gpu.predict_parameters(f)
-        p_c = pred_cpu.predict_parameters(f)
-        dp = max(abs(p_g[k] - p_c[k]) for k in p_c)
-        check(set(p_g) == set(p_c) and dp <= PREDICTOR_PARAM_MAX_ABS,
-              f"predictor frame {i}: card {p_g} vs CPU {p_c}")
-        out_g = pred_gpu.enhance_image(f, p_c)
-        out_c = pred_cpu.enhance_image(f, p_c)
-        d = np.abs(out_g.astype(np.float64) - out_c)
-        mse = float((d ** 2).mean())
-        psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
-        check(out_g.shape == (H, W, 3) and bool(np.isfinite(out_g).all())
-              and float(d.max()) <= PREDICTOR_FRAME_MAX_ABS,
-              f"predictor frame {i}: card vs CPU max |d| {float(d.max())}")
-        written = uio.imread_u8(str(WORK / "predictor"
-                                    / f"frame{i}_enhanced.png"))
-        check(np.array_equal(written, (pred_gpu.enhance_image(f) * 255)
-                             .astype(np.uint8)),
-              f"predictor frame {i}: the PNG differs from enhance_image")
-        pred_params.append(p_g)
-        log("card_vs_cpu", command="predictor", frame=i,
-            card=json.dumps({k: round(v, 7) for k, v in p_g.items()}),
-            cpu=json.dumps({k: round(v, 7) for k, v in p_c.items()}),
-            param_max_abs=dp, frame_max_abs=float(d.max()),
-            psnr_db=f"{psnr:.2f}",
-            gate=f"params <= {PREDICTOR_PARAM_MAX_ABS}, frame <= "
-                 f"{PREDICTOR_FRAME_MAX_ABS}")
-    # what TF32 convs would move: the same frame with cuDNN's TF32 on
-    saved = tvgg._no_tf32
-    try:
+    # through the bridge from seeded numpy parameters, under PyTorch's
+    # default flags (TF32 cuDNN convs, f32 matmuls): the predictor's own
+    # guard is what keeps its convs in f32
+    with tf32(torch, cudnn=True, matmul=False):
+        npz = WORK / "predictor.npz"
+        bridge.save_npz(str(npz), predictor_tree(bridge, tvgg))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            calls, launches, secs = run_cli(
+                ["enhance", "--input", str(src), "--output",
+                 str(WORK / "predictor"), "--model", str(npz)], True)
+        text = printed.getvalue()
+        print(text, end="", flush=True)
+        pngs = sorted(p.name for p in (WORK / "predictor").glob("*.png"))
+        check(pngs == [f"frame{i}_enhanced.png" for i in range(3)]
+              and f"enhanced 3 images -> {WORK / 'predictor'}" in text,
+              f"enhance --model outputs {pngs}, printed {text!r}")
+        check(captured_match(calls, launches)
+              and launches == EXPECTED_SLICE["predictor"],
+              f"predictor: launches {launches}")
+        runs["predictor"] = (calls, launches, None)
+        log("predictor", command="enhance --model", frames=3, hidden=256,
+            input_size=224, seconds=f"{secs:.2f}",
+            launches=json.dumps(launches, separators=(",", ":")))
+        pred_gpu = EnhancementPredictor(str(npz), pretrained_vgg=None,
+                                        device=dev)
+        pred_cpu = EnhancementPredictor(str(npz), pretrained_vgg=None,
+                                        device="cpu")
+        pred_params = []
+        for i, f in enumerate(frames):
+            p_g = pred_gpu.predict_parameters(f)
+            p_c = pred_cpu.predict_parameters(f)
+            dp = max(abs(p_g[k] - p_c[k]) for k in p_c)
+            check(set(p_g) == set(p_c) and dp <= PREDICTOR_PARAM_MAX_ABS,
+                  f"predictor frame {i}: card {p_g} vs CPU {p_c}")
+            out_g = pred_gpu.enhance_image(f, p_c)
+            out_c = pred_cpu.enhance_image(f, p_c)
+            d = np.abs(out_g.astype(np.float64) - out_c)
+            mse = float((d ** 2).mean())
+            psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+            check(out_g.shape == (H, W, 3) and bool(np.isfinite(out_g).all())
+                  and float(d.max()) <= PREDICTOR_FRAME_MAX_ABS,
+                  f"predictor frame {i}: card vs CPU max |d| {float(d.max())}")
+            written = uio.imread_u8(str(WORK / "predictor"
+                                        / f"frame{i}_enhanced.png"))
+            check(np.array_equal(written, (pred_gpu.enhance_image(f) * 255)
+                                 .astype(np.uint8)),
+                  f"predictor frame {i}: the PNG differs from enhance_image")
+            pred_params.append(p_g)
+            log("card_vs_cpu", command="predictor", frame=i,
+                card=json.dumps({k: round(v, 7) for k, v in p_g.items()}),
+                cpu=json.dumps({k: round(v, 7) for k, v in p_c.items()}),
+                param_max_abs=dp, frame_max_abs=float(d.max()),
+                psnr_db=f"{psnr:.2f}",
+                gate=f"params <= {PREDICTOR_PARAM_MAX_ABS}, frame <= "
+                     f"{PREDICTOR_FRAME_MAX_ABS}")
+        check(torch.backends.cudnn.allow_tf32,
+              "predictor: cuDNN's TF32 setting was not restored")
+        # the control: the predictor's guard taken away, so its convs run in
+        # TF32; the parameter gate must fail it
+        guard = tvgg._no_tf32
         tvgg._no_tf32 = contextlib.nullcontext
-        torch.backends.cudnn.allow_tf32 = True
-        p_tf32 = pred_gpu.predict_parameters(frames[0])
-    finally:
-        tvgg._no_tf32 = saved
-        torch.backends.cudnn.allow_tf32 = False
-    log("predictor", frame=0, tf32_param_max_abs=max(
-        abs(p_tf32[k] - pred_params[0][k]) for k in p_tf32),
+        try:
+            d_tf32 = [max(abs(p_t[k] - p_g[k]) for k in p_g)
+                      for p_t, p_g in zip(map(pred_gpu.predict_parameters,
+                                              frames), pred_params)]
+        finally:
+            tvgg._no_tf32 = guard
+    check(max(d_tf32) > PREDICTOR_PARAM_MAX_ABS,
+          f"predictor: TF32 convs moved the parameters by {d_tf32}, within "
+          f"the gate {PREDICTOR_PARAM_MAX_ABS}: it cannot tell them from f32")
+    log("predictor", control="TF32 convs",
+        tf32_param_max_abs=",".join(map(str, d_tf32)),
+        gate=f"> {PREDICTOR_PARAM_MAX_ABS}",
         note="'not the port's path: its convs run in full f32'")
     del pred_cpu
 
@@ -1231,6 +1266,16 @@ def main() -> int:
     pr_g = clfs["card"].predict_proba(X_mlp)
     pr_c = clfs["cpu"].predict_proba(X_mlp)
     dpr = float(np.abs(pr_g - pr_c).max())
+    # the control: the same fit on the card in TF32 matmuls; the gate must
+    # fail it
+    with tf32(torch, matmul=True):
+        pr_t = FlaxMLPClassifier(device=dev).fit(
+            X_mlp, labels_mlp).predict_proba(X_mlp)
+    dpr_tf32 = float(np.abs(pr_t - pr_c).max())
+    check(dpr_tf32 > MLP_PROBA_MAX_ABS,
+          f"selector MLP: TF32 matmuls moved predict_proba by {dpr_tf32}, "
+          f"within the gate {MLP_PROBA_MAX_ABS}: it cannot tell them from "
+          "f32")
     acc = {k: float((c.predict(X_mlp) == labels_mlp).mean())
            for k, c in clfs.items()}
     check(pr_g.shape == (MLP_ROWS, MLP_CLASSES)
@@ -1239,7 +1284,8 @@ def main() -> int:
           f"selector MLP: card vs CPU predict_proba max |d| {dpr}")
     log("selector_mlp", rows=MLP_ROWS, features=79, classes=MLP_CLASSES,
         hidden=128, epochs=200, proba_max_abs=dpr,
-        gate=f"<= {MLP_PROBA_MAX_ABS}", train_accuracy=json.dumps(acc),
+        gate=f"<= {MLP_PROBA_MAX_ABS}", tf32_proba_max_abs=dpr_tf32,
+        train_accuracy=json.dumps(acc),
         fit_s_card=f"{fit_s['card']:.3f}", fit_s_cpu=f"{fit_s['cpu']:.3f}",
         card=repr(smi))
     del clfs

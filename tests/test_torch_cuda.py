@@ -30,6 +30,7 @@ from chip_smoke import (
     predictor_tree,
     serpentine,
     synthetic_frame,
+    tf32,
 )
 from underwater_image_enhancement_tpu_torch.ops import (
     airlight,
@@ -587,12 +588,17 @@ def test_clahe_u8_batch_on_card_equals_per_image(cuda):
         assert torch.equal(got[i], histeq.clahe_u8(x[i], clip))
 
 
-def test_predictor_on_card_matches_cpu(cuda, tmp_path):
+def test_predictor_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """The full-width VGG predictor (hidden 256, input 224) on a 1080p
-    frame: one K1b and one K7 launch a frame (the features), the
-    parameters within PREDICTOR_PARAM_MAX_ABS of the CPU path (the convs in
-    full f32 on the card), the frame within PREDICTOR_FRAME_MAX_ABS under
-    equal parameters; cuDNN's TF32 setting is restored."""
+    frame under PyTorch's default of TF32 cuDNN convs: one K1b and one K7
+    launch a frame (the features), the parameters within
+    PREDICTOR_PARAM_MAX_ABS of the CPU path (the predictor's own guard
+    keeps its convs in full f32, and leaves cuDNN's setting as it found
+    it), the frame within PREDICTOR_FRAME_MAX_ABS under equal parameters.
+    The control: with the guard taken away, TF32 convs move the parameters
+    past the gate."""
+    import contextlib
+
     from underwater_image_enhancement_tpu_torch.models import bridge
     from underwater_image_enhancement_tpu_torch.models import vgg
     from underwater_image_enhancement_tpu_torch.models.predictor import (
@@ -604,7 +610,7 @@ def test_predictor_on_card_matches_cpu(cuda, tmp_path):
     img = synthetic_frame(4)
     gpu = EnhancementPredictor(npz, pretrained_vgg=None, device=cuda)
     cpu = EnhancementPredictor(npz, pretrained_vgg=None, device="cpu")
-    torch.backends.cudnn.allow_tf32 = True
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     kernels.reset_launches()
     p_g = gpu.predict_parameters(img)
     assert torch.backends.cudnn.allow_tf32
@@ -616,12 +622,16 @@ def test_predictor_on_card_matches_cpu(cuda, tmp_path):
     d = np.abs(gpu.enhance_image(img, p_c).astype(np.float64)
                - cpu.enhance_image(img, p_c))
     assert float(d.max()) <= PREDICTOR_FRAME_MAX_ABS
+    monkeypatch.setattr(vgg, "_no_tf32", contextlib.nullcontext)
+    p_t = gpu.predict_parameters(img)
+    assert max(abs(p_t[k] - p_c[k]) for k in p_c) > PREDICTOR_PARAM_MAX_ABS
 
 
 def test_mlp_classifier_on_card_matches_cpu(cuda):
     """The selector's MLP fitted on the card and on the CPU from equal
     parameters: one step within 1e-6, 200 steps within MLP_PROBA_MAX_ABS
-    in predict_proba."""
+    in predict_proba; the control, 200 steps in TF32 matmuls, lands past
+    that gate."""
     from underwater_image_enhancement_tpu_torch.select.mlp_classifier import (
         FlaxMLPClassifier,
     )
@@ -634,3 +644,7 @@ def test_mlp_classifier_on_card_matches_cpu(cuda):
         a = FlaxMLPClassifier(epochs=epochs, device=cuda).fit(X, y)
         b = FlaxMLPClassifier(epochs=epochs, device="cpu").fit(X, y)
         assert np.abs(a.predict_proba(X) - b.predict_proba(X)).max() <= tol
+    with tf32(torch, matmul=True):
+        a = FlaxMLPClassifier(device=cuda).fit(X, y)
+    d = np.abs(a.predict_proba(X) - b.predict_proba(X)).max()
+    assert d > MLP_PROBA_MAX_ABS

@@ -1,7 +1,7 @@
 """Convert a JAX EnhancementPredictor checkpoint into the PyTorch port's.
 
     python tools/jax_ckpt_to_npz.py --ckpt CKPT_DIR --out predictor.npz \
-        [--hidden-dim 256] [--input-size 224]
+        [--hidden-dim 256]
 
 The JAX package saves its predictor with orbax (``train/trainer.py``
 ``save_checkpoint``), which the port cannot read without JAX.  This tool
@@ -25,8 +25,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def convert(ckpt: str, out: str, hidden_dim: int = 256,
-            input_size: int = 224) -> int:
+def convert(ckpt: str, out: str, hidden_dim: int = 256) -> int:
     """Restore ``ckpt`` with the JAX predictor, write ``out``; returns the
     number of leaves written."""
     import jax
@@ -40,7 +39,7 @@ def convert(ckpt: str, out: str, hidden_dim: int = 256,
     )
 
     pred = JaxPredictor(checkpoint_path=ckpt, hidden_dim=hidden_dim,
-                        input_size=input_size, pretrained_vgg=None)
+                        pretrained_vgg=None)
     tree = jax.tree_util.tree_map(np.asarray, pred.variables)
     # refuses a tree that does not fit the port's network
     bridge.load_flax(ImprovedVGGParameterNet(hidden_dim=hidden_dim), tree)
@@ -54,9 +53,8 @@ def main(argv=None) -> None:
                     help="orbax checkpoint directory of the JAX predictor")
     ap.add_argument("--out", required=True, help="the port's .npz")
     ap.add_argument("--hidden-dim", type=int, default=256)
-    ap.add_argument("--input-size", type=int, default=224)
     args = ap.parse_args(argv)
-    n = convert(args.ckpt, args.out, args.hidden_dim, args.input_size)
+    n = convert(args.ckpt, args.out, args.hidden_dim)
     print(f"wrote {n} arrays -> {args.out}")
 
 

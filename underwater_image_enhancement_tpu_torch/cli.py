@@ -476,9 +476,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the predictor the checkpoint belongs to (only vgg "
                         "is ported; the zoo archs are rejected)")
     p.add_argument("--variant", default="b0", choices=("b0", "b3"),
-                   help="efficientnet scale (with --arch efficientnet)")
+                   help="efficientnet scale (with --arch efficientnet); "
+                        "read by the zoo predictors, so ignored until they "
+                        "are ported (ROADMAP Queue 1 item 5)")
     p.add_argument("--input-size", type=int, default=224,
-                   help="parameter-prediction resolution (zoo archs)")
+                   help="parameter-prediction resolution of the zoo "
+                        "predictors, so ignored until they are ported "
+                        "(ROADMAP Queue 1 item 5); the VGG predictor "
+                        "works at 224")
     p.add_argument("--omega", type=float, default=0.6)
     p.add_argument("--gamma", type=float, default=1.2)
     p.add_argument("--l-low", type=float, default=10.0)

@@ -74,6 +74,6 @@ def box_filter(x: torch.Tensor, r: int, rx: int | None = None) -> torch.Tensor:
     hh, ww = x.shape[-2:]
     rows = _reflect_101(hh, r // 2, r - 1 - r // 2, x.device)
     cols = _reflect_101(ww, rx // 2, rx - 1 - rx // 2, x.device)
-    xp = x.index_select(-2, rows).index_select(-1, cols)
+    xp = x[..., rows[:, None], cols]  # one gather, one padded copy
     s = _window_sum(_window_sum(xp, r, x.dim() - 2), rx, x.dim() - 1)
     return s * float(np.float32(1.0) / np.float32(r * rx))
