@@ -8,7 +8,9 @@ labeling path (``auto``, ``build-dataset``, ``build-dataset --fast``),
 ``assess``, the colour and CLAHE entry points (the fused CLAHE legs, the
 u8 LAB round trip, the probe-corrected forward LAB), the Ancuti ``fusion``,
 the batch forms of CLAHE, the VGG parameter predictor (``enhance
---model``) and the selector's MLP classifier at 1920x1080.  Phases
+--model``), the selector's MLP classifier, the zoo predictors (``enhance
+--model --arch resnet|efficientnet|vit``) and Water-Net (``waternet``,
+f32 and ``--bf16``) at 1920x1080.  Phases
 (each prints one line or more; a failed check raises and the script exits
 non-zero):
 
@@ -72,7 +74,22 @@ non-zero):
    ``[selector_mlp]``: the MLP classifier fitted on the card and on the
    CPU from equal parameters on 2000 seeded rows of 79 features in five
    classes, ``predict_proba`` within ``MLP_PROBA_MAX_ABS`` (a control fit
-   with TF32 matmuls must land past it), and both fit times; their
+   with TF32 matmuls must land past it), and both fit times, then
+   ``[zoo]``: ``cli enhance --model X.npz --arch`` for ResNet18,
+   EfficientNet b0 and b3 and ViT-B/16 at 224^2 (``ZOO_NETS``) from
+   seeded trees (``seeded_tree``, BatchNorm statistics calibrated on the
+   frames' inputs: ``calibrate_batch_norm``), no kernel launched, the PNGs
+   equal to ``ZooPredictor.enhance_image``, each frame's heads on the card
+   within ``ZOO_PARAM_MAX_REL`` of their range of the CPU path's and
+   ``enhance_zoo`` within ``PREDICTOR_FRAME_MAX_ABS`` under PyTorch's TF32
+   flags both on (a control with the nets' guard taken away must land past
+   the gate), and ``[waternet]``: ``cli waternet`` on the three frames as
+   one batch, f32 and ``--bf16``, from a seeded full-width tree (features
+   128, FTU 32), the PNGs equal to ``waternet_enhance``, the batch within
+   ``WATERNET_BATCH_MAX_ABS`` of single frames, bf16 within
+   ``WATERNET_BF16_MAX_ABS`` of f32, frame 0 and the UNet on a 1078x1918
+   crop within ``WATERNET_MAX_ABS`` of the CPU path (its seconds printed;
+   a TF32 control must land past the gate); their
    outputs (18 + 18 + 3 PNGs and the CSV logs; 3 winners; the dataset
    CSV with 5 scores a row and ``dataset.pkl`` with three finite 79-value
    vectors; the assess table);
@@ -98,7 +115,11 @@ non-zero):
    with one profiled frame, ms per frame of the predictor
    (``enhance_image`` with its parameters predicted) and of its parts
    (the features, the preprocess, the VGG and MLP at 224^2, the 1080p
-   enhance) with one profiled frame, a CLAHE
+   enhance) with one profiled frame, ms per frame of each zoo predictor
+   (``predict_parameters`` alone and ``enhance_image``) with one profiled
+   frame, WaterNet's ms per frame in f32 and bf16 (a batch of three a
+   call, one frame a call), one profiled batch and its peak device
+   memory, a CLAHE
    leg fused against split (in turns), ms per frame of UIQM, UCIQE and the
    assess command's work (one profiled frame), and each kernel on the main
    path's inputs beside its bound, its plain version, a PyTorch copy of
@@ -254,6 +275,22 @@ PREDICTOR_HIDDEN = 256  # ImprovedVGGParameterNet's published width
 # (5.42e-5), so it fails the lower precision
 MLP_ROWS, MLP_CLASSES = 2000, 5
 MLP_PROBA_MAX_ABS = 1e-5
+# the zoo predictors at full width, 224^2: (label, --arch, --variant)
+ZOO_NETS = (("resnet", "resnet", "b0"),
+            ("efficientnet_b0", "efficientnet", "b0"),
+            ("efficientnet_b3", "efficientnet", "b3"),
+            ("vit", "vit", "b0"))
+# their heads on the card against the CPU path, as a share of each head's
+# range (``head_rel``); the gate lies between the card's f32 reading and
+# what TF32 convs and matmuls move there
+ZOO_PARAM_MAX_REL = 1e-5
+# WaterNet (frame 0 at 1080p) and the UNet (1078x1918) on the card
+# against the CPU path, between the f32 reading and the TF32 control;
+# bf16 against f32 (the JAX suite's bound, tests/test_waternet.py:98); a
+# batch against its frames one by one
+WATERNET_MAX_ABS = 1e-5
+WATERNET_BF16_MAX_ABS = 0.05
+WATERNET_BATCH_MAX_ABS = 1e-6
 # card against CPU gate of the fused frame (the JAX suite's 50 dB)
 FUSION_PSNR_DB = 50.0
 FUSION_MAX_ABS = 1e-5
@@ -389,27 +426,71 @@ def synthetic_frame(seed: int) -> np.ndarray:
     return (np.floor(img * 255.0) / 255.0).astype(np.float32)
 
 
-def predictor_tree(bridge, vgg, seed: int = 0) -> dict:
-    """Seeded numpy parameters of the full-width ImprovedVGGParameterNet
-    (VGG16 to conv4_3, hidden 256) as a Flax variable tree: kernels normal
-    of variance 1/fan_in, biases and BatchNorm means normal(0, 0.01),
-    scales and variances uniform in [0.5, 1.5).  The fusion layer's rows
-    for the 79 features are scaled by 1e-4, so that the heads do not
-    saturate on features of up to 2e5 and every parameter moves."""
+def seeded_tree(bridge, net, seed: int = 0) -> dict:
+    """Seeded numpy parameters of the port's module ``net`` as a Flax
+    variable tree: kernels normal of variance 1/fan_in (an attention
+    projection's fan-in is its input width), biases and BatchNorm means
+    normal(0, 0.01), the ViT's class token and position table
+    normal(0, 0.02), scales and variances uniform in [0.5, 1.5)."""
     rng = np.random.default_rng(seed)
-    net = vgg.ImprovedVGGParameterNet(hidden_dim=PREDICTOR_HIDDEN)
     flat = {}
     for key, shape in bridge.expected_shapes(net).items():
-        leaf = key.rsplit("/", 1)[1]
+        *path, leaf = key.split("/")
         if leaf == "kernel":
-            v = rng.normal(0, np.sqrt(1.0 / np.prod(shape[:-1])), shape)
+            qkv = path[-1] in ("query", "key", "value")
+            fan_in = shape[0] if qkv else np.prod(shape[:-1])
+            v = rng.normal(0, np.sqrt(1.0 / fan_in), shape)
         elif leaf in ("bias", "mean"):
             v = rng.normal(0, 0.01, shape)
+        elif leaf in ("cls", "pos"):
+            v = rng.normal(0, 0.02, shape)
         else:
             v = rng.uniform(0.5, 1.5, shape)
         flat[key] = v.astype(np.float32)
-    flat["params/Dense_0/kernel"][1024:] *= np.float32(1e-4)
     return bridge.unflatten(flat)
+
+
+def calibrate_batch_norm(torch, net, x) -> None:
+    """Each BatchNorm's running statistics set to those of its input in
+    one forward of ``net`` on ``x``, as a trained net's are to its data:
+    with random statistics a deep net's activations shrink block by block
+    (EfficientNet's by 1e-6 over its 16 blocks) and its heads stop
+    seeing the image.  ``net`` is left in eval mode."""
+    bns = [m for m in net.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    if bns:
+        momenta = [m.momentum for m in bns]
+        for m in bns:
+            m.momentum = 1.0
+        net.train()
+        with torch.no_grad():
+            net(x)
+        for m, mom in zip(bns, momenta):
+            m.momentum = mom
+    net.eval()
+
+
+def head_rel(a: dict, b: dict) -> float:
+    """The largest difference of two zoo parameter dicts, each head's as
+    a share of its range."""
+    from underwater_image_enhancement_tpu_torch.models.zoo import (
+        SIX_PARAM_RANGES,
+    )
+
+    return max(abs(a[k] - b[k]) / (hi - lo)
+               for k, (lo, hi) in SIX_PARAM_RANGES.items())
+
+
+def predictor_tree(bridge, vgg, seed: int = 0) -> dict:
+    """``seeded_tree`` of the full-width ImprovedVGGParameterNet (VGG16
+    to conv4_3, hidden 256), its fusion layer's rows for the 79 features
+    scaled by 1e-4, so that the heads do not saturate on features of up
+    to 2e5 and every parameter moves."""
+    tree = seeded_tree(
+        bridge, vgg.ImprovedVGGParameterNet(hidden_dim=PREDICTOR_HIDDEN),
+        seed)
+    tree["params"]["Dense_0"]["kernel"][1024:] *= np.float32(1e-4)
+    return tree
 
 
 @contextlib.contextmanager
@@ -562,9 +643,12 @@ def main() -> int:
         strategy_planes,
     )
     from underwater_image_enhancement_tpu_torch.models import bridge
+    from underwater_image_enhancement_tpu_torch.models import layers as tlayers
     from underwater_image_enhancement_tpu_torch.models import vgg as tvgg
+    from underwater_image_enhancement_tpu_torch.models import waternet as twn
     from underwater_image_enhancement_tpu_torch.models.predictor import (
         EnhancementPredictor,
+        ZooPredictor,
     )
     from underwater_image_enhancement_tpu_torch.select.mlp_classifier import (
         FlaxMLPClassifier,
@@ -1231,14 +1315,14 @@ def main() -> int:
               "predictor: cuDNN's TF32 setting was not restored")
         # the control: the predictor's guard taken away, so its convs run in
         # TF32; the parameter gate must fail it
-        guard = tvgg._no_tf32
-        tvgg._no_tf32 = contextlib.nullcontext
+        guard = tlayers.no_tf32
+        tlayers.no_tf32 = contextlib.nullcontext
         try:
             d_tf32 = [max(abs(p_t[k] - p_g[k]) for k in p_g)
                       for p_t, p_g in zip(map(pred_gpu.predict_parameters,
                                               frames), pred_params)]
         finally:
-            tvgg._no_tf32 = guard
+            tlayers.no_tf32 = guard
     check(max(d_tf32) > PREDICTOR_PARAM_MAX_ABS,
           f"predictor: TF32 convs moved the parameters by {d_tf32}, within "
           f"the gate {PREDICTOR_PARAM_MAX_ABS}: it cannot tell them from f32")
@@ -1289,6 +1373,164 @@ def main() -> int:
         fit_s_card=f"{fit_s['card']:.3f}", fit_s_cpu=f"{fit_s['cpu']:.3f}",
         card=repr(smi))
     del clfs
+
+    # [zoo] cli enhance --model --arch at full width (ResNet18,
+    # EfficientNet b0 and b3, ViT-B/16 at 224^2) on the three frames, from
+    # .npz files written through the bridge from seeded numpy parameters,
+    # under PyTorch's TF32 flags both on: the nets' own guard is what keeps
+    # their convs and matmuls in f32
+    zoo_preds = {}
+    with tf32(torch, cudnn=True, matmul=True):
+        for label, arch, variant in ZOO_NETS:
+            npz = WORK / f"{label}.npz"
+            zoo_cpu = ZooPredictor(model_type=arch, variant=variant,
+                                    device="cpu")
+            net = zoo_cpu.model
+            bridge.load_flax(net, seeded_tree(bridge, net))
+            calibrate_batch_norm(torch, net, torch.stack(
+                [zoo_cpu._preprocess(torch.from_numpy(f.copy()))
+                 for f in frames + [f[::-1] for f in frames]]))
+            bridge.save_npz(str(npz), bridge.to_flax(net))
+            out = WORK / f"zoo_{label}"
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                calls, launches, secs = run_cli(
+                    ["enhance", "--input", str(src), "--output", str(out),
+                     "--model", str(npz), "--arch", arch, "--variant",
+                     variant], True)
+            text = printed.getvalue()
+            pngs = sorted(p.name for p in out.glob("*.png"))
+            check(pngs == [f"frame{i}_enhanced.png" for i in range(3)]
+                  and f"enhanced 3 images -> {out}" in text,
+                  f"enhance --arch {label}: outputs {pngs}, printed {text!r}")
+            check(launches == NONE and not any(calls.values()),
+                  f"enhance --arch {label} launched kernels: {launches}")
+            zoo_gpu = ZooPredictor(str(npz), model_type=arch,
+                                    variant=variant, device=dev)
+            found = []
+            for i, f in enumerate(frames):
+                p_g = zoo_gpu.predict_parameters(f)
+                p_c = zoo_cpu.predict_parameters(f)
+                d = head_rel(p_g, p_c)
+                check(d <= ZOO_PARAM_MAX_REL, f"{label} frame {i}: card "
+                      f"{p_g} vs CPU {p_c}, {d} of a head's range")
+                written = uio.imread_u8(str(out / f"frame{i}_enhanced.png"))
+                check(np.array_equal(written, (zoo_gpu.enhance_image(f)
+                                               * 255).astype(np.uint8)),
+                      f"{label} frame {i}: the PNG differs from enhance_image")
+                found.append((p_g, d))
+            d_frame = float(np.abs(
+                zoo_gpu.enhance_image(frames[0], found[0][0]).astype(
+                    np.float64)
+                - zoo_cpu.enhance_image(frames[0], found[0][0])).max())
+            check(d_frame <= PREDICTOR_FRAME_MAX_ABS,
+                  f"{label}: enhance_zoo card vs CPU max |d| {d_frame}")
+            # the control: the nets' guard taken away, TF32 convs and
+            # matmuls; the gate must fail it
+            guard = tlayers.no_tf32
+            tlayers.no_tf32 = contextlib.nullcontext
+            try:
+                d_tf32 = [head_rel(zoo_gpu.predict_parameters(f), p_g)
+                          for f, (p_g, _) in zip(frames, found)]
+            finally:
+                tlayers.no_tf32 = guard
+            check(min(d_tf32) > ZOO_PARAM_MAX_REL,
+                  f"{label}: TF32 moved the heads by {d_tf32} of their "
+                  f"range, within the gate {ZOO_PARAM_MAX_REL}: it cannot "
+                  "tell them from f32")
+            log("zoo", command=f"enhance --arch {arch} --variant {variant}",
+                net=label, frames=3, input_size=224, seconds=f"{secs:.2f}",
+                launches=sum(launches.values()),
+                head_rel_max=",".join(f"{d:.3g}" for _, d in found),
+                gate=f"<= {ZOO_PARAM_MAX_REL} of a head's range",
+                tf32_head_rel=",".join(f"{d:.3g}" for d in d_tf32),
+                enhance_zoo_max_abs=d_frame,
+                params=json.dumps({k: round(v, 5)
+                                   for k, v in found[0][0].items()}))
+            zoo_preds[label] = zoo_gpu
+            del zoo_cpu, net
+        check(torch.backends.cudnn.allow_tf32
+              and torch.backends.cuda.matmul.allow_tf32,
+              "zoo: the TF32 settings were not restored")
+
+    # [waternet] cli waternet on the three frames as one batch, f32 and
+    # --bf16, from a seeded full-width tree (features 128, FTU 32), under
+    # PyTorch's TF32 flags both on
+    wn_npz = WORK / "waternet.npz"
+    bridge.save_npz(str(wn_npz), seeded_tree(bridge, twn.WaterNet()))
+    wn_gpu = bridge.load_flax(twn.WaterNet(), bridge.load_npz(
+        str(wn_npz))).eval().to(dev)
+    wn_bf16 = twn.WaterNet(dtype=torch.bfloat16).to(dev)
+    wn_batch = torch.from_numpy(np.stack(frames)).to(dev)
+    with tf32(torch, cudnn=True, matmul=True):
+        wn_out = {}
+        for dtype, extra in (("f32", []), ("bf16", ["--bf16"])):
+            out = WORK / f"waternet_{dtype}"
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                calls, launches, secs = run_cli(
+                    ["waternet", "--input", str(src), "--output", str(out),
+                     "--checkpoint", str(wn_npz), "--batch-size", "3"]
+                    + extra, True)
+            text = printed.getvalue()
+            check(f"waternet-enhanced 3 images -> {out}" in text
+                  and launches == NONE and not any(calls.values()),
+                  f"waternet {dtype}: printed {text!r}, launches {launches}")
+            wn_out[dtype] = twn.waternet_enhance(
+                wn_gpu, wn_batch, wn_bf16 if dtype == "bf16" else None)
+            for i in range(3):
+                written = uio.imread_u8(str(out / f"frame{i}_waternet.png"))
+                check(np.array_equal(written, (wn_out[dtype][i].cpu().numpy()
+                                               * 255).astype(np.uint8)),
+                      f"waternet {dtype} frame {i}: the PNG differs from "
+                      "waternet_enhance")
+            log("waternet", command=" ".join(["waternet"] + extra), frames=3,
+                batch=3, seconds=f"{secs:.2f}",
+                launches=sum(launches.values()))
+        singles = [twn.waternet_enhance(wn_gpu, wn_batch[i]) for i in range(3)]
+        d_batch = max(float((wn_out["f32"][i] - singles[i]).abs().max())
+                      for i in range(3))
+        check(d_batch <= WATERNET_BATCH_MAX_ABS,
+              f"waternet: the batch against single frames {d_batch}")
+        d_bf16 = float((wn_out["bf16"] - wn_out["f32"]).abs().max())
+        check(0 < d_bf16 <= WATERNET_BF16_MAX_ABS,
+              f"waternet: bf16 against f32 {d_bf16}")
+        wn_cpu = bridge.load_flax(twn.WaterNet(), bridge.load_npz(
+            str(wn_npz))).eval()
+        t0 = time.perf_counter()
+        cpu0 = twn.waternet_enhance(wn_cpu, frames[0])
+        cpu_s = time.perf_counter() - t0
+        d_cpu = float((singles[0].cpu() - cpu0).abs().max())
+        un_tree = seeded_tree(bridge, twn.UNetEnhancer())
+        un_gpu = bridge.load_flax(twn.UNetEnhancer(), un_tree).eval().to(dev)
+        un_cpu = bridge.load_flax(twn.UNetEnhancer(), un_tree).eval()
+        # 1078x1918: unet_enhance edge-pads 2 rows and 2 columns
+        crop = frames[0][:H - 2, :W - 2]
+        un0 = twn.unet_enhance(un_cpu, crop)
+        d_unet = float((twn.unet_enhance(un_gpu, crop).cpu() - un0)
+                       .abs().max())
+        check(d_cpu <= WATERNET_MAX_ABS and d_unet <= WATERNET_MAX_ABS,
+              f"waternet card vs CPU {d_cpu}, unet {d_unet}")
+        # the control: the guard taken away, TF32 convs; the gate must
+        # fail it
+        guard = tlayers.no_tf32
+        tlayers.no_tf32 = contextlib.nullcontext
+        try:
+            t_wn = float((twn.waternet_enhance(wn_gpu, wn_batch[0]).cpu()
+                          - cpu0).abs().max())
+            t_un = float((twn.unet_enhance(un_gpu, crop).cpu() - un0)
+                         .abs().max())
+        finally:
+            tlayers.no_tf32 = guard
+        check(min(t_wn, t_un) > WATERNET_MAX_ABS,
+              f"waternet: TF32 moved the frame by {t_wn}, the unet by "
+              f"{t_un}, within the gate {WATERNET_MAX_ABS}")
+    log("waternet", frame=0, card_vs_cpu_max_abs=d_cpu,
+        unet_1078x1918_max_abs=d_unet, gate=f"<= {WATERNET_MAX_ABS}",
+        tf32_max_abs=t_wn, unet_tf32_max_abs=t_un, bf16_vs_f32=d_bf16,
+        bf16_gate=f"<= {WATERNET_BF16_MAX_ABS}", batch_vs_single=d_batch,
+        cpu_s=f"{cpu_s:.2f}", card=repr(smi))
+    del wn_out, singles, wn_cpu, cpu0, un_cpu, un_gpu, un0
 
     unused = [k for k in KERNELS if not any(r[1][k] for r in runs.values())]
     check(not unused, f"kernels the main path never launched: {unused}")
@@ -1546,6 +1788,57 @@ def main() -> int:
         package_kernels=json.dumps(ours, separators=(",", ":")),
         card=repr(smi))
     del pred_gpu, vin, feats0
+
+    # the zoo predictors a frame: predict_parameters alone, the whole
+    # enhance_image, one profiled frame
+    for label, pred in zoo_preds.items():
+        it = iter(range(10 ** 6))
+        ms_pred = event_ms(torch, lambda: pred.predict_parameters(
+            imgs[next(it) % 3]), 6, warmup=2)
+        ms = event_ms(torch, lambda: pred.enhance_image(imgs[next(it) % 3]),
+                      6, warmup=2)
+        wall, busy, ev, ours = profile_frame(
+            lambda: pred.enhance_image(imgs[0]))
+        log("frame", path=f"enhance --arch {label}",
+            **{f"ms_{k}": v for k, v in spread(ms).items()},
+            runs=",".join(f"{t:.3f}" for t in ms),
+            predict_ms=f"{statistics.median(ms_pred):.3f}",
+            profiled_wall_ms=f"{wall:.3f}",
+            device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+            device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                               else "not measured"),
+            device_launches=len(ev),
+            package_kernels=json.dumps(ours, separators=(",", ":")),
+            card=repr(smi))
+    del zoo_preds
+
+    # WaterNet a frame in each dtype: the batch of three a call, one frame
+    # a call, one profiled batch, the batch's peak device memory above
+    # what was live before it (the earlier phases' captured calls among it)
+    for dtype, model in (("f32", None), ("bf16", wn_bf16)):
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms3 = event_ms(torch, lambda: twn.waternet_enhance(
+            wn_gpu, wn_batch, model), 3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() - live
+        ms1 = event_ms(torch, lambda: twn.waternet_enhance(
+            wn_gpu, wn_batch[0], model), 3, warmup=1)
+        wall, busy, ev, ours = profile_frame(
+            lambda: twn.waternet_enhance(wn_gpu, wn_batch, model))
+        log("frame", path=f"waternet {dtype}",
+            batch3_ms_per_frame=f"{statistics.median(ms3) / 3:.3f}",
+            batch3_runs=",".join(f"{t:.3f}" for t in ms3),
+            one_frame_ms=f"{statistics.median(ms1):.3f}",
+            peak_gb_batch3=f"{peak / 1e9:.3f}", live_gb=f"{live / 1e9:.3f}",
+            profiled_wall_ms_batch3=f"{wall:.3f}",
+            device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+            device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                               else "not measured"),
+            device_launches=len(ev),
+            package_kernels=json.dumps(ours, separators=(",", ":")),
+            card=repr(smi))
+    del wn_gpu, wn_bf16, wn_batch
 
     img = imgs[0]
     corrected, _ = cast_mod.detect_and_correct(img)

@@ -26,18 +26,8 @@ from underwater_image_enhancement_tpu_torch import cli as tcli
 LEFT_OUT = {
     ("models.diff_enhance", "enhance_mlp"):
         "Queue 1 item 6: read only by the MLP trainer (models/mlp)",
-    ("models.predictor", "ZooPredictor"):
-        "Queue 1 item 5: the zoo predictors (models/zoo)",
-    ("models.vgg", "VGGFeatures.parent"):
-        "Flax's module-tree field; a torch nn.Module has none",
-    ("models.vgg", "VGGFeatures.name"):
-        "Flax's module-tree field; a torch nn.Module has none",
-    ("models.vgg", "ImprovedVGGParameterNet.parent"):
-        "Flax's module-tree field; a torch nn.Module has none",
-    ("models.vgg", "ImprovedVGGParameterNet.name"):
-        "Flax's module-tree field; a torch nn.Module has none",
-    ("models.diff_enhance", "enhance_zoo"):
-        "Queue 1 item 5: the zoo predictors (models/zoo)",
+    ("models.waternet", "enhance_sharded"):
+        "Queue 1 item 9: WaterNet's sharded inference (parallel/)",
     ("pipeline.enhance", "enhance_batch_dp"):
         "Queue 1 item 9: data parallelism (--devices)",
     ("select.system", "label_batch_dp"):
@@ -63,12 +53,26 @@ LEFT_OUT = {
         "the TPU MXU's matmul precision; the port's f32 products run in "
         "full f32 (no TF32)",
 }
+# the Flax modules the port has as torch modules: their dataclass fields
+# ``parent`` and ``name`` place a Flax module in its tree, which a torch
+# nn.Module does not have
+FLAX_MODULES = {
+    "models.vgg": ("VGGFeatures", "ImprovedVGGParameterNet"),
+    "models.zoo": ("ResNetBlock", "CNNParameterPredictor", "MBConv",
+                   "EfficientNetParameterPredictor", "ViTParameterPredictor"),
+    "models.mlp": ("ResidualBlock", "ParameterPredictor"),
+    "models.waternet": ("FTU", "WaterNet", "UNetEnhancer"),
+}
+for _module, _classes in FLAX_MODULES.items():
+    for _cls in _classes:
+        for _field in ("parent", "name"):
+            LEFT_OUT[(_module, f"{_cls}.{_field}")] = (
+                "Flax's module-tree field; a torch nn.Module has none")
 
 # JAX modules the port does not have yet -> the Queue 1 item that brings it
 MODULES_TO_PORT = {
-    "models.zoo": 5, "models.mlp": 6, "models.losses": 6, "train": 6,
-    "train.data": 6, "train.trainer": 6,
-    "models.waternet": 7, "validate": 8, "parallel": 9, "parallel.mesh": 9,
+    "models.losses": 6, "train": 6, "train.data": 6, "train.trainer": 6,
+    "validate": 8, "parallel": 9, "parallel.mesh": 9,
     "parallel.spatial": 9, "parallel.six_spatial": 9,
     "parallel.fusion_spatial": 9, "examples": 10, "utils.profiling": 10,
     # never: the Pallas kernels have CUDA counterparts (ops/kernels.py and
@@ -82,7 +86,7 @@ MODULES_TO_PORT = {
 
 # JAX CLI subcommands the port does not have yet -> Queue 1 item
 SUBCOMMANDS_TO_PORT = {"train-mlp": 6, "train-vgg": 6, "train-zoo": 6,
-                       "waternet": 7, "validate": 8}
+                       "validate": 8}
 
 
 def _modules(pkg):
@@ -161,9 +165,9 @@ def _subcommands(cli):
 
 def test_cli_subcommands():
     """The port's CLI has every JAX subcommand but those still to port
-    (``fusion`` and Phase 2's among those it has)."""
+    (``fusion``, Phase 2's and ``waternet`` among those it has)."""
     jax_cmds, port_cmds = _subcommands(jcli), _subcommands(tcli)
     assert {"fusion", "train-selector", "run", "predict",
-            "convert-vgg"} <= port_cmds
+            "convert-vgg", "waternet"} <= port_cmds
     assert jax_cmds - port_cmds == set(SUBCOMMANDS_TO_PORT)
     assert port_cmds <= jax_cmds

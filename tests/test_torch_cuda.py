@@ -1,8 +1,9 @@
 """Kernel tests that need an NVIDIA GPU (marker ``gpu``): each CUDA
 kernel against its plain PyTorch version on the card (and the fused
 kernels against the kernels they fuse), and the six exact and fast tiers,
-the Phase-1 label program, UIQM/UCIQE, the VGG predictor and the
-selector's MLP classifier on the card against the CPU path.  They skip where
+the Phase-1 label program, UIQM/UCIQE, the VGG and zoo predictors,
+WaterNet and the UNet, and the selector's MLP classifier on the card
+against the CPU path.  They skip where
 ``torch.cuda.is_available()`` is False.  On a GPU machine without JAX:
 
     python -m pytest -o addopts="" --noconftest -m gpu tests/test_torch_cuda.py
@@ -15,6 +16,14 @@ import torch
 from chip_smoke import (
     CLAHE_SHAPES,
     MLP_PROBA_MAX_ABS,
+    WATERNET_BATCH_MAX_ABS,
+    WATERNET_BF16_MAX_ABS,
+    WATERNET_MAX_ABS,
+    ZOO_NETS,
+    ZOO_PARAM_MAX_REL,
+    calibrate_batch_norm,
+    head_rel,
+    seeded_tree,
     PREDICTOR_FRAME_MAX_ABS,
     PREDICTOR_PARAM_MAX_ABS,
     INV_WRAPPERS,
@@ -599,8 +608,11 @@ def test_predictor_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     past the gate."""
     import contextlib
 
-    from underwater_image_enhancement_tpu_torch.models import bridge
-    from underwater_image_enhancement_tpu_torch.models import vgg
+    from underwater_image_enhancement_tpu_torch.models import (
+        bridge,
+        layers,
+        vgg,
+    )
     from underwater_image_enhancement_tpu_torch.models.predictor import (
         EnhancementPredictor,
     )
@@ -622,7 +634,7 @@ def test_predictor_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     d = np.abs(gpu.enhance_image(img, p_c).astype(np.float64)
                - cpu.enhance_image(img, p_c))
     assert float(d.max()) <= PREDICTOR_FRAME_MAX_ABS
-    monkeypatch.setattr(vgg, "_no_tf32", contextlib.nullcontext)
+    monkeypatch.setattr(layers, "no_tf32", contextlib.nullcontext)
     p_t = gpu.predict_parameters(img)
     assert max(abs(p_t[k] - p_c[k]) for k in p_c) > PREDICTOR_PARAM_MAX_ABS
 
@@ -648,3 +660,79 @@ def test_mlp_classifier_on_card_matches_cpu(cuda):
         a = FlaxMLPClassifier(device=cuda).fit(X, y)
     d = np.abs(a.predict_proba(X) - b.predict_proba(X)).max()
     assert d > MLP_PROBA_MAX_ABS
+
+
+@pytest.mark.parametrize("label,arch,variant", ZOO_NETS)
+def test_zoo_predictor_on_card_matches_cpu(cuda, tmp_path, monkeypatch,
+                                           label, arch, variant):
+    """Each zoo net at full width (224^2) on a 1080p frame under both of
+    PyTorch's TF32 flags: the heads within ZOO_PARAM_MAX_REL of their
+    range of the CPU path's (the nets' guard keeps them in full f32 and
+    leaves the flags as it found them); the control, the guard taken away,
+    lands past the gate."""
+    import contextlib
+
+    from underwater_image_enhancement_tpu_torch.models import bridge, layers
+    from underwater_image_enhancement_tpu_torch.models.predictor import (
+        ZooPredictor,
+    )
+
+    img = synthetic_frame(5)
+    cpu = ZooPredictor(model_type=arch, variant=variant, device="cpu")
+    bridge.load_flax(cpu.model, seeded_tree(bridge, cpu.model, seed=2))
+    calibrate_batch_norm(torch, cpu.model, torch.stack(
+        [cpu._preprocess(torch.from_numpy(f.copy()))
+         for f in (img, img[::-1], img[:, ::-1], synthetic_frame(6))]))
+    npz = str(tmp_path / f"{label}.npz")
+    bridge.save_npz(npz, bridge.to_flax(cpu.model))
+    gpu = ZooPredictor(npz, model_type=arch, variant=variant, device=cuda)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    kernels.reset_launches()
+    p_g = gpu.predict_parameters(img)
+    assert sum(kernels.launches.values()) == 0
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+    p_c = cpu.predict_parameters(img)
+    assert head_rel(p_g, p_c) <= ZOO_PARAM_MAX_REL
+    monkeypatch.setattr(layers, "no_tf32", contextlib.nullcontext)
+    assert head_rel(gpu.predict_parameters(img), p_c) > ZOO_PARAM_MAX_REL
+
+
+def test_waternet_on_card_matches_cpu(cuda, monkeypatch):
+    """The full-width WaterNet (128, 32) on two 270x480 crops under
+    PyTorch's TF32 flags: the batch within WATERNET_BATCH_MAX_ABS of its
+    frames, frame 0 and the UNet (on 266x478, padded) within
+    WATERNET_MAX_ABS of the CPU path, bf16 within WATERNET_BF16_MAX_ABS
+    of f32; the control, the guard taken away, lands past the gate."""
+    import contextlib
+
+    from underwater_image_enhancement_tpu_torch.models import bridge, layers
+    from underwater_image_enhancement_tpu_torch.models import waternet as wn
+
+    frames = np.stack([synthetic_frame(s)[:270, :480] for s in (7, 8)])
+    tree = seeded_tree(bridge, wn.WaterNet(), seed=3)
+    cpu = bridge.load_flax(wn.WaterNet(), tree).eval()
+    gpu = bridge.load_flax(wn.WaterNet(), tree).eval().to(cuda)
+    un_tree = seeded_tree(bridge, wn.UNetEnhancer(), seed=4)
+    un_cpu = bridge.load_flax(wn.UNetEnhancer(), un_tree).eval()
+    un_gpu = bridge.load_flax(wn.UNetEnhancer(), un_tree).eval().to(cuda)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x = torch.from_numpy(frames).to(cuda)
+    kernels.reset_launches()
+    out = wn.waternet_enhance(gpu, x)
+    assert sum(kernels.launches.values()) == 0
+    assert float((out[1] - wn.waternet_enhance(gpu, x[1])).abs().max()) \
+        <= WATERNET_BATCH_MAX_ABS
+    want = wn.waternet_enhance(cpu, frames[0])
+    assert float((out[0].cpu() - want).abs().max()) <= WATERNET_MAX_ABS
+    bf16 = wn.WaterNet(dtype=torch.bfloat16).to(cuda)
+    d = float((wn.waternet_enhance(gpu, x, bf16) - out).abs().max())
+    assert 0 < d <= WATERNET_BF16_MAX_ABS
+    crop = frames[0][:266, :478]
+    un_want = wn.unet_enhance(un_cpu, crop)
+    assert float((wn.unet_enhance(un_gpu, crop).cpu() - un_want).abs().max()) \
+        <= WATERNET_MAX_ABS
+    monkeypatch.setattr(layers, "no_tf32", contextlib.nullcontext)
+    assert float((wn.waternet_enhance(gpu, x[0]).cpu() - want).abs().max()) \
+        > WATERNET_MAX_ABS

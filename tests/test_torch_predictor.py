@@ -458,9 +458,12 @@ def test_cli_enhance_model_matches_jax_cli(tmp_path, underwater_img,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "resnet"], "item 5"), (["--arch", "vit"], "item 5"),
+    (["--arch", "resnet", "--devices", "2"], "item 9"),
+    (["--arch", "vit", "--devices", "2"], "item 9"),
     (["--devices", "2"], "item 9")])
 def test_cli_enhance_rejects_zoo_and_devices(tmp_path, argv, item):
+    """--devices (data parallelism) is rejected for every arch, the zoo's
+    (which run now) too."""
     with pytest.raises(SystemExit, match=item):
         tcli.main(["enhance", "--input", str(tmp_path), "--output",
                    str(tmp_path / "o"), "--model", "m.npz",

@@ -1,11 +1,12 @@
 """Command-line interface of the port.
 
     python -m underwater_image_enhancement_tpu_torch.cli six --input DIR --output DIR [--fast]
-    python -m underwater_image_enhancement_tpu_torch.cli enhance --input PATH --output PATH [--model NPZ]
+    python -m underwater_image_enhancement_tpu_torch.cli enhance --input PATH --output PATH [--model NPZ [--arch A]]
     python -m underwater_image_enhancement_tpu_torch.cli auto --input DIR --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli build-dataset --input DIR --output DIR [--fast]
     python -m underwater_image_enhancement_tpu_torch.cli assess --input PATH
     python -m underwater_image_enhancement_tpu_torch.cli fusion --input PATH --output DIR
+    python -m underwater_image_enhancement_tpu_torch.cli waternet --input PATH --output DIR [--checkpoint NPZ] [--bf16]
     python -m underwater_image_enhancement_tpu_torch.cli train-selector --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli run --input DIR --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli predict --input FILE --model PKL
@@ -15,10 +16,12 @@ Commands (reference counterparts):
   six            six_stadigy.py __main__: all six strategies per image +
                  CSV log (``--fast``: the histogram-percentile tier)
   enhance        use_trained_model.py __main__: with ``--model`` (a
-                 predictor checkpoint in the port's ``.npz``) the VGG
-                 parameter predictor per image; without, the
-                 fixed-parameter enhance of one file, or of a folder in
-                 same-shape batches (``*_enhanced.png``)
+                 predictor checkpoint in the port's ``.npz``) the
+                 parameter predictor of ``--arch`` per image (vgg, or the
+                 zoo's resnet, efficientnet ``--variant b0|b3`` and vit
+                 at ``--input-size``); without, the fixed-parameter
+                 enhance of one file, or of a folder in same-shape
+                 batches (``*_enhanced.png``)
   auto           main.py's Phase-1 choice per image: the best of the five
                  config-flavour strategies by the weighted quality score
                  (``{stem}_{strategy}.png``, ``name: strategy (score)``)
@@ -29,6 +32,11 @@ Commands (reference counterparts):
                  total, UIQM, UCIQE and the eight metrics, one row a file
   fusion         Ancuti multi-scale fusion of an image or a folder, in
                  same-shape batches (``<stem>_fusion.png``)
+  waternet       the Water-Net CNN (the WB/HE/gamma views and the gated
+                 fusion net) on an image or a folder, in same-shape
+                 batches (``<stem>_waternet.png``; ``--bf16``: the
+                 deployment dtype; without ``--checkpoint``, random
+                 weights from seed 0)
   train-selector main.py Phase 2: the classifiers on ``dataset.pkl``
                  (sklearn, which the port imports only here)
   run            Phase 1 + Phase 2 in one command
@@ -41,10 +49,9 @@ runs the plain PyTorch path.  On CUDA the kernels are built before the
 frame loop, and a ``RuntimeError`` from the build or from a kernel launch
 ends the run with a non-zero exit; other per-image errors of ``six``
 become "failed" rows of ``processing_log.csv``, as in the JAX CLI.
-``--devices`` (data parallelism) and ``enhance --arch`` other than
-``vgg`` (the zoo predictors) are not ported yet and are rejected, as are
-the JAX CLI's other subcommands (the trainers, ``waternet`` and
-``validate``).
+``--devices`` (data parallelism) is not ported yet and is rejected; the
+JAX CLI's other subcommands (the trainers and ``validate``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -109,18 +116,21 @@ def _cmd_enhance(args) -> None:
     from underwater_image_enhancement_tpu_torch.utils import io as uio
 
     _reject_devices(args)
-    if args.model and args.arch != "vgg":
-        raise SystemExit(f"enhance --arch {args.arch}: the zoo predictors "
-                         "are not yet ported (ROADMAP Queue 1 item 5); "
-                         "--arch vgg runs the VGG predictor")
     device = _start(args.device)
     inp = Path(args.input)
     if args.model:
         from underwater_image_enhancement_tpu_torch.models.predictor import (
             EnhancementPredictor,
+            ZooPredictor,
         )
 
-        pred = EnhancementPredictor(checkpoint_path=args.model, device=device)
+        if args.arch == "vgg":
+            pred = EnhancementPredictor(checkpoint_path=args.model,
+                                        device=device)
+        else:  # a zoo checkpoint (train-zoo's, converted)
+            pred = ZooPredictor(checkpoint_path=args.model,
+                                model_type=args.arch, variant=args.variant,
+                                input_size=args.input_size, device=device)
         if inp.is_dir():
             n = pred.process_folder(args.input, args.output)
             print(f"enhanced {n} images -> {args.output}")
@@ -344,6 +354,46 @@ def _cmd_fusion(args) -> None:
     print(f"fused {done} images -> {args.output}")
 
 
+def _cmd_waternet(args) -> None:
+    """Water-Net inference (the JAX CLI's ``waternet``): the WB/HE/gamma
+    views and the CNN a batch, same-shape batches decoded ahead, written
+    behind."""
+    from underwater_image_enhancement_tpu_torch.models import bridge
+    from underwater_image_enhancement_tpu_torch.models import waternet as wn
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    device = _start(args.device)
+    model = wn.WaterNet(dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    if args.checkpoint:
+        # a tree that does not fit the WaterNet raises here, before any
+        # frame
+        bridge.load_flax(model, bridge.load_checkpoint(
+            args.checkpoint, "waternet")).eval()
+    else:
+        print("no --checkpoint: using random-init weights (smoke/demo mode)")
+        wn.init_waternet(torch.Generator().manual_seed(0), 64, model)
+    model.to(device)
+
+    inp = Path(args.input)
+    files = uio.collect_images(args.input) if inp.is_dir() else [inp]
+    outdir = Path(args.output)
+    outdir.mkdir(parents=True, exist_ok=True)
+    done = 0
+    with uio.AsyncWriter() as writer:
+        for chunk in _stream_shape_batches(
+                files, args.batch_size,
+                log=lambda m: print(f"  {m.replace('warning: ', '')}")):
+            batch = torch.from_numpy(np.stack([im for _, im in chunk]))
+            outs = _to_host(wn.waternet_enhance(model, batch.to(device)))
+            for j, (p, _) in enumerate(chunk):
+                writer.write(str(outdir / f"{p.stem}_waternet.png"), outs[j])
+                done += 1
+    for path, err in writer.close():
+        done -= 1
+        print(f"  write failed: {Path(path).name} - {err[:50]}")
+    print(f"waternet-enhanced {done} images -> {args.output}")
+
+
 def _cmd_six(args) -> None:
     from underwater_image_enhancement_tpu_torch.pipeline import cast as cast_mod
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
@@ -473,17 +523,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(tools/jax_ckpt_to_npz.py converts a JAX one)")
     p.add_argument("--arch", default="vgg",
                    choices=("vgg", "resnet", "efficientnet", "vit"),
-                   help="the predictor the checkpoint belongs to (only vgg "
-                        "is ported; the zoo archs are rejected)")
+                   help="the predictor the checkpoint belongs to")
     p.add_argument("--variant", default="b0", choices=("b0", "b3"),
-                   help="efficientnet scale (with --arch efficientnet); "
-                        "read by the zoo predictors, so ignored until they "
-                        "are ported (ROADMAP Queue 1 item 5)")
+                   help="efficientnet width/depth scale (with --arch "
+                        "efficientnet)")
     p.add_argument("--input-size", type=int, default=224,
-                   help="parameter-prediction resolution of the zoo "
-                        "predictors, so ignored until they are ported "
-                        "(ROADMAP Queue 1 item 5); the VGG predictor "
-                        "works at 224")
+                   help="parameter-prediction resolution (zoo archs; the "
+                        "VGG predictor works at 224)")
     p.add_argument("--omega", type=float, default=0.6)
     p.add_argument("--gamma", type=float, default=1.2)
     p.add_argument("--l-low", type=float, default=10.0)
@@ -548,6 +594,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=_cmd_fusion)
+
+    p = sub.add_parser("waternet", help="Water-Net CNN enhancer (the "
+                       "WB/HE/gamma views and the CNN a batch)")
+    p.add_argument("--input", required=True, help="an image or a folder")
+    p.add_argument("--output", default="waternet_results")
+    p.add_argument("--checkpoint", default=None,
+                   help="WaterNet parameters: the port's .npz "
+                        "(tools/jax_ckpt_to_npz.py --arch waternet converts "
+                        "a JAX one)")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 activations (deployment dtype)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_waternet)
 
     p = sub.add_parser("train-selector", help="Phase 2 classifier training")
     p.add_argument("--input", default=None)

@@ -6,8 +6,9 @@ percentiles) -> dark-channel dehaze with a constant A = 0.6 -> ``img**gamma``
 Counterpart of the JAX package's ``models/diff_enhance.py`` (``enhance_vgg``
 and its helpers).  Percentile indices are host f32 arithmetic
 (``stretch.order_index``), so per-image parameters come in as numbers or
-host arrays.  The ``quantile`` mode and the training operators
-(``enhance_zoo``, ``enhance_mlp``) come with the models.
+host arrays.  ``enhance_zoo`` is the six-parameter composite of the zoo
+predictors.  The ``quantile`` mode and ``enhance_mlp`` come with the
+trainers.
 """
 
 from __future__ import annotations
@@ -85,4 +86,26 @@ def enhance_vgg(img: torch.Tensor, params: Dict[str, object],
         g = torch.as_tensor(per_image(params["gamma"], img.shape[0]),
                             device=img.device).reshape(-1, 1, 1, 1)
         out = torch.pow(out + 1e-8, g)
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def enhance_zoo(img: torch.Tensor, params: Dict[str, object],
+                stretch_mode: str = "index") -> torch.Tensor:
+    """The six-parameter composite of the model_architectures.py
+    backbones: percentile stretch -> omega dehaze (vgg_16_UIE.py:32-55's
+    order) -> the use_gamma-gated ``img**gamma`` (the soft gate of
+    deep_learning_parameters.py:43-56) -> clamp.  img: (B, H, W, C) f32
+    in [0, 1]; params: 'omega', 'gamma', 'L_low', 'L_high', 'use_gamma',
+    each a number or (B,); other keys (guided_radius) are ignored."""
+    B = img.shape[0]
+    out = color_stretch_batch(img, params["L_low"], params["L_high"],
+                              stretch_mode)
+    out = dehaze_batch(out, params["omega"])
+
+    def col(k):
+        return torch.as_tensor(per_image(params[k], B),
+                               device=img.device).reshape(-1, 1, 1, 1)
+
+    g, use_g = col("gamma"), col("use_gamma")
+    out = use_g * torch.pow(out + 1e-8, g) + (1.0 - use_g) * out
     return torch.clamp(out, 0.0, 1.0)

@@ -14,14 +14,13 @@ Reproduces ImprovedVGGParameterNet (vgg_16_UIE.py:135-250):
 Images are NHWC at the public boundary, as in JAX; the convs run NCHW
 inside.  Submodules carry the Flax modules' names (``vgg.conv0``,
 ``Dense_0``, ``BatchNorm_0``, ``head_omega_0``), so ``models/bridge`` maps
-a JAX variable tree onto them.  In eval mode BatchNorm computes as Flax's
-does, ``(x - mean) * (scale * rsqrt(var + eps)) + bias``.
+a JAX variable tree onto them.  BatchNorm is Flax's (``layers.BatchNorm``).
 
 The convs are ``torch.nn.functional.conv2d`` (cuDNN on the card; JAX
 leaves them to ``lax.conv``, outside any Pallas kernel).  cuDNN computes
 f32 convs in TF32 by default, three decimal digits; JAX's predictor
-computes in f32.  So ``VGGFeatures`` turns cuDNN's TF32 off around its
-forward and restores the caller's setting after it.
+computes in f32.  So ``VGGFeatures`` runs its forward under
+``layers.no_tf32`` (the caller's settings are restored after it).
 
 The ``.npz`` of ``convert_torch_vgg_to_npz`` holds torchvision's OIHW
 conv weights, which are the port's layout: the loaders copy them as they
@@ -30,13 +29,14 @@ are into a module (where JAX transposes them to HWIO into a Flax tree).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from underwater_image_enhancement_tpu_torch.models import layers
 
 # torchvision vgg16.features[:23] conv channel plan; 'M' = 2x2 maxpool
 VGG_PLAN = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512)
@@ -55,18 +55,6 @@ PARAM_RANGES = {
 
 # torchvision vgg16 ``features`` module indices of the conv layers
 TORCH_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21)
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """cuDNN's f32 convs in full f32 for the block; the caller's setting
-    is restored after it."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 class VGGFeatures(nn.Module):
@@ -92,7 +80,7 @@ class VGGFeatures(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         i = 0
-        with _no_tf32():
+        with layers.no_tf32():
             for item in VGG_PLAN:
                 if i >= self.depth:
                     break
@@ -104,21 +92,6 @@ class VGGFeatures(nn.Module):
                                     conv.bias.to(self.dtype), padding=1))
                 i += 1
         return x.permute(0, 2, 3, 1)
-
-
-class _BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over features with Flax's defaults (epsilon 1e-5,
-    momentum 0.99 of the running statistics); in eval mode Flax's
-    arithmetic order."""
-
-    def __init__(self, n: int):
-        super().__init__(n, eps=1e-5, momentum=0.01)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return super().forward(x)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
 
 
 class ImprovedVGGParameterNet(nn.Module):
@@ -136,9 +109,9 @@ class ImprovedVGGParameterNet(nn.Module):
         self.vgg = VGGFeatures(depth=10, dtype=dtype)
         n_in = 2 * 512 + (79 if use_features else 0)  # the 79 features
         self.Dense_0 = nn.Linear(n_in, h2)
-        self.BatchNorm_0 = _BatchNorm(h2)
+        self.BatchNorm_0 = layers.BatchNorm(h2)
         self.Dense_1 = nn.Linear(h2, h)
-        self.BatchNorm_1 = _BatchNorm(h)
+        self.BatchNorm_1 = layers.BatchNorm(h)
         self.Dense_2 = nn.Linear(h, h // 4)
         self.Dense_3 = nn.Linear(h // 4, h)
         for name in PARAM_RANGES:
