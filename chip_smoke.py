@@ -10,7 +10,8 @@ u8 LAB round trip, the probe-corrected forward LAB), the Ancuti ``fusion``,
 the batch forms of CLAHE, the VGG parameter predictor (``enhance
 --model``), the selector's MLP classifier, the zoo predictors (``enhance
 --model --arch resnet|efficientnet|vit``) and Water-Net (``waternet``,
-f32 and ``--bf16``) at 1920x1080.  Phases
+f32 and ``--bf16``) at 1920x1080, and the three trainers (``train-mlp``,
+``train-vgg``, ``train-zoo``) at full width on 640x480 pairs.  Phases
 (each prints one line or more; a failed check raises and the script exits
 non-zero):
 
@@ -89,7 +90,23 @@ non-zero):
    ``WATERNET_BATCH_MAX_ABS`` of single frames, bf16 within
    ``WATERNET_BF16_MAX_ABS`` of f32, frame 0 and the UNet on a 1078x1918
    crop within ``WATERNET_MAX_ABS`` of the CPU path (its seconds printed;
-   a TF32 control must land past the gate); their
+   a TF32 control must land past the gate), and ``[train]``
+   (``train_slice``): ``cli train-mlp`` (79 -> 256, 3 blocks, 256^2),
+   ``train-vgg`` in bf16 and ``--fp32`` (VGG16 to conv4_3, hidden 256,
+   224^2, the seeded perceptual trunk) and ``train-zoo`` (ResNet18 for
+   ``TRAIN_EPOCHS`` epochs, EfficientNet b0 and b3 and ViT-B/16 for one,
+   224^2) on ``TRAIN_PAIRS`` seeded 640x480 pairs, batch 4, each writing
+   ``best_model.npz``, ``final_model.npz`` and ``training_history.json``
+   with finite losses; train-mlp's feature cache launches K1b and K7 once
+   an image (replayed below), no other run launches a kernel; the cached
+   features card against CPU within 1e-4 relative (plus 1e-5); each
+   ``final_model.npz`` read back by ``EnhancementPredictor`` or
+   ``ZooPredictor`` on the card with the trainer's ``load`` of it: the
+   same leaves, the same heads (f32 runs: within
+   ``PREDICTOR_PARAM_MAX_ABS`` or ``ZOO_PARAM_MAX_REL`` of a head's
+   range); each f32 trainer's eval-mode loss and gradient on the card
+   against the CPU's from equal parameters and batch within its
+   ``TRAIN_GRAD_MAX_REL`` (a TF32 control must land past it); their
    outputs (18 + 18 + 3 PNGs and the CSV logs; 3 winners; the dataset
    CSV with 5 scores a row and ``dataset.pkl`` with three finite 79-value
    vectors; the assess table);
@@ -119,7 +136,10 @@ non-zero):
    (``predict_parameters`` alone and ``enhance_image``) with one profiled
    frame, WaterNet's ms per frame in f32 and bf16 (a batch of three a
    call, one frame a call), one profiled batch and its peak device
-   memory, a CLAHE
+   memory, each trainer's step (``train_timing``: ``TRAIN_STEPS`` steps
+   on one batch: ms a step, images a second, peak memory, one profiled
+   step; the batch's loss falls, the frozen convs stay, BatchNorm's
+   statistics move) and the MLP's feature cache an image, a CLAHE
    leg fused against split (in turns), ms per frame of UIQM, UCIQE and the
    assess command's work (one profiled frame), and each kernel on the main
    path's inputs beside its bound, its plain version, a PyTorch copy of
@@ -259,6 +279,47 @@ EXPECTED_SLICE = {
     # launch none of the package's kernels
     "predictor": {**NONE, "lab_forward_u8": 3, "hysteresis_propagate": 3},
 }
+# [train]: TRAIN_PAIRS seeded 640x480 pairs; cli train-mlp's feature cache
+# launches K1b and K7 once a cached image, its steps none; the VGG and zoo
+# trainers launch none of the package's kernels
+TRAIN_PAIRS = 16
+TRAIN_H, TRAIN_W = 480, 640
+TRAIN_BATCH = 4
+TRAIN_EPOCHS = 3
+TRAIN_STEPS = 10
+EXPECTED_SLICE["train_mlp"] = {**NONE, "lab_forward_u8": TRAIN_PAIRS,
+                               "hysteresis_propagate": TRAIN_PAIRS}
+# (label, cli flags, epochs) of the trainers driven through the CLI at
+# full width: the MLP (79 -> 256, 3 blocks, 256^2), the VGG predictor
+# (VGG16 to conv4_3, hidden 256, 224^2) in bf16 and f32, the zoo at 224^2
+TRAIN_RUNS = (
+    ("mlp", ["train-mlp"], TRAIN_EPOCHS),
+    ("vgg_bf16", ["train-vgg", "--pretrained-vgg", "none"], TRAIN_EPOCHS),
+    ("vgg_f32", ["train-vgg", "--pretrained-vgg", "none", "--fp32"],
+     TRAIN_EPOCHS),
+    ("resnet", ["train-zoo", "--model", "resnet", "--pretrained", "none"],
+     TRAIN_EPOCHS),
+    ("efficientnet_b0", ["train-zoo", "--model", "efficientnet",
+                         "--variant", "b0", "--pretrained", "none"], 1),
+    ("efficientnet_b3", ["train-zoo", "--model", "efficientnet",
+                         "--variant", "b3", "--pretrained", "none"], 1),
+    ("vit", ["train-zoo", "--model", "vit", "--pretrained", "none"], 1),
+)
+# the eval-mode loss's gradient on the card against the CPU's from equal
+# parameters and batch, the largest difference over the largest gradient;
+# each gate lies between the card's f32 reading and a TF32 control (the
+# trainers' guard taken away, both TF32 flags on) that must fail it.  My
+# chip call 4 of PR 13 ("NVIDIA H100 80GB HBM3, 700.00 W"), f32 / TF32:
+# MLP 4.4e-7 / 1.0, VGG 6.0e-5 / 0.30, ResNet18 1.4e-3 / 6.3e-2,
+# EfficientNet b0 9.2e-6 / 3.1e-2, b3 7.6e-6 / 2.5e-2, ViT 7.9e-7 /
+# 1.3e-2
+TRAIN_GRAD_MAX_REL = {"mlp": 1e-5, "vgg_f32": 1e-3, "resnet": 1e-2,
+                      "efficientnet_b0": 5e-4, "efficientnet_b3": 5e-4,
+                      "vit": 1e-5}
+TRAIN_LOSS_MAX_REL = 1e-6
+# the cached features, card against CPU (the label gate): relative, with
+# an absolute floor for features near 0
+TRAIN_FEATURE_REL, TRAIN_FEATURE_ABS = 1e-4, 1e-5
 # the predictor's card against its CPU path: the parameters (the VGG in
 # full f32 on both) and, under equal parameters, the enhanced frames.  The
 # parameter gate lies between the card's f32 reading (max |d| 0.0 on the
@@ -410,18 +471,19 @@ def hbm_bytes_per_s(name: str) -> float:
     return 3.35e12  # H100 SXM, 80 GB HBM3
 
 
-def synthetic_frame(seed: int) -> np.ndarray:
-    """The test suite's underwater fixture (tests/conftest.py) at
-    1920x1080: blue-green cast, haze gradients, noise, on the u8 grid."""
+def synthetic_frame(seed: int, h: int = H, w: int = W) -> np.ndarray:
+    """The test suite's underwater fixture (tests/conftest.py) at h x w
+    (1080x1920 by default): blue-green cast, haze gradients, noise, on the
+    u8 grid."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    s = 160.0 / W
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    s = 160.0 / w
     base = np.stack([
-        0.15 + 0.1 * np.sin(xx * s / 17.0) + 0.05 * (yy / H),
-        0.45 + 0.2 * np.cos(yy * s / 23.0) + 0.1 * (xx / W),
+        0.15 + 0.1 * np.sin(xx * s / 17.0) + 0.05 * (yy / h),
+        0.45 + 0.2 * np.cos(yy * s / 23.0) + 0.1 * (xx / w),
         0.55 + 0.15 * np.sin((xx + yy) * s / 31.0),
     ], axis=-1)
-    noise = rng.normal(0, 0.03, (H, W, 3)).astype(np.float32)
+    noise = rng.normal(0, 0.03, (h, w, 3)).astype(np.float32)
     img = np.clip(base + noise, 0.0, 1.0).astype(np.float32)
     return (np.floor(img * 255.0) / 255.0).astype(np.float32)
 
@@ -598,6 +660,374 @@ def capture_calls(torch, kernels):
             setattr(kernels, name, fn)
 
     return calls, restore
+
+
+def train_pairs(root: Path) -> tuple:
+    """TRAIN_PAIRS seeded pairs at TRAIN_H x TRAIN_W written with the
+    port's PNG codec: each reference a seeded clean frame, each raw frame
+    that reference gamma-darkened (tests/test_train.py's recipe) under the
+    synthetic underwater cast and haze.  Returns (raw, ref) folders."""
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    raw, ref = root / "train_raw", root / "train_ref"
+    for i in range(TRAIN_PAIRS):
+        rng = np.random.default_rng(1000 + i)
+        yy, xx = np.mgrid[0:TRAIN_H, 0:TRAIN_W].astype(np.float32)
+        clean = np.stack([0.5 + 0.3 * np.sin(xx / (20.0 + c * 7) + i)
+                          * np.cos(yy / (30.0 + c * 5)) for c in range(3)],
+                         axis=-1)
+        clean = np.clip(clean + rng.normal(0, 0.05, clean.shape), 0.05, 0.95)
+        cast = synthetic_frame(i, TRAIN_H, TRAIN_W)
+        hazy = np.clip(0.6 * clean ** 1.4 + 0.4 * cast, 0, 1)
+        uio.imwrite_unit(str(ref / f"pair{i:02d}.png"),
+                         clean.astype(np.float32))
+        uio.imwrite_unit(str(raw / f"pair{i:02d}.png"),
+                         hazy.astype(np.float32))
+    return raw, ref
+
+
+def train_trainer(torch, label: str, device, seed: int = 0):
+    """The trainer of a TRAIN_RUNS label as its CLI command builds it
+    (full width, the seeded init), on ``device``."""
+    import warnings
+
+    from underwater_image_enhancement_tpu_torch.train import trainer as tr
+
+    if label == "mlp":
+        return tr.MLPTrainer(seed=seed, device=device)
+    if label.startswith("vgg"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the seeded perceptual trunk
+            return tr.VGGTrainer(
+                compute_dtype="bfloat16" if label == "vgg_bf16"
+                else "float32", pretrained_vgg=None, seed=seed, device=device)
+    arch, _, variant = label.partition("_")
+    return tr.ZooTrainer(arch, pretrained=None, variant=variant or "b0",
+                         seed=seed, device=device)
+
+
+def train_size(label: str) -> int:
+    return 256 if label == "mlp" else 224
+
+
+def train_batch(torch, label: str, ds, device, feats=None):
+    """(idx, imgs, refs, feats) of the first TRAIN_BATCH pairs on
+    ``device``: the MLP's 79 features or the VGG's basic ones as given
+    (computed once, so that card and CPU see the same), else None."""
+    pairs = [ds.load_pair(i) for i in range(TRAIN_BATCH)]
+    imgs = torch.from_numpy(np.stack([p[0] for p in pairs])).to(device)
+    refs = torch.from_numpy(np.stack([p[1] for p in pairs])).to(device)
+    f = None if feats is None else feats.to(device)
+    return np.arange(TRAIN_BATCH), imgs, refs, f
+
+
+def train_loss(trainer, label, batch, train: bool):
+    """The trainer's loss on a batch (its ``_loss_fn``; the features given
+    where the trainer takes them)."""
+    idx, imgs, refs, feats = batch
+    if label == "mlp" or label.startswith("vgg"):
+        return trainer._loss_fn(idx, imgs, refs, train, feats=feats)
+    return trainer._loss_fn(idx, imgs, refs, train)
+
+
+def eval_gradient(torch, tlayers, trainer, label, batch):
+    """The eval-mode loss and its gradient with respect to the trainable
+    parameters (``_eval``'s function under autograd), under the trainers'
+    TF32 guard: (loss, [f64 numpy arrays])."""
+    with tlayers.no_tf32():
+        trainer.model.eval()
+        loss = train_loss(trainer, label, batch, False)
+        grads = torch.autograd.grad(loss, trainer.trainable,
+                                    allow_unused=True)
+    return float(loss.detach()), [np.zeros(0) if g is None else
+                         g.detach().double().cpu().numpy() for g in grads]
+
+
+def grad_rel(a: list, b: list) -> float:
+    """The largest |a - b| over the largest |b|, over all leaves."""
+    d = max(float(np.abs(x - y).max()) for x, y in zip(a, b) if y.size)
+    return d / max(float(np.abs(y).max()) for y in b if y.size)
+
+
+def train_slice(torch, dev, run_cli, captured_match, runs,
+                device_args=()) -> dict:
+    """[train]: cli train-mlp, train-vgg (bf16, and --fp32) and train-zoo
+    (resnet for TRAIN_EPOCHS epochs, efficientnet b0 and b3 and vit for
+    one) at full width on TRAIN_PAIRS seeded 640x480 pairs, in-process;
+    train-mlp's run goes into ``runs`` (its K1b and K7 calls are replayed
+    against their plain versions).  Then the gates: the cached features
+    card against CPU, each final_model.npz through its predictor, each
+    f32 trainer's eval-mode gradient card against CPU beside a TF32
+    control.  ``device_args`` are added to each command (none: the card).
+    Returns the datasets by image size."""
+    from underwater_image_enhancement_tpu_torch.features.basic import (
+        extract_basic_batch,
+    )
+    from underwater_image_enhancement_tpu_torch.features.full import (
+        extract_all_features,
+        extract_batch,
+    )
+    from underwater_image_enhancement_tpu_torch.models import bridge
+    from underwater_image_enhancement_tpu_torch.models import layers as tlayers
+    from underwater_image_enhancement_tpu_torch.models.predictor import (
+        EnhancementPredictor,
+        ZooPredictor,
+    )
+    from underwater_image_enhancement_tpu_torch.models.zoo import (
+        SIX_PARAM_RANGES,
+    )
+    from underwater_image_enhancement_tpu_torch.train.data import (
+        PairedImageDataset,
+    )
+
+    t_raw, t_ref = train_pairs(WORK)
+    train_ds = {size: PairedImageDataset(str(t_raw), str(t_ref),
+                                         target_size=size, augment=False)
+                for size in (224, 256)}
+    for label, argv, epochs in TRAIN_RUNS:
+        out = WORK / f"train_{label}"
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            calls, launches, secs = run_cli(argv + [
+                "--input", str(t_raw), "--reference", str(t_ref),
+                "--output", str(out), "--epochs", str(epochs),
+                "--batch-size", str(TRAIN_BATCH)] + list(device_args), True)
+        text = printed.getvalue()
+        files = {p.name for p in out.iterdir()}
+        hist = json.loads((out / "training_history.json").read_text())
+        check({"best_model.npz", "final_model.npz",
+               "training_history.json"} <= files
+              and len(hist["train_loss"]) == epochs
+              and bool(np.isfinite(hist["train_loss"] + hist["val_loss"])
+                       .all())
+              and f"epoch {epochs}/{epochs}" in text,
+              f"{' '.join(argv)}: files {files}, history {hist}, printed "
+              f"{text!r}")
+        if label == "mlp":
+            check(captured_match(calls, launches)
+                  and launches == EXPECTED_SLICE["train_mlp"],
+                  f"train-mlp: launches {launches}")
+            runs["train_mlp"] = (calls, launches, None)
+        else:
+            check(launches == NONE and not any(calls.values()),
+                  f"{' '.join(argv)} launched kernels: {launches}")
+        log("train", command=repr(" ".join(argv)), run=label, epochs=epochs,
+            pairs=TRAIN_PAIRS, batch=TRAIN_BATCH, seconds=f"{secs:.2f}",
+            train_loss=",".join(f"{v:.6f}" for v in hist["train_loss"]),
+            val_loss=",".join(f"{v:.6f}" for v in hist["val_loss"]),
+            launches=json.dumps({k: v for k, v in launches.items() if v},
+                                separators=(",", ":")))
+    # the cached features, card against CPU (the label gate)
+    imgs256 = torch.from_numpy(np.stack([
+        train_ds[256].load_pair(i)[0] for i in range(TRAIN_PAIRS)]))
+    f_cpu = extract_batch(imgs256)
+    f_card = extract_batch(imgs256.to(dev)).cpu()
+    d_feat = (f_card - f_cpu).abs()
+    check(bool((d_feat <= TRAIN_FEATURE_REL * f_cpu.abs()
+                + TRAIN_FEATURE_ABS).all()),
+          f"train-mlp's features: card vs CPU max |d| {float(d_feat.max())}")
+    log("train", check="feature cache card vs CPU", images=TRAIN_PAIRS,
+        max_abs=float(d_feat.max()),
+        max_rel=float((d_feat / f_cpu.abs().clamp_min(1e-30)).max()),
+        gate=f"<= {TRAIN_FEATURE_REL} rel + {TRAIN_FEATURE_ABS}")
+    # final_model.npz through the predictors on the card: the same leaves
+    # as the trainer's load of it, and (f32) the same heads
+    x224 = torch.from_numpy(train_ds[224].load_pair(0)[0]).to(dev)
+    for label, _, _ in TRAIN_RUNS[1:]:
+        npz = str(WORK / f"train_{label}" / "final_model.npz")
+        trainer = train_trainer(torch, label, dev)
+        trainer.load(npz)
+        if label.startswith("vgg"):
+            pred = EnhancementPredictor(npz, pretrained_vgg=None, device=dev)
+        else:
+            arch, _, variant = label.partition("_")
+            pred = ZooPredictor(npz, model_type=arch,
+                                variant=variant or "b0", device=dev)
+        a = bridge.flatten(bridge.to_flax(pred.model))
+        b = bridge.flatten(bridge.to_flax(trainer.model))
+        check(a.keys() == b.keys()
+              and all(np.array_equal(a[k], b[k]) for k in a),
+              f"{label}: final_model.npz reads back other leaves")
+        # the predictor's preprocess (a u8 resize, then x * f32(1/255))
+        # lies within an ulp of training's (x / 255 on the host); the heads
+        # are compared on one input
+        prep = trainer._backbone_input(x224)
+        check(bool(torch.allclose(pred._preprocess(x224), prep, atol=1e-6)),
+              f"{label}: the predictor's preprocess differs from training's")
+        with torch.no_grad(), tlayers.no_tf32():
+            if label.startswith("vgg"):
+                feats = extract_all_features(x224)[None]
+                raw = pred.model(prep[None], feats)
+                mine = trainer.predict_params(x224[None], feats)
+                d = max(float((raw[k] - mine[k]).abs().max()) for k in raw)
+                gate = PREDICTOR_PARAM_MAX_ABS
+            else:
+                raw = pred.model(prep[None])
+                mine = trainer.predict_params(x224[None])
+                d = max(float((raw[k] - mine[k]).abs().max()) / (hi - lo)
+                        for k, (lo, hi) in SIX_PARAM_RANGES.items())
+                gate = ZOO_PARAM_MAX_REL
+        # a bf16 trainer predicts in bf16, the predictor in f32: read only
+        check(label == "vgg_bf16" or d <= gate,
+              f"{label}: the predictor's heads differ from predict_params "
+              f"by {d}")
+        log("train", check="final_model.npz through the predictor",
+            run=label, leaves=len(a), heads_max=d,
+            gate="leaves equal" if label == "vgg_bf16" else f"<= {gate}")
+    del trainer, pred
+    # the eval-mode loss and its gradient, card against CPU from equal
+    # parameters and batch, in f32 under the trainers' guard; the control
+    # takes the guard away with both TF32 flags on and must fail the gate
+    failed = []
+    for label, _, _ in TRAIN_RUNS:
+        if label == "vgg_bf16":
+            continue
+        gate = TRAIN_GRAD_MAX_REL[label]
+        ds = train_ds[train_size(label)]
+        imgs = torch.from_numpy(np.stack([ds.load_pair(i)[0]
+                                          for i in range(TRAIN_BATCH)]))
+        feats = (extract_batch(imgs) if label == "mlp" else
+                 extract_basic_batch(imgs) if label.startswith("vgg")
+                 else None)
+        t_gpu = train_trainer(torch, label, dev)
+        t_cpu = train_trainer(torch, label, "cpu")
+        b_gpu = train_batch(torch, label, ds, dev, feats)
+        b_cpu = train_batch(torch, label, ds, "cpu", feats)
+        # BatchNorm's running statistics set to the batch's (one train
+        # forward with momentum 1 on the CPU, carried to the card): fresh
+        # statistics shrink EfficientNet's activations until its heads
+        # no longer see the image
+        bns = [m for m in t_cpu.model.modules()
+               if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+        if bns:
+            for m in bns:
+                m.momentum = 1.0
+            with torch.no_grad():
+                t_cpu.model.train()
+                train_loss(t_cpu, label, b_cpu, True)
+            for m in bns:
+                m.momentum = 0.01
+            bridge.load_flax(t_gpu.model, bridge.to_flax(t_cpu.model))
+        l_g, g_g = eval_gradient(torch, tlayers, t_gpu, label, b_gpu)
+        t0 = time.perf_counter()
+        l_c, g_c = eval_gradient(torch, tlayers, t_cpu, label, b_cpu)
+        cpu_s = time.perf_counter() - t0
+        d, dl = grad_rel(g_g, g_c), abs(l_g / l_c - 1)
+        guard = tlayers.no_tf32
+        tlayers.no_tf32 = contextlib.nullcontext
+        try:
+            with tf32(torch, cudnn=True, matmul=True):
+                _, g_t = eval_gradient(torch, tlayers, t_gpu, label, b_gpu)
+        finally:
+            tlayers.no_tf32 = guard
+        d_t = grad_rel(g_t, g_c)
+        log("train", check="eval gradient card vs CPU", run=label,
+            loss=l_g, loss_rel=dl, grad_rel=d, tf32_grad_rel=d_t,
+            gate=f"<= {gate}, loss <= {TRAIN_LOSS_MAX_REL}",
+            params=sum(g.size for g in g_c), cpu_s=f"{cpu_s:.2f}")
+        if not (d <= gate and dl <= TRAIN_LOSS_MAX_REL):
+            failed.append(f"{label}: eval gradient card vs CPU {d} of the "
+                          f"largest, loss {dl}")
+        if not d_t > gate:
+            failed.append(f"{label}: TF32 moved the gradient by {d_t} of "
+                          f"the largest, within the gate {gate}: it cannot "
+                          "tell TF32 from f32")
+        del t_gpu, t_cpu
+    check(not failed, "; ".join(failed))
+    check(torch.backends.cudnn.allow_tf32 is False
+          and torch.backends.cuda.matmul.allow_tf32 is False,
+          "train: the TF32 settings were not restored")
+    return train_ds
+
+
+def train_timing(torch, dev, train_ds, profile_frame, smi: str) -> None:
+    """Each trainer: TRAIN_STEPS steps on one repeated batch of
+    TRAIN_BATCH (CUDA events a step; the median and quartiles of the steps
+    after the first), images a second, the peak device memory above what
+    was live before them, one profiled step (device busy, idle share,
+    launches, none of the package's kernels); the batch's training loss
+    without dropout before and after the steps must fall, the frozen VGG
+    convs stay bit for bit, BatchNorm's running statistics move; the
+    MLP's feature cache in ms an image."""
+    from underwater_image_enhancement_tpu_torch.models import bridge
+    from underwater_image_enhancement_tpu_torch.models import layers as tlayers
+
+    for label, _, _ in TRAIN_RUNS:
+        trainer = train_trainer(torch, label, dev)
+        ds = train_ds[train_size(label)]
+        extra = {}
+        if label == "mlp":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.cache_features(ds, log=lambda *_: None)
+            torch.cuda.synchronize()
+            extra["cache_features_ms_per_image"] = (
+                f"{(time.perf_counter() - t0) * 1e3 / TRAIN_PAIRS:.3f}")
+        idx, imgs, refs, _ = train_batch(torch, label, ds, dev)
+        before = {k: v.copy() for k, v in
+                  bridge.flatten(bridge.to_flax(trainer.model)).items()}
+
+        def batch_loss():
+            """The batch's training loss (batch statistics) without
+            dropout, the objective the steps descend."""
+            drop, tlayers.dropout = tlayers.dropout, lambda x, *a, **k: x
+            try:
+                with torch.no_grad(), tlayers.no_tf32():
+                    trainer.model.train()
+                    return float(train_loss(trainer, label,
+                                            (idx, imgs, refs, None), True))
+            finally:
+                tlayers.dropout = drop
+
+        loss0 = batch_loss()
+        bridge.load_flax(trainer.model, bridge.unflatten(before))
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(trainer._step(idx, imgs, refs))
+            end.record()
+            marks.append((start, end))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - live
+        ms = [a.elapsed_time(b) for a, b in marks]
+        losses = torch.stack(losses).tolist()
+        after = bridge.flatten(bridge.to_flax(trainer.model))
+        loss1 = batch_loss()
+        stats = [k for k in before if k.startswith("batch_stats/")]
+        wall, busy, ev, ours = profile_frame(
+            lambda: trainer._step(idx, imgs, refs))
+        steady = ms[1:]
+        med = statistics.median(steady)
+        log("train_step", run=label, batch=TRAIN_BATCH,
+            size=train_size(label),
+            **{f"ms_{k}": v for k, v in spread(steady).items()},
+            first_ms=f"{ms[0]:.3f}", images_per_s=f"{TRAIN_BATCH * 1e3 / med:.1f}",
+            peak_gb=f"{peak / 1e9:.3f}", live_gb=f"{live / 1e9:.3f}",
+            profiled_wall_ms=f"{wall:.3f}",
+            device_busy_ms=f"{busy:.3f}" if ev else "not measured",
+            device_idle_share=(f"{1 - busy / wall:.3f}" if ev
+                               else "not measured"),
+            device_launches=len(ev), batch_loss=f"{loss0:.6f}->{loss1:.6f}",
+            step_losses=",".join(f"{v:.5f}" for v in losses),
+            bn_leaves=len(stats), **extra, card=repr(smi))
+        check(bool(np.isfinite(losses).all()) and loss1 < loss0,
+              f"{label}: the batch's training loss {loss0} -> {loss1}, "
+              f"steps {losses}")
+        if label.startswith("vgg"):
+            check(all(np.array_equal(after[k], before[k]) for k in before
+                      if k.startswith("params/vgg/conv")
+                      and int(k.split("/")[2][4:]) < 8),
+                  f"{label}: a frozen conv moved")
+        check(not stats or any(not np.array_equal(after[k], before[k])
+                               for k in stats),
+              f"{label}: BatchNorm's running statistics did not move")
+        check(not ours, f"{label}: a step launched {ours}")
+        del trainer
 
 
 def main() -> int:
@@ -1532,6 +1962,9 @@ def main() -> int:
         cpu_s=f"{cpu_s:.2f}", card=repr(smi))
     del wn_out, singles, wn_cpu, cpu0, un_cpu, un_gpu, un0
 
+    # [train] the trainers through the CLI and their gates
+    train_ds = train_slice(torch, dev, run_cli, captured_match, runs)
+
     unused = [k for k in KERNELS if not any(r[1][k] for r in runs.values())]
     check(not unused, f"kernels the main path never launched: {unused}")
 
@@ -1840,6 +2273,7 @@ def main() -> int:
             card=repr(smi))
     del wn_gpu, wn_bf16, wn_batch
 
+
     img = imgs[0]
     corrected, _ = cast_mod.detect_and_correct(img)
     planes = split_planes(corrected)
@@ -1994,6 +2428,10 @@ def main() -> int:
             shape="x".join(map(str, t["shape"])), us=us(t["ms"]),
             plain_us=us(t["plain_ms"]), bound_us=us(t["bound_ms"]),
             library_us=us(t["library_ms"]), bytes=t["bytes"], **extra)
+    # the trainers' steps last: their profiled steps (up to 26,800
+    # launches each) can leave the profiler recording nothing in later
+    # sessions, which the launch counts above rely on
+    train_timing(torch, dev, train_ds, profile_frame, smi)
     shutil.rmtree(WORK, ignore_errors=True)
 
     print(smi, flush=True)

@@ -24,8 +24,6 @@ from underwater_image_enhancement_tpu_torch import cli as tcli
 
 # (module, name) or (module, "name.parameter") -> why the port leaves it out
 LEFT_OUT = {
-    ("models.diff_enhance", "enhance_mlp"):
-        "Queue 1 item 6: read only by the MLP trainer (models/mlp)",
     ("models.waternet", "enhance_sharded"):
         "Queue 1 item 9: WaterNet's sharded inference (parallel/)",
     ("pipeline.enhance", "enhance_batch_dp"):
@@ -49,6 +47,12 @@ LEFT_OUT = {
     ("utils.config", "Config.log_level"):
         "declared but never read in JAX either",
     ("utils.config", "Config.dtype"): "declared but never read in JAX either",
+    ("train.trainer", "MLPTrainer.mesh"):
+        "Queue 1 item 9: data parallelism over a device mesh",
+    ("train.trainer", "ZooTrainer.mesh"):
+        "Queue 1 item 9: data parallelism over a device mesh",
+    ("train.trainer", "VGGTrainer.mesh"):
+        "Queue 1 item 9: data parallelism over a device mesh",
     ("ops.dct", "dct2.precision"):
         "the TPU MXU's matmul precision; the port's f32 products run in "
         "full f32 (no TF32)",
@@ -71,7 +75,6 @@ for _module, _classes in FLAX_MODULES.items():
 
 # JAX modules the port does not have yet -> the Queue 1 item that brings it
 MODULES_TO_PORT = {
-    "models.losses": 6, "train": 6, "train.data": 6, "train.trainer": 6,
     "validate": 8, "parallel": 9, "parallel.mesh": 9,
     "parallel.spatial": 9, "parallel.six_spatial": 9,
     "parallel.fusion_spatial": 9, "examples": 10, "utils.profiling": 10,
@@ -85,8 +88,7 @@ MODULES_TO_PORT = {
 }
 
 # JAX CLI subcommands the port does not have yet -> Queue 1 item
-SUBCOMMANDS_TO_PORT = {"train-mlp": 6, "train-vgg": 6, "train-zoo": 6,
-                       "validate": 8}
+SUBCOMMANDS_TO_PORT = {"validate": 8}
 
 
 def _modules(pkg):
@@ -165,9 +167,11 @@ def _subcommands(cli):
 
 def test_cli_subcommands():
     """The port's CLI has every JAX subcommand but those still to port
-    (``fusion``, Phase 2's and ``waternet`` among those it has)."""
+    (``fusion``, Phase 2's, ``waternet`` and the trainers among those it
+    has)."""
     jax_cmds, port_cmds = _subcommands(jcli), _subcommands(tcli)
     assert {"fusion", "train-selector", "run", "predict",
-            "convert-vgg", "waternet"} <= port_cmds
+            "convert-vgg", "waternet", "train-mlp", "train-vgg",
+            "train-zoo"} <= port_cmds
     assert jax_cmds - port_cmds == set(SUBCOMMANDS_TO_PORT)
     assert port_cmds <= jax_cmds

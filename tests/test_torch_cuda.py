@@ -2,8 +2,8 @@
 kernel against its plain PyTorch version on the card (and the fused
 kernels against the kernels they fuse), and the six exact and fast tiers,
 the Phase-1 label program, UIQM/UCIQE, the VGG and zoo predictors,
-WaterNet and the UNet, and the selector's MLP classifier on the card
-against the CPU path.  They skip where
+WaterNet and the UNet, the selector's MLP classifier, and the trainers'
+eval-mode gradients and train steps on the card against the CPU path.  They skip where
 ``torch.cuda.is_available()`` is False.  On a GPU machine without JAX:
 
     python -m pytest -o addopts="" --noconftest -m gpu tests/test_torch_cuda.py
@@ -26,6 +26,8 @@ from chip_smoke import (
     seeded_tree,
     PREDICTOR_FRAME_MAX_ABS,
     PREDICTOR_PARAM_MAX_ABS,
+    TRAIN_LOSS_MAX_REL,
+    grad_rel,
     INV_WRAPPERS,
     K7_SHAPES,
     LAB_OFFSETS,
@@ -736,3 +738,124 @@ def test_waternet_on_card_matches_cpu(cuda, monkeypatch):
     monkeypatch.setattr(layers, "no_tf32", contextlib.nullcontext)
     assert float((wn.waternet_enhance(gpu, x[0]).cpu() - want).abs().max()) \
         > WATERNET_MAX_ABS
+
+
+def _small_trainer(label, device):
+    """The trainers at test size: the MLP at hidden 32 with one block,
+    the VGG predictor at hidden 16 (f32), ResNet18, all at 32^2 inputs."""
+    import warnings
+
+    from underwater_image_enhancement_tpu_torch.train import trainer as tr
+
+    if label == "mlp":
+        return tr.MLPTrainer(hidden_dim=32, num_blocks=1, device=device)
+    if label == "vgg":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return tr.VGGTrainer(hidden_dim=16, image_size=32,
+                                 compute_dtype="float32",
+                                 pretrained_vgg=None, device=device)
+    return tr.ZooTrainer("resnet", image_size=32, pretrained=None,
+                         device=device)
+
+
+def _train_batch(seed=5):
+    rng = np.random.default_rng(seed)
+    imgs = np.floor(rng.random((4, 32, 32, 3)) * 200 + 20) / 255.0
+    refs = np.floor(np.clip(imgs ** 0.7, 0, 1) * 255.0) / 255.0
+    return (torch.from_numpy(imgs.astype(np.float32)),
+            torch.from_numpy(refs.astype(np.float32)))
+
+
+def _eval_grads(trainer, label, imgs, refs, feats):
+    from underwater_image_enhancement_tpu_torch.models import layers
+
+    with layers.no_tf32():
+        trainer.model.eval()
+        kw = {} if label == "resnet" else {"feats": feats}
+        loss = trainer._loss_fn(None, imgs, refs, False, **kw)
+        grads = torch.autograd.grad(loss, trainer.trainable,
+                                    allow_unused=True)
+    return float(loss.detach()), [np.zeros(0) if g is None else
+                                  g.double().cpu().numpy() for g in grads]
+
+
+# the gates at these sizes, between the f32 reading and the TF32 control
+# (my chip call 3 of PR 13, "NVIDIA H100 80GB HBM3, 700.00 W"): MLP
+# 1.9e-7 / 2.3e-3, VGG 5.2e-6 / 1.1e-4, ResNet18 8.0e-7 / 2.2e-2
+TRAIN_GRAD_SMALL_MAX_REL = {"mlp": 1e-5, "vgg": 2e-5, "resnet": 1e-4}
+
+
+@pytest.mark.parametrize("label", ["mlp", "vgg", "resnet"])
+def test_trainer_eval_gradient_on_card_matches_cpu(cuda, monkeypatch, label):
+    """The eval-mode loss and its gradient from equal parameters and
+    batch: the card within the trainer's TRAIN_GRAD_SMALL_MAX_REL of the
+    largest CPU gradient and TRAIN_LOSS_MAX_REL of its loss under both
+    TF32 flags on (the trainers' guard keeps f32); the control, the guard
+    taken away, lands past the gate."""
+    import contextlib
+
+    from underwater_image_enhancement_tpu_torch.features.basic import (
+        extract_basic_batch,
+    )
+    from underwater_image_enhancement_tpu_torch.features.full import (
+        extract_batch,
+    )
+    from underwater_image_enhancement_tpu_torch.models import layers
+
+    imgs, refs = _train_batch()
+    feats = (extract_batch(imgs) if label == "mlp" else
+             extract_basic_batch(imgs) if label == "vgg" else None)
+    cpu, gpu = _small_trainer(label, "cpu"), _small_trainer(label, cuda)
+    on = [t.to(cuda) if t is not None else None for t in (imgs, refs, feats)]
+    l_c, g_c = _eval_grads(cpu, label, imgs, refs, feats)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    l_g, g_g = _eval_grads(gpu, label, *on)
+    monkeypatch.setattr(layers, "no_tf32", contextlib.nullcontext)
+    _, g_t = _eval_grads(gpu, label, *on)
+    gate = TRAIN_GRAD_SMALL_MAX_REL[label]
+    print(f"{label}: loss rel {abs(l_g / l_c - 1):.3g}, grad rel "
+          f"{grad_rel(g_g, g_c):.3g}, TF32 {grad_rel(g_t, g_c):.3g}, "
+          f"gate {gate}")
+    assert abs(l_g / l_c - 1) <= TRAIN_LOSS_MAX_REL
+    assert grad_rel(g_g, g_c) <= gate < grad_rel(g_t, g_c)
+
+
+@pytest.mark.parametrize("label", ["mlp", "vgg", "resnet"])
+def test_train_steps_on_card(cuda, monkeypatch, label):
+    """Ten steps on one batch on the card: finite losses, the batch's
+    training loss without dropout falls, the VGG's frozen convs stay bit
+    for bit, BatchNorm's running statistics move, and no kernel of the
+    package launches."""
+    from underwater_image_enhancement_tpu_torch.models import bridge, layers
+
+    imgs, refs = (t.to(cuda) for t in _train_batch(6))
+    t = _small_trainer(label, cuda)
+    idx = None
+    if label == "mlp":
+        t._feature_cache = t._features(imgs)
+        idx = np.arange(4)
+
+    def batch_loss():
+        with monkeypatch.context() as m:
+            m.setattr(layers, "dropout", lambda x, *a, **k: x)
+            with torch.no_grad(), layers.no_tf32():
+                t.model.train()
+                return float(t._loss_fn(idx, imgs, refs, True))
+
+    first = batch_loss()
+    before = {k: v.copy() for k, v in
+              bridge.flatten(bridge.to_flax(t.model)).items()}
+    kernels.reset_launches()
+    losses = [float(t._step(idx, imgs, refs)) for _ in range(10)]
+    assert sum(kernels.launches.values()) == 0
+    after = bridge.flatten(bridge.to_flax(t.model))
+    assert np.isfinite(losses).all() and batch_loss() < first
+    if label == "vgg":
+        assert all(np.array_equal(after[k], before[k]) for k in before
+                   if k.startswith("params/vgg/conv")
+                   and int(k.split("/")[2][4:]) < 8)
+    stats = [k for k in before if k.startswith("batch_stats/")]
+    assert not stats or any(not np.array_equal(after[k], before[k])
+                            for k in stats)

@@ -11,6 +11,9 @@
     python -m underwater_image_enhancement_tpu_torch.cli run --input DIR --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli predict --input FILE --model PKL
     python -m underwater_image_enhancement_tpu_torch.cli convert-vgg --torch-ckpt PTH --out NPZ
+    python -m underwater_image_enhancement_tpu_torch.cli train-mlp --input DIR --reference DIR --output DIR
+    python -m underwater_image_enhancement_tpu_torch.cli train-vgg --input DIR --reference DIR --output DIR [--fp32]
+    python -m underwater_image_enhancement_tpu_torch.cli train-zoo --input DIR --reference DIR --output DIR [--model M]
 
 Commands (reference counterparts):
   six            six_stadigy.py __main__: all six strategies per image +
@@ -43,6 +46,15 @@ Commands (reference counterparts):
   predict        main.py predict: the best strategy for an image from
                  a ``trained_model.pkl``
   convert-vgg    a torch vgg16 checkpoint -> the ``.npz`` trunk weights
+  train-mlp      deep_learning_parameters.py's end-to-end trainer: the
+                 feature MLP on the 79 cached features (``--resume``)
+  train-vgg      vgg_16_UIE.py's trainer: the VGG predictor, bf16 unless
+                 ``--fp32`` (``--pretrained-vgg``, ``--resume``)
+  train-zoo      the resnet, efficientnet (``--variant``) and vit
+                 predictors (``--pretrained``, ``--resume``); each trainer
+                 writes ``best_model.npz``, ``final_model.npz`` (what
+                 ``enhance --model [--arch]`` reads) and
+                 ``training_history.json``
 
 Runs on the CUDA device by default (``--device cuda``); ``--device cpu``
 runs the plain PyTorch path.  On CUDA the kernels are built before the
@@ -50,8 +62,7 @@ frame loop, and a ``RuntimeError`` from the build or from a kernel launch
 ends the run with a non-zero exit; other per-image errors of ``six``
 become "failed" rows of ``processing_log.csv``, as in the JAX CLI.
 ``--devices`` (data parallelism) is not ported yet and is rejected; the
-JAX CLI's other subcommands (the trainers and ``validate``) are not
-ported yet.
+JAX CLI's ``validate`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -297,6 +308,90 @@ def _cmd_convert_vgg(args) -> None:
 
     n = convert_torch_vgg_to_npz(args.torch_ckpt, args.out)
     print(f"exported {n} conv layers -> {args.out}")
+
+
+def _fit(trainer, ds, tr_idx, va_idx, args, device,
+         with_indices: bool = False) -> None:
+    """Resume if asked, then fit with the batches prefetched to the
+    device (the shuffle reseeded by the epoch, as the JAX CLI does)."""
+    from underwater_image_enhancement_tpu_torch.train.data import (
+        prefetch_to_device,
+    )
+
+    trainer.fit(
+        lambda: prefetch_to_device(ds.batches(
+            tr_idx, args.batch_size, seed=len(trainer.train_losses),
+            with_indices=with_indices), device=device),
+        lambda: prefetch_to_device(ds.batches(
+            va_idx, args.batch_size, shuffle=False,
+            with_indices=with_indices), device=device),
+        epochs=args.epochs, output_folder=args.output,
+    )
+
+
+def _cmd_train_mlp(args) -> None:
+    from underwater_image_enhancement_tpu_torch.train.data import (
+        PairedImageDataset,
+    )
+    from underwater_image_enhancement_tpu_torch.train.trainer import (
+        MLPTrainer,
+    )
+
+    device = _start(args.device)
+    # no augmentation: the reference's EnhancementDataset has none
+    # (deep_learning_parameters.py:199-246)
+    ds = PairedImageDataset(args.input, args.reference, target_size=256,
+                            augment=False)
+    tr_idx, va_idx = ds.split(0.8)
+    trainer = MLPTrainer(device=device)
+    if args.resume:
+        trainer.load(args.resume)
+    # one 79-feature extraction pass, reused by every epoch
+    trainer.cache_features(ds)
+    _fit(trainer, ds, tr_idx, va_idx, args, device, with_indices=True)
+
+
+def _cmd_train_vgg(args) -> None:
+    from underwater_image_enhancement_tpu_torch.train.data import (
+        PairedImageDataset,
+    )
+    from underwater_image_enhancement_tpu_torch.train.trainer import (
+        VGGTrainer,
+    )
+
+    device = _start(args.device)
+    ds = PairedImageDataset(args.input, args.reference, target_size=224)
+    tr_idx, va_idx = ds.split(0.85)
+    pv = None if args.pretrained_vgg == "none" else args.pretrained_vgg
+    trainer = VGGTrainer(epochs=args.epochs,
+                         compute_dtype="float32" if args.fp32 else "bfloat16",
+                         pretrained_vgg=pv, device=device)
+    if args.resume:
+        trainer.load(args.resume)
+    _fit(trainer, ds, tr_idx, va_idx, args, device)
+
+
+def _cmd_train_zoo(args) -> None:
+    """End-to-end training of the model_architectures.py backbones
+    (resnet18, efficientnet b0/b3, vit_b_16)."""
+    from underwater_image_enhancement_tpu_torch.train.data import (
+        PairedImageDataset,
+    )
+    from underwater_image_enhancement_tpu_torch.train.trainer import (
+        ZooTrainer,
+    )
+
+    device = _start(args.device)
+    ds = PairedImageDataset(args.input, args.reference,
+                            target_size=args.image_size)
+    tr_idx, va_idx = ds.split(0.8)
+    pretrained = None if args.pretrained == "none" else args.pretrained
+    trainer = ZooTrainer(model_type=args.model, variant=args.variant,
+                         image_size=args.image_size, pretrained=pretrained,
+                         device=device)
+    if args.resume:
+        trainer.load(args.resume)
+    _fit(trainer, ds, tr_idx, va_idx, args, device)
 
 
 def _cmd_assess(args) -> None:
@@ -630,6 +725,57 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--torch-ckpt", required=True)
     p.add_argument("--out", required=True)
     p.set_defaults(fn=_cmd_convert_vgg)
+
+    p = sub.add_parser("train-mlp", help="end-to-end MLP predictor training")
+    p.add_argument("--input", required=True)
+    p.add_argument("--reference", required=True)
+    p.add_argument("--output", default="./output")
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--resume", default=None,
+                   help="a checkpoint .npz of this trainer to continue")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_train_mlp)
+
+    p = sub.add_parser("train-vgg", help="VGG predictor training")
+    p.add_argument("--input", required=True)
+    p.add_argument("--reference", required=True)
+    p.add_argument("--output", default="./output")
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--fp32", action="store_true",
+                   help="full-f32 compute (default is bfloat16, the AMP "
+                        "analog the reference trains under)")
+    p.add_argument("--resume", default=None,
+                   help="a checkpoint .npz of this trainer to continue")
+    p.add_argument("--pretrained-vgg", default="auto",
+                   help=".npz from convert-vgg: ImageNet VGG16 backbone and "
+                        "perceptual-loss trunk (vgg_16_UIE.py:149,257); "
+                        "'auto' searches $UIE_TPU_WEIGHTS then "
+                        "~/.cache/uie_tpu; 'none' forces the seeded init")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_train_vgg)
+
+    p = sub.add_parser("train-zoo",
+                       help="train a resnet/efficientnet/vit predictor")
+    p.add_argument("--input", required=True)
+    p.add_argument("--reference", required=True)
+    p.add_argument("--output", default="./output")
+    p.add_argument("--model", default="resnet",
+                   choices=("resnet", "efficientnet", "vit"))
+    p.add_argument("--variant", default="b0", choices=("b0", "b3"),
+                   help="efficientnet width/depth scale")
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--resume", default=None,
+                   help="a checkpoint .npz of this trainer to continue")
+    p.add_argument("--pretrained", default="auto",
+                   help="torchvision .npz of the trunk (ImageNet); 'auto' "
+                        "searches $UIE_TPU_WEIGHTS then ~/.cache/uie_tpu; "
+                        "'none' forces the seeded init")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_train_zoo)
 
     p = sub.add_parser("predict", help="predict best strategy for an image")
     p.add_argument("--input", required=True)

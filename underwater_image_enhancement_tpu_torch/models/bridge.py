@@ -29,9 +29,19 @@ load is partial.  ``to_flax`` goes the other way, to numpy arrays.
 The port's checkpoint is one ``.npz`` of such a tree keyed by the leaves'
 ``/``-joined paths (``params/vgg/conv0/kernel``,
 ``batch_stats/BatchNorm_0/mean``): ``save_npz`` and ``load_npz`` (with
-``load_checkpoint``, which refuses a JAX checkpoint directory) are its
-only writer and readers.  ``tools/jax_ckpt_to_npz.py`` writes it from a JAX
-(orbax) checkpoint.
+``load_checkpoint``, which refuses a JAX checkpoint directory and reads a
+model's collections only) are its only writer and readers.  A trainer's
+checkpoint adds ``opt_state`` and its loss histories
+(``train/trainer.save_checkpoint``).  ``tools/jax_ckpt_to_npz.py`` writes
+it from a JAX (orbax) checkpoint.
+
+An optimiser's state maps the same way: optax's ``ScaleByAdamState``
+(``mu`` and ``nu``, trees shaped as ``params``, and ``count``) and the
+learning rate ``inject_hyperparams`` keeps are a torch ``Adam``/``AdamW``
+state's ``exp_avg``, ``exp_avg_sq`` and ``step`` of each parameter it
+holds, and its groups' ``lr`` (``optax_adam_state`` and
+``load_optax_adam``).  A parameter the optimiser does not hold (a frozen
+one) has no leaf, as ``optax.masked`` gives it none.
 """
 
 from __future__ import annotations
@@ -197,10 +207,19 @@ def flax_default_init(module: nn.Module, generator: torch.Generator) -> None:
                     _BARE_INIT[name](t, generator)
 
 
+def _stored(v) -> np.ndarray:
+    """A leaf as the checkpoint keeps it: f64 (a loss history) and integer
+    (a step count) arrays as they are, anything else as f32."""
+    a = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+    if a.dtype == np.float64 or np.issubdtype(a.dtype, np.integer):
+        return a
+    return a.astype(np.float32)
+
+
 def save_npz(path: str, variables: Mapping) -> None:
     """Write a Flax variable tree as the port's checkpoint: one ``.npz``
     keyed by the leaves' ``/``-joined paths."""
-    flat = {k: np.asarray(v, np.float32) for k, v in flatten(variables).items()}
+    flat = {k: _stored(v) for k, v in flatten(variables).items()}
     with open(path, "wb") as f:
         np.savez(f, **flat)
 
@@ -212,12 +231,82 @@ def load_npz(path: str) -> dict:
 
 
 def load_checkpoint(path: str, arch: str) -> dict:
-    """``load_npz`` of a model's checkpoint; a directory (a JAX/orbax
-    checkpoint, which the port cannot read) raises ValueError naming the
-    converter for ``arch``."""
+    """A model's collections (``params``, and ``batch_stats`` where
+    there) of the port's checkpoint; a trainer's optimiser state and loss
+    histories stay behind.  A directory (a JAX/orbax checkpoint, which the
+    port cannot read) raises ValueError naming the converter for
+    ``arch``."""
     if Path(path).is_dir():
         raise ValueError(
             f"{path} is a directory (a JAX/orbax checkpoint); convert it "
             f"first: python tools/jax_ckpt_to_npz.py --arch {arch} "
             f"--ckpt {path} --out {arch}.npz")
-    return load_npz(path)
+    tree = load_npz(path)
+    return {k: v for k, v in tree.items() if k in ("params", "batch_stats")}
+
+
+def _held(module: nn.Module, optimizer: torch.optim.Optimizer):
+    """(leaf path within ``params``, tensor, torch -> Flax, Flax -> torch)
+    of each parameter of ``module`` that ``optimizer`` holds."""
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for key, t, fwd, inv in _leaves(module):
+        coll, _, leaf = key.partition("/")
+        if coll == "params" and id(t) in held:
+            yield leaf, t, fwd, inv
+
+
+def optax_adam_state(module: nn.Module,
+                     optimizer: torch.optim.Optimizer) -> dict:
+    """A torch Adam/AdamW's state over ``module`` as optax's: ``{"mu":
+    tree, "nu": tree, "count": int32, "learning_rate": f32}``, the trees
+    shaped as ``params`` (numpy f32, zeros before the first step) over the
+    parameters the optimiser holds."""
+    mu, nu, count = {}, {}, 0
+    for leaf, t, fwd, _ in _held(module, optimizer):
+        st = optimizer.state.get(t) or {}
+        for out, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            v = st.get(name, torch.zeros_like(t))
+            out[leaf] = np.ascontiguousarray(fwd(v.detach().to(
+                "cpu", torch.float32).numpy()))
+        if st:
+            count = max(count, int(st["step"]))
+    return {"mu": unflatten(mu), "nu": unflatten(nu),
+            "count": np.int32(count),
+            "learning_rate": np.float32(optimizer.param_groups[0]["lr"])}
+
+
+def load_optax_adam(module: nn.Module, optimizer: torch.optim.Optimizer,
+                    state: Mapping) -> None:
+    """Set a torch Adam/AdamW's state over ``module`` from optax's (the
+    form ``optax_adam_state`` returns; ``learning_rate`` optional): each
+    held parameter's moments and step, and every group's lr.  Raises
+    ValueError on a missing, extra or wrongly shaped leaf before anything
+    is set."""
+    count = int(np.asarray(state["count"]))
+    want = {leaf: (t, inv) for leaf, t, _, inv in _held(module, optimizer)}
+    moments = {}
+    for name in ("mu", "nu"):
+        given = {k: np.asarray(v) for k, v in flatten(state[name]).items()}
+        missing = sorted(set(want) - set(given))
+        extra = sorted(set(given) - set(want))
+        bad = sorted(k for k in want if k in given and tuple(
+            want[k][1](given[k]).shape) != tuple(want[k][0].shape))
+        if missing or extra or bad:
+            raise ValueError(f"optimiser {name} does not fit "
+                             f"{type(module).__name__}: missing {missing}, "
+                             f"extra {extra}, wrong shape {bad}")
+        moments[name] = given
+    with torch.no_grad():
+        for leaf, (t, inv) in want.items():
+            if count == 0:
+                optimizer.state.pop(t, None)
+                continue
+            optimizer.state[t] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                **{name: torch.from_numpy(np.array(
+                    inv(moments[src][leaf]), np.float32)).to(t.device)
+                   for name, src in (("exp_avg", "mu"),
+                                     ("exp_avg_sq", "nu"))}}
+    if "learning_rate" in state:
+        for g in optimizer.param_groups:
+            g["lr"] = float(np.float32(state["learning_rate"]))

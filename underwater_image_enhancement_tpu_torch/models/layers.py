@@ -3,9 +3,18 @@
 The JAX models are Flax modules; their layers differ from torch's
 defaults in ways that move the last digits or more:
 
-- ``BatchNorm`` (eval): ``(x - mean) * (scale * rsqrt(var + eps)) + bias``
-  with Flax's epsilon 1e-5 and momentum 0.99 (torch's 0.01), over the
-  channel axis 1 of (B, C) rows or (B, C, H, W) maps.
+- ``BatchNorm``: ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` with
+  Flax's epsilon 1e-5, over the channel axis 1 of (B, C) rows or (B, C,
+  H, W) maps.  In train mode the statistics are the batch's, in f32 even
+  under bf16 activations, with Flax's fast variance ``max(0, mean(x^2) -
+  mean(x)^2)``, and the running ones move as ``0.99 * running + 0.01 *
+  batch`` with the biased variance (torch's own train mode folds Bessel's
+  correction into ``running_var``).
+- ``dropout``: Flax's ``nn.Dropout``, kept values divided by the keep
+  probability, the mask drawn from an explicit ``torch.Generator``.
+- ``clip``: ``jnp.clip``, whose gradient is halved where a value sits on
+  a bound (JAX's ``maximum``/``minimum`` split a tie; ``torch.clamp``
+  passes it whole).
 - ``LayerNorm``: epsilon 1e-6 (torch's is 1e-5) and Flax's fast variance
   ``max(0, mean(x^2) - mean(x)^2)``, then ``(x - mean) * (rsqrt(var +
   eps) * scale) + bias``.
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,10 +59,32 @@ def no_tf32():
          torch.backends.cuda.matmul.allow_tf32) = prev
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``torch.clamp``'s values; where x needs a
+    gradient, JAX's (``maximum`` then ``minimum``, half the gradient to a
+    value on a bound)."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax's ``nn.Dropout(rate)``: in train mode each value is kept with
+    probability ``1 - rate`` (the mask drawn from ``generator``, which
+    lies on x's device; torch's default one where None) and divided by
+    it; the identity otherwise."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """BatchNorm over axis 1 of (B, C) or (B, C, H, W) with Flax's
-    defaults (epsilon 1e-5, momentum 0.99 of the running statistics); in
-    eval mode Flax's arithmetic order."""
+    defaults and arithmetic.  ``momentum`` keeps torch's meaning, the
+    weight of the batch statistic (0.01: Flax's momentum 0.99)."""
 
     def __init__(self, n: int):
         super().__init__(n, eps=1e-5, momentum=0.01)
@@ -62,11 +94,25 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             raise ValueError(f"expected (B, C) or (B, C, H, W), got {x.dim()}-D")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return super().forward(x)
+        self._check_input_dim(x)
         view = (-1,) + (1,) * (x.dim() - 2)
-        mul = (torch.rsqrt(self.running_var + self.eps) * self.weight).view(view)
-        return (x - self.running_mean.view(view)) * mul + self.bias.view(view)
+        x32 = x.float()
+        if self.training:
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = x32.mean(dims)
+            var = torch.maximum(x32.square().mean(dims) - mean.square(),
+                                mean.new_zeros(()))
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1.0 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var
+                                       + m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = (torch.rsqrt(var + self.eps) * self.weight).view(view)
+        y = (x32 - mean.view(view)) * mul + self.bias.view(view)
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):

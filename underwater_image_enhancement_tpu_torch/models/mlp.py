@@ -9,16 +9,17 @@ residual blocks -> half-width projection -> 4 sigmoid-ranged heads:
   L_high    in [85, 98]     (:160)
   use_gamma in [0, 1]       (:161)
 
-Dropout is the reference's 0.3, in train mode only.  Submodules carry the
-Flax names (``input_norm``, ``Dense_0``, ``ResidualBlock_0``,
-``Dense_1``, ``head_gamma``), so ``models/bridge`` maps a JAX tree onto
-them; the LayerNorm computes as Flax's (``layers.LayerNorm``).  The
-trainer (``MLPTrainer``) is not ported yet.
+Dropout is the reference's 0.3, in train mode only (``layers.dropout``,
+its masks drawn from the ``generator`` the caller passes, as Flax's from
+its ``dropout`` rng).  Submodules carry the Flax names (``input_norm``,
+``Dense_0``, ``ResidualBlock_0``, ``Dense_1``, ``head_gamma``), so
+``models/bridge`` maps a JAX tree onto them; the LayerNorm computes as
+Flax's (``layers.LayerNorm``).  ``train/trainer.MLPTrainer`` trains it.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,10 +44,12 @@ class ResidualBlock(nn.Module):
         self.Dense_0 = nn.Linear(dim, dim)
         self.Dense_1 = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = F.relu(self.Dense_0(x))
-        h = F.dropout(h, self.dropout, self.training)
-        h = F.dropout(self.Dense_1(h) + x, self.dropout, self.training)
+        h = layers.dropout(h, self.dropout, self.training, generator)
+        h = layers.dropout(self.Dense_1(h) + x, self.dropout, self.training,
+                           generator)
         return F.relu(h)
 
 
@@ -69,12 +72,15 @@ class ParameterPredictor(nn.Module):
         for name in PARAM_RANGES:
             self.add_module(f"head_{name}", nn.Linear(hidden_dim // 2, 1))
 
-    def forward(self, feats: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, feats: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         if self.normalize_inputs:
             feats = self.input_norm(feats)
-        x = F.dropout(F.relu(self.Dense_0(feats)), 0.3, self.training)
+        x = layers.dropout(F.relu(self.Dense_0(feats)), 0.3, self.training,
+                           generator)
         for i in range(self.num_blocks):
-            x = getattr(self, f"ResidualBlock_{i}")(x)
+            x = getattr(self, f"ResidualBlock_{i}")(x, generator)
         x = F.relu(self.Dense_1(x))
         return {name: torch.sigmoid(getattr(self, f"head_{name}")(x))
                 * (hi - lo) + lo for name, (lo, hi) in PARAM_RANGES.items()}

@@ -35,8 +35,8 @@ from underwater_image_enhancement_tpu_torch.models.diff_enhance import (
     enhance_zoo,
 )
 from underwater_image_enhancement_tpu_torch.models.vgg import (
+    IMAGENET_INV_STD,
     IMAGENET_MEAN,
-    IMAGENET_STD,
     ImprovedVGGParameterNet,
     load_backbone_npz,
 )
@@ -61,7 +61,6 @@ CLAMPS = {  # use_trained_model.py:74-79
 # multiplies by their f32 reciprocals (found by comparing candidates with
 # the jitted function; tests/test_torch_predictor.py holds it bit-equal)
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
-_INV_STD = (np.float32(1.0) / IMAGENET_STD).astype(np.float32)
 
 
 def _resize_unit(img: torch.Tensor, size: int) -> torch.Tensor:
@@ -143,7 +142,7 @@ class EnhancementPredictor(_FramePredictor):
             load_backbone_npz(self.model, pretrained_vgg)
         self.model.to(self.device).eval()
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
-        self._inv_std = torch.from_numpy(_INV_STD).to(self.device)
+        self._inv_std = torch.from_numpy(IMAGENET_INV_STD).to(self.device)
         if checkpoint_path is not None:
             self.load(checkpoint_path)
 
@@ -215,7 +214,7 @@ class ZooPredictor(_FramePredictor):
             self.load(checkpoint_path)
         self.model.to(self.device).eval()
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
-        self._inv_std = torch.from_numpy(_INV_STD).to(self.device)
+        self._inv_std = torch.from_numpy(IMAGENET_INV_STD).to(self.device)
 
     def load(self, checkpoint_path: str) -> None:
         """The port's ``.npz`` checkpoint ({params, batch_stats}); an

@@ -14,7 +14,11 @@ Reproduces ImprovedVGGParameterNet (vgg_16_UIE.py:135-250):
 Images are NHWC at the public boundary, as in JAX; the convs run NCHW
 inside.  Submodules carry the Flax modules' names (``vgg.conv0``,
 ``Dense_0``, ``BatchNorm_0``, ``head_omega_0``), so ``models/bridge`` maps
-a JAX variable tree onto them.  BatchNorm is Flax's (``layers.BatchNorm``).
+a JAX variable tree onto them.  BatchNorm is Flax's (``layers.BatchNorm``,
+its statistics in f32 under bf16 activations), dropout Flax's from the
+``generator`` the caller passes (``layers.dropout``).  Under
+``dtype=torch.bfloat16`` the parameters stay f32 and each layer casts
+them, as Flax's ``dtype`` does; the heads resolve in f32.
 
 The convs are ``torch.nn.functional.conv2d`` (cuDNN on the card; JAX
 leaves them to ``lax.conv``, outside any Pallas kernel).  cuDNN computes
@@ -45,6 +49,11 @@ VGG_PLAN = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512)
 # (use_trained_model.py:34-46)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# jitted JAX divides by IMAGENET_STD as a multiply by its f32 reciprocal
+# (found by comparing candidates with the jitted predictor preprocess;
+# tests/test_torch_predictor.py holds it bit-equal): the predictors and
+# the trainers normalise with it
+IMAGENET_INV_STD = (np.float32(1.0) / IMAGENET_STD).astype(np.float32)
 
 PARAM_RANGES = {
     "omega": (0.3, 0.9),
@@ -77,8 +86,13 @@ class VGGFeatures(nn.Module):
                                                       padding=1))
                 in_ch, i = item, i + 1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
+    def forward(self, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """dtype: the compute dtype of this call (default ``self.dtype``),
+        so one set of parameters has an f32 and a bf16 twin, as the
+        perceptual loss's trunk has (``models/losses``)."""
+        dtype = self.dtype if dtype is None else dtype
+        x = x.permute(0, 3, 1, 2).to(dtype)
         i = 0
         with layers.no_tf32():
             for item in VGG_PLAN:
@@ -88,8 +102,8 @@ class VGGFeatures(nn.Module):
                     x = F.max_pool2d(x, 2)
                     continue
                 conv = getattr(self, f"conv{i}")
-                x = F.relu(F.conv2d(x, conv.weight.to(self.dtype),
-                                    conv.bias.to(self.dtype), padding=1))
+                x = F.relu(F.conv2d(x, conv.weight.to(dtype),
+                                    conv.bias.to(dtype), padding=1))
                 i += 1
         return x.permute(0, 2, 3, 1)
 
@@ -124,7 +138,9 @@ class ImprovedVGGParameterNet(nn.Module):
                         layer.bias.to(self.dtype))
 
     def forward(self, img: torch.Tensor,
-                feats: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                feats: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         v = self.vgg(img)
         avg_feat = v.mean(dim=(1, 2))
         max_feat = v.mean(dim=(1, 2))  # reference bug reproduced (:158)
@@ -133,15 +149,15 @@ class ImprovedVGGParameterNet(nn.Module):
             x = torch.cat([x, feats.to(x.dtype)], dim=1)
         drop = self.training
         x = F.relu(self.BatchNorm_0(self._dense("Dense_0", x)))
-        x = F.dropout(x, 0.4, drop)
+        x = layers.dropout(x, 0.4, drop, generator)
         x = F.relu(self.BatchNorm_1(self._dense("Dense_1", x)))
-        x = F.dropout(x, 0.3, drop)
+        x = layers.dropout(x, 0.3, drop, generator)
         att = F.relu(self._dense("Dense_2", x))
         x = x * torch.sigmoid(self._dense("Dense_3", att))
         params = {}
         for name, (lo, hi) in PARAM_RANGES.items():
             hd = F.relu(self._dense(f"head_{name}_0", x))
-            hd = F.dropout(hd, 0.2, drop)
+            hd = layers.dropout(hd, 0.2, drop, generator)
             raw = self._dense(f"head_{name}_1", hd)
             # heads resolve in f32 (bf16's ~3 digits would quantize them)
             params[name] = torch.sigmoid(raw.float()) * (hi - lo) + lo

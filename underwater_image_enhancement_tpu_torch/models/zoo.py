@@ -22,7 +22,9 @@ so ``models/bridge`` maps a JAX variable tree onto them leaf by leaf.
 Flax infers input widths when it first sees an input; a torch module is
 built with them, so the blocks take ``in_features`` and the ViT the
 ``image_size`` its position table is made for.  Dropout is the identity
-in eval mode.
+in eval mode; in train mode its masks come from the ``generator`` the
+caller passes (``layers.dropout``), and BatchNorm takes the batch's
+statistics and moves its running ones as Flax's does.
 
 The torchvision loaders copy a torchvision state_dict into a module, in
 place (the port's layouts are torchvision's: OIHW convs, (out, in)
@@ -34,7 +36,7 @@ missing key or a wrong shape raises.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -71,10 +73,11 @@ def _add_heads(m: nn.Module, in_dim: int, first_dense: int) -> None:
         m.add_module(f"head_{name}", nn.Linear(128, 1))
 
 
-def _shared_mlp(m: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+def _shared_mlp(m: nn.Module, x: torch.Tensor, train: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
     """model_architectures.py:29-35 / :93-101: 256 -> 128 with dropout."""
     x = F.relu(getattr(m, m._mlp[0])(x))
-    x = F.dropout(x, 0.3, train)
+    x = layers.dropout(x, 0.3, train, generator)
     return F.relu(getattr(m, m._mlp[1])(x))
 
 
@@ -127,13 +130,16 @@ class CNNParameterPredictor(nn.Module):
             in_ch = filters
         _add_heads(self, 512, 0)
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         with layers.no_tf32():
             x = F.relu(self.BatchNorm_0(self.Conv_0(_nchw(img))))
             x = F.max_pool2d(x, 3, 2, 1)  # pads with -inf, as Flax
             for i in range(len(_RESNET_PLAN)):
                 x = getattr(self, f"ResNetBlock_{i}")(x)
-            x = _shared_mlp(self, x.mean(dim=(2, 3)), self.training)
+            x = _shared_mlp(self, x.mean(dim=(2, 3)), self.training,
+                            generator)
             return _param_heads(self, x)
 
 
@@ -239,13 +245,16 @@ class EfficientNetParameterPredictor(nn.Module):
         self.BatchNorm_1 = layers.BatchNorm(head)
         _add_heads(self, head, 0)
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         with layers.no_tf32():
             x = _swish(self.BatchNorm_0(self.Conv_0(_nchw(img))))
             for i in range(self.n_blocks):
                 x = getattr(self, f"MBConv_{i}")(x)
             x = _swish(self.BatchNorm_1(self.Conv_1(x)))
-            x = _shared_mlp(self, x.mean(dim=(2, 3)), self.training)
+            x = _shared_mlp(self, x.mean(dim=(2, 3)), self.training,
+                            generator)
             return _param_heads(self, x)
 
 
@@ -275,7 +284,9 @@ class ViTParameterPredictor(nn.Module):
         self.add_module(f"LayerNorm_{2 * depth}", layers.LayerNorm(dim))
         _add_heads(self, dim, 2 * depth)
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         B = img.shape[0]
         with layers.no_tf32():
             x = layers.conv2d_same(_nchw(img), self.Conv_0.weight,
@@ -295,7 +306,7 @@ class ViTParameterPredictor(nn.Module):
                 y = F.gelu(getattr(self, f"Dense_{2 * i}")(y))
                 x = x + getattr(self, f"Dense_{2 * i + 1}")(y)
             x = getattr(self, f"LayerNorm_{2 * self.depth}")(x)[:, 0]
-            x = _shared_mlp(self, x, self.training)
+            x = _shared_mlp(self, x, self.training, generator)
             return _param_heads(self, x)
 
 

@@ -1,0 +1,516 @@
+"""Training loops (the JAX package's ``train/trainer.py``).
+
+- ``MLPTrainer`` == EndToEndTrainer (deep_learning_parameters.py:253-459):
+  ParameterPredictor on the 79 features -> enhance_mlp -> ReferenceLoss,
+  Adam 1e-4, grad-clip 1.0, 80/20 split, best-model checkpointing,
+  training_history.json.
+- ``ZooTrainer``: the ResNet18, EfficientNet b0/b3 and ViT-B/16
+  predictors -> enhance_zoo -> ReferenceLoss, Adam 1e-4, grad-clip 1.0.
+- ``VGGTrainer`` == ImprovedTrainer (vgg_16_UIE.py:481-615):
+  ImprovedVGGParameterNet (bf16 compute by default) -> enhance_vgg ->
+  CombinedLoss, AdamW 1e-5 / wd 1e-5 over the trainable parameters (the
+  first 8 VGG convs frozen: no gradient, not in the optimiser, not in the
+  clip's norm), cosine warm restarts (T_0=10 epochs, T_mult=2, stepped
+  per epoch), grad-clip 1.0, best + every-10-epoch checkpoints, early
+  stop patience 15, resume.
+
+Each step is eager PyTorch on the trainer's device (``cuda`` unless asked
+otherwise; without a card it raises, and nothing moves to the CPU).
+Arithmetic follows the jitted JAX step where it moves the numbers:
+Flax's BatchNorm and dropout (``models/layers``), optax's
+``clip_by_global_norm`` (the gradients divided by their global norm where
+it is at least 1; jitted XLA keeps the division), Adam/AdamW with optax's
+hyperparameters, the learning rate of ``cosine_warm_restarts`` in f32 as
+jitted optax computes it.  f32 steps run under ``layers.no_tf32`` (the
+backward too).  The random initialisation is Flax's distributions drawn
+from ``torch.Generator().manual_seed(seed)``, not Flax's numbers; dropout
+masks come from a generator on the device seeded the same way.
+
+Checkpoints are the port's ``.npz`` (``models/bridge``): ``params``,
+``batch_stats``, ``opt_state`` (optax's Adam state, ``bridge.
+optax_adam_state``) and the loss histories.  ``final_model.npz`` is what
+``EnhancementPredictor`` and ``ZooPredictor`` (``cli enhance --model``)
+read.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import warnings
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from underwater_image_enhancement_tpu_torch.features.basic import (
+    extract_basic_batch,
+)
+from underwater_image_enhancement_tpu_torch.models import (
+    bridge,
+    diff_enhance,
+    layers,
+    losses,
+)
+from underwater_image_enhancement_tpu_torch.models.mlp import (
+    ParameterPredictor,
+)
+from underwater_image_enhancement_tpu_torch.models.vgg import (
+    IMAGENET_INV_STD,
+    IMAGENET_MEAN,
+    ImprovedVGGParameterNet,
+)
+from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+    resolve_device,
+)
+
+
+def cosine_warm_restarts(base_lr: float, t0: int, t_mult: int,
+                         max_epochs: int) -> Callable[[int], float]:
+    """CosineAnnealingWarmRestarts(T_0, T_mult), one step per EPOCH: an
+    epoch -> learning rate function, optax's ``join_schedules`` of
+    ``cosine_decay_schedule``s computed in f32 as the jitted JAX step
+    computes it (``cos(c * f32(pi / t))``, XLA's folded argument)."""
+    periods = []  # (first epoch, length)
+    t, total = t0, 0
+    while total < max_epochs:
+        periods.append((total, t))
+        total += t
+        t *= t_mult
+
+    def schedule(epoch: int) -> float:
+        start, t = periods[0]
+        for first, length in periods[1:]:
+            if int(epoch) >= first:
+                start, t = first, length
+        c = np.float32(min(int(epoch) - start, t))
+        x = np.float32(c * np.float32(math.pi / t))
+        decay = np.float32(0.5) * (np.float32(1.0)
+                                   + np.float32(math.cos(float(x))))
+        return float(np.float32(base_lr) * decay)
+
+    return schedule
+
+
+def _npz(path: Union[str, Path]) -> Path:
+    p = Path(path)
+    return p if p.suffix == ".npz" else p.with_name(p.name + ".npz")
+
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    """Write a trainer's payload (nested dicts of arrays) as the port's
+    ``.npz`` (``bridge.save_npz``); ``.npz`` is added to a path without
+    it."""
+    p = _npz(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    bridge.save_npz(str(p), payload)
+
+
+def restore_checkpoint(path: str, like: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, Any]:
+    """Read a checkpoint of ``save_checkpoint`` (``.npz`` added where the
+    path lacks it) as nested dicts of numpy arrays.  ``like``: a payload
+    of the kind it should hold; a top-level key of it that the file lacks
+    raises ValueError (an empty collection has nothing to lack)."""
+    tree = bridge.load_npz(str(_npz(path)))
+    if like is not None:
+        missing = sorted(k for k, v in like.items()
+                         if k not in tree and not (isinstance(v, dict)
+                                                   and not v))
+        if missing:
+            raise ValueError(f"{path}: the checkpoint lacks {missing}")
+    return tree
+
+
+def clip_by_global_norm(params, max_norm: float = 1.0) -> None:
+    """optax's ``clip_by_global_norm`` on the gradients of ``params``, in
+    place and on their device: ``g / norm`` where the global norm is at
+    least ``max_norm`` (no epsilon, unlike
+    ``torch.nn.utils.clip_grad_norm_``)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    for g in grads:
+        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device, non_blocking=True)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class _BaseTrainer:
+    """Shared epoch/checkpoint/early-stop machinery."""
+
+    def __init__(self):
+        self.train_losses: list = []
+        self.val_losses: list = []
+
+    def _setup(self, model: torch.nn.Module, seed: int,
+               device: Union[str, torch.device]) -> None:
+        """Flax's initialisers from ``seed``, the model on the device, and
+        the dropout generator there."""
+        self.device = resolve_device(device)
+        bridge.flax_default_init(model, torch.Generator().manual_seed(seed))
+        self.model = model.to(self.device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
+        self._inv_std = torch.from_numpy(IMAGENET_INV_STD).to(self.device)
+
+    @property
+    def trainable(self) -> list:
+        return [p for p in self.model.parameters() if p.requires_grad]
+
+    def _update(self, loss: torch.Tensor) -> torch.Tensor:
+        """Backward, then ``_apply_gradients``; the loss detached."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self._apply_gradients()
+        return loss.detach()
+
+    def _apply_gradients(self) -> None:
+        """The clip, then the optimiser's step, on the gradients held."""
+        clip_by_global_norm(self.trainable, 1.0)
+        self.optimizer.step()
+
+    def fit(self, train_batches_fn, val_batches_fn, epochs: int,
+            output_folder: str, patience: int = 15,
+            checkpoint_every: int = 10, log=print) -> Dict[str, list]:
+        """Reference loop shape (vgg_16_UIE.py:728-772): per epoch train +
+        validate, lr schedule per epoch, best/periodic ckpt, early stop."""
+        out = Path(output_folder)
+        out.mkdir(parents=True, exist_ok=True)
+        best = float("inf")
+        bad_epochs = 0
+        try:
+            for epoch in range(self.start_epoch, epochs):
+                tr = self.run_epoch(train_batches_fn(), train=True)
+                va = self.run_epoch(val_batches_fn(), train=False)
+                self.train_losses.append(tr)
+                self.val_losses.append(va)
+                self.epoch_hook(epoch)
+                log(f"epoch {epoch + 1}/{epochs}: train {tr:.6f} val {va:.6f}")
+                if va < best:
+                    best = va
+                    bad_epochs = 0
+                    self.save(str(out / "best_model"))
+                else:
+                    bad_epochs += 1
+                if (epoch + 1) % checkpoint_every == 0:
+                    self.save(str(out / f"checkpoint_epoch_{epoch + 1}"))
+                if bad_epochs >= patience:
+                    log(f"early stopping at epoch {epoch + 1}")
+                    break
+        except KeyboardInterrupt:
+            # interrupt checkpoint (vgg_16_UIE.py:796-799)
+            log("interrupted — saving checkpoint")
+            self.save(str(out / "interrupted_checkpoint"))
+            raise
+        except Exception as e:  # OOM advice (vgg_16_UIE.py:778-786)
+            if "out of memory" in str(e).lower():
+                log("out of device memory — reduce batch size or image "
+                    "resolution; saving checkpoint")
+                self.save(str(out / "oom_checkpoint"))
+            raise
+        self.save(str(out / "final_model"))
+        history = {"train_loss": self.train_losses, "val_loss": self.val_losses}
+        with open(out / "training_history.json", "w") as f:
+            json.dump(history, f, indent=2)
+        return history
+
+    def epoch_hook(self, epoch: int) -> None:
+        pass
+
+    @property
+    def start_epoch(self) -> int:
+        return len(self.train_losses)
+
+    def run_epoch(self, batches: Iterable, train: bool) -> float:
+        """The mean loss of the epoch's batches; with ``train`` a step on
+        each.  A batch is (imgs, refs) or (dataset indices, imgs, refs),
+        numpy arrays or tensors."""
+        found = []
+        for item in batches:
+            idx, imgs, refs = item if len(item) == 3 else (None,) + tuple(item)
+            imgs, refs = _tensor(imgs, self.device), _tensor(refs, self.device)
+            if train:
+                found.append(self._step(idx, imgs, refs))
+            else:
+                found.append(self._eval(idx, imgs, refs))
+        losses_ = torch.stack(found).tolist() if found else []
+        return sum(losses_) / max(len(losses_), 1)
+
+    def _step(self, idx, imgs, refs) -> torch.Tensor:
+        with layers.no_tf32():
+            self.model.train()
+            return self._update(self._loss_fn(idx, imgs, refs, True))
+
+    def _eval(self, idx, imgs, refs) -> torch.Tensor:
+        with torch.no_grad(), layers.no_tf32():
+            self.model.eval()
+            return self._loss_fn(idx, imgs, refs, False)
+
+    def _backbone_input(self, imgs: torch.Tensor) -> torch.Tensor:
+        """ImageNet-normalise the backbone branch (the predictors'
+        preprocess); raw [0, 1] when opted out.  The enhancement and the
+        loss consume the raw images."""
+        if not self.imagenet_normalize:
+            return imgs
+        return (imgs - self._mean) * self._inv_std
+
+    def _payload(self) -> Dict[str, Any]:
+        return {**bridge.to_flax(self.model),
+                "opt_state": bridge.optax_adam_state(self.model,
+                                                     self.optimizer),
+                "train_losses": np.asarray(self.train_losses, np.float64),
+                "val_losses": np.asarray(self.val_losses, np.float64)}
+
+    def save(self, path: str) -> None:
+        save_checkpoint(path, self._payload())
+
+    def load(self, path: str) -> None:
+        restored = restore_checkpoint(path, self._payload())
+        bridge.load_flax(self.model, {k: restored[k] for k in
+                                      ("params", "batch_stats")
+                                      if k in restored})
+        bridge.load_optax_adam(self.model, self.optimizer,
+                               restored["opt_state"])
+        self.train_losses = [float(v) for v in restored["train_losses"]]
+        self.val_losses = [float(v) for v in restored["val_losses"]]
+
+
+class MLPTrainer(_BaseTrainer):
+    """EndToEndTrainer equivalent (deep_learning_parameters.py:253-349)."""
+
+    def __init__(self, feature_dim: int = 79, hidden_dim: int = 256,
+                 num_blocks: int = 3, lr: float = 1e-4, seed: int = 0,
+                 stretch_mode: str = "quantile",
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        self._setup(ParameterPredictor(feature_dim, hidden_dim, num_blocks),
+                    seed, device)
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr)
+        self.stretch_mode = stretch_mode
+        self._feature_cache = None  # set by cache_features()
+
+    def _loss_fn(self, idx, imgs, refs, train: bool,
+                 feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The loss of a batch: the features from the cache where the
+        batch carries dataset indices, else extracted (or given)."""
+        if feats is None:
+            if idx is not None and self._feature_cache is not None:
+                feats = self._feature_cache[_tensor(idx, self.device)]
+            else:
+                feats = self._features(imgs)
+        pred = self.model(feats, generator=self._gen if train else None)
+        enhanced = diff_enhance.enhance_mlp(imgs, pred,
+                                            stretch_mode=self.stretch_mode)
+        return losses.reference_loss(enhanced, refs)[0]
+
+    def _features(self, imgs: torch.Tensor) -> torch.Tensor:
+        from underwater_image_enhancement_tpu_torch.features.full import (
+            extract_batch,
+        )
+
+        return extract_batch(imgs)
+
+    def cache_features(self, dataset, batch_size: int = 32,
+                       log=print) -> None:
+        """One 79-feature extraction pass over the whole dataset on the
+        device, cached per index (the reference re-extracts per item per
+        epoch, deep_learning_parameters.py:234).  Features are of the
+        un-augmented images; run_epoch reads them for batches that carry
+        dataset indices (``PairedImageDataset.batches(with_indices=True)``).
+        """
+        was_aug = getattr(dataset, "augment", False)
+        dataset.augment = False
+        try:
+            chunks = []
+            n = len(dataset)
+            for s in range(0, n, batch_size):
+                imgs = np.stack([dataset.load_pair(i)[0]
+                                 for i in range(s, min(s + batch_size, n))])
+                chunks.append(self._features(_tensor(imgs, self.device)))
+            self._feature_cache = torch.cat(chunks)
+            log(f"cached features for {n} images")
+        finally:
+            dataset.augment = was_aug
+
+    def predict_params(self, feats) -> Dict[str, torch.Tensor]:
+        with torch.no_grad(), layers.no_tf32():
+            self.model.eval()
+            return self.model(_tensor(feats, self.device))
+
+
+class ZooTrainer(_BaseTrainer):
+    """End-to-end trainer for the model_architectures.py backbones
+    (resnet, efficientnet b0/b3, vit): image -> the six parameters ->
+    ``enhance_zoo`` -> ReferenceLoss against the reference image.
+    ``pretrained`` loads a converted torchvision ``.npz`` backbone
+    (``models/zoo.load_{resnet18,efficientnet,vit}_npz``); "auto" finds the
+    conventional artifact (``utils/weights.find_zoo_npz``) and else starts
+    from the seeded init.  The backbone input is ImageNet-normalised
+    unless ``imagenet_normalize`` is False.  BatchNorm trains on the
+    batch's statistics."""
+
+    def __init__(self, model_type: str = "resnet", lr: float = 1e-4,
+                 seed: int = 0, image_size: int = 224,
+                 stretch_mode: str = "quantile",
+                 pretrained: Optional[str] = "auto", variant: str = "b0",
+                 imagenet_normalize: bool = True,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        from underwater_image_enhancement_tpu_torch.models import zoo
+
+        self.model_type = model_type
+        self.variant = variant
+        self.imagenet_normalize = imagenet_normalize
+        kwargs = ({"variant": variant} if model_type == "efficientnet" else
+                  {"image_size": image_size} if model_type == "vit" else {})
+        model = zoo.create_model(model_type, **kwargs)
+        if pretrained == "auto":
+            from underwater_image_enhancement_tpu_torch.utils.weights import (
+                find_zoo_npz,
+            )
+
+            pretrained = (find_zoo_npz(model_type, variant)
+                          if model_type in ("resnet", "efficientnet", "vit")
+                          else None)
+        self._setup(model, seed, device)
+        if pretrained is not None:
+            if model_type == "resnet":
+                zoo.load_resnet18_npz(self.model, pretrained)
+            elif model_type == "efficientnet":
+                zoo.load_efficientnet_npz(self.model, pretrained, variant)
+            elif model_type == "vit":
+                zoo.load_vit_npz(self.model, pretrained)
+            else:
+                raise ValueError(
+                    "pretrained import exists for the resnet18/efficientnet/"
+                    "vit backbones (model_architectures.py:13,83,131)")
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr)
+        self.stretch_mode = stretch_mode
+
+    def _loss_fn(self, idx, imgs, refs, train: bool) -> torch.Tensor:
+        del idx
+        pred = self.model(self._backbone_input(imgs),
+                          generator=self._gen if train else None)
+        enhanced = diff_enhance.enhance_zoo(imgs, pred,
+                                            stretch_mode=self.stretch_mode)
+        return losses.reference_loss(enhanced, refs)[0]
+
+    def predict_params(self, imgs) -> Dict[str, torch.Tensor]:
+        with torch.no_grad(), layers.no_tf32():
+            self.model.eval()
+            return self.model(self._backbone_input(_tensor(imgs,
+                                                           self.device)))
+
+
+class VGGTrainer(_BaseTrainer):
+    """ImprovedTrainer equivalent (vgg_16_UIE.py:481-615)."""
+
+    FROZEN_CONVS = 8  # first 16 conv param tensors = 8 (kernel, bias) pairs
+
+    def __init__(self, hidden_dim: int = 256, lr: float = 1e-5,
+                 weight_decay: float = 1e-5, epochs: int = 100,
+                 image_size: int = 224, seed: int = 0,
+                 compute_dtype: str = "bfloat16",
+                 stretch_mode: str = "quantile",
+                 vgg_loss_params=None, pretrained_vgg: Optional[str] = "auto",
+                 imagenet_normalize: bool = True,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        # the backbone input is ImageNet-normalised, as the predictor's
+        # (use_trained_model.py:39-46); the reference trains on raw [0, 1]
+        # images (vgg_16_UIE.py:327-330 is dead code), which
+        # imagenet_normalize=False reproduces
+        self.imagenet_normalize = imagenet_normalize
+        # bf16 compute by default (the reference's AMP autocast,
+        # vgg_16_UIE.py:504); parameters, the heads, the enhancement and
+        # the loss's reductions stay f32
+        self.compute_dtype = (torch.bfloat16 if compute_dtype == "bfloat16"
+                              else torch.float32)
+        self._setup(ImprovedVGGParameterNet(hidden_dim=hidden_dim,
+                                            dtype=self.compute_dtype),
+                    seed, device)
+        if pretrained_vgg == "auto":
+            from underwater_image_enhancement_tpu_torch.utils.weights import (
+                find_vgg16_npz,
+            )
+
+            pretrained_vgg = find_vgg16_npz()
+        if pretrained_vgg is not None:
+            # ImageNet VGG16 for the backbone trunk (vgg_16_UIE.py:149-154)
+            # and the perceptual loss (:257-269), from convert-vgg's .npz
+            from underwater_image_enhancement_tpu_torch.models.vgg import (
+                load_backbone_npz,
+                load_perceptual_npz,
+            )
+
+            load_backbone_npz(self.model, pretrained_vgg)
+            if vgg_loss_params is None:
+                vgg_loss_params = load_perceptual_npz(pretrained_vgg)
+        if vgg_loss_params is None:
+            warnings.warn(
+                "VGGTrainer: perceptual loss uses a RANDOM-init VGG trunk; "
+                "pass vgg_loss_params=load_perceptual_npz(path) for the "
+                "reference's pretrained-VGG16 perceptual loss",
+                stacklevel=2,
+            )
+            vgg_loss_params = losses.init_perceptual_params(
+                seed + 1, (1, image_size, image_size, 3))
+        self.vgg_loss_params = vgg_loss_params.requires_grad_(False).to(
+            self.device)
+        self.schedule = cosine_warm_restarts(lr, 10, 2, epochs)
+        self._epoch_count = 0
+        # frozen convs take no gradient, so the clip's norm and AdamW see
+        # the trainable parameters only (vgg_16_UIE.py:492-534)
+        for i in range(self.FROZEN_CONVS):
+            getattr(self.model.vgg, f"conv{i}").requires_grad_(False)
+        self.optimizer = torch.optim.AdamW(self.trainable, lr=lr,
+                                           weight_decay=weight_decay)
+        self.stretch_mode = stretch_mode
+
+    def _loss_fn(self, idx, imgs, refs, train: bool,
+                 feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        del idx
+        if feats is None:
+            feats = extract_basic_batch(imgs)
+        x = self._backbone_input(imgs).to(self.compute_dtype)
+        pred = self.model(x, feats, generator=self._gen if train else None)
+        pred = {k: v.float() for k, v in pred.items()}
+        enhanced = diff_enhance.enhance_vgg(imgs, pred,
+                                            stretch_mode=self.stretch_mode)
+        return losses.combined_loss(self.vgg_loss_params, enhanced, refs,
+                                    dtype=self.compute_dtype)[0]
+
+    def _step(self, idx, imgs, refs) -> torch.Tensor:
+        # the epoch's learning rate (scheduler.step() per epoch,
+        # vgg_16_UIE.py:499-501,749)
+        lr = self.schedule(self._epoch_count)
+        for g in self.optimizer.param_groups:
+            g["lr"] = lr
+        return super()._step(idx, imgs, refs)
+
+    def epoch_hook(self, epoch: int) -> None:
+        self._epoch_count = epoch + 1  # scheduler.step() per epoch
+
+    def predict_params(self, imgs, feats=None) -> Dict[str, torch.Tensor]:
+        """The heads on a [0, 1] batch (the features ``extract_basic_batch``
+        of it unless given), as the training step sees them."""
+        imgs = _tensor(imgs, self.device)
+        if feats is None:
+            feats = extract_basic_batch(imgs)
+        with torch.no_grad(), layers.no_tf32():
+            self.model.eval()
+            x = self._backbone_input(imgs).to(self.compute_dtype)
+            return {k: v.float() for k, v in
+                    self.model(x, _tensor(feats, self.device)).items()}
+
+    def load(self, path: str) -> None:
+        super().load(path)
+        # resume the per-epoch LR schedule where it left off (vgg:713-717)
+        self._epoch_count = len(self.train_losses)
