@@ -90,7 +90,18 @@ non-zero):
    ``WATERNET_BATCH_MAX_ABS`` of single frames, bf16 within
    ``WATERNET_BF16_MAX_ABS`` of f32, frame 0 and the UNet on a 1078x1918
    crop within ``WATERNET_MAX_ABS`` of the CPU path (its seconds printed;
-   a TF32 control must land past the gate), and ``[train]``
+   a TF32 control must land past the gate), ``[dp]`` (``dp_slice``):
+   data parallelism over a mesh rehearsed as 2 and 3 positions on the one
+   card, ``run_data_parallel`` of ``auto_enhance_batch`` and of the label
+   program on the three frames (2 positions pad them to 4),
+   ``label_batch_dp`` and ``enhance_batch_dp``, each against its single
+   call (``DP_*`` gates: features 1e-4 relative, scores 1e-3, the same
+   winner unless the top two lie within 1e-2, the u8 winners equal,
+   enhance 1e-6; the differing values printed), the launches a frame
+   those of the single-device CLI runs, ``cli build-dataset`` and ``cli
+   enhance --devices 1`` byte-equal to their runs without it,
+   ``examples.main("all")`` and a ``profiling.trace`` of one frame on
+   the card (``validate`` is not driven: no cv2 there), and ``[train]``
    (``train_slice``): ``cli train-mlp`` (79 -> 256, 3 blocks, 256^2),
    ``train-vgg`` in bf16 and ``--fp32`` (VGG16 to conv4_3, hidden 256,
    224^2, the seeded perceptual trunk) and ``train-zoo`` (ResNet18 for
@@ -146,7 +157,9 @@ non-zero):
    its planes (``copy_us``: ``torch.stack``, ``torch.addcmul`` or
    ``torch.clone``, ``COPY_FLOORS``) and, for the prefix sums,
    ``torch.cumsum``; hysteresis and the prefix sums also on their other
-   main-path shapes.
+   main-path shapes; and ``[dp_timing]``: ms a frame of the label and auto
+   programs on the three frames for mesh None against 3 positions on the
+   one card, in turns.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -1028,6 +1041,240 @@ def train_timing(torch, dev, train_ds, profile_frame, smi: str) -> None:
               f"{label}: BatchNorm's running statistics did not move")
         check(not ours, f"{label}: a step launched {ours}")
         del trainer
+
+
+# [dp]: the label program's gates on the card (features 1e-4 relative
+# or 1e-5, scores 1e-3, the same winner unless the top two lie within
+# 1e-2) between mesh positions and the single call; the enhance 1e-6
+DP_SCORE_MAX_ABS = 1e-3
+DP_FEATURE_REL, DP_FEATURE_ABS = 1e-4, 1e-5
+DP_GAP = 1e-2
+DP_ENHANCE_MAX_ABS = 1e-6
+# kernels a frame of the auto and label programs launches whatever its
+# descent (K7 and K6 follow the levels)
+DP_PER_FRAME = {"lab_forward_unit": 1, "lab_forward_l_u8": 5,
+                "clahe_apply": 1, "lab_inverse_unit": 1}
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def dp_compare(torch, what, got, want) -> dict:
+    """A mesh run of the label or auto program against the single call:
+    (features,) scores, best, frames.  Returns the differing counts."""
+    if len(want) == 4:
+        feats, scores, best, imgs = got
+        w_feats, w_scores, w_best, w_imgs = want
+        err = (feats.double() - w_feats.double()).abs()
+        ok = (err <= DP_FEATURE_REL * w_feats.double().abs()) | (
+            err <= DP_FEATURE_ABS)
+        check(feats.shape == w_feats.shape and bool(ok.all()),
+              f"{what}: features off at {torch.nonzero(~ok).tolist()[:8]}")
+        diff = {"features": int((feats != w_feats).sum())}
+    else:
+        imgs, best, scores = got
+        w_imgs, w_best, w_scores = want
+        diff = {}
+    sd = float((scores - w_scores).abs().max())
+    check(scores.shape == w_scores.shape and sd <= DP_SCORE_MAX_ABS,
+          f"{what}: scores differ by {sd}")
+    for j in range(len(w_best)):
+        top = torch.sort(w_scores[j], descending=True).values
+        if float(top[0] - top[1]) >= DP_GAP:
+            check(int(best[j]) == int(w_best[j]),
+                  f"{what}: frame {j} winner {int(best[j])}, single call "
+                  f"{int(w_best[j])}")
+        if int(best[j]) == int(w_best[j]):
+            q = [(torch.clamp(x, 0, 1) * 255).to(torch.uint8)
+                 for x in (imgs[j], w_imgs[j])]
+            check(torch.equal(q[0], q[1]),
+                  f"{what}: frame {j}'s u8 winner differs from the single "
+                  "call's")
+    diff.update(scores=int((scores != w_scores).sum()),
+                winners=int((best != w_best).sum()),
+                frame_values=int((imgs != w_imgs).sum()))
+    return diff
+
+
+def dp_slice(torch, dev, frames, run_cli, captured_match, runs, smi,
+             device_args=()) -> None:
+    """[dp]: data parallelism over a mesh on the one card, rehearsed as
+    mesh positions that repeat it: ``run_data_parallel`` of
+    ``auto_enhance_batch`` and of the label program on the three frames
+    with 2 positions (padded to 4) and 3, ``label_batch_dp`` and
+    ``enhance_batch_dp`` on 3 positions (3 frames) and 2 (2 frames), each
+    against its single call (the differing values printed; the kernel
+    calls captured into ``runs`` and replayed with the others); ``cli
+    build-dataset`` and ``cli enhance`` with ``--devices 1`` against their
+    runs without it (the same bytes); ``examples.main("all")`` and
+    ``profiling.trace`` around one frame on the card; then ms a frame of
+    the label and auto programs for mesh None against 3 positions, in
+    turns.  ``device_args`` are added to each command (none: the
+    card)."""
+    from underwater_image_enhancement_tpu_torch import examples
+    from underwater_image_enhancement_tpu_torch.ops import kernels
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+        Mesh,
+        run_data_parallel,
+    )
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        auto_enhance_batch,
+        enhance_batch,
+        enhance_batch_dp,
+        six_strategy_tuple,
+    )
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        label_batch,
+        label_batch_dp,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import profiling
+    from underwater_image_enhancement_tpu_torch.utils.config import (
+        DEFAULT_QUALITY_WEIGHTS as w8,
+    )
+
+    host = torch.from_numpy(np.stack(frames))
+    batch = host.to(dev)
+    meshes = {2: Mesh((dev,) * 2), 3: Mesh((dev,) * 3)}
+    check(all(d.type != "cuda" or d.index is not None
+              for m in meshes.values() for d in m.devices),
+          f"mesh devices unindexed: {meshes}")
+    single = {"auto": auto_enhance_batch(batch, device=dev),
+              "label": label_batch(batch, w8)}
+    programs = {
+        "auto": lambda x: auto_enhance_batch(x, device=x.device),
+        "label": lambda x: label_batch(x, w8),
+    }
+
+    def counted(key, fn):
+        calls, restore = capture_calls(torch, kernels)
+        t0 = time.perf_counter()
+        try:
+            kernels.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        finally:
+            restore()
+        check(captured_match(calls, launches),
+              f"{key}: captured calls vs launches {launches}")
+        runs[key] = (calls, launches, None)
+        return out, launches, time.perf_counter() - t0
+
+    for name, fn in programs.items():
+        for n, m in meshes.items():
+            seen = []
+
+            def shard(x, fn=fn):
+                seen.append(int(x.shape[0]))
+                return fn(x)
+
+            out, launches, secs = counted(
+                f"dp_{name}_{n}", lambda: run_data_parallel(shard, host, m))
+            diff = dp_compare(torch, f"run_data_parallel({name}) on {n}",
+                              out, single[name])
+            frames_run = sum(seen)
+            check(seen == ([2, 2] if n == 2 else [1, 1, 1]),
+                  f"{name} on {n} positions: shards {seen}")
+            check(all(launches[k] == v * frames_run
+                      for k, v in DP_PER_FRAME.items()),
+                  f"{name} on {n} positions: launches {launches} for "
+                  f"{frames_run} frames")
+            if n == 3:
+                same = runs["auto" if name == "auto" else "build"][1]
+                check(launches == same, f"{name} on 3 positions launched "
+                      f"{launches}, the single-device CLI run {same}")
+            log("dp", program=name, positions=n, shards=",".join(
+                map(str, seen)), seconds=f"{secs:.2f}",
+                differing=json.dumps(diff, separators=(",", ":")),
+                launches=json.dumps(nonzero(launches), separators=(",", ":")))
+    for n, m in meshes.items():
+        imgs = batch[:n]
+        want = [t[:n] for t in single["label"]]
+        got, launches, secs = counted(
+            f"dp_label_batch_dp_{n}", lambda: label_batch_dp(imgs, w8, m))
+        diff = dp_compare(torch, f"label_batch_dp on {n}", got, want)
+        e_want = enhance_batch(imgs, 10.0, 90.0, 0.6, 1.2, device=dev)
+        e_got = enhance_batch_dp(imgs, 10.0, 90.0, 0.6, 1.2, m)
+        ed = float((e_got - e_want).abs().max())
+        check(e_got.shape == e_want.shape and ed <= DP_ENHANCE_MAX_ABS,
+              f"enhance_batch_dp on {n}: max |d| {ed}")
+        diff["enhance_values"] = int((e_got != e_want).sum())
+        log("dp", function="label_batch_dp,enhance_batch_dp", positions=n,
+            frames=n, seconds=f"{secs:.2f}", enhance_max_abs=ed,
+            differing=json.dumps(diff, separators=(",", ":")),
+            launches=json.dumps(nonzero(launches), separators=(",", ":")))
+
+    # the CLI with --devices 1 (one plain call, as unset on one card)
+    src = WORK / "in"
+    for key, argv, ref, pattern in (
+            ("build", ["build-dataset", "--input", str(src), "--output",
+                       str(WORK / "dp_build")], WORK / "build",
+             "strategy_results/*.png"),
+            ("enhance", ["enhance", "--input", str(src), "--output",
+                         str(WORK / "dp_enhance")], WORK / "enhance",
+             "*.png")):
+        out_dir = Path(argv[4])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _, launches, secs = run_cli(
+                argv + ["--devices", "1"] + list(device_args), False)
+        got = {p.relative_to(out_dir): p.read_bytes()
+               for p in sorted(out_dir.glob(pattern))}
+        want = {p.relative_to(ref): p.read_bytes()
+                for p in sorted(ref.glob(pattern))}
+        check(len(got) == 3 and got == want,
+              f"{key} --devices 1: outputs differ from the run without it")
+        if key == "build":
+            csv_path = Path("reports") / "dataset_building.csv"
+            check((out_dir / csv_path).read_bytes()
+                  == (ref / csv_path).read_bytes(),
+                  "build-dataset --devices 1: the CSV differs")
+            check(launches == runs["build"][1],
+                  f"build-dataset --devices 1 launched {launches}")
+        runs[f"dp_cli_{key}"] = ({}, launches, None)
+        log("dp", command=" ".join(argv[:1] + ["--devices", "1"]),
+            same_bytes=True, outputs=len(got), seconds=f"{secs:.2f}")
+
+    # the examples and a trace on the card
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        examples.main("all", device=dev)
+    text = printed.getvalue()
+    heads = [ln for ln in text.splitlines() if ln.startswith("--- ")]
+    check(len(heads) == 7 and "nan" not in text
+          and f"Phase-1 data mesh on {dev}: None" in text,
+          f"examples printed {text!r}")
+    trace_dir = WORK / "trace"
+    timer = profiling.StageTimer()
+    with profiling.trace(str(trace_dir)):
+        with timer.stage("six_exact", sync_on=dev):
+            six_strategy_tuple(frames[0], device=dev)
+    traces = list(trace_dir.glob("trace_*.json"))
+    check(len(traces) == 1, f"profiling.trace wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    check(len(events) > 0, "profiling.trace wrote no event")
+    log("dp", examples=len(heads), trace_events=len(events),
+        trace_package_kernels=sum(any(k in str(e.get("name", ""))
+                                      for k in OUR_KERNELS) for e in events),
+        six_exact_stage_s=f"{timer.totals['six_exact']:.3f}",
+        validate="'not driven here: its float64 oracles need cv2, which this "
+                 "machine lacks; the CPU tests hold it to JAX'")
+
+    # ms a frame, mesh None against 3 positions on the one card, in turns
+    for name, fn in programs.items():
+        ms = {"none": [], "mesh3": []}
+        for key in ("none", "mesh3", "mesh3", "none") * 2:
+            call = ((lambda: fn(batch)) if key == "none" else
+                    (lambda: run_data_parallel(fn, batch, meshes[3])))
+            ms[key] += [t / 3 for t in event_ms(torch, call, 4, warmup=1)]
+        log("dp_timing", program=name, frames=3,
+            **{f"{k}_ms_per_frame_{s}": v for k in ms
+               for s, v in spread(ms[k]).items()},
+            none_runs=",".join(f"{t:.3f}" for t in ms["none"]),
+            mesh3_runs=",".join(f"{t:.3f}" for t in ms["mesh3"]),
+            card=repr(smi),
+            note="'3 positions on one card: no overlap is measured'")
 
 
 def main() -> int:
@@ -1961,6 +2208,9 @@ def main() -> int:
         bf16_gate=f"<= {WATERNET_BF16_MAX_ABS}", batch_vs_single=d_batch,
         cpu_s=f"{cpu_s:.2f}", card=repr(smi))
     del wn_out, singles, wn_cpu, cpu0, un_cpu, un_gpu, un0
+
+    # [dp] data parallelism over a mesh on the one card
+    dp_slice(torch, dev, frames, run_cli, captured_match, runs, smi)
 
     # [train] the trainers through the CLI and their gates
     train_ds = train_slice(torch, dev, run_cli, captured_match, runs)

@@ -2,7 +2,8 @@
 
 For every module of the JAX package that the port has, each public
 function and class of the JAX module (defined there, or a jitted alias)
-exists in the port, and its ``inspect.signature`` parameter names lead the
+and each public UPPER-CASE constant (defined there or imported) exists in
+the port, and a callable's ``inspect.signature`` parameter names lead the
 port's in the same order (the port may add parameters after them, such as
 ``device`` on its entry points).  What the port leaves out on purpose is
 listed below with the reason; each entry is an item of ROADMAP's Queue 1
@@ -14,6 +15,7 @@ import argparse
 import importlib
 import inspect
 import pkgutil
+import re
 
 import pytest
 
@@ -25,19 +27,9 @@ from underwater_image_enhancement_tpu_torch import cli as tcli
 # (module, name) or (module, "name.parameter") -> why the port leaves it out
 LEFT_OUT = {
     ("models.waternet", "enhance_sharded"):
-        "Queue 1 item 9: WaterNet's sharded inference (parallel/)",
-    ("pipeline.enhance", "enhance_batch_dp"):
-        "Queue 1 item 9: data parallelism (--devices)",
-    ("select.system", "label_batch_dp"):
-        "Queue 1 item 9: data parallelism (--devices)",
+        "Queue 1 item 9b: WaterNet's spatially sharded inference",
     ("ops.edges", "canny_u8.valid_rows"):
-        "Queue 1 item 9: row-sharded Canny (parallel/six_spatial)",
-    ("utils.config", "Config.data_parallel"):
-        "Queue 1 item 9: data parallelism (--devices)",
-    ("utils.config", "Config.n_devices"):
-        "Queue 1 item 9: data parallelism (--devices)",
-    ("utils.config", "Config.strategies"):
-        "Queue 1 item 10: read only by the JAX examples module",
+        "Queue 1 item 9b: row-sharded Canny (parallel/six_spatial)",
     ("utils.config", "Config.use_deep_features"):
         "declared but never read in JAX either",
     ("utils.config", "Config.deep_feature_model"):
@@ -48,11 +40,14 @@ LEFT_OUT = {
         "declared but never read in JAX either",
     ("utils.config", "Config.dtype"): "declared but never read in JAX either",
     ("train.trainer", "MLPTrainer.mesh"):
-        "Queue 1 item 9: data parallelism over a device mesh",
+        "Queue 1 item 9c: the trainers' data mesh (global-batch BatchNorm "
+        "across shards)",
     ("train.trainer", "ZooTrainer.mesh"):
-        "Queue 1 item 9: data parallelism over a device mesh",
+        "Queue 1 item 9c: the trainers' data mesh (global-batch BatchNorm "
+        "across shards)",
     ("train.trainer", "VGGTrainer.mesh"):
-        "Queue 1 item 9: data parallelism over a device mesh",
+        "Queue 1 item 9c: the trainers' data mesh (global-batch BatchNorm "
+        "across shards)",
     ("ops.dct", "dct2.precision"):
         "the TPU MXU's matmul precision; the port's f32 products run in "
         "full f32 (no TF32)",
@@ -75,12 +70,11 @@ for _module, _classes in FLAX_MODULES.items():
 
 # JAX modules the port does not have yet -> the Queue 1 item that brings it
 MODULES_TO_PORT = {
-    "validate": 8, "parallel": 9, "parallel.mesh": 9,
-    "parallel.spatial": 9, "parallel.six_spatial": 9,
-    "parallel.fusion_spatial": 9, "examples": 10, "utils.profiling": 10,
+    "parallel.spatial": "9b", "parallel.six_spatial": "9b",
+    "parallel.fusion_spatial": "9b",
     # never: the Pallas kernels have CUDA counterparts (ops/kernels.py and
-    # csrc/), and the oracles stay with the JAX suite (item 8 copies what
-    # validate needs)
+    # csrc/), and the oracles stay with the JAX suite (utils/oracles.py
+    # copies what validate needs)
     "ops.pallas_kernels": None, "testing": None, "testing.golden": None,
     "testing.golden_cnn": None, "testing.golden_features": None,
     "testing.golden_fusion": None, "testing.golden_metrics": None,
@@ -88,7 +82,7 @@ MODULES_TO_PORT = {
 }
 
 # JAX CLI subcommands the port does not have yet -> Queue 1 item
-SUBCOMMANDS_TO_PORT = {"validate": 8}
+SUBCOMMANDS_TO_PORT = {}
 
 
 def _modules(pkg):
@@ -101,11 +95,17 @@ SHARED = sorted(set(J_MODULES) & set(T_MODULES))
 
 
 def _public(mod):
-    """Public callables of ``mod``: defined there, or jitted partials
-    (whose ``__module__`` is functools) bound to a public name."""
+    """Public names of ``mod``: callables defined there, or jitted
+    partials (whose ``__module__`` is functools) bound to a public name,
+    and UPPER-CASE constants (tables, orders, axis names), defined there
+    or imported, as ``pipeline.enhance``'s ``STRATEGY_FNS``."""
     names = []
     for name, v in vars(mod).items():
-        if name.startswith("_") or inspect.ismodule(v) or not callable(v):
+        if name.startswith("_") or inspect.ismodule(v):
+            continue
+        if not callable(v):
+            if re.fullmatch(r"[A-Z][A-Z0-9_]*", name):
+                names.append(name)
             continue
         owner = getattr(v, "__module__", None)
         if owner == mod.__name__ or (owner == "functools"
@@ -167,11 +167,11 @@ def _subcommands(cli):
 
 def test_cli_subcommands():
     """The port's CLI has every JAX subcommand but those still to port
-    (``fusion``, Phase 2's, ``waternet`` and the trainers among those it
-    has)."""
+    (``fusion``, Phase 2's, ``waternet``, the trainers and ``validate``
+    among those it has)."""
     jax_cmds, port_cmds = _subcommands(jcli), _subcommands(tcli)
     assert {"fusion", "train-selector", "run", "predict",
             "convert-vgg", "waternet", "train-mlp", "train-vgg",
-            "train-zoo"} <= port_cmds
+            "train-zoo", "validate"} <= port_cmds
     assert jax_cmds - port_cmds == set(SUBCOMMANDS_TO_PORT)
     assert port_cmds <= jax_cmds

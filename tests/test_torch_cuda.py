@@ -859,3 +859,54 @@ def test_train_steps_on_card(cuda, monkeypatch, label):
     stats = [k for k in before if k.startswith("batch_stats/")]
     assert not stats or any(not np.array_equal(after[k], before[k])
                             for k in stats)
+
+
+@pytest.mark.parametrize("cmd", ["enhance", "auto", "build-dataset", "run"])
+def test_cli_devices_above_card_count_raises(cuda, tmp_path, cmd):
+    from underwater_image_enhancement_tpu_torch import cli
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=f"--devices {n}: {n} CUDA devices "
+                       f"asked, {n - 1} visible"):
+        cli.main([cmd, "--input", str(tmp_path), "--output",
+                  str(tmp_path / "out"), "--devices", str(n)])
+
+
+def test_dp_on_card_equals_single_call(cuda):
+    """Two and three mesh positions on one card against the single call:
+    label_batch_dp (the winner; features within 1e-4 relative or 1e-5;
+    the winning frames bit-equal where the winner agrees) and
+    enhance_batch_dp within 1e-6; the differing values printed."""
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import Mesh
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        enhance_batch,
+        enhance_batch_dp,
+    )
+    from underwater_image_enhancement_tpu_torch.select.system import (
+        label_batch,
+        label_batch_dp,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.config import (
+        DEFAULT_QUALITY_WEIGHTS as W,
+    )
+
+    imgs = torch.from_numpy(np.stack(
+        [synthetic_frame(s, 90, 120) for s in range(6)])).to(cuda)
+    f1, s1, b1, w1 = label_batch(imgs, W)
+    e1 = enhance_batch(imgs, 10.0, 90.0, 0.6, 1.2, device=cuda)
+    for n in (2, 3):
+        m = Mesh((cuda,) * n)
+        f, s, b, w = label_batch_dp(imgs, W, m)
+        e = enhance_batch_dp(imgs, 10.0, 90.0, 0.6, 1.2, m)
+        print(f"{n} positions: features {int((f != f1).sum())}, scores "
+              f"{int((s != s1).sum())}, winners {int((w != w1).sum())}, "
+              f"enhance {int((e != e1).sum())} values differ")
+        err = (f.double() - f1.double()).abs()
+        assert bool(((err <= 1e-4 * f1.double().abs()) | (err <= 1e-5)).all())
+        for j in range(6):
+            top = torch.sort(s1[j], descending=True).values
+            if float(top[0] - top[1]) >= 1e-2:
+                assert int(b[j]) == int(b1[j])
+            if int(b[j]) == int(b1[j]):
+                assert torch.equal(w[j], w1[j])
+        assert float((e - e1).abs().max()) <= 1e-6

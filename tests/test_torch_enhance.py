@@ -144,11 +144,12 @@ def test_cli_enhance_file_and_folder_match_jax_cli(tmp_path, batch):
 
 @pytest.mark.parametrize("flag", [["--model", "m.npz", "--arch", "resnet",
                                    "--devices", "2"],
-                                  ["--devices", "2"]])
+                                  ["--devices", "64", "--device", "cuda"]])
 def test_cli_enhance_rejects_what_is_not_ported(tmp_path, flag):
-    """--devices (data parallelism) is not ported: rejected with a
-    predictor of the zoo (which runs now) and without one."""
-    with pytest.raises(SystemExit, match="not yet ported") as e:
+    """--devices is rejected where it cannot run: with a predictor of the
+    zoo (the predictors run on one device) and beyond the visible cards
+    (naming both counts)."""
+    with pytest.raises(SystemExit, match="--devices") as e:
         tcli.main(["enhance", "--input", str(tmp_path), "--output",
                    str(tmp_path / "o"), "--device", "cpu"] + flag)
     assert e.value.code != 0

@@ -192,9 +192,10 @@ def test_auto_and_build_dataset_default_to_cuda():
 
 @pytest.mark.parametrize("cmd", ["auto", "build-dataset"])
 def test_cli_rejects_devices(cmd):
-    with pytest.raises(SystemExit, match="--devices"):
+    """More cards than are visible end the run before any frame."""
+    with pytest.raises(SystemExit, match="--devices 64: 64 CUDA devices"):
         tcli.main([cmd, "--input", ".", "--output", "unused", "--devices",
-                   "1", "--device", "cpu"])
+                   "64", "--device", "cuda"])
 
 
 def _write_folder(folder):

@@ -458,12 +458,14 @@ def test_cli_enhance_model_matches_jax_cli(tmp_path, underwater_img,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "resnet", "--devices", "2"], "item 9"),
-    (["--arch", "vit", "--devices", "2"], "item 9"),
-    (["--devices", "2"], "item 9")])
+    pytest.param(["--arch", "resnet", "--devices", "2"], "one device",
+                 id="argv0-item 9"),
+    pytest.param(["--arch", "vit", "--devices", "2"], "one device",
+                 id="argv1-item 9"),
+    pytest.param(["--devices", "2"], "one device", id="argv2-item 9")])
 def test_cli_enhance_rejects_zoo_and_devices(tmp_path, argv, item):
-    """--devices (data parallelism) is rejected for every arch, the zoo's
-    (which run now) too."""
+    """--devices over more than one position is rejected with --model for
+    every arch: the predictors run on one device."""
     with pytest.raises(SystemExit, match=item):
         tcli.main(["enhance", "--input", str(tmp_path), "--output",
                    str(tmp_path / "o"), "--model", "m.npz",

@@ -329,6 +329,8 @@ def test_cli_run_full_flow(img_folder, tmp_path, capsys):
 
 
 def test_cli_run_rejects_devices(img_folder, tmp_path):
-    with pytest.raises(SystemExit, match="item 9"):
+    """More cards than are visible end the run, naming both counts."""
+    with pytest.raises(SystemExit, match="--devices 64: 64 CUDA devices "
+                       "asked, [0-9]+ visible"):
         tcli.main(["run", "--input", str(img_folder), "--output",
-                   str(tmp_path), "--device", "cpu", "--devices", "2"])
+                   str(tmp_path), "--device", "cuda", "--devices", "64"])

@@ -243,6 +243,11 @@ def test_port_runs_without_jax_in_subprocess(tmp_path):
         "import underwater_image_enhancement_tpu_torch.models.predictor\n"
         "import underwater_image_enhancement_tpu_torch.models.bridge\n"
         "import underwater_image_enhancement_tpu_torch.utils.weights\n"
+        "import underwater_image_enhancement_tpu_torch.parallel.mesh\n"
+        "import underwater_image_enhancement_tpu_torch.validate\n"
+        "import underwater_image_enhancement_tpu_torch.examples\n"
+        "import underwater_image_enhancement_tpu_torch.utils.profiling\n"
+        "import underwater_image_enhancement_tpu_torch.utils.oracles\n"
         "from underwater_image_enhancement_tpu_torch.select.mlp_classifier "
         "import FlaxMLPClassifier\n"
         "X = rng.normal(0, 1, (40, 79)).astype(np.float32)\n"
@@ -294,13 +299,25 @@ def test_source_imports_neither_jax_nor_the_jax_package():
             "underwater_image_enhancement_tpu_torch/models/vgg.py",
             "underwater_image_enhancement_tpu_torch/models/predictor.py",
             "underwater_image_enhancement_tpu_torch/utils/weights.py",
-            "underwater_image_enhancement_tpu_torch/cli.py"} <= names
+            "underwater_image_enhancement_tpu_torch/cli.py",
+            "underwater_image_enhancement_tpu_torch/parallel/mesh.py",
+            "underwater_image_enhancement_tpu_torch/validate.py",
+            "underwater_image_enhancement_tpu_torch/examples.py",
+            "underwater_image_enhancement_tpu_torch/utils/profiling.py",
+            "underwater_image_enhancement_tpu_torch/utils/oracles.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax"), (path, mod)
             # the port's own name starts with the JAX package's
             assert top != "underwater_image_enhancement_tpu", (path, mod)
+        # cv2 (absent on the GPU machine) only inside functions
+        top_level = ast.parse(path.read_text()).body
+        for node in top_level:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else [node.module])
+                assert "cv2" not in mods, path
 
 
 def test_six_strategy_single_stacks_the_tuple():

@@ -125,6 +125,6 @@ def test_phase1_config_equal():
     t, j = tconfig.Config(), jconfig.Config()
     for f in ("image_folder", "output_folder", "save_all_enhanced",
               "batch_size", "fast_label", "quality_weights", "feature_folder",
-              "strategy_folder", "model_folder", "report_folder"):
+              "strategy_folder", "model_folder", "report_folder",
+              "strategies", "data_parallel", "n_devices"):
         assert getattr(t, f) == getattr(j, f), f
-    assert not hasattr(t, "n_devices") and not hasattr(t, "data_parallel")

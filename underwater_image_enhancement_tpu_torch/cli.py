@@ -14,6 +14,7 @@
     python -m underwater_image_enhancement_tpu_torch.cli train-mlp --input DIR --reference DIR --output DIR
     python -m underwater_image_enhancement_tpu_torch.cli train-vgg --input DIR --reference DIR --output DIR [--fp32]
     python -m underwater_image_enhancement_tpu_torch.cli train-zoo --input DIR --reference DIR --output DIR [--model M]
+    python -m underwater_image_enhancement_tpu_torch.cli validate --input DIR --output DIR [--fast] [--model PKL]
 
 Commands (reference counterparts):
   six            six_stadigy.py __main__: all six strategies per image +
@@ -55,14 +56,21 @@ Commands (reference counterparts):
                  writes ``best_model.npz``, ``final_model.npz`` (what
                  ``enhance --model [--arch]`` reads) and
                  ``training_history.json``
+  validate       parity report of a folder: each strategy's PSNR against
+                 the float64 oracles on a few images (cv2, on the host),
+                 UIQM and UCIQE before and after the Phase-1 winner, the
+                 winner distribution, with ``--model`` the classifier's
+                 accuracy against the Phase-1 labels
 
 Runs on the CUDA device by default (``--device cuda``); ``--device cpu``
 runs the plain PyTorch path.  On CUDA the kernels are built before the
 frame loop, and a ``RuntimeError`` from the build or from a kernel launch
 ends the run with a non-zero exit; other per-image errors of ``six``
 become "failed" rows of ``processing_log.csv``, as in the JAX CLI.
-``--devices`` (data parallelism) is not ported yet and is rejected; the
-JAX CLI's ``validate`` is not ported yet.
+``--devices N`` (``enhance``, ``auto``, ``build-dataset``, ``run``) spreads
+each batch over a data mesh (``parallel/mesh``): on ``cuda`` the cards
+0..N-1 (more than are visible ends the run), on ``cpu`` N positions;
+unset, every visible card.  Outputs are the same bytes for any N.
 """
 
 from __future__ import annotations
@@ -78,6 +86,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+DEVICES_HELP = ("data-parallel device count: on cuda the cards 0..N-1, on "
+                "cpu N positions (default: every visible card; 1 disables "
+                "sharding)")
 LOG_FIELDS = ["filename", "image_type", "strategy", "status", "output_path",
               "processing_time"]
 
@@ -119,14 +130,34 @@ def _to_host(img) -> np.ndarray:
     return img.detach().cpu().numpy()
 
 
+def _mesh(args):
+    """The data mesh of ``--devices`` on ``--device``'s type (None: one
+    plain call); a count the machine cannot give ends the run."""
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+        default_mesh,
+    )
+
+    try:
+        return default_mesh(args.devices, device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"{args.cmd} --devices {args.devices}: {e}") from None
+
+
 def _cmd_enhance(args) -> None:
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+        run_data_parallel,
+    )
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
         enhance,
         enhance_batch,
     )
     from underwater_image_enhancement_tpu_torch.utils import io as uio
 
-    _reject_devices(args)
+    mesh = _mesh(args)
+    if args.model and mesh is not None:
+        raise SystemExit(f"enhance --model --devices {args.devices}: the "
+                         "predictors run on one device (--device); "
+                         "--devices spreads the fixed-parameter enhance")
     device = _start(args.device)
     inp = Path(args.input)
     if args.model:
@@ -171,9 +202,12 @@ def _cmd_enhance(args) -> None:
                 log=lambda m: print(f"skip {m.replace('warning: ', '')}")):
             # 'hist' equals the sorted-index mode on the u8 grid every
             # decoded image lies on
-            outs = _to_host(enhance_batch(
-                np.stack([im for _, im in chunk]), args.l_low, args.l_high,
-                args.omega, args.gamma, stretch_mode="hist", device=device))
+            batch = torch.from_numpy(np.stack([im for _, im in chunk]))
+            outs = _to_host(run_data_parallel(
+                lambda x: enhance_batch(x, args.l_low, args.l_high,
+                                        args.omega, args.gamma,
+                                        stretch_mode="hist", device=x.device),
+                batch if mesh else batch.to(device), mesh))
             for j, (p, _) in enumerate(chunk):
                 writer.write(str(outdir / f"{p.stem}_enhanced.png"), outs[j])
                 n += 1
@@ -183,32 +217,33 @@ def _cmd_enhance(args) -> None:
     print(f"done ({n} images) -> {args.output}")
 
 
-def _reject_devices(args) -> None:
-    if args.devices is not None:
-        raise SystemExit(f"{args.cmd} --devices: data parallelism over "
-                         "several cards is not yet ported (ROADMAP Queue 1 "
-                         "item 9); the port runs on one device (--device)")
-
-
 def _cmd_auto(args) -> None:
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+        run_data_parallel,
+    )
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
         CONFIG_ORDER,
         auto_enhance_batch,
     )
     from underwater_image_enhancement_tpu_torch.utils import io as uio
 
-    _reject_devices(args)
+    def shard(x):
+        best_imgs, best, scores = auto_enhance_batch(x, device=x.device)
+        # quantized on the device, as the reference's imwrite
+        return (best_imgs.clamp(0, 1) * 255).to(torch.uint8), best, scores
+
+    mesh = _mesh(args)
     device = _start(args.device)
     files = uio.collect_images(args.input)
     outdir = Path(args.output)
     with uio.AsyncWriter() as writer:
         for chunk in _stream_shape_batches(files, args.batch_size,
                                            log=lambda m: None):
-            best_imgs, best, scores = auto_enhance_batch(
-                np.stack([im for _, im in chunk]), device=device)
-            # quantized on the device, as the reference's imwrite; one
-            # read of the images and one of the numbers a chunk
-            u8 = _to_host((best_imgs.clamp(0, 1) * 255).to(torch.uint8))
+            batch = torch.from_numpy(np.stack([im for _, im in chunk]))
+            u8, best, scores = run_data_parallel(
+                shard, batch if mesh else batch.to(device), mesh)
+            # one read of the images and one of the numbers a chunk
+            u8 = _to_host(u8)
             best, scores = _to_host(best), _to_host(scores)
             for j, (p, _) in enumerate(chunk):
                 k = int(best[j])
@@ -225,11 +260,12 @@ def _cmd_build_dataset(args) -> None:
     )
     from underwater_image_enhancement_tpu_torch.utils.config import Config
 
-    _reject_devices(args)
+    _mesh(args)  # a --devices the machine cannot give ends the run here
     device = _start(args.device)
     cfg = Config(image_folder=args.input, output_folder=args.output,
                  fast_label=bool(args.fast),
-                 batch_size=int(args.batch_size or 8))
+                 batch_size=int(args.batch_size or 8),
+                 n_devices=args.devices)
     system = SelfSupervisedSystem(cfg, device=device)
     rows = system.build_dataset()
     print(f"labeled {len(rows)} images")
@@ -268,11 +304,12 @@ def _cmd_run(args) -> None:
     )
     from underwater_image_enhancement_tpu_torch.utils.config import Config
 
-    _reject_devices(args)
+    _mesh(args)  # a --devices the machine cannot give ends the run here
     device = _start(args.device)
     cfg = Config(image_folder=args.input, output_folder=args.output,
                  fast_label=bool(args.fast),
-                 batch_size=int(args.batch_size or 8))
+                 batch_size=int(args.batch_size or 8),
+                 n_devices=args.devices)
     system = SelfSupervisedSystem(cfg, device=device)
     rows = system.build_dataset()
     if not rows:
@@ -299,6 +336,22 @@ def _cmd_predict(args) -> None:
     print(f"best strategy: {label}")
     for k, v in sorted(probs.items(), key=lambda kv: -kv[1]):
         print(f"  {k:<24} {v:.3f}")
+
+
+def _cmd_validate(args) -> None:
+    """The parity report of a folder (the JAX CLI's ``validate``):
+    labeling and the quality metrics on the device, the float64 oracles
+    on the host."""
+    from underwater_image_enhancement_tpu_torch.validate import (
+        validate_folder,
+    )
+
+    device = _start(args.device)
+    report = validate_folder(args.input, args.output,
+                             oracle_samples=args.oracle_samples,
+                             fast=args.fast, model=args.model,
+                             batch_size=args.batch_size, device=device)
+    print(json.dumps(report, indent=2))
 
 
 def _cmd_convert_vgg(args) -> None:
@@ -635,8 +688,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel device count: not yet ported, "
-                        "rejected")
+                   help=DEVICES_HELP)
     p.set_defaults(fn=_cmd_enhance)
 
     p = sub.add_parser("six", help="run all six strategies per image")
@@ -655,14 +707,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     device_help = ("torch device (default cuda; cpu runs the plain PyTorch "
                    "versions of the kernels)")
-    devices_help = "data-parallel device count: not yet ported, rejected"
     p = sub.add_parser("auto", help="best-of-5-strategies per image")
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--batch-size", type=int, default=4,
                    help="frames per call (same-shape groups)")
     p.add_argument("--device", default="cuda", help=device_help)
-    p.add_argument("--devices", type=int, default=None, help=devices_help)
+    p.add_argument("--devices", type=int, default=None, help=DEVICES_HELP)
     p.set_defaults(fn=_cmd_auto)
 
     p = sub.add_parser("build-dataset", help="Phase 1 self-supervised labeling")
@@ -675,7 +726,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=8,
                    help="frames per labeling call (same-shape groups)")
     p.add_argument("--device", default="cuda", help=device_help)
-    p.add_argument("--devices", type=int, default=None, help=devices_help)
+    p.add_argument("--devices", type=int, default=None, help=DEVICES_HELP)
     p.set_defaults(fn=_cmd_build_dataset)
 
     p = sub.add_parser("assess", help="quality scores for image(s)")
@@ -717,7 +768,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=8,
                    help="frames per labeling call (same-shape groups)")
     p.add_argument("--device", default="cuda", help=device_help)
-    p.add_argument("--devices", type=int, default=None, help=devices_help)
+    p.add_argument("--devices", type=int, default=None, help=DEVICES_HELP)
     p.set_defaults(fn=_cmd_run)
 
     p = sub.add_parser("convert-vgg",
@@ -783,6 +834,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default=None)
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=_cmd_predict)
+
+    p = sub.add_parser("validate",
+                       help="parity report: oracle PSNR, UIQM/UCIQE "
+                            "before/after, winner distribution")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--oracle-samples", type=int, default=3,
+                   help="images run through the float64 oracles (cv2, on "
+                        "the host)")
+    p.add_argument("--fast", action="store_true",
+                   help="validate the throughput labeling tier instead of "
+                        "the exact one")
+    p.add_argument("--model", default=None,
+                   help="trained_model.pkl: adds the classifier's accuracy "
+                        "against the Phase-1 labels (sklearn)")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=_cmd_validate)
     return ap
 
 

@@ -37,6 +37,7 @@ from underwater_image_enhancement_tpu_torch.models.diff_enhance import (
 from underwater_image_enhancement_tpu_torch.models.vgg import (
     IMAGENET_INV_STD,
     IMAGENET_MEAN,
+    IMAGENET_STD,
     ImprovedVGGParameterNet,
     load_backbone_npz,
 )
@@ -58,7 +59,8 @@ CLAMPS = {  # use_trained_model.py:74-79
 }
 
 # the jitted JAX preprocess divides by 255 and by IMAGENET_STD as
-# multiplies by their f32 reciprocals (found by comparing candidates with
+# multiplies by their f32 reciprocals (IMAGENET_STD is re-exported as the
+# JAX module's name; the preprocess multiplies by IMAGENET_INV_STD) (found by comparing candidates with
 # the jitted function; tests/test_torch_predictor.py holds it bit-equal)
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 

@@ -8,6 +8,8 @@
   recomputation).  ``fast=True`` is the histogram-percentile tier.
 - ``enhance(img, params)`` / ``enhance_batch``: the fixed-parameter
   enhance of use_trained_model.py:83-111 (``models.diff_enhance``).
+- ``enhance_batch_dp``: ``enhance_batch`` over a data mesh
+  (``parallel/mesh``), one call a position.
 - ``auto_enhance_batch(imgs)``: main.py's Phase-1 per-image logic: the
   five config-flavour strategies (``pipeline/strategies.py``, exact tier),
   each scored with the 6-weight quality total, and the best one kept.
@@ -36,8 +38,9 @@ from underwater_image_enhancement_tpu_torch.pipeline.six import (
     airlight,
     run_strategy,
 )
-from underwater_image_enhancement_tpu_torch.pipeline.strategies import (
+from underwater_image_enhancement_tpu_torch.pipeline.strategies import (  # noqa: F401 - STRATEGY_FNS: the JAX module's name
     LABEL_ORDER,
+    STRATEGY_FNS,
     strategy_planes,
 )
 from underwater_image_enhancement_tpu_torch.utils.config import (
@@ -106,6 +109,53 @@ def enhance_batch(imgs, l_low, l_high, omega, gamma, stretch_mode: str = "hist",
               "gamma": gamma}
     mode = "index-u8" if stretch_mode == "hist" else stretch_mode
     return diff_enhance.enhance_vgg(imgs, params, stretch_mode=mode)
+
+
+def _input_device(x) -> torch.device:
+    """A tensor's device; a numpy batch goes to the default ``cuda``."""
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device("cuda")
+
+
+def _param_shards(v, n_images: int, n: int) -> list:
+    """A parameter of enhance_batch for each of n shards: a number as it
+    is, a (B,) parameter split with the batch."""
+    if not isinstance(v, (list, tuple)) and getattr(v, "ndim", 0) == 0:
+        return [v] * n
+    if len(v) != n_images:
+        raise ValueError(f"a per-image parameter of length {len(v)} for "
+                         f"a batch of {n_images}")
+    k = n_images // n
+    return [v[i * k:(i + 1) * k] for i in range(n)]
+
+
+def enhance_batch_dp(imgs, l_low, l_high, omega, gamma, mesh,
+                     stretch_mode: str = "hist") -> torch.Tensor:
+    """``enhance_batch`` with the batch split over a data mesh
+    (``parallel/mesh``): each position enhances its rows on its device (a
+    number parameter goes to every position, a (B,) one is split with the
+    batch) and the result is gathered on ``mesh.devices[0]``.  The batch
+    must divide over the mesh (ValueError).  Each image's percentiles are
+    its own, so the result equals the single call.  Without a mesh: the
+    single call on the input's device."""
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+        gather_shards,
+        shard_batch,
+    )
+
+    if mesh is None:
+        return enhance_batch(imgs, l_low, l_high, omega, gamma,
+                             stretch_mode=stretch_mode,
+                             device=_input_device(imgs))
+    shards = shard_batch(imgs, mesh)
+    b = len(imgs)
+    params = [_param_shards(v, b, mesh.size)
+              for v in (l_low, l_high, omega, gamma)]
+    return gather_shards([
+        enhance_batch(x, *(p[i] for p in params), stretch_mode=stretch_mode,
+                      device=x.device)
+        for i, x in enumerate(shards)], mesh)
 
 
 def enhance(img, params: Optional[Dict[str, float]] = None,

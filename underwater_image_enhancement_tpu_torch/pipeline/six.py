@@ -13,11 +13,14 @@ percentiles, and the approximate forward LAB in the CLAHE legs.
 
 ``run_strategy(name, img, A, fast)`` is the pipeline's entry; the public
 ``strategy1_strong_dehazing`` ... ``strategy6_histogram_eq`` (and
-``SIX_STRATEGIES``) take the JAX contract ``fn(img, *, method="radix"[,
+``SIX_STRATEGIES``, with ``SIX_STRATEGIES_FAST`` its ``hist-fast`` twin)
+take the JAX contract ``fn(img, *, method="radix"[,
 A=None])`` on one image or a batch.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -157,6 +160,9 @@ def _public(name: str):
 
 
 SIX_STRATEGIES = {k: _public(k) for k in _BUILDERS}
+# the histogram-percentile tier, as the JAX table of the same name
+SIX_STRATEGIES_FAST = {k: functools.partial(fn, method="hist-fast")
+                       for k, fn in SIX_STRATEGIES.items()}
 strategy1_strong_dehazing = SIX_STRATEGIES["strong_dehazing"]
 strategy2_medium_dehazing = SIX_STRATEGIES["medium_dehazing"]
 strategy3_light_dehazing = SIX_STRATEGIES["light_dehazing"]

@@ -26,12 +26,16 @@ Two tiers:
 the fast tier, one refined dark channel) per frame: the same function of
 the same frame gives the same A, so each output equals the strategy run
 alone (``STRATEGY_FNS_PLANES``).  ``strong_dehazing`` ...
-``histogram_equalization`` (``STRATEGY_FNS``) and ``apply_strategy`` are
-the JAX package's forms on an (H, W, 3) image or a batch, with the
-reference's parameter overrides.
+``histogram_equalization`` (``STRATEGY_FNS``, the fast tier
+``STRATEGY_FNS_FAST``, the planes ``STRATEGY_FNS_PLANES`` and
+``STRATEGY_FNS_FAST_PLANES``) and ``apply_strategy`` are the JAX package's
+forms on an (H, W, 3) image or a batch, with the reference's parameter
+overrides.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -153,12 +157,32 @@ def _strategy_fn(name: str):
     return fn
 
 
+def _planes_fn(name: str, fast: bool):
+    def fn(img: torch.Tensor):
+        if img.ndim == 3:
+            return tuple(run_strategy(name, img, fast))
+        outs = [run_strategy(name, im, fast) for im in img]
+        return tuple(torch.stack([o[c] for o in outs]) for c in range(3))
+    fn.__name__ = name
+    fn.__doc__ = (f"``{name}`` ({'fast' if fast else 'exact'} tier) of an "
+                  "(H, W, 3) image -> (r, g, b) planes, or of a (B, H, W, 3) "
+                  "batch -> three (B, H, W) planes.")
+    return fn
+
+
 strong_dehazing = _strategy_fn("strong_dehazing")
 medium_dehazing = _strategy_fn("medium_dehazing")
 light_enhancement = _strategy_fn("light_enhancement")
 clahe_enhancement = _strategy_fn("clahe_enhancement")
 histogram_equalization = _strategy_fn("histogram_equalization")
-STRATEGY_FNS = {name: globals()[name] for name in DEFAULT_STRATEGIES}
+# the JAX tables, keyed alike: the exact tier, the throughput tier
+# (``method="hist-fast"``), and each one's plane-returning twin
+STRATEGY_FNS = {name: globals()[name] for name in LABEL_ORDER}
+STRATEGY_FNS_FAST = {name: functools.partial(fn, method="hist-fast")
+                     for name, fn in STRATEGY_FNS.items()}
+STRATEGY_FNS_PLANES = {name: _planes_fn(name, False) for name in LABEL_ORDER}
+STRATEGY_FNS_FAST_PLANES = {name: _planes_fn(name, True)
+                            for name in LABEL_ORDER}
 
 # the defaults of apply_strategy's parameter overrides (the JAX
 # _apply_custom's: apply_gamma is off unless the parameters say so)

@@ -9,7 +9,11 @@ argmax, all on the device; the host reads each batch back once (features,
 scores and labels in one transfer, the winning images quantized to u8 in
 another), writes the winners' PNGs, the CSV and ``dataset.pkl``.
 ``dataset.pkl`` holds the same pickled list of dicts as the JAX package's
-(numpy features), so either package's Phase 2 reads either's file.
+(numpy features), so either package's Phase 2 reads either's file.  A
+batch's rows spread over the system's data mesh (``_mesh``: every visible
+card, or ``config.n_devices`` positions; ``parallel/mesh``), and
+``label_batch_dp`` labels over a given mesh; both give the single call's
+result.
 
 Phase 2 (train_classifier, main.py:225-335) is host-side sklearn, as in
 JAX: a stratified 80/20 split, StandardScaler, RandomForest,
@@ -42,14 +46,18 @@ from underwater_image_enhancement_tpu_torch.features.full import (
 )
 from underwater_image_enhancement_tpu_torch.ops.layout import stack_planes
 from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+    _input_device,
     _on_device,
     resolve_device,
     score_strategies,
     select_planes,
 )
-from underwater_image_enhancement_tpu_torch.pipeline.strategies import (
+from underwater_image_enhancement_tpu_torch.pipeline.strategies import (  # noqa: F401 - the JAX module's names
     LABEL_ORDER,
     STRATEGY_DISPLAY,
+    STRATEGY_FNS,
+    STRATEGY_FNS_FAST_PLANES,
+    STRATEGY_FNS_PLANES,
 )
 from underwater_image_enhancement_tpu_torch.select.mlp_classifier import (
     FlaxMLPClassifier,
@@ -80,6 +88,28 @@ def label_batch(imgs: torch.Tensor, weights, return_all: bool = False,
             torch.stack(images))
 
 
+def label_batch_dp(imgs, weights, mesh, return_all: bool = False,
+                   fast: bool = False):
+    """``label_batch`` with the batch split over a data mesh
+    (``parallel/mesh``): each position labels its rows on its device, and
+    the four outputs are gathered on ``mesh.devices[0]``.  The batch must
+    divide over the mesh (ValueError).  Every reduction of the program is
+    per-image, so the result equals the single call.  Without a mesh: the
+    single call on the input's device (a numpy batch: ``cuda``)."""
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+        gather_shards,
+        shard_batch,
+    )
+
+    if mesh is None:
+        return label_batch(_on_device(imgs, _input_device(imgs)), weights,
+                           return_all, fast)
+    if not isinstance(imgs, torch.Tensor):  # f32 on the host, then shards
+        imgs = _on_device(imgs, torch.device("cpu"))
+    return gather_shards([label_batch(x, weights, return_all, fast)
+                          for x in shard_batch(imgs, mesh)], mesh)
+
+
 @dataclass
 class DatasetItem:
     filename: str
@@ -101,18 +131,49 @@ class SelfSupervisedSystem:
         self.classes_: List[str] = []
         self.results: Dict[str, Dict[str, float]] = {}
 
+    def _mesh(self):
+        """The Phase-1 data mesh on the system's device type: every visible
+        card, or config.n_devices positions; None (one plain call) for one
+        position or with config.data_parallel off."""
+        from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+            default_mesh,
+        )
+
+        if not self.config.data_parallel:
+            return None
+        return default_mesh(self.config.n_devices, device=self.device)
+
+    def _run_data_parallel(self, fn, imgs):
+        """``fn`` (per-image, running on its input's device) of a
+        (B, H, W, 3) host batch on the system's device, its rows spread
+        over the data mesh: any mesh gives the same result."""
+        from underwater_image_enhancement_tpu_torch.parallel.mesh import (
+            run_data_parallel,
+        )
+
+        dev = resolve_device(self.device)
+        mesh = self._mesh()
+        # the host batch goes to the device whole, or a shard a position
+        x = _on_device(imgs, dev if mesh is None else torch.device("cpu"))
+        return run_data_parallel(fn, x, mesh)
+
     def _label_batch_np(self, imgs: np.ndarray, return_all: bool = False,
                         u8: bool = False):
-        """``label_batch`` of a (B, H, W, 3) host batch on the system's
-        device -> numpy (features, scores, best, images); ``u8`` quantizes
-        the images on the device as the reference's imwrite does ((clip *
-        255) truncated), a quarter of the transfer."""
-        x = _on_device(imgs, resolve_device(self.device))
-        feats, scores, best, images = label_batch(
-            x, self.config.quality_weights, return_all,
-            bool(self.config.fast_label))
-        if u8:
-            images = (torch.clamp(images, 0, 1) * 255).to(torch.uint8)
+        """``label_batch`` of a (B, H, W, 3) host batch over the system's
+        data mesh -> numpy (features, scores, best, images); ``u8``
+        quantizes the images on the device as the reference's imwrite does
+        ((clip * 255) truncated), a quarter of the transfer."""
+        weights = self.config.quality_weights
+        fast = bool(self.config.fast_label)
+
+        def shard(x):
+            feats, scores, best, images = label_batch(x, weights, return_all,
+                                                      fast)
+            if u8:
+                images = (torch.clamp(images, 0, 1) * 255).to(torch.uint8)
+            return feats, scores, best, images
+
+        feats, scores, best, images = self._run_data_parallel(shard, imgs)
         # one read for the numbers (best is exact in f32), one for images
         head = torch.cat([feats, scores, best[:, None].to(torch.float32)],
                          1).cpu().numpy()

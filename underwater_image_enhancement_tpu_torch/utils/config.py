@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 SUPPORTED_FORMATS: List[str] = [".jpg", ".jpeg", ".png", ".tif", ".tiff", ".bmp"]
 
@@ -87,8 +87,7 @@ DEFAULT_CLASSIFIERS: Dict[str, Dict[str, Any]] = {
 @dataclasses.dataclass
 class Config:
     """Run configuration of both phases (config.py's paths, switches and
-    Phase-2 settings).  The port runs on one device, so it has no
-    data-parallel knobs."""
+    Phase-2 settings) and of Phase 1's data mesh."""
 
     image_folder: str = "./data/raw"
     output_folder: str = "./results/self_supervised_v1"
@@ -96,12 +95,21 @@ class Config:
     random_seed: int = 42           # config.py:96
     cv_folds: int = 5               # config.py:97
     save_all_enhanced: bool = False  # config.py:123
+    # config.py:28-75's strategy table (the examples print it; the
+    # strategies themselves read DEFAULT_STRATEGIES)
+    strategies: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=lambda: {k: dict(v)
+                                 for k, v in DEFAULT_STRATEGIES.items()})
     quality_weights: Dict[str, float] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_QUALITY_WEIGHTS))
     classifiers: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=lambda: {k: dict(v)
                                  for k, v in DEFAULT_CLASSIFIERS.items()})
     batch_size: int = 8
+    # Phase 1 over a data mesh (parallel/mesh.default_mesh): every visible
+    # card, or n_devices positions; False or one position: one plain call
+    data_parallel: bool = True
+    n_devices: Optional[int] = None
     # label with the throughput tier (banded airlight, fast guided filter,
     # histogram percentiles, arithmetic LAB): near-tie winners may flip
     fast_label: bool = False
@@ -128,3 +136,10 @@ class Config:
                        self.strategy_folder, self.model_folder,
                        self.report_folder):
             Path(folder).mkdir(parents=True, exist_ok=True)
+
+    def validate(self) -> bool:
+        """config.py:149-168: the input folder exists and holds images."""
+        if not os.path.exists(self.image_folder):
+            return False
+        return any(any(Path(self.image_folder).glob(f"*{fmt}"))
+                   for fmt in SUPPORTED_FORMATS)
