@@ -101,7 +101,17 @@ non-zero):
    those of the single-device CLI runs, ``cli build-dataset`` and ``cli
    enhance --devices 1`` byte-equal to their runs without it,
    ``examples.main("all")`` and a ``profiling.trace`` of one frame on
-   the card (``validate`` is not driven: no cv2 there), and ``[train]``
+   the card (``validate`` is not driven: no cv2 there), ``[spatial]``
+   (``spatial_slice``): one seeded 2160x3840 frame's rows sharded over
+   1, 2 and 8 mesh positions of the one card through
+   ``six_strategy_spatial`` (cast code, airlight A and box equal at every
+   count, the six outputs bit-equal to one position's; K1b and K3b 5 a
+   block, K7 and K6 1 a block; ms a frame and peak memory at each count),
+   ``ancuti_fusion_spatial`` on 2 and 8 against ``ancuti_fusion`` (55
+   dB), WaterNet's ``enhance_sharded`` at full width (rows on 2 positions
+   within ``WATERNET_MAX_ABS`` of the whole frame, a TF32 control past
+   it; the batch mode on two 1080p frames), and a 270x480 frame on 2
+   positions card against CPU, and ``[train]``
    (``train_slice``): ``cli train-mlp`` (79 -> 256, 3 blocks, 256^2),
    ``train-vgg`` in bf16 and ``--fp32`` (VGG16 to conv4_3, hidden 256,
    224^2, the seeded perceptual trunk) and ``train-zoo`` (ResNet18 for
@@ -172,6 +182,7 @@ import contextlib
 import csv
 import io
 import json
+import math
 import pickle
 import shutil
 import statistics
@@ -1277,6 +1288,274 @@ def dp_slice(torch, dev, frames, run_cli, captured_match, runs, smi,
             note="'3 positions on one card: no overlap is measured'")
 
 
+# [spatial]: one 2160x3840 frame sharded on rows over mesh positions of the
+# one card (SPATIAL_*): six_strategy_spatial at 1, 2 and 8 positions (8:
+# 270-row blocks, the masked percentiles and the strip guided filter; 2:
+# 1080-row blocks, the aligned path), ancuti_fusion_spatial at 2 and 8
+# (135-row blocks at 8, no pad), WaterNet's enhance_sharded; the gates of
+# the JAX suite's tests/test_six_spatial.py
+SPATIAL_H, SPATIAL_W = 2160, 3840
+SPATIAL_POSITIONS = (1, 2, 8)
+SPATIAL_DEHAZE_DB = 55.0
+SPATIAL_EXACT_MAX_ABS = 1e-5
+SPATIAL_FUSION_DB = 55.0
+SPATIAL_CPU_HW = (270, 480)
+
+
+def psnr_db(a, b) -> float:
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+
+
+def spatial_launches(positions: int, legs: int, airlight: bool) -> dict:
+    """Launches of one sharded frame: K1b and K3b once a CLAHE leg and
+    block, K7 (the halo'd Canny) and K6 (the local row table) once a
+    block."""
+    out = {**NONE, "lab_forward_u8": legs * positions,
+           "lab_inverse_u8": legs * positions}
+    if airlight:
+        out.update(hysteresis_propagate=positions, sat_rows=positions)
+    return out
+
+
+def descent_path(tss, planes, H, W, valid_to):
+    """The sharded airlight of cast-corrected blocks with the box of each
+    quadtree level: (A, final box, [(r0, c0, h, w) a level])."""
+    path, descend = [], tss.quadtree_descend
+
+    def traced(corners, h, w, min_size=1):
+        def corners_at(rows, cols):
+            path.append((int(rows[0]), int(cols[0]), int(rows[2] - rows[0]),
+                         int(cols[2] - cols[0])))
+            return corners(rows, cols)
+        return descend(corners_at, h, w, min_size)
+
+    tss.quadtree_descend = traced
+    try:
+        A, box = tss._airlight_sharded(planes, H, W, valid_to=valid_to,
+                                       return_box=True)
+    finally:
+        tss.quadtree_descend = descend
+    return A[0], box, path
+
+
+def spatial_slice(torch, dev, captured_match, runs, smi, wn_gpu) -> None:
+    """[spatial]: one 2160x3840 frame sharded on rows over 1, 2 and 8 mesh
+    positions of the one card.  six_strategy_spatial: the cast code, the
+    airlight A and its final box equal at every position count and the
+    six outputs bit-equal to one position's (where A differs, the level
+    where the descents part is printed, the dehazing outputs held at
+    SPATIAL_DEHAZE_DB and the other three bit-equal); its launches
+    (``spatial_launches``); ms a frame at each count, in turns, and peak
+    memory.  ancuti_fusion_spatial on 2 and 8 positions against
+    ``ancuti_fusion`` on the card (SPATIAL_FUSION_DB).  WaterNet at its
+    default widths: ``enhance_sharded(shard_rows=True)`` on 2 positions
+    within WATERNET_MAX_ABS of ``waternet_enhance`` on the whole frame (a
+    TF32 control must fail the gate), and the batch mode on two 1080p
+    frames.  The card against the port's CPU path: six_strategy_spatial
+    of a 270x480 frame (padded to 272 rows) on 2 positions, the same
+    gates.  Every kernel call is captured into ``runs`` and replayed with
+    the others."""
+    from underwater_image_enhancement_tpu_torch.models import layers
+    from underwater_image_enhancement_tpu_torch.models import waternet as twn
+    from underwater_image_enhancement_tpu_torch.ops import kernels
+    from underwater_image_enhancement_tpu_torch.parallel import (
+        six_spatial as tss,
+    )
+    from underwater_image_enhancement_tpu_torch.parallel.fusion_spatial import (
+        ancuti_fusion_spatial,
+    )
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import Mesh
+    from underwater_image_enhancement_tpu_torch.parallel.spatial import _shard
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+    )
+    from underwater_image_enhancement_tpu_torch.pipeline.fusion import (
+        ancuti_fusion,
+    )
+
+    t_phase = time.perf_counter()
+    frame = torch.from_numpy(synthetic_frame(3, SPATIAL_H, SPATIAL_W)).to(dev)
+    meshes = {n: Mesh((dev,) * n) for n in SPATIAL_POSITIONS + (2, 8)}
+
+    def counted(key, fn, expected):
+        calls, restore = capture_calls(torch, kernels)
+        try:
+            kernels.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+        finally:
+            restore()
+        check(captured_match(calls, launches),
+              f"{key}: captured calls vs launches {launches}")
+        check(launches == expected, f"{key}: launches {nonzero(launches)}, "
+              f"expected {nonzero(expected)}")
+        runs[key] = (calls, launches, None)
+        return out
+
+    def airlight_of(img, mesh):
+        """six_strategy_spatial's cast code, A, final box and descent
+        path of a frame (padded as it pads it)."""
+        H, W = img.shape[:2]
+        align = math.lcm(mesh.size, 8)
+        pad = -(-H // align) * align - H
+        blocks = _shard(tss._pad_rows_reflect101(img, pad), mesh)
+        planes = [tuple(b[..., c].contiguous() for c in range(3))
+                  for b in blocks]
+        valid = H if pad else None
+        planes, code = tss._cast_sharded(planes, H, W, valid)
+        return (code,) + descent_path(tss, planes, H, W, valid)
+
+    def compare(what, got, want, code, want_code, air, want_air, exact):
+        """The six outputs against the reference's: the cast code equal;
+        bit-equal where ``exact`` and the airlight A and box are equal;
+        otherwise the dehazing three at SPATIAL_DEHAZE_DB and the others
+        bit-equal (``exact``) or within SPATIAL_EXACT_MAX_ABS.  -> (A and
+        box equal, the level where the descents part, max |d| each)."""
+        check(int(code) == int(want_code),
+              f"{what}: cast code {int(code)} vs {int(want_code)}")
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{what}: shape {tuple(got.shape)} or non-finite values")
+        same_a = (air[2] == want_air[2]
+                  and torch.equal(air[1].cpu(), want_air[1].cpu()))
+        parted = None if same_a else next(
+            (k for k, (a, b) in enumerate(zip(air[3], want_air[3]))
+             if a != b), min(len(air[3]), len(want_air[3])))
+        diffs = {}
+        for k, n in enumerate(SIX_ORDER):
+            a, b = got[k], want[k]
+            diffs[n] = float((a.double() - b.double()).abs().max())
+            if exact and (same_a or k >= 3):
+                check(torch.equal(a, b), f"{what} {n}: max |d| {diffs[n]}")
+            elif k < 3:
+                check(psnr_db(a, b) >= SPATIAL_DEHAZE_DB,
+                      f"{what} {n}: {psnr_db(a, b):.1f} dB")
+            else:
+                check(diffs[n] <= SPATIAL_EXACT_MAX_ABS,
+                      f"{what} {n}: max |d| {diffs[n]}")
+        return same_a, parted, diffs
+
+    # six_strategy_spatial at 1, 2 and 8 positions
+    six, air, peak = {}, {}, {}
+    for n in SPATIAL_POSITIONS:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        six[n] = counted(f"spatial_six_{n}", lambda n=n: tss.six_strategy_spatial(
+            frame, meshes[n]), spatial_launches(n, 5, True))
+        peak[n] = torch.cuda.max_memory_allocated() - base
+        air[n] = airlight_of(frame, meshes[n])
+    for n in SPATIAL_POSITIONS:
+        outs, code = six[n]
+        same_a, parted, diffs = compare(
+            f"six_strategy_spatial on {n}", outs, six[1][0], code, six[1][1],
+            air[n], air[1], True)
+        log("spatial", function="six_strategy_spatial", positions=n,
+            rows_a_block=SPATIAL_H // n, code=int(code),
+            A=json.dumps(air[n][1].tolist()), box=air[n][2],
+            A_equal_one_position=same_a, descents_part_at_level=parted,
+            max_abs_vs_one_position=json.dumps(diffs, separators=(",", ":")),
+            launches=json.dumps(nonzero(runs[f"spatial_six_{n}"][1]),
+                                separators=(",", ":")),
+            peak_mib=f"{peak[n] / 2 ** 20:.1f}")
+    del six
+
+    # ms a 4K frame at each position count, in turns
+    ms = {n: [] for n in SPATIAL_POSITIONS}
+    for n in SPATIAL_POSITIONS + SPATIAL_POSITIONS[::-1]:
+        ms[n] += event_ms(torch, lambda n=n: tss.six_strategy_spatial(
+            frame, meshes[n]), 2, warmup=0)
+    for n in SPATIAL_POSITIONS:
+        log("spatial_timing", function="six_strategy_spatial",
+            frame=f"{SPATIAL_H}x{SPATIAL_W}", positions=n,
+            ms=",".join(f"{t:.3f}" for t in ms[n]),
+            median_ms=f"{statistics.median(ms[n]):.3f}",
+            peak_mib=f"{peak[n] / 2 ** 20:.1f}", card=repr(smi),
+            note="'positions on one card: no overlap across cards is "
+                 "measured'")
+
+    # the Ancuti fusion at 2 and 8 positions against the single device
+    want = ancuti_fusion(frame)
+    for n in (2, 8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = counted(f"spatial_fusion_{n}", lambda n=n: ancuti_fusion_spatial(
+            frame, meshes[n]), spatial_launches(n, 1, False))
+        secs = time.perf_counter() - t0
+        db = psnr_db(got, want)
+        d = float((got.double() - want.double()).abs().max())
+        check(got.shape == want.shape and db > SPATIAL_FUSION_DB,
+              f"ancuti_fusion_spatial on {n}: {db:.1f} dB")
+        log("spatial", function="ancuti_fusion_spatial", positions=n,
+            psnr_db=f"{db:.2f}", gate=f"> {SPATIAL_FUSION_DB}",
+            max_abs=d, seconds=f"{secs:.3f}",
+            launches=json.dumps(nonzero(runs[f"spatial_fusion_{n}"][1]),
+                                separators=(",", ":")))
+    del want, got
+
+    # WaterNet: one 4K frame's rows on 2 positions, and the batch mode
+    with tf32(torch, cudnn=True, matmul=True):
+        x = frame[None]
+        whole = twn.waternet_enhance(wn_gpu, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = counted("spatial_waternet_rows", lambda: twn.enhance_sharded(
+            wn_gpu, x, meshes[2], shard_rows=True), NONE)
+        secs = time.perf_counter() - t0
+        d_rows = float((rows - whole).abs().max())
+        check(rows.shape == whole.shape and d_rows <= WATERNET_MAX_ABS,
+              f"enhance_sharded rows: max |d| {d_rows}")
+        guard = layers.no_tf32
+        layers.no_tf32 = contextlib.nullcontext
+        try:
+            d_tf32 = float((twn.enhance_sharded(
+                wn_gpu, x, meshes[2], shard_rows=True) - whole).abs().max())
+        finally:
+            layers.no_tf32 = guard
+        check(d_tf32 > WATERNET_MAX_ABS,
+              f"enhance_sharded rows: TF32 moved it by {d_tf32} only")
+        del rows, whole
+        pair = torch.nn.functional.interpolate(
+            frame.permute(2, 0, 1)[None], scale_factor=0.5, mode="area"
+        )[0].permute(1, 2, 0)
+        pair = torch.stack([pair, pair.flip(1)]).contiguous()
+        batch = counted("spatial_waternet_batch", lambda: twn.enhance_sharded(
+            wn_gpu, pair, meshes[2]), NONE)
+        d_batch = float((batch - twn.waternet_enhance(wn_gpu, pair))
+                        .abs().max())
+        check(batch.shape == pair.shape and d_batch <= WATERNET_BATCH_MAX_ABS,
+              f"enhance_sharded batch: max |d| {d_batch}")
+    log("spatial", function="enhance_sharded", model="WaterNet(128, 32)",
+        rows_frame=f"{SPATIAL_H}x{SPATIAL_W}", positions=2,
+        rows_max_abs=d_rows, gate=f"<= {WATERNET_MAX_ABS}",
+        tf32_max_abs=d_tf32, rows_seconds=f"{secs:.3f}",
+        batch="x".join(map(str, pair.shape[:3])), batch_max_abs=d_batch,
+        batch_gate=f"<= {WATERNET_BATCH_MAX_ABS}")
+
+    # the card against the port's CPU path, 270x480 (padded to 272)
+    h, w = SPATIAL_CPU_HW
+    small = synthetic_frame(4, h, w)
+    g_out, g_code = counted("spatial_six_card_vs_cpu",
+                            lambda: tss.six_strategy_spatial(
+                                small, meshes[2]),
+                            spatial_launches(2, 5, True))
+    cpu_mesh = Mesh((torch.device("cpu"),) * 2)
+    c_out, c_code = tss.six_strategy_spatial(small, cpu_mesh)
+    g_air = airlight_of(torch.from_numpy(small).to(dev), meshes[2])
+    c_air = airlight_of(torch.from_numpy(small), cpu_mesh)
+    same_a, parted, diffs = compare("six_strategy_spatial card vs CPU",
+                                    g_out.cpu(), c_out, g_code, c_code,
+                                    g_air, c_air, False)
+    check(same_a, f"card vs CPU: airlight {g_air[1:3]} vs {c_air[1:3]}")
+    log("spatial", function="six_strategy_spatial", frame=f"{h}x{w}",
+        positions=2, card_vs_cpu=True, code=int(c_code),
+        A=json.dumps(c_air[1].tolist()), box=c_air[2],
+        max_abs=json.dumps(diffs, separators=(",", ":")))
+    log("spatial", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=repr(smi))
+
+
 def main() -> int:
     import torch
 
@@ -2211,6 +2490,9 @@ def main() -> int:
 
     # [dp] data parallelism over a mesh on the one card
     dp_slice(torch, dev, frames, run_cli, captured_match, runs, smi)
+
+    # [spatial] one 4K frame's rows over mesh positions of the one card
+    spatial_slice(torch, dev, captured_match, runs, smi, wn_gpu)
 
     # [train] the trainers through the CLI and their gates
     train_ds = train_slice(torch, dev, run_cli, captured_match, runs)

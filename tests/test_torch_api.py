@@ -26,10 +26,6 @@ from underwater_image_enhancement_tpu_torch import cli as tcli
 
 # (module, name) or (module, "name.parameter") -> why the port leaves it out
 LEFT_OUT = {
-    ("models.waternet", "enhance_sharded"):
-        "Queue 1 item 9b: WaterNet's spatially sharded inference",
-    ("ops.edges", "canny_u8.valid_rows"):
-        "Queue 1 item 9b: row-sharded Canny (parallel/six_spatial)",
     ("utils.config", "Config.use_deep_features"):
         "declared but never read in JAX either",
     ("utils.config", "Config.deep_feature_model"):
@@ -70,8 +66,6 @@ for _module, _classes in FLAX_MODULES.items():
 
 # JAX modules the port does not have yet -> the Queue 1 item that brings it
 MODULES_TO_PORT = {
-    "parallel.spatial": "9b", "parallel.six_spatial": "9b",
-    "parallel.fusion_spatial": "9b",
     # never: the Pallas kernels have CUDA counterparts (ops/kernels.py and
     # csrc/), and the oracles stay with the JAX suite (utils/oracles.py
     # copies what validate needs)

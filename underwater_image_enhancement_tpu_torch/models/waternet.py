@@ -30,14 +30,17 @@ whose configuration runs them (``model``, e.g. the bf16 one).
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from underwater_image_enhancement_tpu_torch.models import bridge, layers
 from underwater_image_enhancement_tpu_torch.ops import histeq, stretch
+from underwater_image_enhancement_tpu_torch.ops.layout import div
 from underwater_image_enhancement_tpu_torch.pipeline.enhance import _on_device
 
 
@@ -227,4 +230,131 @@ def unet_enhance(variables: nn.Module, imgs,
     x = F.pad(x.permute(0, 3, 1, 2), (0, (-w) % 4, 0, (-h) % 4),
               mode="replicate").permute(0, 2, 3, 1)
     out = _run(variables, model, x)[:, :h, :w, :]
+    return out[0] if single else out
+
+
+# ---------------------------------------------------------------------------
+# over a mesh: the batch, or one large frame's rows
+# ---------------------------------------------------------------------------
+
+# rows of context a WaterNet output row reads: the trunk's 7x7, 5x5 and
+# five 3x3 convs (3 + 2 + 1 + 1 + 1 + 1 + 1); the FTUs' (3 + 2 + 1) fewer
+_ROW_HALO = 10
+
+
+def _replicas(variables: nn.Module, devices) -> dict:
+    """``variables`` once a distinct device (itself where it lives)."""
+    home = next(variables.parameters()).device
+    return {d: variables if d == home else copy.deepcopy(variables).to(d)
+            for d in dict.fromkeys(devices)}
+
+
+def _views_sharded(blocks, exts):
+    """The (wb, he, gc) views of each position's extended block from the
+    whole frame's statistics: the gray-world channel means (each block's
+    true rows summed in XLA:CPU's order, the sums added in mesh order) and
+    cv2's equalisation histograms (summed exactly).  blocks: (N, Hl, W, 3)
+    a position; exts: the same blocks with their halo rows."""
+    from underwater_image_enhancement_tpu_torch.ops import colorspace as cs
+    from underwater_image_enhancement_tpu_torch.parallel.spatial import (
+        _psum,
+        _psum_mean,
+    )
+
+    N, _, W, _ = blocks[0].shape
+    H = sum(b.shape[1] for b in blocks)
+    means = _psum_mean([b.permute(3, 0, 1, 2).reshape(3 * N, b.shape[1], W)
+                        for b in blocks], H * W).reshape(3, N)
+    target = (means[0] + means[1] + means[2]) * np.float32(
+        np.float32(1.0) / np.float32(3.0))
+    hists = _psum([histeq.histogram256(cs.quantize_u8(b).permute(0, 3, 1, 2)
+                                       .reshape(3 * N, -1)) for b in blocks])
+    out = []
+    for ext, hist in zip(exts, hists):
+        dev = ext.device
+        # per image and channel: target / max(mean, 1e-6), IEEE
+        gain = div(torch.as_tensor(target, device=dev)[None, :],
+                           torch.clamp(torch.as_tensor(means, device=dev),
+                                       min=1e-6)).T      # (N, 3)
+        wb = torch.clamp(ext * gain[:, None, None, :], 0.0, 1.0)
+        u8 = cs.quantize_u8(ext)
+        he = torch.empty_like(ext)
+        for k in range(3 * N):
+            lut, flat = histeq._equalize_lut(hist[k], H * W)
+            c = u8[k // 3, ..., k % 3]
+            he[k // 3, ..., k % 3] = cs.u8_to_unit(
+                torch.where(flat, c, lut[c.long()]))
+        gc = torch.clamp(stretch.gamma_correction_pow(ext, 0.7), 0.0, 1.0)
+        out.append((wb, he, gc))
+    return out
+
+
+@torch.no_grad()
+def enhance_sharded(variables: nn.Module, imgs, mesh,
+                    model: Optional[WaterNet] = None,
+                    shard_rows: bool = False) -> torch.Tensor:
+    """WaterNet over a mesh (the 4K-frame path), the result on
+    ``mesh.devices[0]``.
+
+    By default the batch is split over the mesh's positions (data
+    parallel), one replica of the net a distinct device.
+    ``shard_rows=True`` splits each image's rows over the positions
+    instead, for a frame too large for one device: the views come from the
+    whole frame's statistics (the gray-world sums and the equalisation
+    histograms summed over the positions), the net runs on each block with
+    ``_ROW_HALO`` rows of its neighbours a side, and the halo is cropped
+    away; SAME's zero padding then falls only at the frame's true edges,
+    so the kept rows are the whole frame's.  Rows per block must be at
+    least 8."""
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import _tensor
+    from underwater_image_enhancement_tpu_torch.parallel.spatial import (
+        _exchange_halo,
+        _gather,
+    )
+
+    axis = mesh.axis_names[0]
+    n_dev = mesh.shape[axis]
+    imgs = _tensor(imgs).to(torch.float32)
+    single = imgs.dim() == 3
+    batch = imgs.shape[0] if imgs.dim() == 4 else 1
+    if shard_rows:
+        rows = imgs.shape[-3]
+        if rows % n_dev != 0:
+            raise ValueError(
+                f"shard_rows: image rows ({rows}) must divide the mesh "
+                f"'{axis}' axis size ({n_dev})")
+        if rows // n_dev < 8:
+            raise ValueError(
+                f"shard_rows: {rows // n_dev} rows/shard is below the "
+                f"7-pixel conv halo; use more rows or fewer devices")
+    elif batch % n_dev != 0:
+        raise ValueError(
+            f"batch size ({batch}) must divide the mesh '{axis}' axis "
+            f"size ({n_dev}); pad the batch or use shard_rows=True")
+    x = imgs[None] if single else imgs
+    nets = _replicas(variables, mesh.devices)
+    if not shard_rows:
+        k = batch // n_dev
+        out = _gather([waternet_enhance(nets[d], x[i * k:(i + 1) * k].to(d),
+                                        model)
+                       for i, d in enumerate(mesh.devices)])
+        return out[0] if single else out
+    hl = x.shape[1] // n_dev
+    blocks = [x[:, i * hl:(i + 1) * hl].to(d)
+              for i, d in enumerate(mesh.devices)]
+    exts = [e.permute(1, 0, 2, 3) for e in _exchange_halo(
+        [b.permute(1, 0, 2, 3) for b in blocks], _ROW_HALO, edge="edge")]
+    H = hl * n_dev
+    # keep only true rows: a block's halo stops at the frame's edges
+    cut = [(max(_ROW_HALO - i * hl, 0),
+            max((i + 1) * hl + _ROW_HALO - H, 0)) for i in range(n_dev)]
+    exts = [e[:, top:e.shape[1] - bottom] for e, (top, bottom)
+            in zip(exts, cut)]
+    outs = []
+    for i, (d, ext, views) in enumerate(zip(mesh.devices, exts,
+                                            _views_sharded(blocks, exts))):
+        y = _run(nets[d], model, ext, *views)
+        top = _ROW_HALO - cut[i][0]
+        outs.append(y[:, top:top + hl])
+    out = _gather(outs, dim=1)
     return out[0] if single else out

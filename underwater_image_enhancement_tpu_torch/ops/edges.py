@@ -83,7 +83,7 @@ def _shift_zero(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
              hysteresis_iters: int = 64, use_pallas="auto",
-             valid_hw=None) -> torch.Tensor:
+             valid_hw=None, valid_rows=None) -> torch.Tensor:
     """cv2.Canny(gray, low, high) on u8-valued int planes (H, W) or
     (N, H, W) -> int32 {0, 1} edge map of the same shape.
 
@@ -96,7 +96,13 @@ def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
     top-left (h, w) region: with row h-1 and column w-1 replicated beyond
     it, zeroing the gradient magnitude outside makes the result inside
     exactly cv2.Canny of the (h, w) crop and zero outside (see the JAX
-    package's canny_u8)."""
+    package's canny_u8).
+
+    valid_rows=(r0, r1), ints or 0-d int tensors, is the row-band analog
+    for the halo'd blocks of a row-sharded plane (``parallel/six_spatial``):
+    with rows r0 and r1-1 replicated beyond the band, zeroing the gradient
+    magnitude outside rows [r0, r1) makes the result inside exactly those
+    rows of the whole plane's Canny."""
     if use_pallas not in ("auto", True, False):
         raise ValueError(f"canny_u8: use_pallas must be 'auto', True or "
                          f"False, got {use_pallas!r}")
@@ -111,6 +117,10 @@ def canny_u8(gray_u8: torch.Tensor, low: int = 50, high: int = 150,
         rows = torch.arange(m.shape[-2], device=g.device)[None, :, None]
         cols = torch.arange(m.shape[-1], device=g.device)[None, None, :]
         m = torch.where((rows < h) & (cols < w), m, 0)
+    if valid_rows is not None:
+        r0, r1 = valid_rows
+        rows = torch.arange(m.shape[-2], device=g.device)[None, :, None]
+        m = torch.where((rows >= r0) & (rows < r1), m, 0)
 
     ax = dx.abs()
     ay = dy.abs() << 15

@@ -69,8 +69,17 @@ def equalize_hist_u8(channel_u8: torch.Tensor) -> torch.Tensor:
     occupied bin maps to 0 and leaves the normaliser; lut[i] =
     rint((cdf[i] - cdf[i0]) * f32(255 / (n - hist[i0]))) with an IEEE
     division; a constant plane comes back unchanged."""
-    n = channel_u8.numel()
-    hist = histogram256(channel_u8.reshape(1, -1))[0]
+    lut, flat = _equalize_lut(histogram256(channel_u8.reshape(1, -1))[0],
+                              channel_u8.numel())
+    return torch.where(flat, channel_u8.to(torch.int32),
+                       lut[channel_u8.long()])
+
+
+def _equalize_lut(hist: torch.Tensor, n: int):
+    """equalizeHist's LUT from the 256-bin histogram of n values -> (int32
+    (256,) LUT, 0-d bool: the plane is constant and stays as it is).  The
+    row-sharded WaterNet (``models/waternet.enhance_sharded``) sums the
+    blocks' histograms first."""
     i0 = torch.argmax((hist > 0).to(torch.int32))  # the first occupied bin
     cdf = torch.cumsum(hist, 0)
     denom = (n - hist[i0]).to(torch.float32)
@@ -79,8 +88,7 @@ def equalize_hist_u8(channel_u8: torch.Tensor) -> torch.Tensor:
                             torch.clamp(denom, min=1.0)), 0.0)
     lut = torch.clamp(torch.round((cdf - cdf[i0]).to(torch.float32) * scale),
                       0, 255).to(torch.int32)
-    out = lut[channel_u8.long()]
-    return torch.where(denom > 0, out, channel_u8.to(torch.int32))
+    return lut, ~(denom > 0)
 
 
 def histogram_equalization_planes(planes):

@@ -108,28 +108,51 @@ def perc_pairs_hist(planes, l_low: float, l_high: float, k: int = 32,
     C, n = x.shape[0], x[0].numel()
     flat = x.reshape(C, n)
     vmin, vmax = flat.amin(1), flat.amax(1)
-    kk = k * k - 1
     span = torch.clamp(vmax - vmin, min=1e-12)
+    return _perc_select(_perc_hist(flat, vmin, span, k), vmin, span, n,
+                        l_low, l_high)
+
+
+def _perc_hist(flat: torch.Tensor, vmin: torch.Tensor, span: torch.Tensor,
+               k: int = 32) -> torch.Tensor:
+    """The exact (C, k, k) two-level histogram of (C, n) values between
+    vmin and vmin + span (C,): the coarse bucket and the fine bin of each
+    value, one integer scatter-add."""
+    C = flat.shape[0]
+    kk = k * k - 1
     scale = div(torch.full_like(vmin, kk), span)  # IEEE: a traced divisor
     idx = torch.clamp((flat - vmin[:, None]) * scale[:, None], 0, kk)
     hi_f = torch.floor(idx / k)  # exact: k is a power of two
     lo = torch.clamp(idx - hi_f * k, 0, k - 1)
-    plane = torch.arange(C, device=x.device)[:, None] * (k * k)
+    plane = torch.arange(C, device=flat.device)[:, None] * (k * k)
     key = plane + hi_f.to(torch.int64) * k + lo.to(torch.int64)
-    hist = torch.zeros(C * k * k, dtype=torch.int32, device=x.device)
+    hist = torch.zeros(C * k * k, dtype=torch.int32, device=flat.device)
     hist.scatter_add_(0, key.reshape(-1),
                       torch.ones(key.numel(), dtype=torch.int32,
-                                 device=x.device))
-    hist = hist.reshape(C, k, k)
+                                 device=flat.device))
+    return hist.reshape(C, k, k)
+
+
+def _perc_select(hist: torch.Tensor, vmin: torch.Tensor, span: torch.Tensor,
+                 n: int, l_low: float, l_high: float) -> torch.Tensor:
+    """(p_low, p_high) of each plane from its exact (C, k, k) two-level
+    histogram of n values between vmin and vmin + span (C,): the coarse
+    bucket where each rank falls, then the fine bin inside it; its left
+    edge -> (C, 2) f32.  ``perc_pairs_hist``'s second half, shared with
+    the row-sharded percentiles (``parallel/six_spatial``), whose
+    histograms are summed over the positions first."""
+    C, k = hist.shape[0], hist.shape[1]
+    kk = k * k - 1
+    dev = hist.device
     c1 = torch.cumsum(hist.sum(2), 1)                       # (C, k)
     # constant percentiles: XLA folds the rank with an IEEE division
     rank = torch.tensor([float(_f32(_f32(_f32(p) / _f32(100.0)) * _f32(n - 1))
                                + _f32(1.0)) for p in (l_low, l_high)],
-                        device=x.device)                    # (2,)
+                        device=dev)                         # (2,)
     b1 = torch.clamp((c1[:, None, :] < rank[None, :, None]).sum(2), 0, k - 1)
     below = torch.where(b1 > 0,
                         torch.gather(c1, 1, torch.clamp(b1 - 1, min=0)), 0)
-    fine = hist[torch.arange(C, device=x.device)[:, None], b1]  # (C, 2, k)
+    fine = hist[torch.arange(C, device=dev)[:, None], b1]   # (C, 2, k)
     c2 = torch.cumsum(fine, 2) + below[..., None]
     b2 = torch.clamp((c2 < rank[None, :, None]).sum(2), 0, k - 1)
     # bin / scale: XLA rewrites b / (kk / span) to (b * span) * (1/kk)

@@ -1,1 +1,3 @@
-"""Data parallelism over a mesh of devices (``parallel/mesh.py``)."""
+"""Parallelism over a mesh of devices: batches (``parallel/mesh.py``) and
+one frame's rows (``parallel/spatial.py``, ``six_spatial.py``,
+``fusion_spatial.py``)."""
