@@ -6,21 +6,23 @@ devices, and against themselves on one position.
 Shapes: 64x128 on 8 positions (8-row blocks on the percentile grid; the
 guided filter's halo spans several blocks), 72x96 on 4 (18-row blocks:
 the masked percentile rows and the strip guided filter), 66x96 on 8
-(padded to 72).  Gates, JAX's own (tests/test_six_spatial.py): the cast
-code equal, the airlight A bit-equal to JAX's sharded airlight, the
-CLAHE, white-balance and histogram-eq strategies within 1e-5, the three
-dehazing ones at >= 55 dB (>= 50 padded).  The port at 2, 4 and 8
-positions against one position: bit-equal where the descent reaches the
-same box.  Fusion at 64x128 and 58x96 (padded) on 4 positions: >= 55 dB
-(50 padded), the two rows at each edge within 1e-4, and within 1e-5 of
-JAX's everywhere.  Against the port's own single-device fast tier only
-the fast tier's 25 dB: its CLAHE legs convert through the approximate
-LAB, the sharded program through the exact one (ROADMAP's traps).  ``-s``
-prints each measured gap.
+(padded to 72).  Gates: the cast code equal, the airlight A of the run
+(``chip_smoke.airlight_recorded``) bit-equal to JAX's sharded airlight,
+and so all six strategies within 1e-5, the three dehazing ones also at
+JAX's own gate (tests/test_six_spatial.py: >= 55 dB, >= 50 padded).
+The port at 2, 4 and 8 positions against one position: bit-equal where
+the descent reaches the same A and box.  Fusion at 64x128 and 58x96
+(padded) on 4 positions: >= 55 dB (50 padded), the two rows at each edge
+within 1e-4, and within 1e-5 of JAX's everywhere; on 1 and 2 positions
+within 1e-5 of the single-device fusion.  Against the port's own
+single-device fast tier only the fast tier's 25 dB: its CLAHE legs
+convert through the approximate LAB, the sharded program through the
+exact one (ROADMAP's traps).  ``-s`` prints each measured gap.
 """
 
 import math
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,8 @@ import torch
 from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 
+from chip_smoke import airlight_recorded, synthetic_frame
+from underwater_image_enhancement_tpu.ops import histeq as jhisteq
 from underwater_image_enhancement_tpu.parallel import six_spatial as jss
 from underwater_image_enhancement_tpu.parallel.fusion_spatial import (
     ancuti_fusion_spatial as jax_fusion_spatial,
@@ -39,18 +43,24 @@ from underwater_image_enhancement_tpu.parallel.mesh import (
 from underwater_image_enhancement_tpu.pipeline.cast import (
     detect_and_correct as jax_cast,
 )
+from underwater_image_enhancement_tpu_torch.ops import colorspace as cs
+from underwater_image_enhancement_tpu_torch.ops import histeq
 from underwater_image_enhancement_tpu_torch.parallel import six_spatial as tss
 from underwater_image_enhancement_tpu_torch.parallel.fusion_spatial import (
     ancuti_fusion_spatial,
 )
 from underwater_image_enhancement_tpu_torch.parallel.mesh import make_mesh
-from underwater_image_enhancement_tpu_torch.parallel.spatial import _shard
+from underwater_image_enhancement_tpu_torch.parallel.spatial import (
+    _gather,
+    _shard,
+)
 from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
     SIX_ORDER,
     six_strategy_tuple,
 )
 from underwater_image_enhancement_tpu_torch.pipeline.fusion import (
     ancuti_fusion,
+    gray_world_wb_planes,
 )
 
 torch.set_num_threads(2)
@@ -73,8 +83,8 @@ def _psnr(a, b):
 
 
 def _padded(img, n):
-    """The frame as six_strategy_spatial pads it, and its true height
-    (None where it is not padded)."""
+    """The frame as JAX's six_strategy_spatial pads it, and its true
+    height (None where it is not padded)."""
     H = img.shape[0]
     align = math.lcm(n, 8)
     Hp = -(-H // align) * align
@@ -83,17 +93,13 @@ def _padded(img, n):
     return np.concatenate([img, img[H - 1 - (Hp - H):H - 1][::-1]]), H
 
 
-def _port_airlight(img, n):
-    """The port's sharded cast correction and airlight -> (code, A, box)."""
-    pimg, valid = _padded(img, n)
-    W = img.shape[1]
-    blocks = _shard(pimg, make_mesh(n, "cpu"))
-    planes = [tuple(b[..., c].contiguous() for c in range(3))
-              for b in blocks]
-    planes, code = tss._cast_sharded(planes, img.shape[0], W, valid)
-    A, box = tss._airlight_sharded(planes, img.shape[0], W, valid_to=valid,
-                                   return_box=True)
-    return code, A[0].numpy(), box
+def _port_six(img, n):
+    """The port's six_strategy_spatial on n CPU positions with the
+    airlight of that run -> (outs, code, A, box)."""
+    with airlight_recorded(tss) as air:
+        outs, code = tss.six_strategy_spatial(img, make_mesh(n, "cpu"))
+    assert len(air) == 1
+    return outs.numpy(), int(code), air[0]["A"].numpy(), air[0]["box"]
 
 
 @pytest.fixture(scope="module")
@@ -125,25 +131,17 @@ def jax_six(six_frames):
 @pytest.fixture(scope="module")
 def port_six(six_frames):
     """The port at the case's positions and at 1, with the airlight."""
-    out = {}
-    for k, (H, W, n) in SIX_CASES.items():
-        got, code = tss.six_strategy_spatial(six_frames[k],
-                                             make_mesh(n, "cpu"))
-        one, code1 = tss.six_strategy_spatial(six_frames[k],
-                                              make_mesh(1, "cpu"))
-        out[k] = {n: (got.numpy(), int(code), _port_airlight(six_frames[k], n)),
-                  1: (one.numpy(), int(code1),
-                      _port_airlight(six_frames[k], 1))}
-    return out
+    return {k: {m: _port_six(six_frames[k], m) for m in (n, 1)}
+            for k, (_, _, n) in SIX_CASES.items()}
 
 
 @pytest.mark.parametrize("case", list(SIX_CASES))
 def test_six_spatial_against_jax(case, jax_six, port_six):
     H, W, n = SIX_CASES[case]
     want, code_w, A_w = jax_six[case]
-    got, code, (code_a, A, box) = port_six[case][n]
+    got, code, A, box = port_six[case][n]
     assert got.shape == (6, H, W, 3) and np.isfinite(got).all()
-    assert code == code_w == code_a
+    assert code == code_w
     np.testing.assert_array_equal(A, A_w)
     gate = 50.0 if case == "padded" else 55.0
     for k, name in enumerate(SIX_ORDER):
@@ -151,9 +149,8 @@ def test_six_spatial_against_jax(case, jax_six, port_six):
         p = _psnr(got[k], want[k])
         print(f"six_spatial {case} {name}: max |port - JAX| {d:.3e}, "
               f"{p:.1f} dB")
-        if name in EXACT:
-            assert d <= 1e-5, name
-        else:
+        assert d <= 1e-5, name
+        if name not in EXACT:
             assert p >= gate, name
     print(f"six_spatial {case}: A {A.tolist()}, box {box}")
 
@@ -166,12 +163,9 @@ def test_six_spatial_against_one_position(case, positions, six_frames,
     descent reaches the same box (the corners' f32 sums are added over
     other blocks); otherwise the non-dehazing strategies bit-equal and
     the dehazing ones at >= 55 dB."""
-    img = six_frames[case]
-    one, code1, (_, A1, box1) = port_six[case][1]
-    got, code = tss.six_strategy_spatial(img, make_mesh(positions, "cpu"))
-    got = got.numpy()
-    _, A, box = _port_airlight(img, positions)
-    assert int(code) == code1
+    one, code1, A1, box1 = port_six[case][1]
+    got, code, A, box = _port_six(six_frames[case], positions)
+    assert code == code1
     print(f"six_spatial {case} on {positions}: box {box} (one position "
           f"{box1}), A equal {np.array_equal(A, A1)}")
     if box == box1 and np.array_equal(A, A1):
@@ -189,7 +183,7 @@ def test_six_spatial_against_single_device_fast_tier(six_frames, port_six):
     approximate LAB (K8 ``_approx``); the sharded program exactly: only
     the fast tier's 25 dB gate holds between them."""
     img = six_frames["aligned"]
-    got, code, _ = port_six["aligned"][8]
+    got, code, _, _ = port_six["aligned"][8]
     want, code_w = six_strategy_tuple(img, fast=True, device="cpu")
     assert code == int(code_w)
     for k, name in enumerate(SIX_ORDER):
@@ -243,11 +237,32 @@ def test_fusion_spatial_against_jax(case, fusion_frames, jax_fusion):
 @pytest.mark.parametrize("positions", [1, 2])
 def test_fusion_spatial_against_single_device(positions, fusion_frames):
     """The port's sharded fusion against its single-device
-    ``ancuti_fusion`` (the JAX suite's gate, 55 dB)."""
+    ``ancuti_fusion``: within 1e-5, and at the JAX suite's gate, 55 dB."""
     img = fusion_frames["aligned"]
     got = ancuti_fusion_spatial(img, make_mesh(positions, "cpu")).numpy()
     want = ancuti_fusion(img).numpy()
-    p = _psnr(got, want)
-    print(f"fusion_spatial on {positions} vs ancuti_fusion: "
-          f"{np.abs(got - want).max():.3e}, {p:.1f} dB")
-    assert p > 55.0
+    d, p = float(np.abs(got - want).max()), _psnr(got, want)
+    print(f"fusion_spatial on {positions} vs ancuti_fusion: {d:.3e}, "
+          f"{p:.1f} dB")
+    assert d <= 1e-5 and p > 55.0
+
+
+def test_sharded_clahe_equals_cv2_and_jax():
+    """Fusion's CLAHE leg at 128x96 (16x12-pixel tiles) on the seeded
+    ``synthetic_frame(3)``: the port's sharded CLAHE of the exact LAB L
+    on 4 positions equals its single-device ``clahe_u8``, JAX's
+    ``clahe_u8`` and cv2 bit for bit."""
+    img = synthetic_frame(3, 128, 96)
+    wb = gray_world_wb_planes(tuple(torch.from_numpy(img[..., c].copy())
+                                    for c in range(3)))
+    L = cs.rgb_to_lab_u8_exact_planes(*(cs.quantize_u8(c) for c in wb))[0]
+    want = cv2.createCLAHE(clipLimit=2.0, tileGridSize=(8, 8)).apply(
+        L.numpy().astype(np.uint8))
+    blocks = _shard(L, make_mesh(4, "cpu"))
+    got = _gather(tss._clahe_rows_sharded(blocks, 2.0, 8, 128, 96))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(histeq.clahe_u8(L, 2.0, 8, 8).numpy(),
+                                  want)
+    np.testing.assert_array_equal(
+        np.asarray(jhisteq.clahe_u8(jnp.asarray(L.numpy()), 2.0, 8, 8)),
+        want)

@@ -43,11 +43,11 @@ from underwater_image_enhancement_tpu_torch.parallel.mesh import (
 )
 from underwater_image_enhancement_tpu_torch.parallel.six_spatial import (
     _clahe_lab_sharded,
-    _halo,
     _pad_rows_reflect101,
 )
 from underwater_image_enhancement_tpu_torch.parallel.spatial import (
     _all_gather,
+    _exchange_halo,
     _gather,
     _psum_mean,
     _shard,
@@ -68,7 +68,7 @@ def _blur5_sharded(blocks) -> list:
     order of ``pyramid.blur5``, REFLECT_101 at the frame's edges by the
     halo's remap."""
     out = []
-    for ext in _halo(blocks, 2):
+    for ext in _exchange_halo(blocks, 2):
         b = pyramid._blur5_axis(ext, 0)
         out.append(pyramid._blur5_axis(b, ext.dim() - 1)[2:-2])
     return out
@@ -117,7 +117,7 @@ def _weight_map_sharded(planes, H: int, W: int, valid_h=None) -> list:
     means = _psum_mean([torch.stack(lab) for lab in labs], H * W, valid_h)
     lums = [0.299 * p[0] + 0.587 * p[1] + 0.114 * p[2] for p in planes]
     contrast = [torch.abs(laplacian(e, ksize=1))[1:-1]
-                for e in _halo(lums, 1)]
+                for e in _exchange_halo(lums, 1)]
     blurred = _blur5_sharded([torch.stack(lab, dim=1) for lab in labs])
     m = [torch.tensor(float(v), device=lums[0].device) for v in means]
     out = []
@@ -174,7 +174,7 @@ def _fusion_spatial_padded(img: torch.Tensor, mesh: Mesh, tiles: int,
         g = torch.tensor(float(gray), device=dev)
         wb.append(tuple(torch.clamp(div(c * g, float(max(m, _f32(1e-6)))),
                                     0.0, 1.0) for c, m in zip(x, means)))
-    cl = _clahe_lab_sharded(wb, 2.0, tiles, D, H, W)
+    cl = _clahe_lab_sharded(wb, 2.0, tiles, H, W)
 
     w1 = _weight_map_sharded(wb, Ht, W, valid_h)
     w2 = _weight_map_sharded(cl, Ht, W, valid_h)

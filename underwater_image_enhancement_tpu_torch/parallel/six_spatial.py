@@ -82,10 +82,6 @@ AX = DATA_AXIS
 _f32 = np.float32
 
 
-def _halo(blocks, h: int, edge: str = "reflect101"):
-    return _exchange_halo(blocks, h, edge)
-
-
 # ---------------------------------------------------------------------------
 # percentiles: ops.stretch's hist-fast histogram summed over the positions
 # ---------------------------------------------------------------------------
@@ -169,7 +165,7 @@ def _canny_sharded(grays, iters: int, valid_to: int | None = None) -> list:
     n, Hl = len(grays), grays[0].shape[0]
     globe = Hl * n if valid_to is None else valid_to
     out = []
-    for i, ext in enumerate(_halo(grays, h, edge="edge")):
+    for i, ext in enumerate(_exchange_halo(grays, h, edge="edge")):
         s0 = i * Hl
         r0 = max(h - s0, 0)
         r1 = min(globe - s0 + h, Hl + 2 * h)
@@ -180,7 +176,7 @@ def _canny_sharded(grays, iters: int, valid_to: int | None = None) -> list:
 
 
 def _airlight_sharded(planes, H: int, W: int, edge_iters: int = 4,
-                      valid_to: int | None = None, return_box: bool = False):
+                      valid_to: int | None = None):
     """``airlight.quadtree_airlight_planes`` with the SAT corners summed
     over the positions: each block keeps its local row-prefix table (K6),
     a corner at global (r, c) is the sum over the positions of each one's
@@ -188,7 +184,7 @@ def _airlight_sharded(planes, H: int, W: int, edge_iters: int = 4,
     the host (one read a level), and the brightest pixel of the final box
     is the max of the positions' maxima, first in row-major order.  H is
     the true frame height: the descent never reaches pad rows.  -> one A
-    (3,) a position (and the box (r0, c0, h, w) where ``return_box``)."""
+    (3,) a position."""
     Hl = planes[0][0].shape[0]
     grays = [cs.gray_u8_planes(*(cs.quantize_u8(p) for p in pl))
              for pl in planes]
@@ -232,8 +228,7 @@ def _airlight_sharded(planes, H: int, W: int, edge_iters: int = 4,
     cand = torch.where(maxes == maxes.max(), gidx,
                        torch.iinfo(gidx.dtype).max)
     A = torch.stack(vals)[torch.argmin(cand)]
-    A = _replicate(A, [pl[0] for pl in planes])
-    return (A, (r0, c0, h, w)) if return_box else A
+    return _replicate(A, [pl[0] for pl in planes])
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +242,7 @@ def _box_rows_sharded(stacks, ry: int, rx: int, rows_out: int) -> list:
     inv = float(_f32(1.0) / _f32(ry * rx))
     start = ry - ry // 2
     out = []
-    for ext in _halo(stacks, ry):
+    for ext in _exchange_halo(stacks, ry):
         ext = _pad_cols(ext, rx // 2, rx - 1 - rx // 2)
         s = _window_sum(_window_sum(ext, ry, 0), rx, 2)
         out.append(s[start:start + rows_out] * inv)
@@ -287,7 +282,8 @@ def _guided_fast_sharded_strip(Is, ps, r: int, eps: float, s: int = 4,
         return _window_sum(_window_sum(x, rs, 0), r, 2) * inv
 
     out = []
-    exts = _halo([torch.stack([I, p], dim=1) for I, p in zip(Is, ps)], hf)
+    exts = _exchange_halo([torch.stack([I, p], dim=1)
+                           for I, p in zip(Is, ps)], hf)
     for i, (ext, I) in enumerate(zip(exts, Is)):
         dev = I.device
         s0 = i * Hl
@@ -368,22 +364,22 @@ def _restore_sharded(planes, A, omega, r: int, eps: float,
 # CLAHE-LAB round trip (whole tile rows a position; one LUT all-gather)
 # ---------------------------------------------------------------------------
 
-def _clahe_rows_sharded(blocks, clip_limit: float, tiles: int, D: int,
-                        H: int, W: int) -> list:
+def _clahe_rows_sharded(blocks, clip_limit: float, tiles: int, H: int,
+                        W: int) -> list:
     """``histeq.clahe_u8`` of whole-tile-row blocks: local tile LUTs, one
     all-gather, the local blend; bit-identical to the single-device op
     (``spatial.clahe_spatial``'s construction)."""
     return _clahe_blocks(blocks, float(clip_limit), tiles, H, W)
 
 
-def _clahe_lab_sharded(planes, clip_limit: float, tiles: int, D: int,
-                       H: int, W: int) -> list:
+def _clahe_lab_sharded(planes, clip_limit: float, tiles: int, H: int,
+                       W: int) -> list:
     """The LAB-L CLAHE round trip of each position's (r, g, b) planes: the
     exact u8 LAB (K1b), CLAHE of L over the positions, the exact inverse
     (K3b), back to [0, 1]."""
     labs = [cs.rgb_to_lab_u8_exact_planes(*(cs.quantize_u8(c) for c in p))
             for p in planes]
-    Ls = _clahe_rows_sharded([lab[0] for lab in labs], clip_limit, tiles, D,
+    Ls = _clahe_rows_sharded([lab[0] for lab in labs], clip_limit, tiles,
                              H, W)
     return [tuple(cs.u8_to_unit(c)
                   for c in cs.lab_to_rgb_u8_exact_planes(L, lab[1], lab[2]))
@@ -455,10 +451,9 @@ def _cast_sharded(planes, Ht: int, W: int, valid_h) -> tuple:
 
 
 def _six_spatial_padded(img: torch.Tensor, mesh: Mesh, tiles: int,
-                        valid_h: int | None, return_box: bool = False):
+                        valid_h: int | None):
     """The sharded six program on an alignment-padded frame; ``valid_h``
-    is the true height (None: no padding).  -> ((6, H, W, 3), code) (and
-    the airlight A (3,) and its final box where ``return_box``).  The
+    is the true height (None: no padding).  -> ((6, H, W, 3), code).  The
     percentiles and CLAHE are bit-equal to the single-device hist-fast
     path on unpadded frames, Canny by the halo and ``valid_rows``; the
     airlight's corners and the cast means add each position's f32 sums in
@@ -472,8 +467,7 @@ def _six_spatial_padded(img: torch.Tensor, mesh: Mesh, tiles: int,
     planes = [tuple(b[..., c].contiguous() for c in range(3))
               for b in blocks]
     planes, code = _cast_sharded(planes, Ht, W, valid_h)
-    A, box = _airlight_sharded(planes, Ht, W, valid_to=valid_h,
-                               return_box=True)
+    A = _airlight_sharded(planes, Ht, W, valid_to=valid_h)
 
     def st(p, lo, hi):
         return _stretch_planes(p, lo, hi, n_sub, valid_to=valid_h)
@@ -482,7 +476,7 @@ def _six_spatial_padded(img: torch.Tensor, mesh: Mesh, tiles: int,
         return _wb_planes(p, pct, n_sub, valid_to=valid_h)
 
     def cl(p, c):
-        return _clahe_lab_sharded(p, c, tiles, D, H, W)
+        return _clahe_lab_sharded(p, c, tiles, H, W)
 
     def gm(p, g):
         return [tuple(gamma_correction_pow(c, g) for c in x) for x in p]
@@ -501,6 +495,4 @@ def _six_spatial_padded(img: torch.Tensor, mesh: Mesh, tiles: int,
                                  for s in (s1, s2, s3, s4, s5, s6)])
                     for i in range(D)], dim=1)
     code = torch.tensor(code, dtype=torch.int32, device=outs.device)
-    if return_box:
-        return outs, code, A[0].to(outs.device), box
     return outs, code
