@@ -52,7 +52,12 @@ non-zero):
 4. slice: three seeded synthetic 1920x1080 underwater frames, written with
    the port's PNG codec, through ``cli six``, ``cli six --fast``, ``cli
    enhance``, ``cli auto``, ``cli build-dataset``, ``cli build-dataset
-   --fast`` and ``cli assess`` in-process on ``cuda``, then the five CLAHE
+   --fast`` and ``cli assess`` in-process on ``cuda``, ``[write]``
+   (``write_slice``): ``cli enhance --device cuda --input frame0.png
+   --output`` with ``.png``, ``.jpg``, ``.bmp`` and ``.tif``, each file
+   equal to the port's host encoder of the PNG output's u8 frame, the BMP
+   read back equal to it, the JPEG's PSNR and each encoder's host ms a
+   1080p frame printed, then the five CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
    probe run anew) back to RGB (K3b), then ``cli fusion`` on the three
@@ -128,7 +133,16 @@ non-zero):
    ``PREDICTOR_PARAM_MAX_ABS`` or ``ZOO_PARAM_MAX_REL`` of a head's
    range); each f32 trainer's eval-mode loss and gradient on the card
    against the CPU's from equal parameters and batch within its
-   ``TRAIN_GRAD_MAX_REL`` (a TF32 control must land past it); their
+   ``TRAIN_GRAD_MAX_REL`` (a TF32 control must land past it), and
+   ``[train_mesh]`` (``train_mesh_slice``): ``MLPTrainer`` and
+   ``ZooTrainer("vit")`` at published widths on the first 4 pairs, 3 steps
+   from one seed with dropout on, for mesh None (twice), one position and
+   two positions of the one card: one position bit-equal to mesh None
+   (step-1 loss and gradients, the step losses, the parameters), two
+   positions within the ``MESH_*`` gates of it (a control dropping the
+   last position's sums and gradients must fail each gate), the MLP's
+   feature cache K1b and K7 once a pair, and ms a step for mesh None
+   against two positions (``[train_mesh_timing]``, in turns); their
    outputs (18 + 18 + 3 PNGs and the CSV logs; 3 winners; the dataset
    CSV with 5 scores a row and ``dataset.pkl`` with three finite 79-value
    vectors; the assess table);
@@ -1054,6 +1068,238 @@ def train_timing(torch, dev, train_ds, profile_frame, smi: str) -> None:
         del trainer
 
 
+# [write]: cli enhance --output NAME.<suffix> for the non-PNG writers
+WRITE_SUFFIXES = (".jpg", ".bmp", ".tif")
+WRITE_ENCODE_RUNS = 3
+
+
+def write_slice(torch, run_cli, src: Path, smi: str) -> None:
+    """[write]: ``cli enhance --device cuda --input frame0.png --output``
+    with ``.png``, then each of ``WRITE_SUFFIXES``: each file's bytes equal
+    the port's host encoder applied to the u8 frame of the ``.png``
+    output; the BMP read back by the port's decoder equals that frame, the
+    JPEG's PSNR against it is printed; the host ms to encode the 1080p
+    frame (the median of ``WRITE_ENCODE_RUNS``)."""
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+    from underwater_image_enhancement_tpu_torch.utils.bmp import decode_bmp
+    from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+        decode_jpeg,
+    )
+
+    out = WORK / "write"
+    for suffix in (".png",) + WRITE_SUFFIXES:
+        _, launches, secs = run_cli(
+            ["enhance", "--device", "cuda", "--input",
+             str(src / "frame0.png"), "--output",
+             str(out / f"frame0{suffix}")], False)
+        check(not any(launches.values()),
+              f"enhance --output {suffix} launched kernels: {launches}")
+    u8 = uio.imread_u8(str(out / "frame0.png"))
+    check(u8 is not None and u8.shape == (H, W, 3), "write: the PNG output")
+    for suffix in (".png",) + WRITE_SUFFIXES:
+        data = (out / f"frame0{suffix}").read_bytes()
+        encode = uio.encoder_for(str(out / f"frame0{suffix}"))
+        ms = []
+        for _ in range(WRITE_ENCODE_RUNS):
+            t0 = time.perf_counter()
+            want = encode(u8)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        check(data == want, f"write: the {suffix} file is not the port's "
+              f"encoding of the PNG output's frame ({len(data)} bytes vs "
+              f"{len(want)})")
+        extra = {}
+        if suffix == ".bmp":
+            check(np.array_equal(decode_bmp(data), u8),
+                  "write: the BMP reads back other pixels")
+            extra["reads_back"] = "equal"
+        elif suffix == ".jpg":
+            back = torch.from_numpy(decode_jpeg(data)) / 255.0
+            extra["psnr_db"] = f"{psnr_db(back, torch.from_numpy(u8) / 255.0):.3f}"
+        log("write", command=f"'enhance --output frame0{suffix}'",
+            bytes=len(data), equal_to_host_encoder=True,
+            encode_host_ms=f"{statistics.median(ms):.1f}",
+            frame=f"{W}x{H}", **extra, card=repr(smi))
+
+
+# [train_mesh]: MLPTrainer and ZooTrainer("vit") at published widths on
+# mesh None, one position and two positions of the one card; 3 steps from
+# one seed with dropout on.  One position must be bit-equal to mesh None
+# (cuDNN held deterministic for the phase, mesh None run twice to show the
+# card repeats itself).  Two positions against mesh None: the step-1 loss
+# (relative), the step-1 gradients (over the largest) and the parameters
+# after the steps (the share over MESH_PARAM_ABS, each within 2 lr a step:
+# Adam's first steps move an element by about lr * sign(g)); each gate is
+# failed by a control step that drops the last position's sums and
+# gradients
+MESH_STEPS = 3
+MESH_TIMED_STEPS = 5
+MESH_LOSS_REL = 1e-6
+MESH_GRAD_REL = 1e-4
+MESH_PARAM_ABS = 1e-6
+MESH_FLIP_SHARE = 1e-3
+MESH_LR = 1e-4  # both trainers' default Adam rate
+MESH_RUNS = ("mlp", "vit")
+
+
+def mesh_trainer(torch, label: str, dev, mesh, cache):
+    """The trainer of a MESH_RUNS label at full width on ``mesh`` (the MLP
+    reading ``cache``, the 79 features of the pairs)."""
+    from underwater_image_enhancement_tpu_torch.train import trainer as tr
+
+    if label == "mlp":
+        t = tr.MLPTrainer(mesh=mesh, device=dev)
+        t._feature_cache = cache
+        return t
+    return tr.ZooTrainer("vit", pretrained=None, mesh=mesh, device=dev)
+
+
+def mesh_loss_grads(torch, tlayers, t, batch):
+    """The step-1 loss and the gradients it leaves (by name), no update."""
+    idx, imgs, refs, _ = batch
+    with tlayers.no_tf32():
+        t.optimizer.zero_grad(set_to_none=True)
+        if t.sharded:
+            loss = t._mesh_loss(idx, imgs, refs, True)
+        else:
+            t.model.train()
+            loss = t._loss_fn(idx, imgs, refs, True)
+            loss.backward()
+    return loss.detach(), {k: p.grad.detach().clone() for k, p in
+                           t.model.named_parameters() if p.grad is not None}
+
+
+def mesh_run(torch, tlayers, label, dev, mesh, cache, batch):
+    """(step-1 loss, its gradients, the MESH_STEPS step losses, the
+    parameters after them) of a fresh trainer."""
+    loss, grads = mesh_loss_grads(torch, tlayers,
+                                  mesh_trainer(torch, label, dev, mesh, cache),
+                                  batch)
+    t = mesh_trainer(torch, label, dev, mesh, cache)
+    idx, imgs, refs, _ = batch
+    losses = torch.stack([t._step(idx, imgs, refs)
+                          for _ in range(MESH_STEPS)])
+    params = {k: p.detach().clone() for k, p in t.model.named_parameters()}
+    del t
+    return loss, grads, losses, params
+
+
+def mesh_readings(torch, got, want) -> dict:
+    loss, grads, _, params = got
+    loss0, grads0, _, params0 = want
+    gmax = max(float(g.abs().max()) for g in grads0.values())
+    over = sum(int(((params[k] - params0[k]).abs() > MESH_PARAM_ABS).sum())
+               for k in params0)
+    n = sum(p.numel() for p in params0.values())
+    return {"loss_rel": abs(float(loss) / float(loss0) - 1),
+            "grad_rel": max(float((grads[k] - grads0[k]).abs().max())
+                            for k in grads0) / gmax,
+            "param_max": max(float((params[k] - params0[k]).abs().max())
+                             for k in params0),
+            "flip_share": over / n}
+
+
+def mesh_within(r: dict) -> dict:
+    return {"loss": r["loss_rel"] <= MESH_LOSS_REL,
+            "grad": r["grad_rel"] <= MESH_GRAD_REL,
+            "params": (r["flip_share"] <= MESH_FLIP_SHARE
+                       and r["param_max"] <= 2.001 * MESH_LR * MESH_STEPS)}
+
+
+def train_mesh_slice(torch, dev, train_ds, captured_match, runs,
+                     smi: str) -> None:
+    """[train_mesh] (the gates above).  The MLP's features come from one
+    ``cache_features`` pass (K1b and K7 once a pair, captured and
+    replayed with the other runs); the steps launch no kernel.  Then ms a
+    step for mesh None against two positions, in turns."""
+    from underwater_image_enhancement_tpu_torch.models import layers as tlayers
+    from underwater_image_enhancement_tpu_torch.ops import kernels
+    from underwater_image_enhancement_tpu_torch.parallel.mesh import Mesh
+    from underwater_image_enhancement_tpu_torch.train import trainer as tr
+
+    t_phase = time.perf_counter()
+    one, two = Mesh((dev,)), Mesh((dev, dev))
+    calls, restore = capture_calls(torch, kernels)
+    kernels.reset_launches()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cache = mesh_trainer(torch, "mlp", dev, None, None)
+        cache.cache_features(train_ds[256], log=lambda *_: None)
+        cache = cache._feature_cache
+        for label in MESH_RUNS:
+            ds = train_ds[train_size(label)]
+            batch = train_batch(torch, label, ds, dev)
+            base = mesh_run(torch, tlayers, label, dev, None, cache, batch)
+            again = mesh_run(torch, tlayers, label, dev, None, cache, batch)
+            single = mesh_run(torch, tlayers, label, dev, one, cache, batch)
+            for name, got in (("mesh None again", again),
+                              ("one position", single)):
+                check(torch.equal(got[0], base[0])
+                      and torch.equal(got[2], base[2])
+                      and got[1].keys() == base[1].keys()
+                      and all(torch.equal(got[1][k], base[1][k])
+                              for k in base[1])
+                      and all(torch.equal(got[3][k], base[3][k])
+                              for k in base[3]),
+                      f"train_mesh {label}: {name} is not bit-equal to mesh "
+                      "None")
+            got = mesh_readings(torch, mesh_run(torch, tlayers, label, dev,
+                                                two, cache, batch), base)
+            add = tr._mesh_sum
+            tr._mesh_sum = lambda parts: add(list(parts)[:-1])
+            try:
+                ctl = mesh_readings(torch, mesh_run(
+                    torch, tlayers, label, dev, two, cache, batch), base)
+            finally:
+                tr._mesh_sum = add
+            ok, ctl_ok = mesh_within(got), mesh_within(ctl)
+            log("train_mesh", run=label, batch=TRAIN_BATCH,
+                size=train_size(label), steps=MESH_STEPS,
+                one_position="bit-equal", mesh_none_repeat="bit-equal",
+                **{k: f"{v:.3g}" for k, v in got.items()},
+                **{f"control_{k}": f"{v:.3g}" for k, v in ctl.items()},
+                gates=f"loss<={MESH_LOSS_REL},grad<={MESH_GRAD_REL},"
+                      f"share>{MESH_PARAM_ABS}<={MESH_FLIP_SHARE}")
+            check(all(ok.values()), f"train_mesh {label}: two positions "
+                  f"outside the gates: {got}")
+            check(not any(ctl_ok.values()), f"train_mesh {label}: the "
+                  f"control passes a gate: {ctl}")
+            del base, again, single
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    finally:
+        restore()
+        torch.backends.cudnn.deterministic = deterministic
+    check(captured_match(calls, launches)
+          and launches == EXPECTED_SLICE["train_mlp"],
+          f"train_mesh: launches {launches}")
+    runs["train_mesh"] = (calls, launches, None)
+    # ms a step, mesh None against two positions, in turns
+    for label in MESH_RUNS:
+        batch = train_batch(torch, label, train_ds[train_size(label)], dev)
+        idx, imgs, refs, _ = batch
+        ms = {"none": [], "two": []}
+        for key in ("none", "two", "two", "none"):
+            t = mesh_trainer(torch, label, dev, None if key == "none" else two,
+                             cache)
+            t._step(idx, imgs, refs)  # warm-up
+            for _ in range(MESH_TIMED_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t._step(idx, imgs, refs)
+                end.record()
+                end.synchronize()
+                ms[key].append(start.elapsed_time(end))
+            del t
+        log("train_mesh_timing", run=label, batch=TRAIN_BATCH,
+            ms_per_step_mesh_none=f"{statistics.median(ms['none']):.3f}",
+            ms_per_step_two_positions=f"{statistics.median(ms['two']):.3f}",
+            steps=2 * MESH_TIMED_STEPS, card=repr(smi))
+    log("train_mesh", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        launches=json.dumps(nonzero(launches), separators=(",", ":")))
+
+
 # [dp]: the label program's gates on the card (features 1e-4 relative
 # or 1e-5, scores 1e-3, the same winner unless the top two lie within
 # 1e-2) between mesh positions and the single call; the enhance 1e-6
@@ -1972,6 +2218,9 @@ def main() -> int:
     log("slice", command="enhance", frames=3, outputs=len(pngs),
         seconds=f"{secs:.2f}")
 
+    # [write] enhance --output NAME.jpg/.bmp/.tif
+    write_slice(torch, run_cli, src, smi)
+
     # Phase-1 labeling: auto, build-dataset, build-dataset --fast
     for key, argv in (
             ("auto", ["auto", "--input", str(src), "--output",
@@ -2504,6 +2753,9 @@ def main() -> int:
 
     # [train] the trainers through the CLI and their gates
     train_ds = train_slice(torch, dev, run_cli, captured_match, runs)
+
+    # [train_mesh] the MLP and ViT trainers over mesh positions of the card
+    train_mesh_slice(torch, dev, train_ds, captured_match, runs, smi)
 
     unused = [k for k in KERNELS if not any(r[1][k] for r in runs.values())]
     check(not unused, f"kernels the main path never launched: {unused}")

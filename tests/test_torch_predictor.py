@@ -18,6 +18,7 @@ reach 2e5) and the comparison sees every parameter move.
 
 import json
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -254,6 +255,20 @@ def test_process_single_image_and_folder(tmp_path, port_pred, jax_params,
     assert n == 2 and len(failed) == 1 and "junk.png" in failed[0]
     assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
         "a_enhanced.png", "b_enhanced.png"]
+
+
+def test_process_single_image_writes_jpeg(tmp_path, port_pred,
+                                         underwater_img):
+    """``output_path=NAME.jpg`` writes cv2's JPEG of the frame that the
+    PNG output holds."""
+    tio.imwrite_unit(str(tmp_path / "a.png"), underwater_img)
+    for name in ("o.png", "o.jpg"):
+        port_pred.process_single_image(str(tmp_path / "a.png"),
+                                       str(tmp_path / name),
+                                       log=lambda *_: None)
+    u8 = tio.imread_u8(str(tmp_path / "o.png"))
+    ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(u8[..., ::-1]))
+    assert ok and (tmp_path / "o.jpg").read_bytes() == buf.tobytes()
 
 
 # ---- weights, the torchvision loaders, convert-vgg -----------------------

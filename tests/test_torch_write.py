@@ -1,0 +1,190 @@
+"""The port's image writers against cv2 on the CPU.
+
+``utils/io.imwrite_unit`` picks the encoder from the suffix, as
+``cv2.imwrite`` does.  JPEG (cv2's defaults: baseline, quality 95, 4:2:0),
+BMP (24-bit) and TIFF (LZW with the horizontal predictor) are held to
+``cv2.imencode``'s bytes, on noise and on the smooth ``underwater_img``
+frame of ``tests/torch_frames.py``; the TIFF also to cv2's tag values and
+to ``cv2.imread`` of the port's file.  ``cli enhance --output NAME.<fmt>``
+writes the JAX CLI's bytes where the two u8 frames are equal (the test
+asserts they are).  Suffixes that cv2 writes and the port does not, and
+suffixes cv2 cannot write, raise.
+"""
+
+import struct
+
+import cv2
+import numpy as np
+import pytest
+
+from tests import torch_frames
+from underwater_image_enhancement_tpu import cli as jcli
+from underwater_image_enhancement_tpu_torch import cli as tcli
+from underwater_image_enhancement_tpu_torch.utils import io as tio
+from underwater_image_enhancement_tpu_torch.utils.bmp import (
+    decode_bmp,
+    encode_bmp,
+)
+from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+    decode_jpeg,
+    encode_jpeg,
+)
+from underwater_image_enhancement_tpu_torch.utils.tiff import encode_tiff
+
+JPEG_SHAPES = ((1, 1), (7, 9), (8, 8), (16, 16), (17, 33), (37, 53),
+               (120, 160))
+BMP_SHAPES = ((1, 1), (3, 5), (37, 53))
+# one strip; two strips (LONG byte counts); SHORT byte counts in the entry
+# (two strips) and out of it (four); the 1080p strip shape (one row)
+TIFF_SHAPES = ((1, 1), (37, 53), (20, 160), (2, 2000), (10, 700),
+               (3, 1920))
+CLI_SUFFIXES = (".jpg", ".JPEG", ".bmp", ".tif")
+
+
+def _frame(kind: str, shape) -> np.ndarray:
+    """(H, W, 3) uint8 RGB: seeded noise, or a crop of the smooth
+    ``underwater_img`` frame (120x160)."""
+    h, w = shape
+    if kind == "noise":
+        return np.random.default_rng(h * 1000 + w).integers(
+            0, 256, (h, w, 3), dtype=np.uint8)
+    img = torch_frames.underwater_img()
+    if h > img.shape[0] or w > img.shape[1]:
+        img = np.tile(img, (-(-h // img.shape[0]), -(-w // img.shape[1]), 1))
+    return (img[:h, :w] * 255.0).round().astype(np.uint8)
+
+
+def _cv2_bytes(suffix: str, rgb: np.ndarray) -> bytes:
+    ok, buf = cv2.imencode(suffix, np.ascontiguousarray(rgb[..., ::-1]))
+    assert ok
+    return buf.tobytes()
+
+
+def _tiff_tags(data: bytes) -> dict:
+    """tag -> (type, count, values) of a little-endian TIFF's first IFD."""
+    (ifd,) = struct.unpack("<I", data[4:8])
+    (n,) = struct.unpack("<H", data[ifd:ifd + 2])
+    tags = {}
+    for i in range(n):
+        tag, kind, count, field = struct.unpack(
+            "<HHI4s", data[ifd + 2 + 12 * i:ifd + 14 + 12 * i])
+        size = {3: 2, 4: 4}[kind] * count
+        raw = field[:size] if size <= 4 else data[
+            struct.unpack("<I", field)[0]:][:size]
+        tags[tag] = (kind, count, struct.unpack(
+            "<%d%s" % (count, "H" if kind == 3 else "I"), raw))
+    return tags
+
+
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+@pytest.mark.parametrize("shape", JPEG_SHAPES)
+def test_jpeg_bytes_equal_cv2(kind, shape):
+    rgb = _frame(kind, shape)
+    data = encode_jpeg(rgb)
+    assert data == _cv2_bytes(".jpg", rgb)
+    # and the port's decoder reads it as cv2 does
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    assert np.array_equal(decode_jpeg(data), want[..., ::-1])
+
+
+@pytest.mark.parametrize("shape", BMP_SHAPES)
+def test_bmp_bytes_equal_cv2(shape):
+    rgb = _frame("noise", shape)
+    data = encode_bmp(rgb)
+    assert data == _cv2_bytes(".bmp", rgb)
+    assert np.array_equal(decode_bmp(data), rgb)
+
+
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+@pytest.mark.parametrize("shape", TIFF_SHAPES)
+def test_tiff_tags_and_read_back_equal_cv2(kind, shape):
+    rgb = _frame(kind, shape)
+    data = encode_tiff(rgb)
+    want = _cv2_bytes(".tif", rgb)
+    tags = _tiff_tags(data)
+    assert tags == _tiff_tags(want)
+    assert {k: v[2] for k, v in tags.items() if k in (259, 262, 277, 284,
+                                                      317, 339)} == {
+        259: (5,), 262: (2,), 277: (3,), 284: (1,), 317: (2,), 339: (1, 1, 1)}
+    back = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    assert np.array_equal(back[..., ::-1], rgb)
+    assert data == want
+
+
+def test_tiff_lzw_ratio_clear_equals_cv2():
+    """A strip of 24000 bytes, 12000 of zeros and then random 0/1 samples
+    (after the predictor): at its second 10000-byte checkpoint the
+    compression ratio has fallen, and libtiff clears the table while it is
+    not yet full."""
+    w = 8000
+    diff = np.zeros(w * 3, np.uint8)
+    diff[12000:] = np.random.default_rng(3).integers(0, 2, w * 3 - 12000)
+    rgb = np.cumsum(diff.reshape(w, 3), axis=0, dtype=np.uint8)[None]
+    assert encode_tiff(rgb) == _cv2_bytes(".tif", rgb)
+
+
+@pytest.fixture(scope="module")
+def cli_outputs(tmp_path_factory):
+    """``cli enhance --input FILE --output out.<suffix>`` of both packages
+    (the port's with ``--device cpu``) on the smooth frame -> the folder."""
+    root = tmp_path_factory.mktemp("write_cli")
+    tio.imwrite_unit(str(root / "in.png"), torch_frames.underwater_img())
+    for suffix in (".png",) + CLI_SUFFIXES:
+        jcli.main(["enhance", "--input", str(root / "in.png"), "--output",
+                   str(root / f"jax{suffix}")])
+        tcli.main(["enhance", "--input", str(root / "in.png"), "--output",
+                   str(root / f"port{suffix}"), "--device", "cpu"])
+    return root
+
+
+@pytest.mark.parametrize("suffix", CLI_SUFFIXES)
+def test_cli_enhance_writes_the_jax_clis_bytes(cli_outputs, suffix):
+    jax_u8 = tio.imread_u8(str(cli_outputs / "jax.png"))
+    port_u8 = tio.imread_u8(str(cli_outputs / "port.png"))
+    assert np.array_equal(port_u8, jax_u8)
+    data = (cli_outputs / f"port{suffix}").read_bytes()
+    assert data == (cli_outputs / f"jax{suffix}").read_bytes()
+    assert data == tio.encoder_for("out" + suffix)(port_u8)
+
+
+def test_async_writer_writes_each_format(tmp_path):
+    rgb = _frame("smooth", (37, 53))
+    with tio.AsyncWriter(workers=2) as writer:
+        for suffix in tio.WRITERS:
+            writer.write(str(tmp_path / f"a{suffix}"), rgb)
+    assert writer.close() == []
+    for suffix in tio.WRITERS:
+        data = (tmp_path / f"a{suffix}").read_bytes()
+        if suffix == ".png":
+            assert np.array_equal(tio.imread_u8(str(tmp_path / "a.png")), rgb)
+        else:
+            assert data == _cv2_bytes(suffix, rgb)
+
+
+def test_writer_tables_match_cv2():
+    """Every suffix of either table has a cv2 writer."""
+    for suffix in tuple(tio.WRITERS) + tio.UNPORTED_WRITERS:
+        assert cv2.haveImageWriter("x" + suffix), suffix
+
+
+@pytest.mark.parametrize("suffix", tio.UNPORTED_WRITERS)
+def test_unported_suffix_raises(tmp_path, suffix):
+    with pytest.raises(ValueError, match="the port does not"):
+        tio.imwrite_unit(str(tmp_path / f"a{suffix}"), _frame("noise", (4, 4)))
+    assert not (tmp_path / f"a{suffix}").exists()
+
+
+@pytest.mark.parametrize("suffix", [".xyz", ".exr", ".jfif", ""])
+def test_unknown_suffix_raises_as_cv2_does(tmp_path, suffix):
+    rgb = _frame("noise", (4, 4))
+    with pytest.raises(cv2.error, match="could not find a writer"):
+        cv2.imwrite(str(tmp_path / f"c{suffix}"), rgb)
+    with pytest.raises(ValueError, match="could not find a writer"):
+        tio.imwrite_unit(str(tmp_path / f"p{suffix}"), rgb)
+
+
+@pytest.mark.parametrize("suffix", [".jpg", ".bmp", ".tif"])
+def test_non_rgb_arrays_raise(tmp_path, suffix):
+    with pytest.raises(ValueError, match=r"\(H, W, 3\) uint8 RGB"):
+        tio.imwrite_unit(str(tmp_path / f"g{suffix}"),
+                         np.zeros((4, 4), np.uint8))

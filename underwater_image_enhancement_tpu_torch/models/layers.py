@@ -11,7 +11,9 @@ defaults in ways that move the last digits or more:
   batch`` with the biased variance (torch's own train mode folds Bessel's
   correction into ``running_var``).
 - ``dropout``: Flax's ``nn.Dropout``, kept values divided by the keep
-  probability, the mask drawn from an explicit ``torch.Generator``.
+  probability, the mask drawn from an explicit ``torch.Generator`` (or a
+  ``BatchMasks``: a mesh step's row blocks sharing the whole batch's
+  draws).
 - ``clip``: ``jnp.clip``, whose gradient is halved where a value sits on
   a bound (JAX's ``maximum``/``minimum`` split a tie; ``torch.clamp``
   passes it whole).
@@ -68,17 +70,48 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
+class BatchMasks:
+    """The dropout draws of one global batch, shared by its row blocks.  A
+    mesh step runs its positions' blocks one after another; ``block(rows)``
+    starts a position, whose k-th dropout call reads rows ``rows`` of the
+    batch's k-th draw: uniforms of the whole batch's shape from
+    ``generator`` on its device, drawn by the first block to reach that
+    call.  The blocks therefore see the masks that one call on the whole
+    batch draws."""
+
+    def __init__(self, generator: torch.Generator, batch: int):
+        self.generator, self.batch = generator, batch
+        self._draws: list = []
+        self._rows, self._next = slice(None), 0
+
+    def block(self, rows: slice) -> "BatchMasks":
+        self._rows, self._next = rows, 0
+        return self
+
+    def uniform(self, shape, device: torch.device) -> torch.Tensor:
+        if self._next == len(self._draws):
+            self._draws.append(torch.rand(
+                (self.batch,) + tuple(shape[1:]), generator=self.generator,
+                device=self.generator.device))
+        u = self._draws[self._next][self._rows]
+        self._next += 1
+        return u.to(device)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator=None) -> torch.Tensor:
     """Flax's ``nn.Dropout(rate)``: in train mode each value is kept with
     probability ``1 - rate`` (the mask drawn from ``generator``, which
-    lies on x's device; torch's default one where None) and divided by
-    it; the identity otherwise."""
+    lies on x's device, or read from a ``BatchMasks``; torch's default
+    generator where None) and divided by it; the identity otherwise."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if isinstance(generator, BatchMasks):
+        u = generator.uniform(x.shape, x.device)
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):

@@ -101,8 +101,8 @@ class PairedImageDataset:
         then takes every `process_count`-th batch starting at
         `process_index` (each yields floor(n_batches / process_count)
         batches).  None resolves to one process (0 of 1): the port runs
-        on one device until data parallelism is ported (ROADMAP Queue 1
-        item 9).
+        in one process, and a trainer's ``mesh=`` cuts each batch over that
+        process's mesh positions (``parallel/mesh``).
         """
         if process_index is None or process_count is None:
             process_index, process_count = 0, 1

@@ -16,6 +16,21 @@
 
 Each step is eager PyTorch on the trainer's device (``cuda`` unless asked
 otherwise; without a card it raises, and nothing moves to the CPU).
+``MLPTrainer`` and ``ZooTrainer`` take JAX's ``mesh=`` (None, a count or
+a ``parallel/mesh.Mesh`` whose first position is the trainer's device;
+positions may repeat a device).  On more than one position a step cuts
+the batch into equal row blocks in mesh order (a batch that does not
+divide raises, as JAX's sharded ``device_put`` does) and runs each block
+forward and backward on its position's device; the sums of ``|d|`` and
+``d^2`` and the gradients are added in mesh order on the first position
+(``parallel/spatial._psum``'s order), the loss is the two sums over the
+batch's element count (``reference_loss``'s two means), then one clip and
+one optimiser step; a device other than the first holds a replica of the
+model, copied from the first after each step.  Dropout draws the whole
+batch's masks from the trainer's generator and gives each block its rows
+(``layers.BatchMasks``).  Nets with BatchNorm (ResNet18, EfficientNet,
+the VGG predictor) train on one position until BatchNorm's statistics
+span the positions (ROADMAP Queue 1 item 9c-2).
 Arithmetic follows the jitted JAX step where it moves the numbers:
 Flax's BatchNorm and dropout (``models/layers``), optax's
 ``clip_by_global_norm`` (the gradients divided by their global norm where
@@ -35,6 +50,7 @@ read.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import warnings
@@ -61,6 +77,7 @@ from underwater_image_enhancement_tpu_torch.models.vgg import (
     IMAGENET_MEAN,
     ImprovedVGGParameterNet,
 )
+from underwater_image_enhancement_tpu_torch.parallel import mesh as pmesh
 from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
     resolve_device,
 )
@@ -142,12 +159,27 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _mesh_sum(parts):
+    """((p0 + p1) + p2) + ... on the first part's device: the positions'
+    partials in mesh order (``parallel/spatial._psum``'s order).  None
+    where every part is None (a parameter no position's loss reaches)."""
+    parts = [p for p in parts if p is not None]
+    if not parts:
+        return None
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p.to(acc.device)
+    return acc
+
+
 class _BaseTrainer:
     """Shared epoch/checkpoint/early-stop machinery."""
 
     def __init__(self):
         self.train_losses: list = []
         self.val_losses: list = []
+        self.mesh = None
+        self._replicas: Dict[torch.device, torch.nn.Module] = {}
 
     def _setup(self, model: torch.nn.Module, seed: int,
                device: Union[str, torch.device]) -> None:
@@ -159,6 +191,84 @@ class _BaseTrainer:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._inv_std = torch.from_numpy(IMAGENET_INV_STD).to(self.device)
+
+    def _set_mesh(self, mesh) -> None:
+        """``maybe_mesh(mesh)`` on the trainer's device kind (a count is
+        that many positions); its first position must be the trainer's
+        device.  A net with BatchNorm takes one position only (item
+        9c-2)."""
+        self.mesh = pmesh.maybe_mesh(mesh, self.device)
+        if self.mesh is None:
+            return
+        home = pmesh._indexed(self.device)
+        if self.mesh.devices[0] != home:
+            raise ValueError(f"the mesh's first position {self.mesh.devices[0]}"
+                             f" is not the trainer's device {home}")
+        if self.sharded and any(
+                isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                for m in self.model.modules()):
+            raise ValueError(
+                f"{type(self.model).__name__} has BatchNorm, whose batch "
+                f"statistics would have to span the {self.mesh.size} mesh "
+                "positions: ROADMAP Queue 1 item 9c-2, not ported yet; "
+                "train it with mesh=None")
+
+    @property
+    def sharded(self) -> bool:
+        """A mesh of more than one position (one runs as mesh None)."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _replica(self, dev: torch.device) -> torch.nn.Module:
+        """The model on a position's device: the model itself on the
+        trainer's device, else a copy kept there."""
+        if dev == pmesh._indexed(self.device):
+            return self.model
+        if dev not in self._replicas:
+            r = copy.deepcopy(self.model).to(dev)
+            for p in r.parameters():
+                p.grad = None
+            self._replicas[dev] = r
+        return self._replicas[dev]
+
+    def _sync_replicas(self) -> None:
+        """Each replica's parameters and buffers copied from the model."""
+        with torch.no_grad():
+            for r in self._replicas.values():
+                for a, b in zip(r.parameters(), self.model.parameters()):
+                    a.copy_(b)
+                for a, b in zip(r.buffers(), self.model.buffers()):
+                    a.copy_(b)
+
+    def _mesh_loss(self, idx, imgs, refs, train: bool) -> torch.Tensor:
+        """The loss of a batch over the mesh (module docstring); with
+        ``train`` the summed gradients are left in the model's ``.grad``
+        of the parameters that take one."""
+        place = pmesh.data_parallel_sharding(self.mesh)(imgs)
+        if isinstance(idx, (list, tuple)):
+            idx = np.asarray(idx)
+        masks = layers.BatchMasks(self._gen, imgs.shape[0]) if train else None
+        n = refs.numel()
+        sums, grads = [], []
+        for dev, rows in place:
+            model = self._replica(dev)
+            model.train(train)
+            enhanced = self._enhance(model, None if idx is None else idx[rows],
+                                     imgs[rows].to(dev),
+                                     masks and masks.block(rows))
+            d = enhanced - refs[rows].to(dev)
+            s = torch.stack([d.abs().sum(), d.square().sum()])
+            if train:
+                part = 0.5 * (s[0] / n) + 0.5 * (s[1] / n)
+                held = [p for p in model.parameters() if p.requires_grad]
+                grads.append(torch.autograd.grad(part, held,
+                                                 allow_unused=True))
+            sums.append(s.detach())
+        total = _mesh_sum(sums)
+        if train:
+            held = [p for p in self.model.parameters() if p.requires_grad]
+            for p, parts in zip(held, zip(*grads)):
+                p.grad = _mesh_sum(parts)
+        return 0.5 * (total[0] / n) + 0.5 * (total[1] / n)
 
     @property
     def trainable(self) -> list:
@@ -245,11 +355,19 @@ class _BaseTrainer:
 
     def _step(self, idx, imgs, refs) -> torch.Tensor:
         with layers.no_tf32():
-            self.model.train()
-            return self._update(self._loss_fn(idx, imgs, refs, True))
+            if not self.sharded:
+                self.model.train()
+                return self._update(self._loss_fn(idx, imgs, refs, True))
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self._mesh_loss(idx, imgs, refs, True)
+            self._apply_gradients()
+            self._sync_replicas()
+            return loss
 
     def _eval(self, idx, imgs, refs) -> torch.Tensor:
         with torch.no_grad(), layers.no_tf32():
+            if self.sharded:
+                return self._mesh_loss(idx, imgs, refs, False)
             self.model.eval()
             return self._loss_fn(idx, imgs, refs, False)
 
@@ -259,7 +377,8 @@ class _BaseTrainer:
         loss consume the raw images."""
         if not self.imagenet_normalize:
             return imgs
-        return (imgs - self._mean) * self._inv_std
+        return ((imgs - self._mean.to(imgs.device))
+                * self._inv_std.to(imgs.device))
 
     def _payload(self) -> Dict[str, Any]:
         return {**bridge.to_flax(self.model),
@@ -280,6 +399,7 @@ class _BaseTrainer:
                                restored["opt_state"])
         self.train_losses = [float(v) for v in restored["train_losses"]]
         self.val_losses = [float(v) for v in restored["val_losses"]]
+        self._sync_replicas()
 
 
 class MLPTrainer(_BaseTrainer):
@@ -287,11 +407,12 @@ class MLPTrainer(_BaseTrainer):
 
     def __init__(self, feature_dim: int = 79, hidden_dim: int = 256,
                  num_blocks: int = 3, lr: float = 1e-4, seed: int = 0,
-                 stretch_mode: str = "quantile",
+                 mesh=None, stretch_mode: str = "quantile",
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
         self._setup(ParameterPredictor(feature_dim, hidden_dim, num_blocks),
                     seed, device)
+        self._set_mesh(mesh)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr)
         self.stretch_mode = stretch_mode
         self._feature_cache = None  # set by cache_features()
@@ -300,15 +421,23 @@ class MLPTrainer(_BaseTrainer):
                  feats: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The loss of a batch: the features from the cache where the
         batch carries dataset indices, else extracted (or given)."""
+        enhanced = self._enhance(self.model, idx, imgs,
+                                 self._gen if train else None, feats)
+        return losses.reference_loss(enhanced, refs)[0]
+
+    def _enhance(self, model, idx, imgs, generator,
+                 feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``model``'s enhancement of a batch on its device, the features
+        gathered from the cache by the batch's indices where it has them."""
         if feats is None:
             if idx is not None and self._feature_cache is not None:
-                feats = self._feature_cache[_tensor(idx, self.device)]
+                feats = self._feature_cache[_tensor(idx, self.device)].to(
+                    imgs.device)
             else:
                 feats = self._features(imgs)
-        pred = self.model(feats, generator=self._gen if train else None)
-        enhanced = diff_enhance.enhance_mlp(imgs, pred,
-                                            stretch_mode=self.stretch_mode)
-        return losses.reference_loss(enhanced, refs)[0]
+        pred = model(feats, generator=generator)
+        return diff_enhance.enhance_mlp(imgs, pred,
+                                        stretch_mode=self.stretch_mode)
 
     def _features(self, imgs: torch.Tensor) -> torch.Tensor:
         from underwater_image_enhancement_tpu_torch.features.full import (
@@ -354,10 +483,11 @@ class ZooTrainer(_BaseTrainer):
     conventional artifact (``utils/weights.find_zoo_npz``) and else starts
     from the seeded init.  The backbone input is ImageNet-normalised
     unless ``imagenet_normalize`` is False.  BatchNorm trains on the
-    batch's statistics."""
+    batch's statistics, so ResNet18 and EfficientNet take a mesh of one
+    position only (ROADMAP Queue 1 item 9c-2); the ViT any."""
 
     def __init__(self, model_type: str = "resnet", lr: float = 1e-4,
-                 seed: int = 0, image_size: int = 224,
+                 seed: int = 0, mesh=None, image_size: int = 224,
                  stretch_mode: str = "quantile",
                  pretrained: Optional[str] = "auto", variant: str = "b0",
                  imagenet_normalize: bool = True,
@@ -380,6 +510,7 @@ class ZooTrainer(_BaseTrainer):
                           if model_type in ("resnet", "efficientnet", "vit")
                           else None)
         self._setup(model, seed, device)
+        self._set_mesh(mesh)
         if pretrained is not None:
             if model_type == "resnet":
                 zoo.load_resnet18_npz(self.model, pretrained)
@@ -395,12 +526,16 @@ class ZooTrainer(_BaseTrainer):
         self.stretch_mode = stretch_mode
 
     def _loss_fn(self, idx, imgs, refs, train: bool) -> torch.Tensor:
-        del idx
-        pred = self.model(self._backbone_input(imgs),
-                          generator=self._gen if train else None)
-        enhanced = diff_enhance.enhance_zoo(imgs, pred,
-                                            stretch_mode=self.stretch_mode)
+        enhanced = self._enhance(self.model, idx, imgs,
+                                 self._gen if train else None)
         return losses.reference_loss(enhanced, refs)[0]
+
+    def _enhance(self, model, idx, imgs, generator) -> torch.Tensor:
+        """``model``'s enhancement of a batch on its device."""
+        del idx
+        pred = model(self._backbone_input(imgs), generator=generator)
+        return diff_enhance.enhance_zoo(imgs, pred,
+                                        stretch_mode=self.stretch_mode)
 
     def predict_params(self, imgs) -> Dict[str, torch.Tensor]:
         with torch.no_grad(), layers.no_tf32():

@@ -1,5 +1,6 @@
-"""An uncompressed BMP decoder in numpy, equal to ``cv2.imread`` on the
-files it takes: BI_RGB with 8-bit palette, 24-bit or 32-bit pixels, and
+"""An uncompressed BMP codec in numpy.  ``encode_bmp`` writes the bytes
+``cv2.imwrite`` writes for a colour image; ``decode_bmp`` is equal to
+``cv2.imread`` on the files it takes: BI_RGB with 8-bit palette, 24-bit or 32-bit pixels, and
 32-bit BI_BITFIELDS with the standard masks (as cv2 writes 32-bit files),
 bottom-up or top-down, with a BITMAPINFOHEADER or a later one.  Other BMPs
 (1-, 4- and 16-bit, RLE, other masks, OS/2 headers) raise
@@ -55,3 +56,22 @@ def decode_bmp(data: bytes) -> np.ndarray:
         return pal[rows[:, :W]]
     px = bpp // 8
     return np.ascontiguousarray(rows[:, :W * px].reshape(H, W, px)[..., 2::-1])
+
+
+def encode_bmp(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the 24-bit BMP ``cv2.imwrite`` writes for the
+    BGR image: a BITMAPINFOHEADER (BI_RGB, no image size, resolution or
+    palette), bottom-up BGR rows each padded with zeros to 4 bytes."""
+    a = np.asarray(rgb)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"cannot encode an array of {a.dtype} and shape "
+                         f"{a.shape} as BMP: (H, W, 3) uint8 RGB")
+    H, W = a.shape[:2]
+    stride = (W * 3 + 3) & ~3
+    rows = np.zeros((H, stride), np.uint8)
+    rows[:, :W * 3] = a[::-1, :, ::-1].reshape(H, W * 3)
+    header = 14 + 40
+    return (b"BM" + struct.pack("<IIIIiiHHIIiiII", header + stride * H, 0,
+                                header, 40, W, H, 1, 24, _BI_RGB, 0, 0, 0,
+                                0, 0)
+            + rows.tobytes())

@@ -1,7 +1,7 @@
 """Host-side image IO with no image library: an 8-bit PNG codec built on
-``zlib`` + ``struct`` + numpy, the JPEG and BMP decoders of ``jpeg.py``
-and ``bmp.py``, plus the folder helpers of the JAX package's
-``utils/io.py`` (collect, decode-ahead, write-behind).
+``zlib`` + ``struct`` + numpy, the JPEG and BMP codecs of ``jpeg.py`` and
+``bmp.py``, the TIFF encoder of ``tiff.py``, plus the folder helpers of
+the JAX package's ``utils/io.py`` (collect, decode-ahead, write-behind).
 
 A file's format is found from its first bytes, not its suffix, as cv2
 does.  Reading follows the reference's load conventions (main.py:91-113)
@@ -11,6 +11,12 @@ dropped, float32 in [0, 1].  Unreadable files give None so callers can skip
 them; so do the files cv2 reads and the port does not (TIFF, progressive
 JPEG, 16-bit PNG and the other formats and variants that ``jpeg.py``,
 ``bmp.py`` and ``decode_png`` leave out), which ``read_u8`` names.
+
+Writing picks the encoder from the suffix, case-insensitive, as
+``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
+defaults), BMP and TIFF (cv2's bytes).  A suffix cv2 writes and the port
+does not (``UNPORTED_WRITERS``) and one cv2 cannot write raise
+ValueError.
 """
 
 from __future__ import annotations
@@ -22,12 +28,17 @@ from typing import List, Optional
 
 import numpy as np
 
-from underwater_image_enhancement_tpu_torch.utils.bmp import decode_bmp
+from underwater_image_enhancement_tpu_torch.utils.bmp import (
+    decode_bmp,
+    encode_bmp,
+)
 from underwater_image_enhancement_tpu_torch.utils.config import SUPPORTED_FORMATS
 from underwater_image_enhancement_tpu_torch.utils.jpeg import (
     Unsupported,
     decode_jpeg,
+    encode_jpeg,
 )
+from underwater_image_enhancement_tpu_torch.utils.tiff import encode_tiff
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -180,15 +191,40 @@ def imread_unit(path: str) -> Optional[np.ndarray]:
     return None if img is None else img.astype(np.float32) / 255.0
 
 
+# the suffixes cv2 writes (cv2.haveImageWriter) and their encoders here
+WRITERS = {".png": encode_png,
+           ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".jpe": encode_jpeg,
+           ".bmp": encode_bmp, ".dib": encode_bmp,
+           ".tif": encode_tiff, ".tiff": encode_tiff}
+UNPORTED_WRITERS = (".webp", ".jp2", ".pbm", ".pgm", ".ppm", ".pnm", ".pam",
+                    ".pfm", ".sr", ".ras", ".hdr", ".pic", ".avif", ".gif",
+                    ".apng")
+
+
+def encoder_for(path: str):
+    """The encoder of ``path``'s suffix (case-insensitive); ValueError for a
+    suffix the port does not write."""
+    suffix = Path(path).suffix.lower()
+    if suffix in WRITERS:
+        return WRITERS[suffix]
+    if suffix in UNPORTED_WRITERS:
+        raise ValueError(f"{path}: cv2 writes {suffix} files and the port "
+                         f"does not; it writes {', '.join(WRITERS)}")
+    raise ValueError(f"{path}: could not find a writer for the suffix "
+                     f"{suffix!r}")
+
+
 def imwrite_unit(path: str, img: np.ndarray) -> None:
-    """Write an RGB image as PNG: uint8 arrays as they are, float [0, 1]
-    arrays as the reference's (clip * 255) truncated to uint8."""
-    if Path(path).suffix.lower() != ".png":
-        raise ValueError(f"only PNG output is supported: {path}")
+    """Write an RGB image in the format of the path's suffix (``WRITERS``):
+    uint8 arrays as they are, float [0, 1] arrays as the reference's (clip
+    * 255) truncated to uint8.  JPEG, BMP and TIFF take (H, W, 3) images;
+    PNG also gray and RGBA."""
+    encode = encoder_for(path)
     img = np.asarray(img)
     u8 = img if img.dtype == np.uint8 else (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    data = encode(u8)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_bytes(encode_png(u8))
+    Path(path).write_bytes(data)
 
 
 def collect_images(folder: str, formats: Optional[List[str]] = None) -> List[Path]:
@@ -199,8 +235,9 @@ def collect_images(folder: str, formats: Optional[List[str]] = None) -> List[Pat
 
 
 class AsyncWriter:
-    """Write-behind PNG encoder on a host thread pool (zlib releases the
-    GIL), so the device does not wait for encodes.  In-flight writes are
+    """Write-behind encoder (``imwrite_unit``: PNG, JPEG, BMP or TIFF by
+    the suffix) on a host thread pool (zlib and numpy release the GIL for
+    part of each encode), so the device does not wait for encodes.  In-flight writes are
     bounded; ``close()`` joins them and returns [(path, error_str)] for
     any that failed."""
 

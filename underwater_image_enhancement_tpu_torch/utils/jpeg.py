@@ -1,5 +1,7 @@
-"""A baseline JPEG decoder in numpy, bit-equal to libjpeg-turbo's default
-decompression (what ``cv2.imread`` returns for these files).
+"""A baseline JPEG codec in numpy: a decoder bit-equal to libjpeg-turbo's
+default decompression (what ``cv2.imread`` returns for these files), and
+``encode_jpeg``, which writes the bytes ``cv2.imwrite`` writes with its
+defaults (see its docstring).
 
 Covers sequential Huffman JPEG (SOF0 baseline and SOF1 extended), 8-bit,
 with 1 or 3 components, any sampling factors whose ratios libjpeg
@@ -572,3 +574,341 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if _color_space(frame, jfif, adobe_transform) == "rgb":
         return np.stack(planes, axis=-1)
     return ycc_to_rgb(*planes)
+
+
+# ---------------------------------------------------------------------------
+# Encoding: cv2.imwrite's defaults (libjpeg-turbo, baseline, quality 95,
+# 4:2:0, the islow forward DCT, the standard Huffman tables)
+# ---------------------------------------------------------------------------
+
+# jcparam.c's base tables (natural order) and Annex K's Huffman tables as
+# (code counts by length 1..16, symbols)
+_STD_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113,
+              92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+              100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+             + [99] * 32),
+)
+_AC_SYMBOLS_LUMA = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_SYMBOLS_CHROMA = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+_HUFFMAN = {  # (class, table id) -> (counts, symbols); class 0 DC, 1 AC
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D),
+             _AC_SYMBOLS_LUMA),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77),
+             _AC_SYMBOLS_CHROMA),
+}
+
+
+def _huffman_codes(counts, symbols):
+    """The canonical codes of a table: (code by symbol, length by symbol),
+    256 entries each (0 where the symbol has no code)."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+QUALITY = 95  # cv2.imwrite's IMWRITE_JPEG_QUALITY default
+
+
+def _quality_tables():
+    """jcparam.c jpeg_set_quality(QUALITY, force_baseline=TRUE): the two
+    (64,) natural-order tables, jcparam's scale (200 - 2 * quality) in
+    percent, clamped to 1..255."""
+    scale = 200 - 2 * QUALITY
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255) for t in _STD_QUANT)
+
+
+def _rgb_to_ycc(rgb: np.ndarray):
+    """jccolor.c rgb_ycc_convert on (H, W, 3) uint8 -> Y, Cb, Cr int64
+    planes: the fixed-point tables (16 scale bits), Y rounded by ONE_HALF,
+    Cb and Cr by ONE_HALF - 1 about their 128 offset."""
+    def fix(v):
+        return int(v * 65536 + 0.5)
+
+    r, g, b = (rgb[..., c].astype(np.int64) for c in range(3))
+    half, offset = 1 << 15, 128 << 16
+    y = (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b
+          + offset + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b
+          + offset + half - 1) >> 16
+    return y, cb, cr
+
+
+def _edge(p: np.ndarray, h: int, w: int) -> np.ndarray:
+    """A plane expanded to (h, w) by repeating its last row and column."""
+    return np.pad(p, ((0, h - p.shape[0]), (0, w - p.shape[1])), mode="edge")
+
+
+def _h2v2_downsample(p: np.ndarray) -> np.ndarray:
+    """jcsample.c h2v2_downsample: 2x2 sums plus a bias that alternates 1,
+    2 along each output row, shifted down by 2."""
+    s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+    bias = 1 + (np.arange(s.shape[1]) & 1)
+    return (s + bias) >> 2
+
+
+def _fdct_1d(d, first: bool):
+    """One pass of jfdctint.c jpeg_fdct_islow over the eight inputs d[0..7]
+    (arrays of equal shape): pass 1 (``first``) scales by 2**PASS1_BITS,
+    pass 2 takes it off again."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    shift = CONST_BITS - PASS1_BITS if first else CONST_BITS + PASS1_BITS
+
+    def descale(x, n=shift):
+        return (x + (1 << (n - 1))) >> n
+
+    out = [None] * 8
+    if first:
+        out[0], out[4] = (tmp10 + tmp11) << PASS1_BITS, (tmp10 - tmp11) << PASS1_BITS
+    else:
+        out[0] = descale(tmp10 + tmp11, PASS1_BITS)
+        out[4] = descale(tmp10 - tmp11, PASS1_BITS)
+    z1 = (tmp12 + tmp13) * FIX_0_541196100
+    out[2] = descale(z1 + tmp13 * FIX_0_765366865)
+    out[6] = descale(z1 - tmp12 * FIX_1_847759065)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * FIX_1_175875602
+    tmp4 = tmp4 * FIX_0_298631336
+    tmp5 = tmp5 * FIX_2_053119869
+    tmp6 = tmp6 * FIX_3_072711026
+    tmp7 = tmp7 * FIX_1_501321110
+    z1 = z1 * -FIX_0_899976223
+    z2 = z2 * -FIX_2_562915447
+    z3 = z3 * -FIX_1_961570560 + z5
+    z4 = z4 * -FIX_0_390180644 + z5
+    out[7] = descale(tmp4 + z1 + z3)
+    out[5] = descale(tmp5 + z2 + z4)
+    out[3] = descale(tmp6 + z2 + z3)
+    out[1] = descale(tmp7 + z1 + z4)
+    return out
+
+
+def fdct_islow(samples: np.ndarray) -> np.ndarray:
+    """(B, 8, 8) int samples less 128 -> (B, 8, 8) natural-order
+    coefficients scaled up by 8, as jpeg_fdct_islow leaves them."""
+    d = samples.astype(np.int64)
+    rows = np.stack(_fdct_1d([d[:, :, k] for k in range(8)], True), axis=2)
+    return np.stack(_fdct_1d([rows[:, k, :] for k in range(8)], False),
+                    axis=1)
+
+
+def _quantize(coefs: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """jcdctmgr.c quantize on (B, 64) natural-order coefficients: the
+    divisor q * 8 as compute_reciprocal's reciprocal, correction and shift,
+    |x| rounded half up and the sign put back."""
+    recip, corr, shift = [], [], []
+    for q in table.tolist():
+        div = int(q) << 3
+        r = 16 + div.bit_length() - 1
+        fq, fr = divmod(1 << r, div)
+        c = div // 2
+        if fr == 0:  # a power of two
+            fq, r = fq >> 1, r - 1
+        elif fr <= div // 2:
+            c += 1
+        else:
+            fq += 1
+        recip.append(fq)
+        corr.append(c)
+        shift.append(r)
+    a = ((np.abs(coefs) + np.array(corr)) * np.array(recip)) >> np.array(shift)
+    return np.where(coefs < 0, -a, a)
+
+
+def _category(v: np.ndarray) -> np.ndarray:
+    """The bit length of |v| (the Huffman category), 0 for 0."""
+    return np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+
+
+def pack_msb(values: np.ndarray, lengths: np.ndarray) -> tuple:
+    """Codes of up to 32 bits (``values``, each ``lengths`` bits long)
+    packed first bit first -> (bytes of the whole bits, the bits left
+    over in the last partial byte as (value, count))."""
+    values = values.astype(np.int64)
+    lengths = lengths.astype(np.int64)
+    total = int(lengths.sum())
+    start = np.cumsum(lengths) - lengths
+    byte, off = start >> 3, start & 7
+    # each code aligned in a 40-bit window at its first byte
+    win = values << (40 - off - lengths)
+    n = (total + 7) >> 3
+    out = np.zeros(n + 5, np.int64)
+    for k in range(5):
+        out += np.bincount(byte + k, weights=(win >> (32 - 8 * k)) & 255,
+                           minlength=n + 5).astype(np.int64)
+    full = total >> 3
+    rest = total & 7
+    return (out[:full].astype(np.uint8).tobytes(),
+            (int(out[full]) >> (8 - rest) if rest else 0, rest))
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(8h, 8w) -> (h, w, 8, 8)."""
+    h, w = plane.shape[0] // 8, plane.shape[1] // 8
+    return plane.reshape(h, 8, w, 8).transpose(0, 2, 1, 3)
+
+
+def _coefficients(rgb: np.ndarray, tables) -> np.ndarray:
+    """(H, W, 3) uint8 RGB -> the quantised coefficients of each MCU's six
+    blocks (four Y, Cb, Cr) in scan order, (MCUs * 6, 64) zigzag."""
+    H, W = rgb.shape[:2]
+    mx, my = -(-W // 16), -(-H // 16)  # MCUs a row, MCU rows
+    wb, hb = -(-W // 8), -(-H // 8)  # Y blocks with samples
+    y, cb, cr = _rgb_to_ycc(rgb)
+    # Y: the real blocks, then the dummies of the last MCU column and row
+    yq = np.zeros((2 * my, 2 * mx, 64), np.int64)
+    blocks = _blocks(_edge(y, 8 * hb, 8 * wb) - 128).reshape(-1, 8, 8)
+    yq[:hb, :wb] = _quantize(fdct_islow(blocks).reshape(-1, 64),
+                             tables[0]).reshape(hb, wb, 64)
+    if wb % 2:
+        yq[:hb, wb, 0] = yq[:hb, wb - 1, 0]
+    if hb % 2:
+        yq[hb, :, 0] = np.repeat(yq[hb - 1, 1::2, 0], 2)
+    mcus = [yq.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4)
+            .reshape(my, mx, 4, 64)]
+    for p in (cb, cr):
+        # the rows to a whole row pair and the columns to whole MCUs, then
+        # the downsampled plane's last row repeated to whole MCUs
+        sub = _h2v2_downsample(_edge(p, H + H % 2, 16 * mx))
+        sub = _edge(sub, 8 * my, 8 * mx) - 128
+        q = _quantize(fdct_islow(_blocks(sub).reshape(-1, 8, 8))
+                      .reshape(-1, 64), tables[1])
+        mcus.append(q.reshape(my, mx, 1, 64))
+    return np.concatenate(mcus, axis=2)[..., ZIGZAG].reshape(-1, 64)
+
+
+def _entropy_codes(coef: np.ndarray) -> tuple:
+    """The scan's codes, each a Huffman code followed by its extra bits:
+    (values, bit lengths).  A block's symbols take ``count`` slots from
+    ``base``: its DC difference (from the component's previous block),
+    each nonzero AC after its run of zeros (a run of 16 or more sends a
+    ZRL symbol for each 16 first), an EOB where the block ends in zeros.
+    Y blocks take table 0, Cb and Cr table 1."""
+    nblk = coef.shape[0]
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), nblk // 6)
+    dc = coef[:, 0]
+    diff = np.empty_like(dc)
+    for c in range(3):
+        diff[comp == c] = np.diff(dc[comp == c], prepend=0)
+    blk, pos = np.nonzero(coef[:, 1:])
+    pos = pos + 1
+    first = np.ones(blk.size, bool)
+    first[1:] = blk[1:] != blk[:-1]
+    run = pos - np.where(first, 0, np.concatenate([[0], pos[:-1]])) - 1
+    zrl = run >> 4
+    slots = zrl + 1
+    last = np.zeros(nblk, np.int64)
+    last[blk] = pos  # row-major order: the block's last nonzero writes last
+    count = (1 + np.bincount(blk, weights=slots, minlength=nblk)
+             .astype(np.int64) + (last < 63))
+    base = np.cumsum(count) - count
+    total = int(count.sum())
+    # the slots left unset are the EOBs: AC symbol 0, no extra bits
+    sym = np.zeros(total, np.int64)
+    extra = np.zeros(total, np.int64)
+    nbits = np.zeros(total, np.int64)
+    is_ac = np.ones(total, bool)
+    cat = _category(diff)
+    sym[base], nbits[base], is_ac[base] = cat, cat, False
+    extra[base] = np.where(diff < 0, diff + (1 << cat) - 1, diff)
+    cum = np.cumsum(slots)
+    block_cum = np.zeros(nblk, np.int64)  # the slots before a block's ACs
+    block_cum[blk[first]] = (cum - slots)[first]
+    at = base[blk] + cum - block_cum[blk]
+    v = coef[blk, pos]
+    cat = _category(v)
+    sym[at], nbits[at] = ((run & 15) << 4) | cat, cat
+    extra[at] = np.where(v < 0, v + (1 << cat) - 1, v)
+    sym[np.repeat(at - zrl, zrl) + np.arange(int(zrl.sum()))
+        - np.repeat(np.cumsum(zrl) - zrl, zrl)] = 0xF0
+    hcode = np.zeros(total, np.int64)
+    hlen = np.zeros(total, np.int64)
+    table = np.minimum(comp, 1)[np.repeat(np.arange(nblk), count)]
+    for (kind, t), (counts, symbols) in _HUFFMAN.items():
+        sel = (is_ac == bool(kind)) & (table == t)
+        code, length = _huffman_codes(counts, symbols)
+        hcode[sel], hlen[sel] = code[sym[sel]], length[sym[sel]]
+    return (hcode << nbits) | extra, hlen + nbits
+
+
+def _headers(H: int, W: int, tables) -> bytes:
+    """SOI, the JFIF APP0, a DQT a table, SOF0, a DHT a table (DC and AC
+    of table 0, then of table 1) and the SOS, as libjpeg writes them."""
+    head = [b"\xff\xd8",
+            _segment(0xE0, b"JFIF\x00" + struct.pack(">BBBHHBB", 1, 1, 0, 1,
+                                                     1, 0, 0))]
+    for t, tq in enumerate(tables):
+        head.append(_segment(0xDB, bytes([t]) + tq[ZIGZAG].astype(np.uint8)
+                             .tobytes()))
+    head.append(_segment(0xC0, struct.pack(">BHHB", 8, H, W, 3)
+                         + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for t in (0, 1):
+        for kind in (0, 1):
+            counts, symbols = _HUFFMAN[(kind, t)]
+            head.append(_segment(0xC4, bytes([(kind << 4) | t])
+                                 + bytes(counts) + symbols))
+    head.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63,
+                                      0])))
+    return b"".join(head)
+
+
+def encode_jpeg(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the JPEG file ``cv2.imwrite`` writes for the
+    BGR image with its defaults (libjpeg-turbo: baseline, quality 95,
+    4:2:0, JFIF 1.01 with a 1:1 density, no restart markers).
+
+    As libjpeg computes it: the colour conversion above; Y's edges
+    repeated to whole blocks; the chroma planes' last column repeated to
+    whole MCUs and their last row to an even count before
+    ``h2v2_downsample``, then the downsampled plane's last row repeated
+    to whole MCUs (jcprepct.c's ``expand_bottom_edge``); the islow forward
+    DCT of samples less 128; quantisation; the blocks of the last MCU
+    column and row that lie past the image are jccoefct.c's dummy blocks
+    (no AC, the DC of the block before them in the MCU).  Interleaved MCUs
+    are Huffman coded with Annex K's tables, 0xFF bytes stuffed with 0x00
+    and the last byte padded with 1 bits."""
+    a = np.asarray(rgb)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"cannot encode an array of {a.dtype} and shape "
+                         f"{a.shape} as JPEG: (H, W, 3) uint8 RGB")
+    H, W = a.shape[:2]
+    if not (0 < H <= 65535 and 0 < W <= 65535):
+        raise ValueError(f"cannot encode a {H}x{W} image as JPEG")
+    tables = _quality_tables()
+    data, (tail, rest) = pack_msb(*_entropy_codes(_coefficients(a, tables)))
+    if rest:  # the last byte padded with 1 bits
+        data += bytes([(tail << (8 - rest)) | ((1 << (8 - rest)) - 1)])
+    return (_headers(H, W, tables) + data.replace(b"\xff", b"\xff\x00")
+            + b"\xff\xd9")
