@@ -56,8 +56,9 @@ non-zero):
    (``write_slice``): ``cli enhance --device cuda --input frame0.png
    --output`` with ``.png``, ``.jpg``, ``.bmp`` and ``.tif``, each file
    equal to the port's host encoder of the PNG output's u8 frame, the BMP
-   read back equal to it, the JPEG's PSNR and each encoder's host ms a
-   1080p frame printed, then the five CLAHE
+   and the TIFF (``tiff.decode_tiff``) read back equal to it, the JPEG's
+   PSNR and each encoder's host ms a 1080p frame printed, then the five
+   CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
    probe run anew) back to RGB (K3b), then ``cli fusion`` on the three
@@ -134,15 +135,18 @@ non-zero):
    range); each f32 trainer's eval-mode loss and gradient on the card
    against the CPU's from equal parameters and batch within its
    ``TRAIN_GRAD_MAX_REL`` (a TF32 control must land past it), and
-   ``[train_mesh]`` (``train_mesh_slice``): ``MLPTrainer`` and
-   ``ZooTrainer("vit")`` at published widths on the first 4 pairs, 3 steps
-   from one seed with dropout on, for mesh None (twice), one position and
-   two positions of the one card: one position bit-equal to mesh None
-   (step-1 loss and gradients, the step losses, the parameters), two
-   positions within the ``MESH_*`` gates of it (a control dropping the
-   last position's sums and gradients must fail each gate), the MLP's
-   feature cache K1b and K7 once a pair, and ms a step for mesh None
-   against two positions (``[train_mesh_timing]``, in turns); their
+   ``[train_mesh]`` (``train_mesh_slice``): ``MLPTrainer``,
+   ``ZooTrainer("vit")``, the f32 ``VGGTrainer`` and ``ZooTrainer``
+   ResNet18 and EfficientNet b0 at published widths on the first 4 pairs,
+   3 steps from one seed with dropout on, for mesh None (twice), one
+   position and two positions of the one card: one position bit-equal to
+   mesh None (step-1 loss, gradients and running statistics, the step
+   losses, the parameters), two positions within the ``MESH_*`` gates of
+   it (a control dropping the last position's sums and gradients, and for
+   the BatchNorm nets one taking each position's statistics from its own
+   rows, must fail the loss and gradient gates), the MLP's feature cache
+   K1b and K7 once a pair, and ms a step for mesh None against two
+   positions (``[train_mesh_timing]``, in turns); their
    outputs (18 + 18 + 3 PNGs and the CSV logs; 3 winners; the dataset
    CSV with 5 scores a row and ``dataset.pkl`` with three finite 79-value
    vectors; the assess table);
@@ -1077,13 +1081,17 @@ def write_slice(torch, run_cli, src: Path, smi: str) -> None:
     """[write]: ``cli enhance --device cuda --input frame0.png --output``
     with ``.png``, then each of ``WRITE_SUFFIXES``: each file's bytes equal
     the port's host encoder applied to the u8 frame of the ``.png``
-    output; the BMP read back by the port's decoder equals that frame, the
-    JPEG's PSNR against it is printed; the host ms to encode the 1080p
-    frame (the median of ``WRITE_ENCODE_RUNS``)."""
+    output; the BMP and the TIFF read back by the port's decoders equal
+    that frame (the host ms of the decode printed), the JPEG's PSNR
+    against it is printed; the host ms to encode the 1080p frame (the
+    median of ``WRITE_ENCODE_RUNS``)."""
     from underwater_image_enhancement_tpu_torch.utils import io as uio
     from underwater_image_enhancement_tpu_torch.utils.bmp import decode_bmp
     from underwater_image_enhancement_tpu_torch.utils.jpeg import (
         decode_jpeg,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.tiff import (
+        decode_tiff,
     )
 
     out = WORK / "write"
@@ -1108,9 +1116,13 @@ def write_slice(torch, run_cli, src: Path, smi: str) -> None:
               f"encoding of the PNG output's frame ({len(data)} bytes vs "
               f"{len(want)})")
         extra = {}
-        if suffix == ".bmp":
-            check(np.array_equal(decode_bmp(data), u8),
-                  "write: the BMP reads back other pixels")
+        if suffix in (".bmp", ".tif"):
+            decode = decode_bmp if suffix == ".bmp" else decode_tiff
+            t0 = time.perf_counter()
+            back = decode(data)
+            extra["decode_host_ms"] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
+            check(np.array_equal(back, u8),
+                  f"write: the {suffix} file reads back other pixels")
             extra["reads_back"] = "equal"
         elif suffix == ".jpg":
             back = torch.from_numpy(decode_jpeg(data)) / 255.0
@@ -1121,40 +1133,65 @@ def write_slice(torch, run_cli, src: Path, smi: str) -> None:
             frame=f"{W}x{H}", **extra, card=repr(smi))
 
 
-# [train_mesh]: MLPTrainer and ZooTrainer("vit") at published widths on
-# mesh None, one position and two positions of the one card; 3 steps from
-# one seed with dropout on.  One position must be bit-equal to mesh None
-# (cuDNN held deterministic for the phase, mesh None run twice to show the
-# card repeats itself).  Two positions against mesh None: the step-1 loss
-# (relative), the step-1 gradients (over the largest) and the parameters
-# after the steps (the share over MESH_PARAM_ABS, each within 2 lr a step:
-# Adam's first steps move an element by about lr * sign(g)); each gate is
-# failed by a control step that drops the last position's sums and
-# gradients
+# [train_mesh]: MLPTrainer, ZooTrainer("vit"), the f32 VGGTrainer and the
+# ResNet18 and EfficientNet b0 ZooTrainer at published widths on mesh None,
+# one position and two positions of the one card; 3 steps from one seed
+# with dropout on.  One position must be bit-equal to mesh None (cuDNN held
+# deterministic for the phase, mesh None run twice to show the card repeats
+# itself).  Two positions against mesh None: the step-1 loss (relative),
+# the step-1 gradients (over the largest), BatchNorm's running statistics
+# after step 1 (over the largest) and the parameters after the steps (the
+# share over MESH_PARAM_ABS, each within 2 lr a step: Adam's first steps
+# move an element by about lr * sign(g)).  Controls: one drops the last
+# position's sums and gradients (it must fail every gate of the MLP and
+# the ViT, the loss and gradient gates of the BatchNorm nets), one takes
+# each BatchNorm net's statistics from each position's own rows (it must
+# fail the loss and gradient gates).  The BatchNorm nets' f32 gradients
+# move with the rows a BatchNorm call sees (the VGG's by 1.9e-4 of the
+# largest when mesh None's rows are swapped in pairs on the card, ResNet18's
+# by 2.3e-4 on the CPU at 224^2): their gradient gate is MESH_GRAD_REL_BN,
+# and their parameters drift apart over the steps (the VGG's 0.46 of them,
+# ResNet18's 0.71 with dropout on), so these are held to the 2-lr bound
+# only.  ResNet18 and EfficientNet also run the step-1 gradient in f64 on
+# mesh None and two positions, which must agree within MESH_F64_REL: the
+# f32 gaps are rounding, not the mesh (tests/test_torch_train_mesh_f64.py)
 MESH_STEPS = 3
 MESH_TIMED_STEPS = 5
 MESH_LOSS_REL = 1e-6
 MESH_GRAD_REL = 1e-4
+MESH_GRAD_REL_BN = 2e-3
+MESH_STATS_REL = 1e-5
+MESH_F64_REL = 1e-10
 MESH_PARAM_ABS = 1e-6
 MESH_FLIP_SHARE = 1e-3
-MESH_LR = 1e-4  # both trainers' default Adam rate
-MESH_RUNS = ("mlp", "vit")
+MESH_RUNS = ("mlp", "vit", "vgg", "resnet", "efficientnet")
+MESH_BATCHNORM = ("vgg", "resnet", "efficientnet")
+MESH_F64 = ("resnet", "efficientnet")
 
 
 def mesh_trainer(torch, label: str, dev, mesh, cache):
     """The trainer of a MESH_RUNS label at full width on ``mesh`` (the MLP
-    reading ``cache``, the 79 features of the pairs)."""
+    reading ``cache``, the 79 features of the pairs; the VGG in f32 with
+    its seeded perceptual trunk)."""
+    import warnings
+
     from underwater_image_enhancement_tpu_torch.train import trainer as tr
 
     if label == "mlp":
         t = tr.MLPTrainer(mesh=mesh, device=dev)
         t._feature_cache = cache
         return t
-    return tr.ZooTrainer("vit", pretrained=None, mesh=mesh, device=dev)
+    if label == "vgg":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the seeded perceptual trunk
+            return tr.VGGTrainer(compute_dtype="float32", pretrained_vgg=None,
+                                 mesh=mesh, device=dev)
+    return tr.ZooTrainer(label, pretrained=None, mesh=mesh, device=dev)
 
 
 def mesh_loss_grads(torch, tlayers, t, batch):
-    """The step-1 loss and the gradients it leaves (by name), no update."""
+    """The step-1 loss, the gradients it leaves (by name) and the running
+    statistics after it (by name), no update."""
     idx, imgs, refs, _ = batch
     with tlayers.no_tf32():
         t.optimizer.zero_grad(set_to_none=True)
@@ -1164,45 +1201,99 @@ def mesh_loss_grads(torch, tlayers, t, batch):
             t.model.train()
             loss = t._loss_fn(idx, imgs, refs, True)
             loss.backward()
+    stats = {k: b.detach().clone() for k, b in t.model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
     return loss.detach(), {k: p.grad.detach().clone() for k, p in
-                           t.model.named_parameters() if p.grad is not None}
+                           t.model.named_parameters()
+                           if p.grad is not None}, stats
 
 
-def mesh_run(torch, tlayers, label, dev, mesh, cache, batch):
-    """(step-1 loss, its gradients, the MESH_STEPS step losses, the
-    parameters after them) of a fresh trainer."""
-    loss, grads = mesh_loss_grads(torch, tlayers,
-                                  mesh_trainer(torch, label, dev, mesh, cache),
-                                  batch)
+def mesh_run(torch, tlayers, label, dev, mesh, cache, batch,
+             steps=MESH_STEPS):
+    """(step-1 loss, its gradients, the running statistics after it, the
+    ``steps`` step losses, the parameters after them, the learning rate)
+    of a fresh trainer; the first forward moves no parameter."""
     t = mesh_trainer(torch, label, dev, mesh, cache)
+    loss, grads, stats = mesh_loss_grads(torch, tlayers, t, batch)
     idx, imgs, refs, _ = batch
-    losses = torch.stack([t._step(idx, imgs, refs)
-                          for _ in range(MESH_STEPS)])
+    losses = torch.stack([t._step(idx, imgs, refs) for _ in range(steps)]
+                         or [loss])
     params = {k: p.detach().clone() for k, p in t.model.named_parameters()}
+    lr = t.optimizer.param_groups[0]["lr"]
     del t
-    return loss, grads, losses, params
+    return loss, grads, stats, losses, params, lr
 
 
-def mesh_readings(torch, got, want) -> dict:
-    loss, grads, _, params = got
-    loss0, grads0, _, params0 = want
+def step1_readings(got, want) -> dict:
+    """The step-1 (loss, gradients, running statistics) ``got`` against
+    ``want``: the loss relative, the rest over their largest."""
+    loss, grads, stats = got
+    loss0, grads0, stats0 = want
     gmax = max(float(g.abs().max()) for g in grads0.values())
-    over = sum(int(((params[k] - params0[k]).abs() > MESH_PARAM_ABS).sum())
-               for k in params0)
-    n = sum(p.numel() for p in params0.values())
+    smax = max([float(v.abs().max()) for v in stats0.values()] or [1.0])
     return {"loss_rel": abs(float(loss) / float(loss0) - 1),
             "grad_rel": max(float((grads[k] - grads0[k]).abs().max())
                             for k in grads0) / gmax,
+            "stats_rel": max([float((stats[k] - stats0[k]).abs().max())
+                              for k in stats0] or [0.0]) / smax}
+
+
+def mesh_readings(torch, got, want) -> dict:
+    """``step1_readings`` of two ``mesh_run`` results, and their parameters
+    after the steps: the largest difference, the share over
+    MESH_PARAM_ABS."""
+    params, params0 = got[4], want[4]
+    over = sum(int(((params[k] - params0[k]).abs() > MESH_PARAM_ABS).sum())
+               for k in params0)
+    n = sum(p.numel() for p in params0.values())
+    return {**step1_readings(got[:3], want[:3]),
             "param_max": max(float((params[k] - params0[k]).abs().max())
                              for k in params0),
             "flip_share": over / n}
 
 
-def mesh_within(r: dict) -> dict:
+def mesh_within(r: dict, label: str, lr: float) -> dict:
+    bn = label in MESH_BATCHNORM
     return {"loss": r["loss_rel"] <= MESH_LOSS_REL,
-            "grad": r["grad_rel"] <= MESH_GRAD_REL,
-            "params": (r["flip_share"] <= MESH_FLIP_SHARE
-                       and r["param_max"] <= 2.001 * MESH_LR * MESH_STEPS)}
+            "grad": r["grad_rel"] <= (MESH_GRAD_REL_BN if bn
+                                      else MESH_GRAD_REL),
+            "stats": r["stats_rel"] <= MESH_STATS_REL,
+            "params": ((r["flip_share"] <= MESH_FLIP_SHARE or bn)
+                       and r["param_max"] <= 2.001 * lr * MESH_STEPS)}
+
+
+def mesh_f64(torch, tlayers, label, dev, mesh, batch) -> tuple:
+    """(step-1 loss, gradients, running statistics) of a fresh trainer
+    with its model, ImageNet constants and batch in f64."""
+    t = mesh_trainer(torch, label, dev, mesh, None)
+    t.model.double()
+    t._mean, t._inv_std = t._mean.double(), t._inv_std.double()
+    idx, imgs, refs, _ = batch
+    got = mesh_loss_grads(torch, tlayers, t,
+                          (idx, imgs.double(), refs.double(), None))
+    del t
+    return got
+
+
+@contextlib.contextmanager
+def mesh_control(tr, tlayers, control: str):
+    """A control of ``[train_mesh]`` for the block: "drop" drops the last
+    position's sums and gradients (``trainer._mesh_sum``), "local" takes
+    each position's BatchNorm statistics from its own rows
+    (``layers.MeshStats.combine``)."""
+    if control == "drop":
+        owner, name = tr, "_mesh_sum"
+        add = tr._mesh_sum
+        patch = lambda parts: add(list(parts)[:-1])  # noqa: E731
+    else:
+        owner, name = tlayers.MeshStats, "combine"
+        patch = staticmethod(lambda index, slot: slot[index])
+    found = owner.__dict__[name]
+    setattr(owner, name, patch)
+    try:
+        yield
+    finally:
+        setattr(owner, name, found)
 
 
 def train_mesh_slice(torch, dev, train_ds, captured_match, runs,
@@ -1235,35 +1326,56 @@ def train_mesh_slice(torch, dev, train_ds, captured_match, runs,
             for name, got in (("mesh None again", again),
                               ("one position", single)):
                 check(torch.equal(got[0], base[0])
-                      and torch.equal(got[2], base[2])
+                      and torch.equal(got[3], base[3])
                       and got[1].keys() == base[1].keys()
                       and all(torch.equal(got[1][k], base[1][k])
                               for k in base[1])
-                      and all(torch.equal(got[3][k], base[3][k])
-                              for k in base[3]),
+                      and all(torch.equal(got[2][k], base[2][k])
+                              for k in base[2])
+                      and all(torch.equal(got[4][k], base[4][k])
+                              for k in base[4]),
                       f"train_mesh {label}: {name} is not bit-equal to mesh "
                       "None")
             got = mesh_readings(torch, mesh_run(torch, tlayers, label, dev,
                                                 two, cache, batch), base)
-            add = tr._mesh_sum
-            tr._mesh_sum = lambda parts: add(list(parts)[:-1])
-            try:
-                ctl = mesh_readings(torch, mesh_run(
-                    torch, tlayers, label, dev, two, cache, batch), base)
-            finally:
-                tr._mesh_sum = add
-            ok, ctl_ok = mesh_within(got), mesh_within(ctl)
+            bn = label in MESH_BATCHNORM
+            controls = {}
+            for control in ("drop", "local") if bn else ("drop",):
+                with mesh_control(tr, tlayers, control):
+                    controls[control] = mesh_readings(torch, mesh_run(
+                        torch, tlayers, label, dev, two, cache, batch,
+                        steps=0 if bn else MESH_STEPS), base)
+            lr = base[5]
+            ok = mesh_within(got, label, lr)
+            f64 = {}
+            if label in MESH_F64:
+                f64 = step1_readings(
+                    mesh_f64(torch, tlayers, label, dev, two, batch),
+                    mesh_f64(torch, tlayers, label, dev, None, batch))
             log("train_mesh", run=label, batch=TRAIN_BATCH,
                 size=train_size(label), steps=MESH_STEPS,
                 one_position="bit-equal", mesh_none_repeat="bit-equal",
                 **{k: f"{v:.3g}" for k, v in got.items()},
-                **{f"control_{k}": f"{v:.3g}" for k, v in ctl.items()},
-                gates=f"loss<={MESH_LOSS_REL},grad<={MESH_GRAD_REL},"
-                      f"share>{MESH_PARAM_ABS}<={MESH_FLIP_SHARE}")
+                **{f"{c}_{k}": f"{v:.3g}" for c, r in controls.items()
+                   for k, v in r.items()},
+                **{f"f64_{k}": f"{v:.3g}" for k, v in f64.items()},
+                gates=f"loss<={MESH_LOSS_REL},grad<="
+                      f"{MESH_GRAD_REL_BN if bn else MESH_GRAD_REL},"
+                      f"stats<={MESH_STATS_REL},"
+                      + ("param_max<=2lr/step" if bn
+                         else f"share>{MESH_PARAM_ABS}<={MESH_FLIP_SHARE}")
+                      + (f",f64<={MESH_F64_REL}" if f64 else ""))
+            check(all(v <= MESH_F64_REL for v in f64.values()),
+                  f"train_mesh {label}: two positions in f64 are not mesh "
+                  f"None's: {f64}")
             check(all(ok.values()), f"train_mesh {label}: two positions "
                   f"outside the gates: {got}")
-            check(not any(ctl_ok.values()), f"train_mesh {label}: the "
-                  f"control passes a gate: {ctl}")
+            for control, ctl in controls.items():
+                held = mesh_within(ctl, label, lr)
+                failed = (not held["loss"] and not held["grad"]
+                          and (bn or not held["params"]))
+                check(failed, f"train_mesh {label}: the {control} control "
+                      f"passes a gate: {ctl}")
             del base, again, single
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
@@ -2754,9 +2866,6 @@ def main() -> int:
     # [train] the trainers through the CLI and their gates
     train_ds = train_slice(torch, dev, run_cli, captured_match, runs)
 
-    # [train_mesh] the MLP and ViT trainers over mesh positions of the card
-    train_mesh_slice(torch, dev, train_ds, captured_match, runs, smi)
-
     unused = [k for k in KERNELS if not any(r[1][k] for r in runs.values())]
     check(not unused, f"kernels the main path never launched: {unused}")
 
@@ -3114,6 +3223,17 @@ def main() -> int:
         per_frame_launches=ps["sat_rows"][1] + levels * ps["corner_grid"][1],
         **{f"{k}_ms": f"{v[0]:.3f}" for k, v in ps.items()},
         **{f"{k}_launches": v[1] for k, v in ps.items()})
+
+    # [train_mesh] the trainers over mesh positions of the card, after the
+    # profiled launch counts above (its many steps can leave the profiler
+    # recording nothing in later sessions, as train_timing's do), its
+    # captured kernel calls replayed here
+    train_mesh_slice(torch, dev, train_ds, captured_match, runs, smi)
+    for kname, arglists in runs["train_mesh"][0].items():
+        for k, args in enumerate(arglists):
+            shape = "x".join(str(s) for s in args[0].shape)
+            replay(kname, args, f"train_mesh main-path call {k} ({shape})")
+    torch.cuda.synchronize()
 
     # each kernel on a main-path call of it (frame 0, the exact run's first
     # call where the exact tier runs it); its bytes: the tensors and tables

@@ -35,9 +35,6 @@ LEFT_OUT = {
     ("utils.config", "Config.log_level"):
         "declared but never read in JAX either",
     ("utils.config", "Config.dtype"): "declared but never read in JAX either",
-    ("train.trainer", "VGGTrainer.mesh"):
-        "Queue 1 item 9c-2: the trainers' data mesh for the nets with "
-        "BatchNorm (global-batch statistics across mesh positions)",
     ("ops.dct", "dct2.precision"):
         "the TPU MXU's matmul precision; the port's f32 products run in "
         "full f32 (no TF32)",

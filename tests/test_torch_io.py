@@ -1,20 +1,30 @@
-"""The port's image reading (``utils/io.py`` with the numpy JPEG and BMP
-decoders) against the JAX package's, which is ``cv2.imread(path,
+"""The port's image reading (``utils/io.py`` with the numpy JPEG, BMP and
+TIFF decoders) against the JAX package's, which is ``cv2.imread(path,
 IMREAD_UNCHANGED)`` and its channel handling: bit for bit on JPEGs as
 ``cv2.imencode`` writes them (every sampling factor, two qualities, a
-restart interval, gray, odd sizes, RGB components) and on BMPs (as cv2
-writes them, and 32-bit and top-down variants built here); files cv2 reads
-and the port does not come back as None and are logged by name."""
+restart interval, gray, odd sizes, RGB components), on BMPs (as cv2
+writes them, and 32-bit and top-down variants built here) and on 8-bit
+TIFFs (as cv2 writes them in each of its compressions, as the port's
+encoder writes them, and big-endian, tiled, multi-page, predictor and
+alpha variants built here); files cv2 reads and the port does not come
+back as None and are logged by name; a ``.tif`` in a ``cli six`` folder
+is enhanced as its ``.png`` twin is."""
 
+import csv
 import struct
+import zlib
 
 import cv2
 import numpy as np
 import pytest
 
+from tests import torch_frames
+from underwater_image_enhancement_tpu import cli as jcli
 from underwater_image_enhancement_tpu.utils import io as jio
+from underwater_image_enhancement_tpu_torch import cli as tcli
 from underwater_image_enhancement_tpu_torch.utils import io as tio
 from underwater_image_enhancement_tpu_torch.utils import jpeg as tjpeg
+from underwater_image_enhancement_tpu_torch.utils import tiff as ttiff
 
 SAMPLING = ["444", "422", "420", "440", "411"]
 
@@ -238,7 +248,8 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     img = _image(32, 48, seed=10)
     files = {
         "prog.jpg": _jpeg(img, 90, progressive=True),
-        "tiff.tif": cv2.imencode(".tiff", img)[1].tobytes(),
+        "tiff.tif": cv2.imencode(".tiff", img.astype(np.uint16) * 257)[1]
+        .tobytes(),
         "555.bmp": _bmp16(img),
         "fine.jpg": _jpeg(img, 90),
         "junk.png": b"not an image",
@@ -251,7 +262,7 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
             name == "junk.png"), name
     assert tio.read_u8(str(tmp_path / "prog.jpg")) == (
         None, "progressive JPEG (SOF2)")
-    assert tio.read_u8(str(tmp_path / "tiff.tif")) == (None, "TIFF")
+    assert tio.read_u8(str(tmp_path / "tiff.tif")) == (None, "16-bit TIFF")
     assert tio.read_u8(str(tmp_path / "junk.png")) == (None, None)
     logged = []
     got = [p.name for p, _ in tio.decode_iter(
@@ -261,5 +272,286 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
         "warning: 555.bmp unsupported by the port: 16-bit BMP",
         "warning: unreadable junk.png",
         "warning: prog.jpg unsupported by the port: progressive JPEG (SOF2)",
-        "warning: tiff.tif unsupported by the port: TIFF",
+        "warning: tiff.tif unsupported by the port: 16-bit TIFF",
     ])
+
+
+def _raw_as_rgb(img):
+    """cv2's IMREAD_UNCHANGED array as (H, W, C): gray as one channel, BGR
+    and BGRA as RGB and RGBA."""
+    if img.ndim == 2:
+        return img[..., None]
+    return np.concatenate([img[..., 2::-1], img[..., 3:]], -1)
+
+
+def _assert_tiff_reads_as_cv2(tmp_path, data):
+    """``decode_tiff`` equals cv2's array, alpha included; ``read_u8`` and
+    ``imread_unit`` equal the JAX package's reading."""
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    assert want is not None and want.dtype == np.uint8
+    got = ttiff.decode_tiff(data)
+    assert got.shape == _raw_as_rgb(want).shape
+    np.testing.assert_array_equal(got, _raw_as_rgb(want))
+    _assert_reads_as_jax(tmp_path, "t.tif", data)
+
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773, 32946])
+@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (2, 2000), (300, 7)])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_tiff_written_by_cv2_matches_cv2(tmp_path, channels, shape,
+                                         compression):
+    img = _image(*shape, seed=12, channels=min(channels, 3))
+    if channels == 4:
+        img = np.concatenate([img, img[..., 1:2] ^ 0x5A], -1)
+    ok, buf = cv2.imencode(".tiff", img[..., 0] if channels == 1 else img,
+                           [cv2.IMWRITE_TIFF_COMPRESSION, compression])
+    assert ok
+    _assert_tiff_reads_as_cv2(tmp_path, buf.tobytes())
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (61, 83), (3, 3000)])
+def test_tiff_of_the_port_encoder_matches_cv2(tmp_path, shape):
+    data = ttiff.encode_tiff(_image(*shape, seed=13))
+    _assert_tiff_reads_as_cv2(tmp_path, data)
+
+
+def _packbits(raw: bytes) -> bytes:
+    """PackBits: repeats of 3 to 128 bytes, literal runs of up to 128."""
+    out, i = bytearray(), 0
+    while i < len(raw):
+        j = i
+        while j < len(raw) and j - i < 128 and raw[j] == raw[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), raw[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < len(raw) and j - i < 128 and not (
+                j + 2 < len(raw) and raw[j] == raw[j + 1] == raw[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + raw[i:j]
+        i = j
+    return bytes(out)
+
+
+def _coded(raw: bytes, compression: int) -> bytes:
+    if compression == 1:
+        return raw
+    if compression == 5:
+        return ttiff._lzw_encode(raw)
+    if compression == 32773:
+        return _packbits(raw)
+    return zlib.compress(raw)
+
+
+def _tiff(pages, order="<", tile=None, compression=1, predictor=1,
+          photometric=None, planar=1, rows_per_strip=None, tags=None):
+    """A TIFF built with ``struct``: one directory a page (an (H, W) or
+    (H, W, C) uint8 or uint16 array), linked in order, after the pages'
+    data, in ``order``'s byte order; strips of ``rows_per_strip`` rows
+    (one strip where None) or (width, height) ``tile``s padded at the
+    edges, each row differenced by ``predictor`` 2 and each strip or tile
+    coded by ``compression``; ``tags`` adds or replaces entries (tag:
+    (type, values))."""
+    data, dirs = bytearray(8), []
+    for img in pages:
+        a = img if img.ndim == 3 else img[..., None]
+        H, W, C = a.shape
+        a = a.astype(a.dtype.newbyteorder(order))
+        planes = [a] if planar == 1 else [a[..., c:c + 1] for c in range(C)]
+        tw, th = tile or (W, rows_per_strip or H)
+        offsets, counts = [], []
+        for plane in planes:
+            for y in range(0, H, th):
+                for x in range(0, W, tw):
+                    rows = th if tile else min(th, H - y)
+                    blk = np.zeros((rows, tw, plane.shape[2]), plane.dtype)
+                    part = plane[y:y + rows, x:x + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    flat = blk.reshape(rows, -1)
+                    if predictor == 2:
+                        n = plane.shape[2]
+                        flat = flat.copy()
+                        flat[:, n:] = flat[:, n:] - flat[:, :-n]
+                    chunk = _coded(flat.tobytes(), compression)
+                    offsets.append(len(data))
+                    counts.append(len(chunk))
+                    data += chunk + b"\0" * (len(chunk) & 1)
+        entries = {256: (4, [W]), 257: (4, [H]),
+                   258: (3, [a.dtype.itemsize * 8] * C),
+                   259: (3, [compression]),
+                   262: (3, [photometric if photometric is not None
+                             else 1 if C == 1 else 2]),
+                   277: (3, [C]), 284: (3, [planar]), 317: (3, [predictor])}
+        if tile:
+            entries.update({322: (3, [tw]), 323: (3, [th]),
+                            324: (4, offsets), 325: (4, counts)})
+        else:
+            entries.update({273: (4, offsets), 278: (4, [th]),
+                            279: (4, counts)})
+        entries.update(tags or {})
+        dirs.append(entries)
+    links = []
+    for entries in dirs:
+        at = len(data)
+        values_at = at + 2 + 12 * len(entries) + 4
+        head, values = struct.pack(order + "H", len(entries)), b""
+        for tag in sorted(entries):
+            kind, vals = entries[tag]
+            raw = struct.pack(order + ("H" if kind == 3 else "I") * len(vals),
+                              *vals)
+            if len(raw) <= 4:
+                head += struct.pack(order + "HHI", tag, kind, len(vals))
+                head += raw.ljust(4, b"\0")
+            else:
+                head += struct.pack(order + "HHII", tag, kind, len(vals),
+                                    values_at + len(values))
+                values += raw
+        links.append(at + len(head))
+        data += head + b"\0" * 4 + values
+        data += b"\0" * (len(data) & 1)
+        if len(links) == 1:
+            data[:8] = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(
+                order + "I", at)
+        else:
+            data[links[-2]:links[-2] + 4] = struct.pack(order + "I", at)
+    return bytes(data)
+
+
+def _tiff_images():
+    rgb = _image(37, 53, seed=14)
+    gray = _image(29, 41, seed=15, channels=1)[..., 0]
+    rgba = np.concatenate([rgb, _image(37, 53, seed=16, channels=1)], -1)
+    return rgb, gray, rgba
+
+
+TIFF_BUILT = {
+    "big-endian rgb lzw predictor": lambda rgb, gray, rgba: _tiff(
+        [rgb], ">", compression=5, predictor=2, rows_per_strip=8),
+    "big-endian gray": lambda rgb, gray, rgba: _tiff([gray], ">"),
+    "big-endian rgba deflate": lambda rgb, gray, rgba: _tiff(
+        [rgba], ">", compression=8, predictor=2),
+    "tiled rgb deflate predictor": lambda rgb, gray, rgba: _tiff(
+        [rgb], tile=(16, 16), compression=32946, predictor=2),
+    "tiled big-endian gray packbits": lambda rgb, gray, rgba: _tiff(
+        [gray], ">", tile=(32, 16), compression=32773),
+    "tiled rgba lzw": lambda rgb, gray, rgba: _tiff(
+        [rgba], tile=(48, 32), compression=5),
+    "two pages": lambda rgb, gray, rgba: _tiff([rgb, gray], compression=5),
+    "two pages big-endian": lambda rgb, gray, rgba: _tiff([gray, rgba], ">"),
+    "strips of 5 rows packbits": lambda rgb, gray, rgba: _tiff(
+        [rgb], compression=32773, rows_per_strip=5),
+    "predictor without compression": lambda rgb, gray, rgba: _tiff(
+        [rgb], predictor=2),
+    "predictor with packbits": lambda rgb, gray, rgba: _tiff(
+        [rgb], compression=32773, predictor=2),
+    "unspecified extra sample": lambda rgb, gray, rgba: _tiff(
+        [rgba], tags={338: (3, [0])}),
+    "associated alpha": lambda rgb, gray, rgba: _tiff(
+        [rgba], tags={338: (3, [1])}),
+    "unassociated alpha": lambda rgb, gray, rgba: _tiff(
+        [rgba], compression=5, tags={338: (3, [2])}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TIFF_BUILT))
+def test_tiff_built_by_hand_matches_cv2(tmp_path, name):
+    _assert_tiff_reads_as_cv2(tmp_path, TIFF_BUILT[name](*_tiff_images()))
+
+
+def test_tiff_unassociated_alpha_is_premultiplied():
+    """cv2 reads colours under an unassociated alpha premultiplied by it
+    (libtiff's RGBA reader), so the two alpha files differ."""
+    _, _, rgba = _tiff_images()
+    assoc = ttiff.decode_tiff(TIFF_BUILT["associated alpha"](*_tiff_images()))
+    unassoc = ttiff.decode_tiff(
+        TIFF_BUILT["unassociated alpha"](*_tiff_images()))
+    np.testing.assert_array_equal(assoc, rgba)
+    assert not np.array_equal(unassoc[..., :3], rgba[..., :3])
+
+
+def _palette(rgb, gray, rgba):
+    cmap = np.random.default_rng(17).integers(0, 65536, 768).tolist()
+    return _tiff([gray], photometric=3, tags={320: (3, cmap)})
+
+
+# variants cv2 reads and the port does not: (file, the name it logs)
+TIFF_UNSUPPORTED = {
+    "16-bit": (lambda rgb, gray, rgba: _tiff([rgb.astype(np.uint16) * 257]),
+               "16-bit TIFF"),
+    "palette": (_palette, "palette TIFF"),
+    "cmyk": (lambda rgb, gray, rgba: _tiff([rgba], photometric=5),
+             "CMYK TIFF"),
+    "planar": (lambda rgb, gray, rgba: _tiff([rgb], planar=2),
+               "planar TIFF"),
+    "white is zero": (lambda rgb, gray, rgba: _tiff([gray], photometric=0),
+                      "WhiteIsZero TIFF"),
+    "orientation": (lambda rgb, gray, rgba: _tiff(
+        [rgb], tags={274: (3, [3])}), "TIFF of orientation 3"),
+    "gray and alpha": (lambda rgb, gray, rgba: _tiff(
+        [rgba[..., :2]], photometric=1), "gray and alpha TIFF"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TIFF_UNSUPPORTED))
+def test_tiff_variants_the_port_does_not_read_are_named(tmp_path, name):
+    build, why = TIFF_UNSUPPORTED[name]
+    path = tmp_path / "v.tif"
+    path.write_bytes(build(*_tiff_images()))
+    assert jio.imread_unit(str(path)) is not None  # cv2 reads it
+    assert tio.read_u8(str(path)) == (None, why)
+
+
+@pytest.mark.parametrize("compression,first,why", [
+    (7, b"\xff\xd8", "JPEG TIFF"), (6, b"\xff\xd8", "old-style JPEG TIFF"),
+    (5, b"\x00\x01", "old-style LZW TIFF")])
+def test_tiff_compressions_the_port_does_not_read_are_named(compression,
+                                                            first, why):
+    """The compressions named from the tag (JPEG) or from the strip's
+    first bytes (LZW's old LSB-first codes, which begin 0x00 0x01)."""
+    rgb, _, _ = _tiff_images()
+    data = bytearray(_tiff([rgb], compression=1))
+    (at,) = struct.unpack("<I", data[4:8])
+    (n,) = struct.unpack("<H", data[at:at + 2])
+    for k in range(n):
+        e = at + 2 + 12 * k
+        if struct.unpack("<H", data[e:e + 2])[0] == 259:
+            data[e + 8:e + 10] = struct.pack("<H", compression)
+    data[8:10] = first
+    with pytest.raises(tjpeg.Unsupported, match=f"^{why}$"):
+        ttiff.decode_tiff(bytes(data))
+
+
+def test_cli_six_reads_a_tiff_as_its_png_twin(tmp_path):
+    """One frame as ``f.png`` and as ``g.tif`` in a folder: the port's
+    ``cli six --device cpu`` writes each strategy's output equal for the
+    two, and equal to the JAX CLI's within the float tolerances of
+    ``tests/test_torch_six.py``."""
+    frame = (torch_frames.underwater_img() * 255).round().astype(np.uint8)
+    src = tmp_path / "in"
+    src.mkdir()
+    (src / "f.png").write_bytes(tio.encode_png(frame))
+    (src / "g.tif").write_bytes(ttiff.encode_tiff(frame))
+    tcli.main(["six", "--input", str(src), "--output", str(tmp_path / "port"),
+               "--device", "cpu"])
+    jcli.main(["six", "--input", str(src), "--output", str(tmp_path / "jax")])
+    with open(tmp_path / "port" / "processing_log.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    assert sorted({r["filename"] for r in rows}) == ["f.png", "g.tif"]
+    assert all(r["status"] == "success" for r in rows)
+    outs = sorted(p.name for p in (tmp_path / "port").glob("f_*.png"))
+    assert len(outs) == 6
+    for name in outs:
+        twin = "g" + name[1:]
+        port = (tmp_path / "port" / name).read_bytes()
+        assert (tmp_path / "port" / twin).read_bytes() == port, name
+        assert ((tmp_path / "jax" / twin).read_bytes()
+                == (tmp_path / "jax" / name).read_bytes()), name
+        a = tio.imread_u8(str(tmp_path / "port" / name)) / 255.0
+        b = tio.imread_u8(str(tmp_path / "jax" / name)) / 255.0
+        if "dehazing" in name:
+            mse = np.mean((a - b) ** 2)
+            assert mse == 0 or 10 * np.log10(1.0 / mse) >= 50.0, name
+        else:
+            assert np.abs(a - b).max() <= 1 / 255 + 1e-9, name

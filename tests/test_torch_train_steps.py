@@ -11,7 +11,7 @@ Each step is held in three parts:
 - the loss and its gradient (the port's autograd against the jitted
   ``jax.value_and_grad`` of the trainer's loss; for the zoo nets also
   both against the port's own gradient in f64: at ResNet18's second step
-  JAX's f32 gradient lies 2e-2 of the largest from it, the port's 5.7e-5,
+  JAX's f32 gradient lies 2e-2 of the largest from it, the port's 6.9e-5,
   and there the port is held to the f64 gradient), and BatchNorm's
   running statistics after the forward;
 - the optimiser: JAX's gradients given to the port's clip and

@@ -36,3 +36,15 @@ def img_unit() -> np.ndarray:
     rgb_u8 = np.random.default_rng(42).integers(0, 256, (96, 128, 3),
                                                  dtype=np.uint8)
     return (rgb_u8.astype(np.float32) / 255.0).astype(np.float32)
+
+
+def train_batch(size: int, n: int):
+    """(imgs, refs), each (n, size, size, 3) f32 on the u8 grid: crops of
+    ``underwater_img`` along its diagonals, each reference a brighter
+    version of its crop (the paired datasets' recipe)."""
+    frame = underwater_img()
+    ys = np.linspace(0, frame.shape[0] - size, n).astype(int)
+    xs = np.linspace(0, frame.shape[1] - size, n).astype(int)[::-1]
+    imgs = np.stack([frame[y:y + size, x:x + size] for y, x in zip(ys, xs)])
+    refs = np.floor(np.clip(imgs ** 0.7, 0, 1) * 255.0) / 255.0
+    return imgs.astype(np.float32), refs.astype(np.float32)

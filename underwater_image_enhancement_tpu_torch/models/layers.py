@@ -6,13 +6,16 @@ defaults in ways that move the last digits or more:
 - ``BatchNorm``: ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` with
   Flax's epsilon 1e-5, over the channel axis 1 of (B, C) rows or (B, C,
   H, W) maps.  In train mode the statistics are the batch's, in f32 even
-  under bf16 activations, with Flax's fast variance ``max(0, mean(x^2) -
+  under bf16 activations (x promoted to at least f32, as Flax promotes
+  it: f64 stays f64), with Flax's fast variance ``max(0, mean(x^2) -
   mean(x)^2)``, and the running ones move as ``0.99 * running + 0.01 *
   batch`` with the biased variance (torch's own train mode folds Bessel's
-  correction into ``running_var``).
+  correction into ``running_var``).  Inside ``MeshThreads.run`` the
+  statistics are those of the whole batch over the mesh's positions, as
+  in JAX's sharded step (``MeshStats``).
 - ``dropout``: Flax's ``nn.Dropout``, kept values divided by the keep
   probability, the mask drawn from an explicit ``torch.Generator`` (or a
-  ``BatchMasks``: a mesh step's row blocks sharing the whole batch's
+  ``BatchMasks`` block: a mesh step's row blocks sharing the whole batch's
   draws).
 - ``clip``: ``jnp.clip``, whose gradient is halved where a value sits on
   a bound (JAX's ``maximum``/``minimum`` split a tie; ``torch.clamp``
@@ -38,8 +41,11 @@ the port's models runs under it, looked up on this module at each call.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
-from typing import Optional
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -71,53 +77,165 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 
 class BatchMasks:
-    """The dropout draws of one global batch, shared by its row blocks.  A
-    mesh step runs its positions' blocks one after another; ``block(rows)``
-    starts a position, whose k-th dropout call reads rows ``rows`` of the
-    batch's k-th draw: uniforms of the whole batch's shape from
-    ``generator`` on its device, drawn by the first block to reach that
-    call.  The blocks therefore see the masks that one call on the whole
-    batch draws."""
+    """The dropout draws of one global batch, shared by its row blocks.
+    ``block(rows)`` is a position's view, whose k-th dropout call reads
+    rows ``rows`` of the batch's k-th draw: uniforms of the whole batch's
+    shape from ``generator`` on its device, drawn by the first block to
+    reach that call (under a lock, as the positions run on threads of
+    their own, so the k-th draw is the generator's k-th).  The blocks
+    therefore see the masks that one call on the whole batch draws."""
 
     def __init__(self, generator: torch.Generator, batch: int):
         self.generator, self.batch = generator, batch
         self._draws: list = []
-        self._rows, self._next = slice(None), 0
+        self._lock = threading.Lock()
 
-    def block(self, rows: slice) -> "BatchMasks":
-        self._rows, self._next = rows, 0
-        return self
+    def block(self, rows: slice) -> "MaskRows":
+        return MaskRows(self, rows)
+
+    def draw(self, k: int, shape) -> torch.Tensor:
+        """The batch's k-th draw (drawn now if no block has reached it)."""
+        with self._lock:
+            if k == len(self._draws):
+                self._draws.append(torch.rand(
+                    (self.batch,) + tuple(shape[1:]), generator=self.generator,
+                    device=self.generator.device))
+            return self._draws[k]
+
+
+class MaskRows:
+    """One position's rows of a ``BatchMasks``' draws, call after call."""
+
+    def __init__(self, masks: BatchMasks, rows: slice):
+        self.masks, self.rows = masks, rows
+        self._calls = itertools.count()
 
     def uniform(self, shape, device: torch.device) -> torch.Tensor:
-        if self._next == len(self._draws):
-            self._draws.append(torch.rand(
-                (self.batch,) + tuple(shape[1:]), generator=self.generator,
-                device=self.generator.device))
-        u = self._draws[self._next][self._rows]
-        self._next += 1
-        return u.to(device)
+        return self.masks.draw(next(self._calls), shape)[self.rows].to(device)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator=None) -> torch.Tensor:
     """Flax's ``nn.Dropout(rate)``: in train mode each value is kept with
     probability ``1 - rate`` (the mask drawn from ``generator``, which
-    lies on x's device, or read from a ``BatchMasks``; torch's default
+    lies on x's device, or read from a ``BatchMasks`` block; torch's default
     generator where None) and divided by it; the identity otherwise."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    if isinstance(generator, BatchMasks):
+    if isinstance(generator, MaskRows):
         u = generator.uniform(x.shape, x.device)
     else:
         u = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
+_position = threading.local()  # .at: (MeshStats, index, call counter)
+
+
+class MeshStats:
+    """BatchNorm's statistics over the positions of one mesh step.
+
+    ``MeshThreads.run(works)`` calls ``works[k]()`` on position k's thread
+    with a new ``MeshStats``.  There the k-th BatchNorm call in train mode
+    puts the position's per-channel f32 sums of x and x^2 and its row
+    count in the call's slot, waits at a barrier until every position has,
+    and takes the statistics of the whole batch (``combine``: the sums
+    added in mesh order, ``parallel/spatial._psum``'s order, and the
+    counts).  They stay
+    functions of every position's sums, so a backward through them
+    reaches every position's rows.  The positions thus move in lockstep,
+    each computing only its own rows.  A position that raises breaks the
+    barrier, so the others stop at their next call."""
+
+    def __init__(self, positions: int):
+        self.positions = positions
+        self._barrier = threading.Barrier(positions)
+        self._slots: dict = {}
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def position(self, index: int):
+        """This thread runs position ``index``."""
+        _position.at = (self, index, itertools.count())
+        try:
+            yield
+        finally:
+            _position.at = None
+
+    def statistics(self, index: int, call: int, x32: torch.Tensor, dims):
+        """(sums (2, C) of x and x^2, count) of the whole batch at this
+        call, on position ``index``'s device."""
+        with self._lock:
+            slot = self._slots.setdefault(call, [None] * self.positions)
+        slot[index] = (torch.stack([x32.sum(dims), x32.square().sum(dims)]),
+                       x32.numel() // x32.shape[1])
+        self._barrier.wait()
+        s, n = self.combine(index, slot)
+        return s.to(x32.device), n
+
+    @staticmethod
+    def combine(index: int, slot: list):
+        """The positions' (sums, count) of one call added in mesh order:
+        ((s0 + s1) + s2) + ... on the first position's device, the same
+        for every asking position ``index``."""
+        del index
+        s, n = slot[0]
+        for s_k, n_k in slot[1:]:
+            s, n = s + s_k.to(s.device), n + n_k
+        return s, n
+
+
+class MeshThreads:
+    """A thread for each mesh position, kept from step to step: PyTorch
+    keeps cuDNN's execution plans a thread, so a new thread each step
+    would build them again (four to six times a step's forward on the
+    card).  ``close()`` ends the threads; so does dropping the object."""
+
+    def __init__(self, positions: int):
+        self._pools = [ThreadPoolExecutor(
+            1, thread_name_prefix=f"mesh-position-{k}")
+            for k in range(positions)]
+
+    def run(self, works: List[Callable[[], object]]) -> list:
+        """Each position's ``works[k]()`` on its thread inside a new
+        ``MeshStats``' ``position(k)``, under the calling thread's grad
+        mode; the results in mesh order.  A position that raises breaks
+        the barrier; the first position's own error is raised once every
+        position has ended."""
+        stats = MeshStats(len(works))
+        grad = torch.is_grad_enabled()
+
+        def position(k):
+            try:
+                with torch.set_grad_enabled(grad), stats.position(k):
+                    return works[k]()
+            except BaseException:
+                stats._barrier.abort()
+                raise
+
+        futures = [pool.submit(position, k)
+                   for k, pool in enumerate(self._pools)]
+        wait(futures)
+        errors = [(isinstance(f.exception(), threading.BrokenBarrierError), k)
+                  for k, f in enumerate(futures) if f.exception() is not None]
+        if errors:
+            raise futures[min(errors)[1]].exception()
+        return [f.result() for f in futures]
+
+    def close(self) -> None:
+        for pool in self._pools:
+            pool.shutdown(wait=True)
+
+
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """BatchNorm over axis 1 of (B, C) or (B, C, H, W) with Flax's
     defaults and arithmetic.  ``momentum`` keeps torch's meaning, the
-    weight of the batch statistic (0.01: Flax's momentum 0.99)."""
+    weight of the batch statistic (0.01: Flax's momentum 0.99).  In train
+    mode on a thread of ``MeshThreads.run`` the statistics are the whole
+    batch's (sum / count, the same fast variance) and only the first
+    position moves the running ones; eval mode uses the running ones
+    everywhere."""
 
     def __init__(self, n: int):
         super().__init__(n, eps=1e-5, momentum=0.01)
@@ -129,18 +247,25 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_input_dim(x)
         view = (-1,) + (1,) * (x.dim() - 2)
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
-            mean = x32.mean(dims)
-            var = torch.maximum(x32.square().mean(dims) - mean.square(),
-                                mean.new_zeros(()))
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1.0 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1.0 - m) * self.running_var
-                                       + m * var)
+            at = getattr(_position, "at", None)
+            if at is None:
+                mean = x32.mean(dims)
+                mean_sq = x32.square().mean(dims)
+            else:
+                stats, index, calls = at
+                s, n = stats.statistics(index, next(calls), x32, dims)
+                mean, mean_sq = s[0] / n, s[1] / n
+            var = torch.maximum(mean_sq - mean.square(), mean.new_zeros(()))
+            if at is None or at[1] == 0:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_((1.0 - m) * self.running_mean
+                                            + m * mean)
+                    self.running_var.copy_((1.0 - m) * self.running_var
+                                           + m * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = (torch.rsqrt(var + self.eps) * self.weight).view(view)

@@ -15,22 +15,26 @@
   stop patience 15, resume.
 
 Each step is eager PyTorch on the trainer's device (``cuda`` unless asked
-otherwise; without a card it raises, and nothing moves to the CPU).
-``MLPTrainer`` and ``ZooTrainer`` take JAX's ``mesh=`` (None, a count or
-a ``parallel/mesh.Mesh`` whose first position is the trainer's device;
-positions may repeat a device).  On more than one position a step cuts
-the batch into equal row blocks in mesh order (a batch that does not
-divide raises, as JAX's sharded ``device_put`` does) and runs each block
-forward and backward on its position's device; the sums of ``|d|`` and
-``d^2`` and the gradients are added in mesh order on the first position
-(``parallel/spatial._psum``'s order), the loss is the two sums over the
-batch's element count (``reference_loss``'s two means), then one clip and
-one optimiser step; a device other than the first holds a replica of the
-model, copied from the first after each step.  Dropout draws the whole
-batch's masks from the trainer's generator and gives each block its rows
-(``layers.BatchMasks``).  Nets with BatchNorm (ResNet18, EfficientNet,
-the VGG predictor) train on one position until BatchNorm's statistics
-span the positions (ROADMAP Queue 1 item 9c-2).
+otherwise; without a card it raises, and nothing moves to the CPU).  The
+trainers take JAX's ``mesh=`` (None, a count or a ``parallel/mesh.Mesh``
+whose first position is the trainer's device; positions may repeat a
+device).  On more than one position a step cuts the batch into equal row
+blocks in mesh order (a batch that does not divide raises, as JAX's
+sharded ``device_put`` does) and runs each block's forward on its
+position's device, on a thread a position (``layers.MeshThreads``):
+BatchNorm in train mode takes the statistics of the whole batch, every
+position's sums added in mesh order at each call, as Flax's BatchNorm does
+under JAX's sharded step, and the first position moves the running ones.
+Each position gives its loss as sums (``_sums``: for ``reference_loss``
+``|d|`` and ``d^2``, for ``combined_loss`` also the perceptual features'
+squared difference); the sums are added in mesh order on the first
+position (``_mesh_sum``, ``parallel/spatial._psum``'s order) and divided
+by the batch's counts (``_loss_of``), then one backward, each distinct
+replica's gradients added onto the model's in mesh order, one clip and
+one optimiser step.  A device other than the first holds a replica of the
+model (and of the VGG's perceptual trunk), copied from the first after
+each step.  Dropout draws the whole batch's masks from the trainer's
+generator and gives each block its rows (``layers.BatchMasks``).
 Arithmetic follows the jitted JAX step where it moves the numbers:
 Flax's BatchNorm and dropout (``models/layers``), optax's
 ``clip_by_global_norm`` (the gradients divided by their global norm where
@@ -195,8 +199,7 @@ class _BaseTrainer:
     def _set_mesh(self, mesh) -> None:
         """``maybe_mesh(mesh)`` on the trainer's device kind (a count is
         that many positions); its first position must be the trainer's
-        device.  A net with BatchNorm takes one position only (item
-        9c-2)."""
+        device."""
         self.mesh = pmesh.maybe_mesh(mesh, self.device)
         if self.mesh is None:
             return
@@ -204,14 +207,8 @@ class _BaseTrainer:
         if self.mesh.devices[0] != home:
             raise ValueError(f"the mesh's first position {self.mesh.devices[0]}"
                              f" is not the trainer's device {home}")
-        if self.sharded and any(
-                isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
-                for m in self.model.modules()):
-            raise ValueError(
-                f"{type(self.model).__name__} has BatchNorm, whose batch "
-                f"statistics would have to span the {self.mesh.size} mesh "
-                "positions: ROADMAP Queue 1 item 9c-2, not ported yet; "
-                "train it with mesh=None")
+        if self.sharded:
+            self._threads = layers.MeshThreads(self.mesh.size)
 
     @property
     def sharded(self) -> bool:
@@ -239,36 +236,53 @@ class _BaseTrainer:
                 for a, b in zip(r.buffers(), self.model.buffers()):
                     a.copy_(b)
 
+    LOSS_WEIGHTS = (0.5, 0.5)  # reference_loss: L1 and L2
+
+    def _sums(self, model, idx, imgs, refs, generator):
+        """A block's loss as sums and the element counts they divide by:
+        ``reference_loss``'s sums of ``|d|`` and ``d^2``."""
+        d = self._enhance(model, idx, imgs, generator) - refs
+        return torch.stack([d.abs().sum(), d.square().sum()]), (d.numel(),) * 2
+
+    def _loss_of(self, sums: torch.Tensor, counts) -> torch.Tensor:
+        """The loss from the batch's sums: each mean weighted, added left
+        to right as the loss function adds its terms."""
+        return sum(w * (sums[i] / n) for i, (w, n) in
+                   enumerate(zip(self.LOSS_WEIGHTS, counts)))
+
     def _mesh_loss(self, idx, imgs, refs, train: bool) -> torch.Tensor:
         """The loss of a batch over the mesh (module docstring); with
-        ``train`` the summed gradients are left in the model's ``.grad``
-        of the parameters that take one."""
+        ``train`` its gradient is left in the model's ``.grad`` of the
+        parameters that take one."""
         place = pmesh.data_parallel_sharding(self.mesh)(imgs)
         if isinstance(idx, (list, tuple)):
             idx = np.asarray(idx)
         masks = layers.BatchMasks(self._gen, imgs.shape[0]) if train else None
-        n = refs.numel()
-        sums, grads = [], []
-        for dev, rows in place:
-            model = self._replica(dev)
-            model.train(train)
-            enhanced = self._enhance(model, None if idx is None else idx[rows],
-                                     imgs[rows].to(dev),
-                                     masks and masks.block(rows))
-            d = enhanced - refs[rows].to(dev)
-            s = torch.stack([d.abs().sum(), d.square().sum()])
-            if train:
-                part = 0.5 * (s[0] / n) + 0.5 * (s[1] / n)
-                held = [p for p in model.parameters() if p.requires_grad]
-                grads.append(torch.autograd.grad(part, held,
-                                                 allow_unused=True))
-            sums.append(s.detach())
-        total = _mesh_sum(sums)
+        models = [self._replica(dev) for dev, _ in place]
+        for m in {id(m): m for m in models}.values():
+            m.train(train)
+
+        def work(k):
+            (dev, rows), model = place[k], models[k]
+            return lambda: self._sums(
+                model, None if idx is None else idx[rows], imgs[rows].to(dev),
+                refs[rows].to(dev), masks and masks.block(rows))
+
+        parts = self._threads.run([work(k) for k in range(len(place))])
+        counts = [sum(c) for c in zip(*(c for _, c in parts))]
+        loss = self._loss_of(_mesh_sum([s for s, _ in parts]), counts)
         if train:
-            held = [p for p in self.model.parameters() if p.requires_grad]
-            for p, parts in zip(held, zip(*grads)):
-                p.grad = _mesh_sum(parts)
-        return 0.5 * (total[0] / n) + 0.5 * (total[1] / n)
+            loss.backward()
+            replicas = [self._replicas[d] for d in dict.fromkeys(
+                dev for dev, _ in place) if d in self._replicas]
+            if replicas:
+                held = [[p for p in m.parameters() if p.requires_grad]
+                        for m in [self.model] + replicas]
+                for ps in zip(*held):
+                    ps[0].grad = _mesh_sum([p.grad for p in ps])
+                for r in replicas:
+                    r.zero_grad(set_to_none=True)
+        return loss.detach()
 
     @property
     def trainable(self) -> list:
@@ -482,9 +496,8 @@ class ZooTrainer(_BaseTrainer):
     (``models/zoo.load_{resnet18,efficientnet,vit}_npz``); "auto" finds the
     conventional artifact (``utils/weights.find_zoo_npz``) and else starts
     from the seeded init.  The backbone input is ImageNet-normalised
-    unless ``imagenet_normalize`` is False.  BatchNorm trains on the
-    batch's statistics, so ResNet18 and EfficientNet take a mesh of one
-    position only (ROADMAP Queue 1 item 9c-2); the ViT any."""
+    unless ``imagenet_normalize`` is False.  On a mesh, BatchNorm
+    (ResNet18, EfficientNet) trains on the whole batch's statistics."""
 
     def __init__(self, model_type: str = "resnet", lr: float = 1e-4,
                  seed: int = 0, mesh=None, image_size: int = 224,
@@ -551,7 +564,7 @@ class VGGTrainer(_BaseTrainer):
 
     def __init__(self, hidden_dim: int = 256, lr: float = 1e-5,
                  weight_decay: float = 1e-5, epochs: int = 100,
-                 image_size: int = 224, seed: int = 0,
+                 image_size: int = 224, seed: int = 0, mesh=None,
                  compute_dtype: str = "bfloat16",
                  stretch_mode: str = "quantile",
                  vgg_loss_params=None, pretrained_vgg: Optional[str] = "auto",
@@ -571,6 +584,7 @@ class VGGTrainer(_BaseTrainer):
         self._setup(ImprovedVGGParameterNet(hidden_dim=hidden_dim,
                                             dtype=self.compute_dtype),
                     seed, device)
+        self._set_mesh(mesh)
         if pretrained_vgg == "auto":
             from underwater_image_enhancement_tpu_torch.utils.weights import (
                 find_vgg16_npz,
@@ -599,6 +613,7 @@ class VGGTrainer(_BaseTrainer):
                 seed + 1, (1, image_size, image_size, 3))
         self.vgg_loss_params = vgg_loss_params.requires_grad_(False).to(
             self.device)
+        self._trunks: Dict[torch.device, torch.nn.Module] = {}
         self.schedule = cosine_warm_restarts(lr, 10, 2, epochs)
         self._epoch_count = 0
         # frozen convs take no gradient, so the clip's norm and AdamW see
@@ -609,18 +624,49 @@ class VGGTrainer(_BaseTrainer):
                                            weight_decay=weight_decay)
         self.stretch_mode = stretch_mode
 
+    LOSS_WEIGHTS = (0.3, 0.5, 0.2)  # combined_loss: L1, L2, perceptual
+
     def _loss_fn(self, idx, imgs, refs, train: bool,
                  feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        enhanced = self._enhance(self.model, idx, imgs,
+                                 self._gen if train else None, feats)
+        return losses.combined_loss(self.vgg_loss_params, enhanced, refs,
+                                    dtype=self.compute_dtype)[0]
+
+    def _enhance(self, model, idx, imgs, generator,
+                 feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``model``'s enhancement of a batch on its device, the basic
+        features extracted from the batch unless given."""
         del idx
         if feats is None:
             feats = extract_basic_batch(imgs)
         x = self._backbone_input(imgs).to(self.compute_dtype)
-        pred = self.model(x, feats, generator=self._gen if train else None)
+        pred = model(x, feats, generator=generator)
         pred = {k: v.float() for k, v in pred.items()}
-        enhanced = diff_enhance.enhance_vgg(imgs, pred,
-                                            stretch_mode=self.stretch_mode)
-        return losses.combined_loss(self.vgg_loss_params, enhanced, refs,
-                                    dtype=self.compute_dtype)[0]
+        return diff_enhance.enhance_vgg(imgs, pred,
+                                        stretch_mode=self.stretch_mode)
+
+    def _replica(self, dev: torch.device) -> torch.nn.Module:
+        """The model on a position's device, and the perceptual trunk
+        there too (a copy kept off the trainer's device, made here, before
+        the positions' threads start; it takes no gradient)."""
+        if (dev != pmesh._indexed(self.device)
+                and dev not in self._trunks):
+            self._trunks[dev] = copy.deepcopy(self.vgg_loss_params).to(dev)
+        return super()._replica(dev)
+
+    def _sums(self, model, idx, imgs, refs, generator):
+        """``combined_loss`` as sums: ``|d|`` and ``d^2`` over the image
+        elements, the squared difference of the trunk's relu3_3 features
+        (``losses.perceptual_loss``'s) over theirs."""
+        enhanced = self._enhance(model, idx, imgs, generator)
+        d = enhanced - refs
+        trunk = self._trunks.get(imgs.device, self.vgg_loss_params)
+        dtype = self.compute_dtype
+        f = (trunk(enhanced, dtype=dtype).float()
+             - trunk(refs, dtype=dtype).float()).square()
+        return (torch.stack([d.abs().sum(), d.square().sum(), f.sum()]),
+                (d.numel(), d.numel(), f.numel()))
 
     def _step(self, idx, imgs, refs) -> torch.Tensor:
         # the epoch's learning rate (scheduler.step() per epoch,

@@ -1,6 +1,6 @@
 """Host-side image IO with no image library: an 8-bit PNG codec built on
-``zlib`` + ``struct`` + numpy, the JPEG and BMP codecs of ``jpeg.py`` and
-``bmp.py``, the TIFF encoder of ``tiff.py``, plus the folder helpers of
+``zlib`` + ``struct`` + numpy, the JPEG, BMP and TIFF codecs of
+``jpeg.py``, ``bmp.py`` and ``tiff.py``, plus the folder helpers of
 the JAX package's ``utils/io.py`` (collect, decode-ahead, write-behind).
 
 A file's format is found from its first bytes, not its suffix, as cv2
@@ -8,9 +8,10 @@ does.  Reading follows the reference's load conventions (main.py:91-113)
 and gives what the JAX package's ``cv2.imread(path, IMREAD_UNCHANGED)``
 and channel handling give: RGB out, grayscale replicated to RGB, alpha
 dropped, float32 in [0, 1].  Unreadable files give None so callers can skip
-them; so do the files cv2 reads and the port does not (TIFF, progressive
-JPEG, 16-bit PNG and the other formats and variants that ``jpeg.py``,
-``bmp.py`` and ``decode_png`` leave out), which ``read_u8`` names.
+them; so do the files cv2 reads and the port does not (16-bit TIFF,
+progressive JPEG, 16-bit PNG and the other formats and variants that
+``jpeg.py``, ``bmp.py``, ``tiff.py`` and ``decode_png`` leave out), which
+``read_u8`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
 ``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
@@ -38,7 +39,10 @@ from underwater_image_enhancement_tpu_torch.utils.jpeg import (
     decode_jpeg,
     encode_jpeg,
 )
-from underwater_image_enhancement_tpu_torch.utils.tiff import encode_tiff
+from underwater_image_enhancement_tpu_torch.utils.tiff import (
+    decode_tiff,
+    encode_tiff,
+)
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -131,7 +135,7 @@ def decode_png(data: bytes) -> np.ndarray:
 
 # first bytes of the other formats cv2 reads
 _OTHER_FORMATS = (
-    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF8", "GIF"),
+    (b"GIF8", "GIF"),
     (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
     (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
     (b"v/1\x01", "OpenEXR"), (b"\x59\xa6\x6a\x95", "Sun raster"),
@@ -149,6 +153,8 @@ def decode_image(data: bytes) -> np.ndarray:
         img = decode_jpeg(data)
     elif data[:2] == b"BM":
         return decode_bmp(data)
+    elif data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        img = decode_tiff(data)
     else:
         if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
             raise Unsupported("WebP")
@@ -158,8 +164,8 @@ def decode_image(data: bytes) -> np.ndarray:
             if data.startswith(sig):
                 raise Unsupported(name)
         raise ValueError("unknown image format")
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, axis=2)
+    if img.ndim == 2 or img.shape[2] == 1:
+        img = np.repeat(img.reshape(img.shape[:2] + (1,)), 3, axis=2)
     elif img.shape[2] == 2:  # gray + alpha
         img = np.repeat(img[..., :1], 3, axis=2)
     else:

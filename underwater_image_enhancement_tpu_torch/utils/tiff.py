@@ -1,21 +1,35 @@
-"""A TIFF encoder in numpy: the file ``cv2.imwrite`` writes for a colour
-image through libtiff (LZW with the horizontal predictor, chunky RGB,
-8 bits a sample).
+"""A TIFF codec in numpy.  ``encode_tiff`` writes the file ``cv2.imwrite``
+writes for a colour image through libtiff (LZW with the horizontal
+predictor, chunky RGB, 8 bits a sample); ``decode_tiff`` reads the 8-bit
+files ``cv2.imread`` reads, with cv2's pixels.
 
 The strips are libtiff's: ``_rows_per_strip`` rows each (cv2's 8 KiB
 strips), each row differenced by the predictor (each sample less the one
 three before it in the row, mod 256) and each strip coded alone by
 ``tif_lzw.c``'s encoder.  The directory follows the strips, as libtiff
 writes it: twelve tags, then their out-of-line values in libtiff's order.
+
+The decoder takes the first directory (the first page, as ``cv2.imread``
+returns it) of a little- or big-endian file: 8 bits a sample, unsigned,
+chunky, gray (BlackIsZero), RGB or RGB with one extra sample, top-left
+orientation, in strips or tiles (cropped at the image's edges), stored
+uncompressed, PackBits, Deflate (8 and 32946, through ``zlib``) or LZW
+(``tif_lzw.c``'s MSB-first codes, one bit wider as the table reaches the
+next width's last code), LZW and Deflate with the horizontal predictor or
+none.  Any other file raises ``Unsupported`` with its variant's name.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
-from underwater_image_enhancement_tpu_torch.utils.jpeg import pack_msb
+from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+    Unsupported,
+    pack_msb,
+)
 
 _CLEAR, _EOI, _FIRST = 256, 257, 258
 _CODE_MAX = (1 << 12) - 1
@@ -165,3 +179,218 @@ def encode_tiff(rgb: np.ndarray) -> bytes:
         [b"II*\x00", struct.pack("<I", ifd)] + strips + [b"\0" * (ifd - end),
          struct.pack("<H", len(tags))]
         + [entries[t] for t in sorted(entries)] + [b"\0\0\0\0"] + extra)
+
+
+# struct formats of the integer TIFF field types (BYTE, SHORT, LONG,
+# SBYTE, SSHORT, SLONG, IFD); tags of other types are not read
+_INT_FORMAT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I"}
+_PHOTOMETRIC = {0: "WhiteIsZero", 3: "palette", 4: "transparency mask",
+                5: "CMYK", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
+                10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4",
+                 6: "old-style JPEG", 7: "JPEG", 34712: "JPEG 2000",
+                 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS = 1, 5, 32946, 8, 32773
+
+
+def _directory(data: bytes) -> dict:
+    """The first directory's integer tags: tag -> tuple of values."""
+    order = {b"II": "<", b"MM": ">"}.get(data[:2])
+    if order is None:
+        raise ValueError("not a TIFF file")
+    (version,) = struct.unpack(order + "H", data[2:4])
+    if version == 43:
+        raise Unsupported("BigTIFF")
+    if version != 42:
+        raise ValueError(f"not a TIFF file (version {version})")
+    (at,) = struct.unpack(order + "I", data[4:8])
+    (n,) = struct.unpack(order + "H", data[at:at + 2])
+    tags = {}
+    for k in range(n):
+        entry = data[at + 2 + 12 * k:at + 14 + 12 * k]
+        tag, kind, count = struct.unpack(order + "HHI", entry[:8])
+        if kind not in _INT_FORMAT or count == 0:
+            continue
+        size = struct.calcsize(_INT_FORMAT[kind]) * count
+        if size <= 4:
+            raw = entry[8:8 + size]
+        else:
+            (off,) = struct.unpack(order + "I", entry[8:12])
+            raw = data[off:off + size]
+        if len(raw) != size:
+            raise ValueError(f"corrupt TIFF: tag {tag} past the file's end")
+        tags[tag] = struct.unpack(f"{order}{count}{_INT_FORMAT[kind]}", raw)
+    return tags
+
+
+def _lzw_decode(data: bytes, size: int) -> bytes:
+    """A strip or tile coded by ``tif_lzw.c``: MSB-first codes of 9 to 12
+    bits, one bit wider once the table holds the width's last code but
+    one; the first ``size`` bytes."""
+    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
+        raise Unsupported("old-style LZW TIFF")
+    out, have = [], 0
+    table = [bytes([i]) for i in range(256)] + [b"", b""]
+    nbits, prev = 9, None
+    acc = nacc = 0
+    pos, end = 0, len(data)
+    while have < size:
+        while nacc < nbits and pos < end:
+            acc = (acc << 8) | data[pos]
+            pos += 1
+            nacc += 8
+        if nacc < nbits:
+            break  # no EOI: libtiff keeps what the strip gave
+        nacc -= nbits
+        code = (acc >> nacc) & ((1 << nbits) - 1)
+        acc &= (1 << nacc) - 1
+        if code == _CLEAR:
+            del table[_FIRST:]
+            nbits, prev = 9, None
+            continue
+        if code == _EOI:
+            break
+        if prev is None:
+            if code >= 256:
+                raise ValueError("corrupt LZW: a first code past the "
+                                 "literals")
+            entry = table[code]
+        else:
+            if code < len(table):
+                entry = table[code]
+                table.append(prev + entry[:1])
+            elif code == len(table):
+                entry = prev + prev[:1]
+                table.append(entry)
+            else:
+                raise ValueError(f"corrupt LZW: code {code} past the table "
+                                 f"({len(table)})")
+            if len(table) >= (1 << nbits) - 1 and nbits < 12:
+                nbits += 1
+        out.append(entry)
+        have += len(entry)
+        prev = entry
+    return b"".join(out)[:size]
+
+
+def _packbits_decode(data: bytes, size: int) -> bytes:
+    """PackBits: a header n, then n + 1 literal bytes (n < 128) or one byte
+    repeated 257 - n times (n > 128); 128 is skipped."""
+    out, have, pos = [], 0, 0
+    while have < size and pos < len(data):
+        n = data[pos]
+        pos += 1
+        if n < 128:
+            chunk = data[pos:pos + n + 1]
+            pos += n + 1
+        elif n > 128:
+            chunk = data[pos:pos + 1] * (257 - n)
+            pos += 1
+        else:
+            continue
+        out.append(chunk)
+        have += len(chunk)
+    return b"".join(out)[:size]
+
+
+def _decode_chunk(data: bytes, compression: int, size: int) -> bytes:
+    if compression == _NONE:
+        return data[:size]
+    if compression == _LZW:
+        return _lzw_decode(data, size)
+    if compression == _PACKBITS:
+        return _packbits_decode(data, size)
+    return zlib.decompressobj().decompress(data, size)
+
+
+def _variant(tags: dict) -> tuple:
+    """(samples a pixel, compression, predictor) of a file the decoder
+    reads; ``Unsupported`` naming any other variant."""
+    bits = set(tags.get(258, (1,)))
+    if bits != {8}:
+        raise Unsupported(f"{'/'.join(map(str, sorted(bits)))}-bit TIFF")
+    if set(tags.get(339, (1,))) != {1}:
+        kinds = {2: "signed", 3: "floating-point"}
+        raise Unsupported(
+            f"{kinds.get(tags[339][0], 'untyped')} 8-bit TIFF")
+    spp = tags.get(277, (1,))[0]
+    if 262 not in tags:
+        raise Unsupported("TIFF without a photometric interpretation")
+    photometric = tags[262][0]
+    if photometric in _PHOTOMETRIC:
+        raise Unsupported(f"{_PHOTOMETRIC[photometric]} TIFF")
+    if not 1 <= spp <= 4 or (photometric == 2 and spp < 3):
+        raise ValueError(f"TIFF of photometric interpretation {photometric} "
+                         f"with {spp} samples a pixel, which cv2 does not "
+                         "read either")
+    if (photometric, spp) == (1, 2):
+        raise Unsupported("gray and alpha TIFF")
+    if (photometric, spp) not in ((1, 1), (2, 3), (2, 4)):
+        raise Unsupported(f"TIFF of photometric interpretation "
+                          f"{photometric} with {spp} samples a pixel")
+    if spp > 1 and tags.get(284, (1,))[0] != 1:
+        raise Unsupported("planar TIFF")
+    if tags.get(274, (1,))[0] != 1:
+        raise Unsupported(f"TIFF of orientation {tags[274][0]}")
+    if tags.get(266, (1,))[0] != 1:
+        raise Unsupported("TIFF of fill order 2")
+    compression = tags.get(259, (_NONE,))[0]
+    if compression not in (_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS):
+        name = _COMPRESSIONS.get(compression, f"compression {compression}")
+        raise Unsupported(f"{name} TIFF")
+    predictor = tags.get(317, (1,))[0]
+    if compression in (_NONE, _PACKBITS):
+        predictor = 1  # libtiff applies the predictor to LZW and Deflate
+    if predictor not in (1, 2):
+        raise Unsupported(f"TIFF of predictor {predictor}")
+    return spp, compression, predictor
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+    """The first page of 8-bit TIFF bytes -> (H, W, C) uint8: C = 1 (gray),
+    3 (RGB) or 4 (RGB and its extra sample; colours under an unassociated
+    alpha premultiplied by it, ``(c * a + 127) // 255``, as libtiff's RGBA
+    reader gives them to cv2).  Raises ``Unsupported`` for
+    the variants the module docstring leaves out, ValueError for corrupt
+    files."""
+    tags = _directory(data)
+    spp, compression, predictor = _variant(tags)
+    try:
+        W, H = tags[256][0], tags[257][0]
+    except KeyError:
+        raise ValueError("corrupt TIFF: no image size") from None
+    if W <= 0 or H <= 0:
+        raise ValueError("corrupt TIFF: empty image")
+    if 322 in tags:  # tiles
+        tw, th = tags[322][0], tags.get(323, (0,))[0]
+        offsets, counts = tags.get(324), tags.get(325)
+    else:  # strips: full-width tiles of RowsPerStrip rows
+        tw, th = W, min(tags.get(278, (H,))[0], H)
+        offsets, counts = tags.get(273), tags.get(279)
+    if offsets is None:
+        raise ValueError("corrupt TIFF: no strip or tile offsets")
+    if counts is None:
+        raise Unsupported("TIFF without strip or tile byte counts")
+    if tw <= 0 or th <= 0:
+        raise ValueError("corrupt TIFF: empty strips or tiles")
+    across, down = -(-W // tw), -(-H // th)
+    if len(offsets) < across * down or len(counts) < across * down:
+        raise ValueError("corrupt TIFF: too few strips or tiles")
+    out = np.empty((H, W, spp), np.uint8)
+    for k in range(across * down):
+        y, x = k // across * th, k % across * tw
+        rows = th if 322 in tags else min(th, H - y)  # the last strip's
+        size = rows * tw * spp
+        chunk = data[offsets[k]:offsets[k] + counts[k]]
+        raw = _decode_chunk(chunk, compression, size)
+        if len(raw) < size:
+            raise ValueError("corrupt TIFF: a strip or tile decodes short")
+        block = np.frombuffer(raw, np.uint8).reshape(rows, tw, spp)
+        if predictor == 2:
+            block = np.cumsum(block, axis=1, dtype=np.uint8)
+        out[y:y + rows, x:x + tw] = block[:H - y, :W - x]
+    if spp == 4 and tags.get(338, (0,))[0] == 2:
+        # unassociated alpha: libtiff's RGBA reader premultiplies
+        a = out[..., 3:].astype(np.uint32)
+        out[..., :3] = (out[..., :3] * a + 127) // 255
+    return out
