@@ -57,7 +57,13 @@ non-zero):
    --output`` with ``.png``, ``.jpg``, ``.bmp`` and ``.tif``, each file
    equal to the port's host encoder of the PNG output's u8 frame, the BMP
    and the TIFF (``tiff.decode_tiff``) read back equal to it, the JPEG's
-   PSNR and each encoder's host ms a 1080p frame printed, then the five
+   PSNR and each encoder's host ms a 1080p frame printed, ``[jpeg_prog]``
+   (``jpeg_prog_slice``): that ``frame0.jpg`` transcoded losslessly into
+   progressive files (``tests/torch_jpeg_scans.py``: cv2's script, and
+   three-step successive approximation with restarts), each decoding
+   bit-equal to it (host decode ms printed), ``cli six --device cuda`` on
+   the first writing PNGs byte-equal to those of the baseline file with
+   six exact's launches of one frame, then the five
    CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
@@ -1131,6 +1137,88 @@ def write_slice(torch, run_cli, src: Path, smi: str) -> None:
             bytes=len(data), equal_to_host_encoder=True,
             encode_host_ms=f"{statistics.median(ms):.1f}",
             frame=f"{W}x{H}", **extra, card=repr(smi))
+
+
+# [jpeg_prog]: [write]'s frame0.jpg as progressive files (the tests'
+# lossless transcoder), each decoding bit-equal to the baseline file, and
+# cli six on one reading as it does on the baseline file
+JPEG_PROG_SCRIPTS = (("cv2", 0), ("three_step", 7))
+# six exact's launches on one frame (a third of the three frames'), the
+# descent's d levels apart: K7 d times, K6 d + 1 times
+SIX_ONE_FRAME = {**{k: v // 3 for k, v in COMMON.items()},
+                 "lab_forward_unit": 5, "lab_forward_unit_approx": 0,
+                 "lab_forward_u8": 0, "lab_forward_l_u8": 0}
+
+
+def jpeg_prog_slice(torch, run_cli, smi: str) -> None:
+    """[jpeg_prog]: ``tests/torch_jpeg_scans.transcode`` writes
+    ``[write]``'s 1080p ``frame0.jpg`` (the port's baseline encoder) as
+    progressive files, one for each of ``JPEG_PROG_SCRIPTS`` (cv2's script;
+    successive approximation in three steps with a restart every 7
+    MCUs).  Each decodes bit-equal to the baseline file (the host ms of
+    each decode printed).  ``cli six --device cuda`` on the first writes
+    PNGs byte-equal to those it writes for the baseline file, with six
+    exact's launches on one frame (``SIX_ONE_FRAME``, K7 d and K6 d + 1
+    times, the same d for both)."""
+    from tests import torch_jpeg_scans
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+        decode_jpeg,
+    )
+
+    t_phase = time.perf_counter()
+    base = (WORK / "write" / "frame0.jpg").read_bytes()
+    t0 = time.perf_counter()
+    want = decode_jpeg(base)
+    log("jpeg_prog", file="baseline", bytes=len(base),
+        decode_host_ms=f"{(time.perf_counter() - t0) * 1e3:.1f}",
+        frame=f"{W}x{H}", card=repr(smi))
+    check(want.shape == (H, W, 3), f"jpeg_prog: baseline {want.shape}")
+    progs = {}
+    for name, restart in JPEG_PROG_SCRIPTS:
+        t0 = time.perf_counter()
+        data = torch_jpeg_scans.transcode(
+            base, torch_jpeg_scans.script(name, 3), restart)
+        t_code = time.perf_counter() - t0
+        check(data[:data.index(b"\xff\xda")].find(b"\xff\xc2") > 0,
+              f"jpeg_prog: {name} is not a progressive file")
+        t0 = time.perf_counter()
+        got = decode_jpeg(data)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(got, want),
+              f"jpeg_prog: {name} (restart {restart}) decodes to other "
+              f"pixels than the baseline file")
+        progs[name] = data
+        log("jpeg_prog", file=name, restart=restart, bytes=len(data),
+            scans=data.count(b"\xff\xda"), decode_host_ms=f"{ms:.1f}",
+            transcode_host_s=f"{t_code:.2f}", equal_to_baseline=True,
+            card=repr(smi))
+    outs = {}
+    for label, data in (("baseline", base), ("progressive", progs["cv2"])):
+        src = WORK / "jpeg_prog" / label
+        src.mkdir(parents=True, exist_ok=True)
+        (src / "frame0.jpg").write_bytes(data)
+        out = WORK / "jpeg_prog" / f"six_{label}"
+        _, launches, secs = run_cli(["six", "--device", "cuda", "--input",
+                                     str(src), "--output", str(out)], False)
+        d = launches["hysteresis_propagate"]
+        check(all(launches[k] == v for k, v in SIX_ONE_FRAME.items())
+              and d >= 1 and launches["sat_rows"] == d + 1,
+              f"jpeg_prog: six on the {label} file launched {launches}")
+        pngs = {p.name: p.read_bytes() for p in sorted(out.glob("*.png"))}
+        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
+              f"jpeg_prog: six outputs {sorted(pngs)}")
+        outs[label] = (pngs, launches)
+        log("jpeg_prog", command=f"'six --device cuda' ({label})",
+            seconds=f"{secs:.2f}",
+            launches=json.dumps(launches, separators=(",", ":")))
+    check(outs["progressive"] == outs["baseline"],
+          "jpeg_prog: six writes other PNGs (or launches) for the "
+          "progressive file than for the baseline file")
+    log("jpeg_prog", six_outputs="byte-equal", launches="equal",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
 # [train_mesh]: MLPTrainer, ZooTrainer("vit"), the f32 VGGTrainer and the
@@ -2332,6 +2420,8 @@ def main() -> int:
 
     # [write] enhance --output NAME.jpg/.bmp/.tif
     write_slice(torch, run_cli, src, smi)
+    # [jpeg_prog] frame0.jpg as progressive files, and six on one
+    jpeg_prog_slice(torch, run_cli, smi)
 
     # Phase-1 labeling: auto, build-dataset, build-dataset --fast
     for key, argv in (

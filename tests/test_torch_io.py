@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from tests import torch_frames
+from tests import torch_jpeg_scans as jpeg_scans
 from underwater_image_enhancement_tpu import cli as jcli
 from underwater_image_enhancement_tpu.utils import io as jio
 from underwater_image_enhancement_tpu_torch import cli as tcli
@@ -244,10 +245,30 @@ def test_truncated_jpeg_is_unreadable(tmp_path, cut, file):
     assert tio.read_u8(str(tmp_path / "cut.jpg")) == (None, None)
 
 
+def _cmyk_jpeg(gray: bytes) -> bytes:
+    """A four-component (CMYK, Adobe transform 0) sequential JPEG built
+    from a gray one: its scan sent once for each component."""
+    segments = jpeg_scans._segments(gray)
+    p = 2 + sum(4 + len(body) for _, body in segments)  # the SOS marker
+    (n,) = struct.unpack(">H", gray[p + 2:p + 4])
+    scan = gray[p + 2 + n:gray.rindex(b"\xff\xd9")]
+    out = [b"\xff\xd8",
+           tjpeg._segment(0xEE, b"Adobe\x00\x64" + bytes(5))]
+    for marker, body in segments:
+        if marker == 0xC0:
+            body = body[:5] + bytes([4]) + b"".join(
+                bytes([k, 0x11, 0]) for k in range(1, 5))
+        if marker != 0xE0:  # no JFIF marker
+            out.append(tjpeg._segment(marker, body))
+    for k in range(1, 5):
+        out.append(tjpeg._segment(0xDA, bytes([1, k, 0, 0, 63, 0])) + scan)
+    return b"".join(out) + b"\xff\xd9"
+
+
 def test_formats_the_port_does_not_read_are_logged(tmp_path):
     img = _image(32, 48, seed=10)
     files = {
-        "prog.jpg": _jpeg(img, 90, progressive=True),
+        "cmyk.jpg": _cmyk_jpeg(_jpeg(img[..., 0], 90)),
         "tiff.tif": cv2.imencode(".tiff", img.astype(np.uint16) * 257)[1]
         .tobytes(),
         "555.bmp": _bmp16(img),
@@ -260,8 +281,8 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     for name in files:
         assert (jio.imread_unit(str(tmp_path / name)) is None) == (
             name == "junk.png"), name
-    assert tio.read_u8(str(tmp_path / "prog.jpg")) == (
-        None, "progressive JPEG (SOF2)")
+    assert tio.read_u8(str(tmp_path / "cmyk.jpg")) == (
+        None, "JPEG with 4 components (CMYK or YCCK)")
     assert tio.read_u8(str(tmp_path / "tiff.tif")) == (None, "16-bit TIFF")
     assert tio.read_u8(str(tmp_path / "junk.png")) == (None, None)
     logged = []
@@ -271,9 +292,149 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     assert sorted(logged) == sorted([
         "warning: 555.bmp unsupported by the port: 16-bit BMP",
         "warning: unreadable junk.png",
-        "warning: prog.jpg unsupported by the port: progressive JPEG (SOF2)",
+        "warning: cmyk.jpg unsupported by the port: JPEG with 4 components "
+        "(CMYK or YCCK)",
         "warning: tiff.tif unsupported by the port: 16-bit TIFF",
     ])
+
+
+# ---------------------------------------------------------------------------
+# Progressive JPEG
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quality", [50, 95])
+@pytest.mark.parametrize("sampling", SAMPLING + [None])
+@pytest.mark.parametrize("shape", [(61, 83), (3, 40), (40, 1), (17, 3)])
+def test_progressive_jpeg_of_cv2_matches_cv2(tmp_path, shape, sampling,
+                                             quality):
+    """cv2's progressive files (its 10-scan script, 6 for gray, EOB runs,
+    Huffman tables optimised a scan) at every sampling, gray, two
+    qualities, sides that are not multiples of 8 or 16 and frames 1 and 3
+    pixels wide or high."""
+    img = _image(*shape, seed=quality, channels=3 if sampling else 1)
+    data = _jpeg(img if sampling else img[..., 0], quality, sampling,
+                 progressive=True)
+    assert data[:data.index(b"\xff\xda")].find(b"\xff\xc2") > 0
+    _assert_reads_as_jax(tmp_path, "p.jpg", data)
+
+
+@pytest.mark.parametrize("sampling", ["420", "444", None])
+@pytest.mark.parametrize("restart", [1, 4])
+def test_progressive_jpeg_restart_interval_matches_cv2(tmp_path, restart,
+                                                       sampling):
+    img = _image(37, 58, seed=restart, channels=3 if sampling else 1)
+    data = _jpeg(img if sampling else img[..., 0], 85, sampling, restart,
+                 progressive=True)
+    assert b"\xff\xdd" in data and b"\xff\xd0" in data
+    _assert_reads_as_jax(tmp_path, "pr.jpg", data)
+
+
+@pytest.mark.parametrize("restart", [0, 1, 7])
+@pytest.mark.parametrize("name", jpeg_scans.SCRIPTS)
+@pytest.mark.parametrize("sampling", ["420", "422", None])
+def test_transcoded_progressive_jpeg_matches_its_baseline_twin(
+        tmp_path, sampling, name, restart):
+    """The transcoder's scripts (cv2's, spectral selection only, the DC a
+    component, successive approximation in three steps, one that stops at
+    Al=1) with restart intervals of 1 and 7 MCUs: the decode equals cv2's
+    and, where the script sends every bit, the baseline file's."""
+    img = _image(45, 67, seed=7, channels=3 if sampling else 1)
+    base = _jpeg(img if sampling else img[..., 0], 90, sampling)
+    data = jpeg_scans.transcode(
+        base, jpeg_scans.script(name, 3 if sampling else 1), restart)
+    _assert_reads_as_jax(tmp_path, "t.jpg", data)
+    got = tjpeg.decode_jpeg(data)
+    if name == "stops_at_1":  # libjpeg smooths what it does not know
+        assert not np.array_equal(got, tjpeg.decode_jpeg(base))
+    else:
+        np.testing.assert_array_equal(got, tjpeg.decode_jpeg(base))
+
+
+def _scan_bounds(data: bytes):
+    """(start, end) of each scan's entropy-coded data."""
+    out, p = [], 2
+    while data[p + 1] != 0xD9:
+        (n,) = struct.unpack(">H", data[p + 2:p + 4])
+        p += 2 + n
+        if data[p - n - 1] != 0xDA:
+            continue
+        start = p
+        while data[p] != 0xFF or data[p + 1] == 0 or 0xD0 <= data[p + 1] <= 0xD7:
+            p += 1 if data[p] != 0xFF else 2
+        out.append((start, p))
+    return out
+
+
+# (sampling, restart, scan, where in its data): cuts in cv2's files in the
+# DC first scan, in AC first scans of Y and of the chroma, in Y's AC
+# refine from Al 2 to 1, in the DC refine, in the chroma's and Y's last
+# refine scans, at a scan's first byte, and between two scans
+PROGRESSIVE_CUTS = (("444", None, 1, 0.5), ("420", None, 2, 0.3),
+                    ("420", None, 3, 0.0), ("422", 2, 4, 0.6),
+                    ("420", None, 6, 0.5), ("444", 1, 7, 0.4),
+                    ("420", 3, 8, 0.7), ("420", None, 10, 0.5),
+                    ("411", None, 10, 0.9), ("440", None, 5, 1.0),
+                    (None, None, 4, 0.5), (None, 2, 6, 0.2))
+
+
+@pytest.mark.parametrize("sampling,restart,scan,where", PROGRESSIVE_CUTS)
+def test_truncated_progressive_jpeg_matches_cv2(tmp_path, sampling, restart,
+                                                scan, where):
+    """A progressive file cut short: the scans before the cut stand, the
+    MCU in progress decodes from zero bits, the blocks after it keep what
+    earlier scans put there, later scans are absent, and libjpeg-turbo's
+    block smoothing (its coefficient bits latched a component, the bits
+    before the last scan for the iMCU rows past the last good one)
+    estimates what is not known."""
+    img = _image(61, 83, seed=scan, channels=3 if sampling else 1)
+    data = _jpeg(img if sampling else img[..., 0], 90, sampling, restart,
+                 progressive=True)
+    a, b = _scan_bounds(data)[scan - 1]
+    _assert_reads_as_jax(tmp_path, "cut.jpg", data[:a + int((b - a) * where)])
+
+
+@pytest.mark.parametrize("scans,why", [
+    ([((0, 1, 2), 0, 0, 0, 0), ((0, 1), 1, 63, 0, 0)], None),
+    ([((0, 1, 2), 0, 0, 0, 14)], None),
+    ([((0, 1, 2), 0, 0, 0, 2), ((0, 1, 2), 0, 0, 2, 0)], None),
+    ([((0, 1, 2), 0, 5, 0, 0)], None),
+    ([((0,), 1, 63, 0, 0), ((0, 1, 2), 0, 0, 0, 0)], "AC before DC"),
+    ([((0, 1), 0, 0, 0, 0), ((2,), 1, 63, 0, 0)], "no DC for Cr"),
+    ([((0, 1, 2), 0, 0, 0, 1), ((0, 1, 2), 0, 0, 2, 1)], "Ah not Al"),
+], ids=["ac-two-components", "al-14", "ah-al-gap", "dc-se-5",
+        "ac-before-dc", "no-dc-for-cr", "refine-ah-mismatch"])
+def test_bad_progressions_fail_where_cv2_fails(tmp_path, scans, why):
+    """Progressions libjpeg refuses (an AC scan of two components, Al over
+    13, a refine whose Al is not Ah - 1, a DC scan with Se > 0) raise
+    ValueError, as cv2 returns None; those it only warns about decode as
+    cv2 decodes them."""
+    base = _jpeg(_image(24, 40, seed=1), 90, "420")
+    rest = [((k,), 1, 63, 0, 0) for k in range(3)]
+    data = jpeg_scans.transcode(base, scans + (rest if why is None else []))
+    (tmp_path / "b.jpg").write_bytes(data)
+    if why is None:
+        assert jio.imread_unit(str(tmp_path / "b.jpg")) is None
+        with pytest.raises(ValueError, match="bad progression") as e:
+            tjpeg.decode_jpeg(data)
+        assert not isinstance(e.value, tjpeg.Unsupported)
+        assert tio.read_u8(str(tmp_path / "b.jpg")) == (None, None)
+    else:
+        _assert_reads_as_jax(tmp_path, "b.jpg", data)
+
+
+def test_cli_six_reads_a_progressive_jpeg_as_its_baseline_twin(tmp_path):
+    """One frame as a baseline ``f.jpg`` and as ``g.jpg``, the same
+    coefficients in cv2's progressive script: the port's ``cli six
+    --device cpu`` writes each strategy's output equal for the two, and
+    the JAX CLI does too."""
+    frame = (torch_frames.underwater_img() * 255).round().astype(np.uint8)
+    src = tmp_path / "in"
+    src.mkdir()
+    base = tjpeg.encode_jpeg(frame)
+    (src / "f.jpg").write_bytes(base)
+    (src / "g.jpg").write_bytes(
+        jpeg_scans.transcode(base, jpeg_scans.script("cv2", 3)))
+    _assert_cli_six_twins(tmp_path, src, "f.jpg", "g.jpg")
 
 
 def _raw_as_rgb(img):
@@ -533,12 +694,20 @@ def test_cli_six_reads_a_tiff_as_its_png_twin(tmp_path):
     src.mkdir()
     (src / "f.png").write_bytes(tio.encode_png(frame))
     (src / "g.tif").write_bytes(ttiff.encode_tiff(frame))
+    _assert_cli_six_twins(tmp_path, src, "f.png", "g.tif")
+
+
+def _assert_cli_six_twins(tmp_path, src, f, g):
+    """``cli six`` of the port and of JAX on a folder holding one frame
+    as ``f`` and ``g``: the twins' outputs are equal in each, and the
+    port's equal JAX's within the float tolerances of
+    ``tests/test_torch_six.py``."""
     tcli.main(["six", "--input", str(src), "--output", str(tmp_path / "port"),
                "--device", "cpu"])
     jcli.main(["six", "--input", str(src), "--output", str(tmp_path / "jax")])
-    with open(tmp_path / "port" / "processing_log.csv", newline="") as f:
-        rows = list(csv.DictReader(f))
-    assert sorted({r["filename"] for r in rows}) == ["f.png", "g.tif"]
+    with open(tmp_path / "port" / "processing_log.csv", newline="") as log:
+        rows = list(csv.DictReader(log))
+    assert sorted({r["filename"] for r in rows}) == [f, g]
     assert all(r["status"] == "success" for r in rows)
     outs = sorted(p.name for p in (tmp_path / "port").glob("f_*.png"))
     assert len(outs) == 6

@@ -140,13 +140,17 @@ def no_dropout(monkeypatch):
     monkeypatch.setattr(layers, "dropout", lambda x, *a, **k: x)
 
 
-def _hold(name: str, case: dict, batches) -> None:
-    """Steps 1 and 2 of the port against JAX's, each from JAX's state
-    before it (module docstring); ``case`` holds the two trainers and the
-    JAX functions of one trainer."""
+def _hold(name: str, case: dict, batches, first: int = 1) -> None:
+    """Steps ``first``, ``first + 1``, ... of the port against JAX's, each
+    from JAX's state before it (module docstring); ``case`` holds the two
+    trainers and the JAX functions of one trainer, and optionally
+    ``load``, which sets the port's state before the first step in place
+    of JAX's state carried across by the bridge (the port's trainer then
+    keeps the epoch that ``load`` gave it)."""
     jt, tt = case["jax"], case["port"]
     p, st, s = case["params"], case["stats"], case["opt_state"]
-    for step, batch in enumerate(batches, 1):
+    for step, batch in enumerate(batches, first):
+        resumed = "load" in case and step == first
         loss_j, g_j, st_j = case["grad"](p, st, batch)
         p_j, s_j = case["apply"](g_j, s, p, step)
         adam, lr = case["adam"](s)
@@ -155,6 +159,9 @@ def _hold(name: str, case: dict, batches) -> None:
                  "count": np.asarray(adam.count)}
 
         def load():
+            if resumed:
+                case["load"]()
+                return
             bridge.load_flax(tt.model, {"params": case["inner"](_np(p)),
                                         **({"batch_stats": _np(st)}
                                            if st else {})})
@@ -186,7 +193,9 @@ def _hold(name: str, case: dict, batches) -> None:
         dl = abs(float(loss_t) / float(loss_j) - 1)
         # the optimiser on JAX's gradients
         _set_grads(tt, g_j)
-        case["set_lr"](step)
+        if not resumed:
+            case["set_epoch"](step)
+        case["set_lr"]()  # the learning rate the port's step sets
         tt._apply_gradients()
         want = bridge.flatten(case["inner"](_np(p_j)))
         dp, _, _, _ = _diff(bridge.flatten(bridge.to_flax(tt.model)["params"]),
@@ -197,7 +206,6 @@ def _hold(name: str, case: dict, batches) -> None:
                  for k in ("mu", "nu"))
         # the whole step
         load()
-        case["set_epoch"](step)
         loss_s = tt._step(idx, imgs, refs)
         after = bridge.to_flax(tt.model)
         dw, _, over, n = _diff(bridge.flatten(after["params"]), want)
@@ -228,7 +236,8 @@ def _hold(name: str, case: dict, batches) -> None:
         p, st, s = p_j, st_j, s_j
 
 
-def test_mlp_trainer_steps_match_jax(no_dropout):
+def mlp_case():
+    """The MLP trainers' case for ``_hold`` and its two batches."""
     jt = jtrainer.MLPTrainer(hidden_dim=32, num_blocks=1)
     tt = ttrainer.MLPTrainer(hidden_dim=32, num_blocks=1, device="cpu")
     key = jax.random.PRNGKey(0)
@@ -251,15 +260,19 @@ def test_mlp_trainer_steps_match_jax(no_dropout):
         tt._feature_cache = torch.from_numpy(feats(b[0]))
         return np.arange(B), torch.from_numpy(b[0]), torch.from_numpy(b[1])
 
-    _hold("mlp", {
+    return {
         "jax": jt, "port": tt, "params": jt.params, "stats": {},
         "opt_state": jt.opt_state,
         "grad": lambda p, st, b: grad(p, b[0], b[1], feats(b[0])) + ({},),
         "apply": lambda g, s, p, step: apply(g, s, p),
         "adam": lambda s: (s[1][0], lr),
         "inner": lambda t: t["params"],
-        "batch": batch, "set_lr": lambda step: None,
-        "set_epoch": lambda step: None}, _batches(32, 1))
+        "batch": batch, "set_lr": lambda: None,
+        "set_epoch": lambda step: None}, _batches(32, 1)
+
+
+def test_mlp_trainer_steps_match_jax(no_dropout):
+    _hold("mlp", *mlp_case())
 
 
 def _small_vit(make):
@@ -274,8 +287,8 @@ ZOO = {"resnet": ("resnet", 32), "vit": ("vit", 32),
        "efficientnet_b0": ("efficientnet", 64)}
 
 
-@pytest.mark.parametrize("net", sorted(ZOO))
-def test_zoo_trainer_steps_match_jax(no_dropout, monkeypatch, net):
+def zoo_case(monkeypatch, net):
+    """The zoo trainers' case for ``_hold`` and its two batches."""
     model_type, size = ZOO[net]
     jcreate, tcreate = (_small_vit(lambda **k: jzoo.ViTParameterPredictor(
         **VIT)), _small_vit(lambda **k: tzoo.ViTParameterPredictor(**VIT, **k)))
@@ -320,7 +333,7 @@ def test_zoo_trainer_steps_match_jax(no_dropout, monkeypatch, net):
             m.float()
             tt._mean, tt._inv_std = mean, inv
 
-    _hold(net, {
+    return {
         "jax": jt, "port": tt, "params": jt.params, "stats": jt.batch_stats,
         "oracle": oracle,
         "opt_state": jt.opt_state,
@@ -330,11 +343,17 @@ def test_zoo_trainer_steps_match_jax(no_dropout, monkeypatch, net):
         "inner": lambda t: t,
         "batch": lambda b: (None, torch.from_numpy(b[0]),
                             torch.from_numpy(b[1])),
-        "set_lr": lambda step: None, "set_epoch": lambda step: None},
-        _batches(size, 2))
+        "set_lr": lambda: None, "set_epoch": lambda step: None}, \
+        _batches(size, 2)
 
 
-def test_vgg_trainer_steps_match_jax(no_dropout):
+@pytest.mark.parametrize("net", sorted(ZOO))
+def test_zoo_trainer_steps_match_jax(no_dropout, monkeypatch, net):
+    _hold(net, *zoo_case(monkeypatch, net))
+
+
+def vgg_case():
+    """The f32 VGG trainers' case for ``_hold`` and its two batches."""
     with pytest.warns(UserWarning, match="RANDOM-init"):
         jt = jtrainer.VGGTrainer(hidden_dim=16, image_size=32, epochs=40,
                                  compute_dtype="float32",
@@ -358,13 +377,13 @@ def test_vgg_trainer_steps_match_jax(no_dropout):
         upd, s = jt.tx.update(g, s, p)
         return optax.apply_updates(p, upd), s
 
-    def set_lr(step):
+    def set_lr():  # as VGGTrainer._step does
         for g in tt.optimizer.param_groups:
-            g["lr"] = tt.schedule(step - 1)
+            g["lr"] = tt.schedule(tt._epoch_count)
 
     frozen = {f"vgg/conv{i}/{leaf}" for i in range(8)
               for leaf in ("kernel", "bias")}
-    _hold("vgg", {
+    return {
         "jax": jt, "port": tt, "params": jt.params, "stats": jt.batch_stats,
         "opt_state": jt.opt_state, "frozen": frozen,
         "grad": lambda p, st, b: grad(p, st, b[0], b[1]),
@@ -375,5 +394,9 @@ def test_vgg_trainer_steps_match_jax(no_dropout):
         "batch": lambda b: (None, torch.from_numpy(b[0]),
                             torch.from_numpy(b[1])),
         "set_lr": set_lr,
-        "set_epoch": lambda step: setattr(tt, "_epoch_count", step - 1)},
-        _batches(32, 3))
+        "set_epoch": lambda step: setattr(tt, "_epoch_count", step - 1)}, \
+        _batches(32, 3)
+
+
+def test_vgg_trainer_steps_match_jax(no_dropout):
+    _hold("vgg", *vgg_case())

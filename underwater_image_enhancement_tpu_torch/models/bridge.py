@@ -279,7 +279,8 @@ def load_optax_adam(module: nn.Module, optimizer: torch.optim.Optimizer,
                     state: Mapping) -> None:
     """Set a torch Adam/AdamW's state over ``module`` from optax's (the
     form ``optax_adam_state`` returns; ``learning_rate`` optional): each
-    held parameter's moments and step, and every group's lr.  Raises
+    held parameter's moments and step, and every group's lr (a group's
+    own lr kept where it rounds to the state's f32 value).  Raises
     ValueError on a missing, extra or wrongly shaped leaf before anything
     is set."""
     count = int(np.asarray(state["count"]))
@@ -308,5 +309,9 @@ def load_optax_adam(module: nn.Module, optimizer: torch.optim.Optimizer,
                    for name, src in (("exp_avg", "mu"),
                                      ("exp_avg_sq", "nu"))}}
     if "learning_rate" in state:
+        # the state keeps it in f32 (optax's): a group whose rate rounds to
+        # the same f32 (a trainer's own lr=1e-4) keeps its exact value
+        lr = np.float32(state["learning_rate"])
         for g in optimizer.param_groups:
-            g["lr"] = float(np.float32(state["learning_rate"]))
+            if np.float32(g["lr"]) != lr:
+                g["lr"] = float(lr)

@@ -1,16 +1,28 @@
-"""A baseline JPEG codec in numpy: a decoder bit-equal to libjpeg-turbo's
-default decompression (what ``cv2.imread`` returns for these files), and
+"""A JPEG codec in numpy: a decoder bit-equal to libjpeg-turbo's default
+decompression (what ``cv2.imread`` returns for these files), and
 ``encode_jpeg``, which writes the bytes ``cv2.imwrite`` writes with its
 defaults (see its docstring).
 
-Covers sequential Huffman JPEG (SOF0 baseline and SOF1 extended), 8-bit,
-with 1 or 3 components, any sampling factors whose ratios libjpeg
-upsamples (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and the like), restart
-intervals, one or several scans.  Anything else (progressive or arithmetic
-coding, 12 bits, lossless, CMYK) raises ``Unsupported``.  A file cut short
-in its entropy-coded data decodes as ``cv2.imread`` decodes it (libjpeg
-pads the data with zero bits and leaves the MCUs after the one in progress
-grey); one cut short before its first scan's data raises ValueError.
+Covers Huffman JPEG, sequential (SOF0 baseline, SOF1 extended) and
+progressive (SOF2), 8-bit, with 1 or 3 components, any sampling factors
+whose ratios libjpeg upsamples (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and the
+like), restart intervals, one or several scans.  Anything else
+(arithmetic coding, 12 bits, lossless, hierarchical, CMYK) raises
+``Unsupported``.  A file cut short in its entropy-coded data decodes as
+``cv2.imread`` decodes it (libjpeg pads the data with zero bits, the MCU
+in progress decodes from them, and the MCUs after it keep what earlier
+scans put there: grey in a sequential file); one cut short before its
+first scan's data raises ValueError.
+
+A progressive file's scans follow ``jdphuff.c``: DC first and refine
+scans (interleaved or not), AC first and refine scans of one component,
+EOB runs, restart intervals resetting the predictors and the EOB run,
+the progression checks that make libjpeg fail.  Where a coefficient is
+not fully known when the file ends (a script that stops before Al=0, or
+a file cut short), libjpeg-turbo's block smoothing (``jdcoefct.c``
+``decompress_smooth_data``) estimates the first nine AC coefficients,
+and the DC where no AC data came, from the 5x5 neighbourhood of DC
+values; ``_smooth`` repeats it.
 
 The arithmetic is libjpeg's, integer for integer:
 
@@ -51,7 +63,7 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _SOF_NAMES = {
-    0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+    0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
     0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
     0xCA: "arithmetic-coded JPEG (SOF10)", 0xCB: "lossless JPEG (SOF11)",
@@ -367,7 +379,7 @@ class _Frame:
     """SOF, and the coefficients of every component in one flat array (in
     zigzag order within a block; component k's blocks from offset[k])."""
 
-    def __init__(self, body: bytes):
+    def __init__(self, body: bytes, progressive: bool = False):
         prec, self.H, self.W, nc = struct.unpack(">BHHB", body[:6])
         if len(body) < 6 + 3 * nc:
             raise ValueError("corrupt JPEG: short frame header")
@@ -393,7 +405,24 @@ class _Frame:
                        for _, h, v, _ in self.comps]
         sizes = [by * bx * 64 for by, bx in self.blocks]
         self.offset = np.cumsum([0] + sizes)[:-1].tolist()
-        self.coef = np.zeros(sum(sizes), np.int64)
+        # each component's quantisation table, latched at its first scan
+        self.quant = [None] * nc
+        self.progressive = progressive
+        if not progressive:
+            self.coef = np.zeros(sum(sizes), np.int64)
+        else:
+            # libjpeg's whole-image coefficient buffer (zeroed), as a list
+            # the scans update in place (``_read`` makes ``coef`` of it at
+            # the end); coef_bits[k][i] is the Al of component k's zigzag
+            # coefficient i (-1 before any scan), prev_bits its value
+            # before the component's latest scan
+            self.plist = [0] * sum(sizes)
+            self.coef_bits = [[-1] * 64 for _ in range(nc)]
+            self.prev_bits = [[-1] * 64 for _ in range(nc)]
+            self.scans = 0
+            # the last iMCU row whose decoding left libjpeg's out-of-data
+            # flag clear (master->last_good_iMCU_row)
+            self.last_good = 0
 
     def comp_size(self, k: int):
         """libjpeg's downsampled_height, downsampled_width of component k."""
@@ -424,23 +453,38 @@ class _Frame:
         return order, len(per_mcu)
 
 
-def _decode_scan(frame: _Frame, header: bytes, entropy: bytes, restart: int,
-                 dc_tabs, ac_tabs) -> None:
+def _scan_members(frame: _Frame, header: bytes, qt):
+    """The components of a scan (frame indices) and each one's (DC table
+    id, AC table id); latches each component's quantisation table at its
+    first scan, as ``jdinput.c`` does."""
     ns = header[0] if header else 0
     if ns == 0 or len(header) < 4 + 2 * ns:
         raise ValueError("corrupt JPEG: short scan header")
     ids = [c[0] for c in frame.comps]
-    members, luts = [], [None] * len(frame.comps)
+    members, tables = [], []
     for j in range(ns):
-        cid, tables = header[1 + 2 * j], header[2 + 2 * j]
+        cid, t = header[1 + 2 * j], header[2 + 2 * j]
         if cid not in ids:
             raise ValueError("corrupt JPEG: scan of an unknown component")
         k = ids.index(cid)
         members.append(k)
-        if tables >> 4 not in dc_tabs or tables & 15 not in ac_tabs:
+        tables.append((t >> 4, t & 15))
+        if frame.quant[k] is None:
+            tq = frame.comps[k][3]
+            if tq not in qt:
+                raise ValueError("corrupt JPEG: missing quantisation table")
+            frame.quant[k] = qt[tq]
+    return members, tables
+
+
+def _decode_scan(frame: _Frame, header: bytes, entropy: bytes, restart: int,
+                 dc_tabs, ac_tabs, qt) -> None:
+    members, tables = _scan_members(frame, header, qt)
+    luts = [None] * len(frame.comps)
+    for k, (td, ta) in zip(members, tables):
+        if td not in dc_tabs or ta not in ac_tabs:
             raise ValueError("corrupt JPEG: missing Huffman table")
-        luts[k] = (dc_tabs[tables >> 4], ac_tabs[tables & 15],
-                   frame.offset[k])
+        luts[k] = (dc_tabs[td], ac_tabs[ta], frame.offset[k])
     order, per_mcu = frame.scan_order(members)
     per = (restart * per_mcu) if restart else len(order)
     segs = _split_restarts(entropy)
@@ -461,6 +505,313 @@ def _decode_scan(frame: _Frame, header: bytes, entropy: bytes, restart: int,
         frame.coef[np.asarray(idx, np.int64)] = val
 
 
+# ---------------------------------------------------------------------------
+# Progressive scans (jdphuff.c)
+# ---------------------------------------------------------------------------
+
+_DC_FIRST, _DC_REFINE, _AC_FIRST, _AC_REFINE = range(4)
+
+
+def _prog_segment(kind, seg, order, per_mcu, luts, c, Ss, Se, Al):
+    """Decode the blocks ``order`` [(component, block index)] of one
+    restart interval of a progressive scan of ``kind`` into the
+    coefficient list ``c`` (zigzag within a block, in place), as
+    ``jdphuff.c`` does: the DC predictors and the EOB run start at zero.
+    Where the data runs out, the MCU in progress reads zero bits and the
+    MCUs after it are left as they are.  Returns the index (within the
+    interval) of the MCU in which the data ran out, or None."""
+    win, nbits = _windows(seg), 8 * len(seg)
+    pos = 0
+    pred = [0] * len(luts)
+    eobrun = 0
+    p1 = 1 << Al
+    m1 = -p1
+    for j, (ci, base) in enumerate(order):
+        if pos > nbits:
+            if j % per_mcu == 0:
+                return j // per_mcu - 1
+            win, pos, nbits = _ZERO_WINDOWS, 0, -1
+        fast, slow, out_base = luts[ci]
+        flat = out_base + base * 64
+        if kind == _DC_FIRST:
+            adv, _, diff = fast[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
+            if not adv:
+                adv, _, diff = _slow_symbol(win, pos, slow, False)
+            pos += adv
+            v = pred[ci] = pred[ci] + diff
+            v <<= Al
+            c[flat] = v if -32768 <= v < 32768 else _wrap16(v)
+        elif kind == _DC_REFINE:
+            if (win[pos >> 3] >> (39 - (pos & 7))) & 1:
+                c[flat] |= p1
+            pos += 1
+        elif kind == _AC_FIRST:
+            if eobrun:
+                eobrun -= 1
+                continue
+            k = Ss
+            while k <= Se:
+                peek = (win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF
+                adv, run, v = fast[peek]
+                if not adv:
+                    adv, run, v = _slow_symbol(win, pos, slow, True)
+                pos += adv
+                if run == 64:  # EOBr: 2**r - 1 more blocks end here too
+                    r = (slow[peek] & 255) >> 4
+                    eobrun = (1 << r) - 1
+                    if r:
+                        eobrun += (win[pos >> 3] >> (40 - (pos & 7) - r)) \
+                            & ((1 << r) - 1)
+                        pos += r
+                    break
+                k += run
+                if v:
+                    v <<= Al
+                    c[flat + (k if k < 64 else 63)] = \
+                        v if -32768 <= v < 32768 else _wrap16(v)
+                k += 1
+        else:  # _AC_REFINE
+            k = Ss
+            if not eobrun:
+                while k <= Se:
+                    e = slow[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
+                    if not e:
+                        raise ValueError("corrupt JPEG: bad Huffman code")
+                    pos += e >> 8
+                    r, s = (e >> 4) & 15, e & 15
+                    if s:  # a new coefficient: its sign bit comes first
+                        s = p1 if (win[pos >> 3] >> (39 - (pos & 7))) & 1 \
+                            else m1
+                        pos += 1
+                    elif r != 15:  # EOBr
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += (win[pos >> 3]
+                                       >> (40 - (pos & 7) - r)) & ((1 << r) - 1)
+                            pos += r
+                        break
+                    # pass r zero coefficients (stopping on the one the
+                    # new value goes to), a correction bit a nonzero one
+                    while True:
+                        f = flat + k
+                        cur = c[f]
+                        if cur:
+                            if (win[pos >> 3] >> (39 - (pos & 7))) & 1 \
+                                    and not cur & p1:
+                                c[f] = cur + (p1 if cur >= 0 else m1)
+                            pos += 1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                        if k > Se:
+                            break
+                    if s:
+                        c[flat + (k if k < 64 else 63)] = s
+                    k += 1
+            if eobrun:
+                # the rest of the band: a correction bit a nonzero one
+                for f in range(flat + k, flat + Se + 1):
+                    cur = c[f]
+                    if cur:
+                        if (win[pos >> 3] >> (39 - (pos & 7))) & 1 \
+                                and not cur & p1:
+                            c[f] = cur + (p1 if cur >= 0 else m1)
+                        pos += 1
+                eobrun -= 1
+    return len(order) // per_mcu - 1 if pos > nbits else None
+
+
+def _scan_kind(frame: _Frame, members, Ss, Se, Ah, Al) -> int:
+    """The kind of a progressive scan, after libjpeg's checks
+    (``jdphuff.c`` start_pass_phuff_decoder): a progression it cannot
+    decode raises ValueError, as cv2 then returns None.  Updates the
+    components' coefficient bits as libjpeg does (its warnings about
+    inconsistent progressions do not stop it)."""
+    dc = Ss == 0
+    bad = (Se != 0) if dc else (Ss > Se or Se > 63 or len(members) != 1)
+    if (Ah and Al != Ah - 1) or bad or Al > 13:
+        raise ValueError(f"corrupt JPEG: bad progression (Ss={Ss} Se={Se} "
+                         f"Ah={Ah} Al={Al})")
+    for k in members:
+        cur, prev = frame.coef_bits[k], frame.prev_bits[k]
+        for i in range(min(Ss, 1), max(Se, 9) + 1):
+            prev[i] = cur[i] if frame.scans > 1 else 0
+        for i in range(Ss, Se + 1):
+            cur[i] = Al
+    if dc:
+        return _DC_REFINE if Ah else _DC_FIRST
+    return _AC_REFINE if Ah else _AC_FIRST
+
+
+def _decode_prog_scan(frame: _Frame, header: bytes, entropy: bytes,
+                      restart: int, dc_tabs, ac_tabs, qt) -> None:
+    """One scan of a progressive frame into ``frame.plist``, and the last
+    good iMCU row after it."""
+    members, tables = _scan_members(frame, header, qt)
+    ns = len(members)
+    Ss, Se, A = header[1 + 2 * ns], header[2 + 2 * ns], header[3 + 2 * ns]
+    frame.scans += 1
+    kind = _scan_kind(frame, members, Ss, Se, A >> 4, A & 15)
+    luts = [None] * len(frame.comps)
+    for k, (td, ta) in zip(members, tables):
+        if kind == _DC_REFINE:
+            luts[k] = (None, None, frame.offset[k])
+            continue
+        tabs, t = (dc_tabs, td) if kind == _DC_FIRST else (ac_tabs, ta)
+        if t not in tabs:
+            raise ValueError("corrupt JPEG: missing Huffman table")
+        luts[k] = tabs[t] + (frame.offset[k],)
+    order, per_mcu = frame.scan_order(members)
+    n_mcu = len(order) // per_mcu
+    per = restart if restart else n_mcu
+    segs = _split_restarts(entropy)
+    # libjpeg's out-of-data flag is set from the MCU in which an interval
+    # ran out until the restart marker that begins the next interval
+    # present: ``flagged`` holds those (first MCU, next interval's MCU)
+    flagged, out = [], False
+    for r, start in enumerate(range(0, n_mcu, per)):
+        if r < len(segs):
+            out = False
+        elif out:
+            break
+        bad = _prog_segment(kind, segs[r] if r < len(segs) else b"",
+                            order[start * per_mcu:(start + per) * per_mcu],
+                            per_mcu, luts, frame.plist, Ss, Se, A & 15)
+        if bad is not None:
+            out = True
+            end = start + per if r + 1 < len(segs) else n_mcu
+            flagged.append((start + bad, end))
+    # an iMCU row that starts with the flag clear is the last good one so
+    # far (the rows block smoothing takes the latest scan's bits for)
+    if ns > 1:
+        first = range(0, n_mcu, frame.mcus_x)
+    else:
+        v = frame.comps[members[0]][2]
+        dh, dw = frame.comp_size(members[0])
+        bx_n = -(-dw // 8)
+        first = range(0, n_mcu, v * bx_n)
+    for y, m in enumerate(first):
+        if not any(a < m <= b for a, b in flagged):
+            frame.last_good = y
+
+
+# ---------------------------------------------------------------------------
+# Block smoothing (libjpeg-turbo's jdcoefct.c, 5x5 DC neighbourhoods)
+# ---------------------------------------------------------------------------
+
+# A kernel is the 5x5 DC neighbourhood's weights (block rows -2..2, block
+# columns -2..2) for one coefficient, keyed by its zigzag index: the
+# first five AC coefficients where some AC data came, and the first nine
+# and the DC (key 0) where none did (DC interpolation).
+_SMOOTH_AC = {
+    1: ((0,) * 5, (0,) * 5, (-7, 50, 0, -50, 7), (0,) * 5, (0,) * 5),
+    2: ((0, 0, -7, 0, 0), (0, 0, 50, 0, 0), (0,) * 5, (0, 0, -50, 0, 0),
+        (0, 0, 7, 0, 0)),
+    3: ((0, 0, -1, 0, 0), (0, 0, 13, 0, 0), (0, 0, -24, 0, 0),
+        (0, 0, 13, 0, 0), (0, 0, -1, 0, 0)),
+    4: ((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), (0,) * 5, (1, -10, 0, 10, -1),
+        (0, 1, 0, -1, 0)),
+    5: ((0,) * 5, (0,) * 5, (-1, 13, -24, 13, -1), (0,) * 5, (0,) * 5),
+}
+_SMOOTH_DC = {
+    1: ((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3), (-3, 38, 0, -38, 3),
+        (-3, 13, 0, -13, 3), (-1, -1, 0, 1, 1)),
+    2: ((-1, -3, -3, -3, -1), (-1, 13, 38, 13, -1), (0,) * 5,
+        (1, -13, -38, -13, 1), (1, 3, 3, 3, 1)),
+    3: ((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0),
+        (0, 2, 7, 2, 0), (0, 0, 1, 0, 0)),
+    4: ((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), (0,) * 5, (0, -9, 0, 9, 0),
+        (1, 0, 0, 0, -1)),
+    5: ((0,) * 5, (0, 2, -5, 2, 0), (1, 7, -14, 7, 1), (0, 2, -5, 2, 0),
+        (0,) * 5),
+    6: ((0,) * 5, (0, 1, 0, -1, 0), (0, 2, 0, -2, 0), (0, 1, 0, -1, 0),
+        (0,) * 5),
+    7: ((0,) * 5, (0, 1, -3, 1, 0), (0,) * 5, (0, -1, 3, -1, 0), (0,) * 5),
+    8: ((0,) * 5, (0, 1, 0, -1, 0), (0, -3, 0, 3, 0), (0, 1, 0, -1, 0),
+        (0,) * 5),
+    9: ((0,) * 5, (0, 1, 2, 1, 0), (0,) * 5, (0, -1, -2, -1, 0), (0,) * 5),
+    0: ((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6), (-8, 42, 152, 42, -8),
+        (-6, 6, 42, 6, -6), (-2, -6, -8, -6, -2)),
+}
+
+
+def _smoothing_latch(frame: _Frame):
+    """``smoothing_ok``: None where libjpeg does not smooth, else each
+    component's latched coefficient bits (zigzag 0..9) and those before
+    its latest scan."""
+    useful = False
+    latch = []
+    for k in range(len(frame.comps)):
+        q = frame.quant[k]
+        if q is None or not q[ZIGZAG[:10]].all():
+            return None
+        cur = frame.coef_bits[k]
+        if cur[0] < 0:
+            return None
+        prev = frame.prev_bits[k] if frame.scans > 1 else [-1] * 64
+        latch.append((cur[:10], [cur[0]] + prev[1:10]))
+        useful |= any(b != 0 for b in cur[1:10])
+    return latch if useful else None
+
+
+def _neighbour_rows(by_real: int, v: int, total: int) -> np.ndarray:
+    """For each block row b of a component (``by_real`` rows with
+    samples, v block rows an iMCU row, ``total`` iMCU rows), the block
+    rows libjpeg reads as rows -2..2 of its neighbourhood
+    (decompress_smooth_data's pointers, whose edge tests count the last
+    iMCU row's block rows as if every iMCU row had as many)."""
+    rows = []
+    for b in range(by_real):
+        R, br = divmod(b, v)
+        block_rows = v if R < total - 1 else (by_real % v or v)
+        ib, n = R * block_rows + br, block_rows * total
+        prev = b - 1 if ib > 0 else b
+        pprev = b - 2 if ib > 1 else prev
+        nxt = b + 1 if ib < n - 1 else b
+        nnxt = b + 2 if ib < n - 2 else nxt
+        rows.append((pprev, prev, b, nxt, nnxt))
+    return np.array(rows, np.int64).reshape(-1, 5)
+
+
+def _smooth(frame: _Frame, k: int, zz: np.ndarray, latch) -> np.ndarray:
+    """Component k's (by, bx, 64) zigzag coefficients with libjpeg-turbo's
+    block smoothing applied to its blocks that hold samples."""
+    v = frame.comps[k][2]
+    dh, dw = frame.comp_size(k)
+    by_real, bx_real = -(-dh // 8), -(-dw // 8)
+    q = frame.quant[k][ZIGZAG[:10]].astype(np.int64)
+    rows = _neighbour_rows(by_real, v, frame.mcus_y)
+    cols = np.clip(np.arange(bx_real)[:, None] + np.arange(-2, 3), 0,
+                   bx_real - 1)
+    # hood[b, x, i, j]: the DC at neighbourhood row i, column j
+    hood = zz[..., 0][rows[:, None, :, None], cols[None, :, None, :]]
+    out = zz.copy()
+    # iMCU rows past the last good one take the bits before the last scan
+    past = (np.arange(by_real) // v) > frame.last_good
+    for bits, sel in zip(latch, (~past, past)):
+        if not sel.any():
+            continue
+        change_dc = all(b == -1 for b in bits[1:10])
+        blk = out[:by_real, :bx_real][sel]
+        for i, kern in (_SMOOTH_DC if change_dc else _SMOOTH_AC).items():
+            if i and bits[i] == 0:
+                continue
+            num = q[0] * np.einsum("bij,ij->b", hood[sel].reshape(-1, 5, 5),
+                                   np.array(kern)).reshape(blk.shape[:-1])
+            pred = ((q[i] << 7) + np.abs(num)) // (q[i] << 8)
+            if i and bits[i] > 0:
+                pred = np.minimum(pred, (1 << bits[i]) - 1)
+            pred = np.where(num < 0, -pred, pred)
+            if i:
+                blk[..., i] = np.where(blk[..., i] == 0, pred, blk[..., i])
+            else:
+                blk[..., 0] = pred
+        out[:by_real, :bx_real][sel] = blk
+    return out
+
+
 def _color_space(frame: _Frame, jfif: bool, adobe_transform) -> str:
     """jdapimin.c default_decompress_parms for 3 components."""
     if jfif:
@@ -471,10 +822,11 @@ def _color_space(frame: _Frame, jfif: bool, adobe_transform) -> str:
     return "rgb" if ids == (82, 71, 66) else "ycc"
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W) uint8 gray or (H, W, 3) uint8 RGB, as libjpeg
-    decompresses them by default.  Raises ``Unsupported`` for files outside
-    this decoder's scope, ValueError for corrupt ones."""
+def _read(data: bytes):
+    """Parse a JPEG and decode its scans -> (frame, whether it has a JFIF
+    marker, the Adobe transform or None).  ``frame.coef`` then holds the
+    quantised coefficients of every component (zigzag within a block,
+    component k's padded block array from ``frame.offset[k]``)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     qt, dc_tabs, ac_tabs = {}, {}, {}
@@ -538,31 +890,48 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 p += 17 + n
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1):
-            frame = _Frame(body)
+        elif marker in (0xC0, 0xC1, 0xC2):
+            frame = _Frame(body, progressive=marker == 0xC2)
         elif marker in _SOF_NAMES:
             raise Unsupported(_SOF_NAMES[marker])
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("corrupt JPEG: SOS before SOF")
             stop = _scan_end(data, pos)
-            _decode_scan(frame, body, data[pos:stop], restart, dc_tabs,
-                         ac_tabs)
+            scan = _decode_prog_scan if frame.progressive else _decode_scan
+            scan(frame, body, data[pos:stop], restart, dc_tabs, ac_tabs, qt)
             pos, scanned = stop, True
     if frame is None:
         raise ValueError("corrupt JPEG: no frame")
     if not scanned:  # libjpeg: "JPEG datastream contains no image"
         raise ValueError("corrupt JPEG: no scan")
+    if frame.progressive:
+        frame.coef = np.array(frame.plist, np.int64)
+    for k, (_, _, _, tq) in enumerate(frame.comps):
+        if frame.quant[k] is None:  # a component no scan reached
+            if tq not in qt:
+                raise ValueError("corrupt JPEG: missing quantisation table")
+            frame.quant[k] = qt[tq]
+    return frame, jfif, adobe_transform
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W) uint8 gray or (H, W, 3) uint8 RGB, as libjpeg
+    decompresses them by default.  Raises ``Unsupported`` for files outside
+    this decoder's scope, ValueError for corrupt ones."""
+    frame, jfif, adobe_transform = _read(data)
+    latch = _smoothing_latch(frame) if frame.progressive else None
     planes = []
-    for k, (_, h, v, tq) in enumerate(frame.comps):
-        if tq not in qt:
-            raise ValueError("corrupt JPEG: missing quantisation table")
+    for k, (_, h, v, _) in enumerate(frame.comps):
         by, bx = frame.blocks[k]
         off = frame.offset[k]
-        zz = frame.coef[off:off + by * bx * 64].reshape(-1, 64)
+        zz = frame.coef[off:off + by * bx * 64].reshape(by, bx, 64)
+        if latch is not None:
+            zz = _smooth(frame, k, zz, latch[k])
+        zz = zz.reshape(-1, 64)
         nat = np.empty_like(zz)
         nat[:, ZIGZAG] = zz
-        px = idct_islow(nat, qt[tq]).reshape(by, bx, 8, 8)
+        px = idct_islow(nat, frame.quant[k]).reshape(by, bx, 8, 8)
         px = px.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
         dh, dw = frame.comp_size(k)
         fh, fv = frame.hmax // h, frame.vmax // v
