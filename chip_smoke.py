@@ -63,7 +63,14 @@ non-zero):
    three-step successive approximation with restarts), each decoding
    bit-equal to it (host decode ms printed), ``cli six --device cuda`` on
    the first writing PNGs byte-equal to those of the baseline file with
-   six exact's launches of one frame, then the five
+   six exact's launches of one frame, ``[png16]`` (``png16_slice``):
+   frame 0 as a 16-bit PNG with every filter type, the 16-bit TIFF
+   cv2 writes, an 8-bit palette PNG and an 8-bit Adam7 PNG, each decoding
+   equal to the array written (host ms printed), ``cli six --device
+   cuda`` on the 16-bit PNG (values to 257) with each kernel call replayed
+   bit-equal to its plain version, ``cli enhance --device cuda`` on it,
+   and on a 270x480 crop of it ``six_strategy_tuple`` in each tier and
+   ``enhance_batch`` card against CPU at the frame-0 gates, then the five
    CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
@@ -1219,6 +1226,178 @@ def jpeg_prog_slice(torch, run_cli, smi: str) -> None:
           "progressive file than for the baseline file")
     log("jpeg_prog", six_outputs="byte-equal", launches="equal",
         seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
+# [png16]: 16-bit PNG and TIFF input, and palette and Adam7 PNG, from
+# frame 0; six and enhance on the 16-bit file, card against CPU on a crop
+PNG16_CROP = (270, 480)
+
+
+def sixteen_bit(u8: np.ndarray, seed: int) -> np.ndarray:
+    """A 16-bit frame of a u8 one, the recipe of
+    ``tests/test_torch_read16.frame16``: the samples cubed over the 16-bit
+    range with seeded low bits, so that a part of the frame reads under 1
+    and the rest over it (to 257)."""
+    u = u8.astype(np.float64) / 255.0
+    v = (np.round(u ** 3 * 65535)
+         + np.random.default_rng(seed).integers(-128, 128, u.shape))
+    return np.clip(v, 0, 65535).astype(np.uint16)
+
+
+def palette_332(u8: np.ndarray) -> tuple:
+    """(indices, palette): the frame quantised to 3-3-2 bits of R, G, B,
+    and the 256 colours of those indices."""
+    idx = (u8[..., 0] >> 5 << 5) | (u8[..., 1] >> 5 << 2) | (u8[..., 2] >> 6)
+    i = np.arange(256)
+    pal = np.stack([(i >> 5) * 255 // 7, (i >> 2 & 7) * 255 // 7,
+                    (i & 3) * 85], -1).astype(np.uint8)
+    return idx, pal
+
+
+def png16_slice(torch, run_cli, captured_match, replay, smi: str) -> None:
+    """[png16]: from 1080p frame 0, a 16-bit RGB PNG whose rows cycle
+    through the five filter types (``tests/torch_png.py``), the 16-bit
+    LZW + predictor TIFF ``cv2.imwrite`` writes (``tiff.encode_tiff``), an
+    8-bit palette PNG and an 8-bit Adam7 PNG; each decodes equal to the
+    array written (host ms of each write and decode printed).  ``cli six
+    --device cuda`` on the 16-bit PNG (values to 257) with six exact's
+    launches of one frame (``SIX_ONE_FRAME``), each kernel call captured
+    and replayed bit-equal to its plain version; ``cli enhance --device
+    cuda`` on it (the ``hist`` stretch, which rounds the off-grid values
+    and clips those over 1).  On a ``PNG16_CROP`` crop of the 16-bit
+    frame, ``six_strategy_tuple`` in each tier and ``enhance_batch`` on
+    the card against the port's CPU path at the gates of the frame-0
+    check (cast code, airlight A and box equal; recipes 4-6 and enhance
+    within 1e-6, 1-3 at >= 50 dB)."""
+    from tests import torch_png
+    from underwater_image_enhancement_tpu_torch.ops import airlight
+    from underwater_image_enhancement_tpu_torch.ops.layout import split_planes
+    from underwater_image_enhancement_tpu_torch.pipeline import (
+        cast as cast_mod,
+    )
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+        enhance_batch,
+        six_strategy_tuple,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+    from underwater_image_enhancement_tpu_torch.utils.tiff import (
+        decode_tiff,
+        encode_tiff,
+    )
+
+    t_phase = time.perf_counter()
+    out = WORK / "png16"
+    (out / "in").mkdir(parents=True, exist_ok=True)
+    u8 = uio.imread_u8(str(WORK / "in" / "frame0.png"))
+    v16 = sixteen_bit(u8, 16)
+    idx, pal = palette_332(u8)
+    files = (
+        ("rgb16.png", lambda: torch_png.encode(
+            v16, 16, filters=lambda y: y % 5), v16, uio.decode_png),
+        ("rgb16.tif", lambda: encode_tiff(v16), v16, decode_tiff),
+        ("palette8.png", lambda: torch_png.encode(idx, 8, 3, palette=pal),
+         pal[idx], uio.decode_png),
+        ("adam7.png", lambda: torch_png.encode(u8, 8, interlace=True), u8,
+         uio.decode_png))
+    for name, write, want, decode in files:
+        t0 = time.perf_counter()
+        data = write()
+        t_write = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = decode(data)
+        t_read = (time.perf_counter() - t0) * 1e3
+        check(got.dtype == want.dtype and np.array_equal(got, want),
+              f"png16: {name} decodes to other samples than were written")
+        (out / name).write_bytes(data)
+        log("png16", file=name, bytes=len(data), frame=f"{W}x{H}",
+            dtype=str(want.dtype), write_host_ms=f"{t_write:.1f}",
+            decode_host_ms=f"{t_read:.1f}", equal_to_written=True,
+            card=repr(smi))
+    unit = uio.imread_unit(str(out / "rgb16.png"))
+    check(np.array_equal(unit, v16 / np.float32(255))
+          and 1.0 < float(unit.max()) <= 257.0,
+          f"png16: imread_unit of the 16-bit PNG, max {float(unit.max())}")
+    (out / "in" / "frame0_16.png").write_bytes((out / "rgb16.png")
+                                               .read_bytes())
+    calls, launches, secs = run_cli(
+        ["six", "--device", "cuda", "--input", str(out / "in"), "--output",
+         str(out / "six")], True)
+    d = launches["hysteresis_propagate"]
+    check(all(launches[k] == v for k, v in SIX_ONE_FRAME.items())
+          and d >= 1 and launches["sat_rows"] == d + 1,
+          f"png16: six on the 16-bit file launched {launches}")
+    check(captured_match(calls, launches),
+          f"png16: captured calls {[len(v) for v in calls.values()]} vs "
+          f"launches {launches}")
+    pngs = sorted(p.name for p in (out / "six").glob("*.png"))
+    check(pngs == sorted(f"frame0_16_{n}.png" for n in SIX_ORDER),
+          f"png16: six outputs {pngs}")
+    replayed = {}
+    for kname, arglists in calls.items():
+        for k, args in enumerate(arglists):
+            replay(kname, args, f"png16 six call {k} (values to 257)")
+        if arglists:
+            replayed[kname] = len(arglists)
+    torch.cuda.synchronize()
+    log("png16", command="'six --device cuda' (16-bit PNG)",
+        seconds=f"{secs:.2f}",
+        launches=json.dumps(nonzero(launches), separators=(",", ":")),
+        replayed_bit_equal=json.dumps(replayed, separators=(",", ":")))
+    _, launches, secs = run_cli(
+        ["enhance", "--device", "cuda", "--input", str(out / "in"),
+         "--output", str(out / "enhance")], False)
+    img = uio.imread_u8(str(out / "enhance" / "frame0_16_enhanced.png"))
+    check(img is not None and img.shape == (H, W, 3)
+          and not any(launches.values()),
+          f"png16: enhance on the 16-bit file: {launches}")
+    log("png16", command="'enhance --device cuda' (16-bit PNG, hist)",
+        seconds=f"{secs:.2f}")
+    h, w = PNG16_CROP
+    crop = np.ascontiguousarray(unit[:h, :w])
+    check(float(crop.max()) > 1.0 and float(crop.min()) < 1.0,
+          "png16: the crop holds no values past 1 (or none under it)")
+    for tier, fast in (("exact", False), ("fast", True)):
+        outs_g, code_g = six_strategy_tuple(crop, fast=fast, device="cuda")
+        outs_c, code_c = six_strategy_tuple(crop, fast=fast, device="cpu")
+        check(int(code_g) == int(code_c),
+              f"png16 {tier}: cast code card {int(code_g)} vs CPU "
+              f"{int(code_c)}")
+        desc = (airlight.quadtree_airlight_planes if fast
+                else airlight.quadtree_airlight_exact_planes)
+        kw = {"edge_iters": 4} if fast else {}
+        air = []
+        for dev in ("cuda", "cpu"):
+            corr, _ = cast_mod.detect_and_correct(
+                torch.from_numpy(crop).to(dev))
+            air.append(desc(split_planes(corr), return_box=True, **kw))
+        (A_g, box_g), (A_c, box_c) = air
+        check(box_g == box_c and torch.equal(A_g.cpu(), A_c),
+              f"png16 {tier}: airlight card {A_g.tolist()} {box_g} vs CPU "
+              f"{A_c.tolist()} {box_c}")
+        diffs = {}
+        for k, n in enumerate(SIX_ORDER):
+            a, b = outs_g[k].cpu().double(), outs_c[k].double()
+            check(a.shape == (h, w, 3) and bool(torch.isfinite(a).all()),
+                  f"png16 {tier} {n}: shape {tuple(a.shape)} or non-finite")
+            diffs[n] = float((a - b).abs().max())
+            if k >= 3:
+                check(diffs[n] <= 1e-6,
+                      f"png16 {tier} {n}: card vs CPU {diffs[n]} > 1e-6")
+            else:
+                check(psnr_db(a, b) >= 50.0,
+                      f"png16 {tier} {n}: card vs CPU "
+                      f"{psnr_db(a, b):.1f} dB < 50")
+        log("png16", card_vs_cpu=tier, crop=f"{w}x{h}", code=int(code_c),
+            A=A_c.tolist(), box=box_c,
+            max_abs=json.dumps(diffs, separators=(",", ":")))
+    e_g = enhance_batch(crop[None], 10.0, 90.0, 0.6, 1.2, device="cuda")
+    e_c = enhance_batch(crop[None], 10.0, 90.0, 0.6, 1.2, device="cpu")
+    d_e = float((e_g.cpu().double() - e_c.double()).abs().max())
+    check(d_e <= 1e-6, f"png16: enhance_batch card vs CPU {d_e} > 1e-6")
+    log("png16", function="enhance_batch (hist)", crop=f"{w}x{h}",
+        max_abs=d_e, seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=repr(smi))
 
 
 # [train_mesh]: MLPTrainer, ZooTrainer("vit"), the f32 VGGTrainer and the
@@ -2422,6 +2601,8 @@ def main() -> int:
     write_slice(torch, run_cli, src, smi)
     # [jpeg_prog] frame0.jpg as progressive files, and six on one
     jpeg_prog_slice(torch, run_cli, smi)
+    # [png16] 16-bit PNG and TIFF, palette and Adam7 PNG; six on 16 bits
+    png16_slice(torch, run_cli, captured_match, replay, smi)
 
     # Phase-1 labeling: auto, build-dataset, build-dataset --fast
     for key, argv in (

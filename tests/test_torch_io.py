@@ -6,9 +6,11 @@ restart interval, gray, odd sizes, RGB components), on BMPs (as cv2
 writes them, and 32-bit and top-down variants built here) and on 8-bit
 TIFFs (as cv2 writes them in each of its compressions, as the port's
 encoder writes them, and big-endian, tiled, multi-page, predictor and
-alpha variants built here); files cv2 reads and the port does not come
-back as None and are logged by name; a ``.tif`` in a ``cli six`` folder
-is enhanced as its ``.png`` twin is."""
+alpha variants built here), and 16-bit TIFFs the same ways (their
+samples through ``imread_unit`` up to 257, through ``imread_u8`` as
+JAX's ``train/data._imread_rgb`` reads them); files cv2 reads and the
+port does not come back as None and are logged by name; a ``.tif`` in a
+``cli six`` folder is enhanced as its ``.png`` twin is."""
 
 import csv
 import struct
@@ -21,6 +23,7 @@ import pytest
 from tests import torch_frames
 from tests import torch_jpeg_scans as jpeg_scans
 from underwater_image_enhancement_tpu import cli as jcli
+from underwater_image_enhancement_tpu.train import data as jdata
 from underwater_image_enhancement_tpu.utils import io as jio
 from underwater_image_enhancement_tpu_torch import cli as tcli
 from underwater_image_enhancement_tpu_torch.utils import io as tio
@@ -242,7 +245,7 @@ def test_truncated_jpeg_is_unreadable(tmp_path, cut, file):
     assert not isinstance(e.value, tjpeg.Unsupported)
     (tmp_path / "cut.jpg").write_bytes(data[:n])
     assert jio.imread_unit(str(tmp_path / "cut.jpg")) is None
-    assert tio.read_u8(str(tmp_path / "cut.jpg")) == (None, None)
+    assert tio.read_image(str(tmp_path / "cut.jpg")) == (None, None)
 
 
 def _cmyk_jpeg(gray: bytes) -> bytes:
@@ -281,20 +284,23 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     for name in files:
         assert (jio.imread_unit(str(tmp_path / name)) is None) == (
             name == "junk.png"), name
-    assert tio.read_u8(str(tmp_path / "cmyk.jpg")) == (
+    assert tio.read_image(str(tmp_path / "cmyk.jpg")) == (
         None, "JPEG with 4 components (CMYK or YCCK)")
-    assert tio.read_u8(str(tmp_path / "tiff.tif")) == (None, "16-bit TIFF")
-    assert tio.read_u8(str(tmp_path / "junk.png")) == (None, None)
+    # the 16-bit TIFF, which the port skipped before it read them
+    img, why = tio.read_image(str(tmp_path / "tiff.tif"), color=True)
+    assert why is None
+    np.testing.assert_array_equal(
+        img, jdata._imread_rgb(str(tmp_path / "tiff.tif")))
+    assert tio.read_image(str(tmp_path / "junk.png")) == (None, None)
     logged = []
     got = [p.name for p, _ in tio.decode_iter(
         tio.collect_images(str(tmp_path)), log=logged.append)]
-    assert got == ["fine.jpg"]
+    assert got == ["fine.jpg", "tiff.tif"]
     assert sorted(logged) == sorted([
         "warning: 555.bmp unsupported by the port: 16-bit BMP",
         "warning: unreadable junk.png",
         "warning: cmyk.jpg unsupported by the port: JPEG with 4 components "
         "(CMYK or YCCK)",
-        "warning: tiff.tif unsupported by the port: 16-bit TIFF",
     ])
 
 
@@ -417,7 +423,7 @@ def test_bad_progressions_fail_where_cv2_fails(tmp_path, scans, why):
         with pytest.raises(ValueError, match="bad progression") as e:
             tjpeg.decode_jpeg(data)
         assert not isinstance(e.value, tjpeg.Unsupported)
-        assert tio.read_u8(str(tmp_path / "b.jpg")) == (None, None)
+        assert tio.read_image(str(tmp_path / "b.jpg")) == (None, None)
     else:
         _assert_reads_as_jax(tmp_path, "b.jpg", data)
 
@@ -446,14 +452,30 @@ def _raw_as_rgb(img):
 
 
 def _assert_tiff_reads_as_cv2(tmp_path, data):
-    """``decode_tiff`` equals cv2's array, alpha included; ``read_u8`` and
-    ``imread_unit`` equal the JAX package's reading."""
-    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
-    assert want is not None and want.dtype == np.uint8
+    """``decode_tiff`` equals cv2's array (``cv2.imread(path,
+    IMREAD_UNCHANGED)``, as the JAX package reads), alpha included, uint8
+    or uint16; ``imread_unit`` equals the JAX package's bit for bit and
+    ``imread_u8`` JAX's ``train/data._imread_rgb`` (``IMREAD_COLOR``).
+    ``cv2.imdecode`` gives the same array, or None where libtiff reads
+    from memory and refuses uncompressed tiles of a size not a multiple
+    of 1024 bytes (the 8-bit path, and ``IMREAD_COLOR`` at 16 bits)."""
+    path = tmp_path / "t.tif"
+    path.write_bytes(data)
+    want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    assert want is not None
+    from_memory = cv2.imdecode(np.frombuffer(data, np.uint8),
+                               cv2.IMREAD_UNCHANGED)
+    if from_memory is not None:
+        np.testing.assert_array_equal(from_memory, want)
     got = ttiff.decode_tiff(data)
-    assert got.shape == _raw_as_rgb(want).shape
+    assert got.dtype == want.dtype and got.shape == _raw_as_rgb(want).shape
     np.testing.assert_array_equal(got, _raw_as_rgb(want))
-    _assert_reads_as_jax(tmp_path, "t.tif", data)
+    np.testing.assert_array_equal(tio.imread_unit(str(path)),
+                                  jio.imread_unit(str(path)))
+    np.testing.assert_array_equal(tio.imread_u8(str(path)),
+                                  jdata._imread_rgb(str(path)))
+    if want.dtype == np.uint8:
+        _assert_reads_as_jax(tmp_path, "t.tif", data)
 
 
 @pytest.mark.parametrize("compression", [1, 5, 8, 32773, 32946])
@@ -613,12 +635,101 @@ TIFF_BUILT = {
         [rgba], tags={338: (3, [1])}),
     "unassociated alpha": lambda rgb, gray, rgba: _tiff(
         [rgba], compression=5, tags={338: (3, [2])}),
+    # uncompressed tiles: cv2.imread reads them, cv2.imdecode only where
+    # a tile's bytes are a multiple of 1024
+    "tiled rgba uncompressed": lambda rgb, gray, rgba: _tiff(
+        [rgba], tile=(16, 16)),
+    "tiled gray uncompressed 1 KiB tiles": lambda rgb, gray, rgba: _tiff(
+        [gray], ">", tile=(64, 16)),
+    "tiled rgb uncompressed": lambda rgb, gray, rgba: _tiff(
+        [rgb], tile=(16, 16)),
+    "tiled gray uncompressed": lambda rgb, gray, rgba: _tiff(
+        [gray], ">", tile=(48, 16)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(TIFF_BUILT))
 def test_tiff_built_by_hand_matches_cv2(tmp_path, name):
     _assert_tiff_reads_as_cv2(tmp_path, TIFF_BUILT[name](*_tiff_images()))
+
+
+def _tiff16_images():
+    """16-bit RGB, gray and RGBA of every sample value's range: the seeded
+    8-bit images times 257 plus seeded low bytes."""
+    rng = np.random.default_rng(18)
+    return tuple((a.astype(np.uint16) * 257) ^ rng.integers(
+        0, 256, a.shape).astype(np.uint16) for a in _tiff_images())
+
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773, 32946])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_tiff16_written_by_cv2_matches_cv2(tmp_path, channels, compression):
+    rgb, gray, rgba = _tiff16_images()
+    img = {1: gray, 3: rgb[..., ::-1], 4: rgba[..., [2, 1, 0, 3]]}[channels]
+    ok, buf = cv2.imencode(".tiff", img,
+                           [cv2.IMWRITE_TIFF_COMPRESSION, compression])
+    assert ok
+    _assert_tiff_reads_as_cv2(tmp_path, buf.tobytes())
+
+
+TIFF16_BUILT = {
+    "16-bit": lambda rgb, gray, rgba: _tiff([rgb]),
+    "big-endian rgb lzw predictor": lambda rgb, gray, rgba: _tiff(
+        [rgb], ">", compression=5, predictor=2, rows_per_strip=8),
+    "big-endian gray deflate predictor": lambda rgb, gray, rgba: _tiff(
+        [gray], ">", compression=8, predictor=2, rows_per_strip=7),
+    "gray lzw predictor": lambda rgb, gray, rgba: _tiff(
+        [gray], compression=5, predictor=2),
+    "big-endian rgba deflate": lambda rgb, gray, rgba: _tiff(
+        [rgba], ">", compression=32946, predictor=2),
+    "strips of 5 rows packbits": lambda rgb, gray, rgba: _tiff(
+        [rgb], compression=32773, rows_per_strip=5),
+    "predictor with packbits": lambda rgb, gray, rgba: _tiff(
+        [rgb], ">", compression=32773, predictor=2),
+    "predictor without compression": lambda rgb, gray, rgba: _tiff(
+        [gray], predictor=2),
+    "tiled rgb lzw predictor": lambda rgb, gray, rgba: _tiff(
+        [rgb], ">", tile=(16, 16), compression=5, predictor=2),
+    "tiled rgba deflate": lambda rgb, gray, rgba: _tiff(
+        [rgba], tile=(32, 16), compression=8),
+    # gray tiles cut at the right edge: an even and an odd skew
+    "tiled gray lzw": lambda rgb, gray, rgba: _tiff(
+        [gray], tile=(16, 16), compression=5),
+    "tiled big-endian gray packbits": lambda rgb, gray, rgba: _tiff(
+        [gray], ">", tile=(32, 16), compression=32773),
+    "tiled gray uncompressed 1 KiB tiles": lambda rgb, gray, rgba: _tiff(
+        [gray], tile=(32, 16)),
+    "tiled rgb uncompressed": lambda rgb, gray, rgba: _tiff(
+        [rgb], tile=(16, 16)),
+    "tiled gray uncompressed": lambda rgb, gray, rgba: _tiff(
+        [gray], ">", tile=(16, 16)),
+    "two pages": lambda rgb, gray, rgba: _tiff([gray, rgb], compression=5),
+    "unspecified extra sample": lambda rgb, gray, rgba: _tiff(
+        [rgba], compression=5, predictor=2, tags={338: (3, [0])}),
+    "associated alpha": lambda rgb, gray, rgba: _tiff(
+        [rgba], ">", tags={338: (3, [1])}),
+    "unassociated alpha": lambda rgb, gray, rgba: _tiff(
+        [rgba], compression=5, tags={338: (3, [2])}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TIFF16_BUILT))
+def test_tiff16_built_by_hand_matches_cv2(tmp_path, name):
+    """16-bit files in each layout and compression of the 8-bit ones: the
+    predictor's sums mod 65536 in the file's byte order; ``IMREAD_COLOR``
+    through libtiff's RGBA reader (gray's high byte, with its row step in
+    a cut tile; RGB ``(v + 128) // 257``; an unassociated alpha
+    premultiplied)."""
+    _assert_tiff_reads_as_cv2(tmp_path, TIFF16_BUILT[name](*_tiff16_images()))
+
+
+def test_tiff16_alpha_is_read_as_it_is():
+    """At 16 bits cv2 reads every extra sample's colours unchanged, where
+    the 8-bit reader premultiplies an unassociated alpha."""
+    rgb, gray, rgba = _tiff16_images()
+    for extra in (0, 1, 2):
+        data = _tiff([rgba], tags={338: (3, [extra])})
+        np.testing.assert_array_equal(ttiff.decode_tiff(data), rgba)
 
 
 def test_tiff_unassociated_alpha_is_premultiplied():
@@ -639,8 +750,6 @@ def _palette(rgb, gray, rgba):
 
 # variants cv2 reads and the port does not: (file, the name it logs)
 TIFF_UNSUPPORTED = {
-    "16-bit": (lambda rgb, gray, rgba: _tiff([rgb.astype(np.uint16) * 257]),
-               "16-bit TIFF"),
     "palette": (_palette, "palette TIFF"),
     "cmyk": (lambda rgb, gray, rgba: _tiff([rgba], photometric=5),
              "CMYK TIFF"),
@@ -661,7 +770,7 @@ def test_tiff_variants_the_port_does_not_read_are_named(tmp_path, name):
     path = tmp_path / "v.tif"
     path.write_bytes(build(*_tiff_images()))
     assert jio.imread_unit(str(path)) is not None  # cv2 reads it
-    assert tio.read_u8(str(path)) == (None, why)
+    assert tio.read_image(str(path)) == (None, why)
 
 
 @pytest.mark.parametrize("compression,first,why", [

@@ -288,8 +288,10 @@ def test_png_rejects_what_it_cannot_read(tmp_path):
     bad.write_bytes(b"not an image")
     assert tio.imread_unit(str(bad)) is None
     deep = tmp_path / "deep.png"
-    assert cv2.imwrite(str(deep), np.zeros((4, 4, 3), np.uint16))
-    assert tio.imread_unit(str(deep)) is None
+    assert cv2.imwrite(str(deep), np.full((4, 4, 3), 65535, np.uint16))
+    # a 16-bit PNG reads as the JAX package reads it: cv2's samples / 255
+    np.testing.assert_array_equal(tio.imread_unit(str(deep)),
+                                  np.full((4, 4, 3), 257.0, np.float32))
     # a format cv2 writes and the port does not (JPEG is written since
     # F1's repair: tests/test_torch_write.py)
     with pytest.raises(ValueError):

@@ -29,7 +29,10 @@ from underwater_image_enhancement_tpu_torch.utils.jpeg import (
     decode_jpeg,
     encode_jpeg,
 )
-from underwater_image_enhancement_tpu_torch.utils.tiff import encode_tiff
+from underwater_image_enhancement_tpu_torch.utils.tiff import (
+    decode_tiff,
+    encode_tiff,
+)
 
 JPEG_SHAPES = ((1, 1), (7, 9), (8, 8), (16, 16), (17, 33), (37, 53),
                (120, 160))
@@ -109,6 +112,20 @@ def test_tiff_tags_and_read_back_equal_cv2(kind, shape):
     back = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
     assert np.array_equal(back[..., ::-1], rgb)
     assert data == want
+
+
+@pytest.mark.parametrize("shape", TIFF_SHAPES)
+def test_tiff16_bytes_equal_cv2(shape):
+    """16-bit RGB: cv2's 8 KiB strips of 6-byte pixels, the predictor on
+    the samples' values mod 65536, written little-endian; read back by
+    cv2 and by the port's decoder."""
+    low = _frame("noise", shape).astype(np.uint16)
+    rgb = _frame("smooth", shape).astype(np.uint16) * 257 ^ low
+    data = encode_tiff(rgb)
+    assert data == _cv2_bytes(".tif", rgb)
+    back = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    assert back.dtype == np.uint16 and np.array_equal(back[..., ::-1], rgb)
+    assert np.array_equal(decode_tiff(data), rgb)
 
 
 def test_tiff_lzw_ratio_clear_equals_cv2():

@@ -1,4 +1,4 @@
-"""Host-side image IO with no image library: an 8-bit PNG codec built on
+"""Host-side image IO with no image library: a PNG codec built on
 ``zlib`` + ``struct`` + numpy, the JPEG, BMP and TIFF codecs of
 ``jpeg.py``, ``bmp.py`` and ``tiff.py``, plus the folder helpers of
 the JAX package's ``utils/io.py`` (collect, decode-ahead, write-behind).
@@ -7,11 +7,15 @@ A file's format is found from its first bytes, not its suffix, as cv2
 does.  Reading follows the reference's load conventions (main.py:91-113)
 and gives what the JAX package's ``cv2.imread(path, IMREAD_UNCHANGED)``
 and channel handling give: RGB out, grayscale replicated to RGB, alpha
-dropped, float32 in [0, 1].  Unreadable files give None so callers can skip
-them; so do the files cv2 reads and the port does not (16-bit TIFF,
-progressive JPEG, 16-bit PNG and the other formats and variants that
-``jpeg.py``, ``bmp.py``, ``tiff.py`` and ``decode_png`` leave out), which
-``read_u8`` names.
+dropped, float32 samples over 255 (``imread_unit``; a 16-bit PNG or TIFF
+reads up to 257, as it does in the JAX package).  ``imread_u8`` reads as
+the JAX training loader's ``cv2.imread(path)`` (``IMREAD_COLOR``) does:
+8 bits, a 16-bit sample as cv2 converts it for its format.  PNG is read
+in every colour type and depth, with PLTE, tRNS and Adam7
+(``decode_png``).  Unreadable files give None so callers can skip them;
+so do the files cv2 reads and the port does not (the JPEG, BMP and TIFF
+variants and the other formats that ``jpeg.py``, ``bmp.py`` and
+``tiff.py`` leave out), which ``read_image`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
 ``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
@@ -45,7 +49,13 @@ from underwater_image_enhancement_tpu_torch.utils.tiff import (
 )
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+# PNG colour type -> samples a pixel, and the depths it allows
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(tag: bytes, body: bytes) -> bytes:
@@ -100,37 +110,170 @@ def _unfilter_row(ft: int, line: np.ndarray, prev: np.ndarray,
     return np.asarray(cur, np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) uint8.  Supports 8-bit gray, gray
-    +alpha, RGB and RGBA without interlace, filter types 0-4."""
+def _header(body: bytes) -> tuple:
+    """IHDR's (W, H, depth, colour type, interlace); ValueError where
+    libpng finds it invalid (sides past its default limit of 1,000,000
+    included) or the image is past cv2's 2**30 pixels."""
+    if len(body) != 13:
+        raise ValueError("PNG IHDR of the wrong length")
+    W, H, depth, ctype, compression, filtering, interlace = struct.unpack(
+        ">IIBBBBB", body)
+    if (not 0 < W <= 1_000_000 or not 0 < H <= 1_000_000 or W * H > 1 << 30
+            or depth not in _DEPTHS.get(ctype, ()) or compression
+            or filtering or interlace > 1):
+        raise ValueError("invalid PNG IHDR")
+    return W, H, depth, ctype, interlace
+
+
+def _chunks(data: bytes):
+    """(W, H, depth, colour type, interlace, palette, tRNS body, zlib
+    stream) of a PNG, its chunks taken as cv2's libpng takes them: IHDR
+    first; every chunk whole and IEND present (cv2 refuses a file cut
+    short anywhere); a CRC error ends the read in a critical chunk but
+    IEND and drops an ancillary chunk; an unknown critical chunk ends the
+    read; the image data is the first run of IDAT chunks; tRNS counts
+    only where it is valid, before the first IDAT and, for a palette,
+    after PLTE (the first valid one wins); PLTE is read only for a
+    palette image, cut to the depth's 2**depth entries, and given twice
+    ends the read."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos + 8 <= len(data):
+    pos, head, palette, trns, idat, run = 8, None, None, None, [], 0
+    while True:
+        if pos + 12 > len(data):
+            raise ValueError("PNG cut short")
         length, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
+        end = pos + 12 + length
+        if end > len(data):
+            raise ValueError("PNG cut short")
+        body = data[pos + 8:end - 4]
+        crc_ok = (zlib.crc32(tag + body) & 0xFFFFFFFF
+                  == struct.unpack(">I", data[end - 4:end])[0])
+        pos = end
+        critical = not tag[0] & 0x20
+        if head is None and tag != b"IHDR":
+            raise ValueError("PNG without IHDR first")
+        if not crc_ok and tag != b"IEND":
+            if critical:
+                raise ValueError(f"PNG {tag!r} CRC error")
+            continue
+        if tag != b"IDAT" and run == 1:
+            run = 2  # the image data ends at the first other chunk
         if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+            if head is not None:
+                raise ValueError("PNG with two IHDR chunks")
+            head = _header(body)
+            W, H, depth, ctype, interlace = head
+        elif tag == b"PLTE":
+            if palette is not None:
+                raise ValueError("PNG with two PLTE chunks")
+            if ctype == 3:
+                if run or not 0 < length <= 768 or length % 3:
+                    raise ValueError("invalid PNG palette")
+                pal = np.frombuffer(body, np.uint8).reshape(-1, 3)
+                palette = pal[:1 << depth]
+            else:
+                palette = np.zeros((0, 3), np.uint8)  # ignored, as libpng
         elif tag == b"IDAT":
-            idat.append(body)
+            if ctype == 3 and palette is None:
+                raise ValueError("PNG palette image without PLTE")
+            if run < 2:
+                idat.append(body)
+                run = 1
+        elif tag == b"tRNS":
+            if trns is None and not run and (
+                    (ctype == 0 and length == 2)
+                    or (ctype == 2 and length == 6)
+                    or (ctype == 3 and palette is not None
+                        and 0 < length <= len(palette))):
+                trns = body
         elif tag == b"IEND":
             break
-    if header is None:
-        raise ValueError("PNG without IHDR")
-    W, H, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise Unsupported(f"PNG of depth {depth}, colour type {ctype}, "
-                          f"interlace {interlace}")
-    bpp = _CHANNELS[ctype]
-    stride = W * bpp
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows[:H * (stride + 1)].reshape(H, stride + 1)
-    out = np.empty((H, stride), np.uint8)
+        elif critical:
+            raise ValueError(f"PNG with an unknown critical chunk {tag!r}")
+    return W, H, depth, ctype, interlace, palette, trns, b"".join(idat)
+
+
+def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """(h, row bytes) unfiltered rows -> (h, w, c) samples: big-endian at
+    16 bits, unpacked most significant bit first below 8."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, c)
+    if depth < 8:
+        per = 8 // depth
+        shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
+        rows = ((rows[..., None] >> shifts) & ((1 << depth) - 1)).reshape(
+            h, -1)[:, :w * c]
+    return rows.reshape(h, w, c)
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, c: int, depth: int):
+    """One (sub)image's h filtered rows from ``raw`` -> (h, w, c) samples."""
+    stride = -(-w * c * depth // 8)
+    bpp = max(1, c * depth // 8)
+    rows = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
-    for y in range(H):
+    for y in range(h):
         prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
-    return out.reshape(H, W) if bpp == 1 else out.reshape(H, W, bpp)
+    return _samples(out, w, c, depth)
+
+
+def _passes(W: int, H: int, interlace: int):
+    """(x0, y0, dx, dy, w, h) of the image's passes: one, or Adam7's seven
+    with the empty ones left out (they carry no bytes)."""
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        w, h = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if w > 0 and h > 0:
+            yield x0, y0, dx, dy, w, h
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) or (H, W, C) uint8, or uint16 at 16 bits: what
+    ``cv2.imdecode(data, IMREAD_UNCHANGED)`` gives, in RGB order.  Every
+    colour type and depth, filter types 0-4, Adam7 interlace: gray (1-,
+    2- and 4-bit samples scaled to 8 bits as libpng's
+    ``expand_gray_1_2_4_to_8`` does, tRNS ignored: cv2 gives it no alpha),
+    gray + alpha (C = 2), RGB (C = 4 with a tRNS colour: alpha 0 on it,
+    else the depth's maximum, compared on the sample's low byte at 8
+    bits), palette (RGB from PLTE, black past its end; C = 4 with tRNS:
+    its alphas, 255 past them) and RGBA.  gAMA, sBIT and the other
+    ancillary chunks change no sample, as in cv2.  ValueError where cv2
+    gives None (``_chunks``; a zlib stream that does not end, which
+    libpng reads to its end, or that holds too few bytes; a bad filter
+    type); ``zlib.error`` on a corrupt stream."""
+    W, H, depth, ctype, interlace, palette, trns, stream = _chunks(data)
+    z = zlib.decompressobj()
+    raw = np.frombuffer(z.decompress(stream), np.uint8)
+    if not z.eof:
+        raise ValueError("PNG image data cut short")
+    c = _CHANNELS[ctype]
+    out = np.empty((H, W, c), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy, w, h in _passes(W, H, interlace):
+        n = h * (1 + -(-w * c * depth // 8))
+        if at + n > raw.size:
+            raise ValueError("PNG image data cut short")
+        out[y0::dy, x0::dx] = _unfilter(raw[at:at + n], h, w, c, depth)
+        at += n
+    if ctype == 3:
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        table[:len(palette), :3] = palette
+        if trns is not None:
+            table[:len(trns), 3] = np.frombuffer(trns, np.uint8)
+        return table[out[..., 0]][..., :3 if trns is None else 4]
+    if ctype == 0:
+        scale = 255 // ((1 << depth) - 1) if depth < 8 else 1
+        return out[..., 0] * np.uint8(scale) if scale > 1 else out[..., 0]
+    if ctype == 2 and trns is not None:
+        key = np.array(struct.unpack(">3H", trns), np.uint32)
+        if depth == 8:
+            key &= 0xFF
+        alpha = np.where((out == key).all(-1), 0, np.iinfo(out.dtype).max)
+        return np.concatenate([out, alpha[..., None].astype(out.dtype)], -1)
+    return out
 
 
 # first bytes of the other formats cv2 reads
@@ -142,19 +285,25 @@ _OTHER_FORMATS = (
 )
 
 
-def decode_image(data: bytes) -> np.ndarray:
-    """Image bytes -> (H, W, 3) uint8 RGB, the format found from the
-    signature.  Raises ``Unsupported`` for a format (or variant) that cv2
-    reads and the port does not, ValueError for anything else it cannot
-    read."""
+def decode_image(data: bytes, color: bool = False) -> np.ndarray:
+    """Image bytes -> (H, W, 3) RGB, the format found from the signature:
+    what ``cv2.imread(path, IMREAD_UNCHANGED)`` of the file and the JAX
+    package's channel handling give (uint8, or uint16 for a 16-bit PNG or TIFF;
+    gray replicated, alpha dropped), or with ``color`` what
+    ``IMREAD_COLOR`` gives (uint8: a 16-bit PNG's samples ``v >> 8``, a
+    16-bit TIFF's as ``tiff.decode_tiff(color=True)`` says).  Raises
+    ``Unsupported`` for a format (or variant) that cv2 reads and the port
+    does not, ValueError for anything else it cannot read."""
     if data[:8] == _SIGNATURE:
         img = decode_png(data)
+        if color and img.dtype == np.uint16:
+            img = (img >> 8).astype(np.uint8)
     elif data[:3] == b"\xff\xd8\xff":
         img = decode_jpeg(data)
     elif data[:2] == b"BM":
         return decode_bmp(data)
     elif data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-        img = decode_tiff(data)
+        img = decode_tiff(data, color=color)
     else:
         if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
             raise Unsupported("WebP")
@@ -173,12 +322,12 @@ def decode_image(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def read_u8(path: str):
-    """(image, None) with the image as (H, W, 3) uint8 RGB; (None, reason)
-    where the file is a format cv2 reads and the port does not; (None,
-    None) where it is unreadable."""
+def read_image(path: str, color: bool = False):
+    """(image, None) with the image as ``decode_image(data, color)`` gives
+    it; (None, reason) where the file is a format cv2 reads and the port
+    does not; (None, None) where it is unreadable."""
     try:
-        return decode_image(Path(path).read_bytes()), None
+        return decode_image(Path(path).read_bytes(), color), None
     except Unsupported as e:
         return None, str(e)
     except (OSError, ValueError, zlib.error, struct.error):
@@ -186,15 +335,25 @@ def read_u8(path: str):
 
 
 def imread_u8(path: str) -> Optional[np.ndarray]:
-    """Read an image as (H, W, 3) uint8 RGB; None if unreadable or of a
-    format the port does not read."""
-    return read_u8(path)[0]
+    """Read an image as (H, W, 3) uint8 RGB, as the JAX package's
+    ``train/data._imread_rgb`` (``cv2.imread(path)``, ``IMREAD_COLOR``)
+    reads it; None if unreadable or of a format the port does not read."""
+    return read_image(path, color=True)[0]
+
+
+def to_unit(img: np.ndarray) -> np.ndarray:
+    """A decoded sample array as the JAX package's ``imread_unit`` makes it
+    float: ``/ 255`` in float32, so a 16-bit file reaches 65535 / 255 =
+    257."""
+    return img.astype(np.float32) / 255.0
 
 
 def imread_unit(path: str) -> Optional[np.ndarray]:
-    """Read an image as float32 RGB in [0, 1]; None if unreadable."""
-    img = imread_u8(path)
-    return None if img is None else img.astype(np.float32) / 255.0
+    """Read an image as float32 RGB, the samples over 255 (the JAX
+    package's ``imread_unit``: [0, 1] for 8-bit files, [0, 257] for 16-bit
+    ones); None if unreadable or of a format the port does not read."""
+    img = read_image(path)[0]
+    return None if img is None else to_unit(img)
 
 
 # the suffixes cv2 writes (cv2.haveImageWriter) and their encoders here
@@ -285,11 +444,11 @@ class AsyncWriter:
 
 
 def decode_iter(files, log=print, min_size: int = 0):
-    """Decode-ahead iterator: yields (path, float32 RGB [0, 1]) in order
-    while a background thread decodes the next images (queue of 8).
-    Unreadable files, files of a format the port does not read ("unsupported
-    by the port: <format>"), and images under ``min_size`` pixels on either
-    side, are logged and skipped."""
+    """Decode-ahead iterator: yields (path, ``imread_unit``'s float32 RGB)
+    in order while a background thread decodes the next images (queue of
+    8).  Unreadable files, files of a format the port does not read
+    ("unsupported by the port: <format>"), and images under ``min_size``
+    pixels on either side, are logged and skipped."""
     import queue
     import threading
 
@@ -298,9 +457,9 @@ def decode_iter(files, log=print, min_size: int = 0):
 
     def producer():
         for path in files:
-            img, why = read_u8(str(path))
+            img, why = read_image(str(path))
             if img is not None:
-                img = img.astype(np.float32) / 255.0
+                img = to_unit(img)
             q.put((path, img, why))
         q.put(end)
 

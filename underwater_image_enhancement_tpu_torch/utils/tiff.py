@@ -1,22 +1,24 @@
 """A TIFF codec in numpy.  ``encode_tiff`` writes the file ``cv2.imwrite``
 writes for a colour image through libtiff (LZW with the horizontal
-predictor, chunky RGB, 8 bits a sample); ``decode_tiff`` reads the 8-bit
-files ``cv2.imread`` reads, with cv2's pixels.
+predictor, chunky RGB, 8 or 16 bits a sample); ``decode_tiff`` reads the
+8- and 16-bit files ``cv2.imread`` reads, with cv2's pixels.
 
 The strips are libtiff's: ``_rows_per_strip`` rows each (cv2's 8 KiB
 strips), each row differenced by the predictor (each sample less the one
-three before it in the row, mod 256) and each strip coded alone by
-``tif_lzw.c``'s encoder.  The directory follows the strips, as libtiff
-writes it: twelve tags, then their out-of-line values in libtiff's order.
+three before it in the row, mod 2**bits, written little-endian) and each
+strip coded alone by ``tif_lzw.c``'s encoder.  The directory follows the
+strips, as libtiff writes it: twelve tags, then their out-of-line values
+in libtiff's order.
 
 The decoder takes the first directory (the first page, as ``cv2.imread``
-returns it) of a little- or big-endian file: 8 bits a sample, unsigned,
-chunky, gray (BlackIsZero), RGB or RGB with one extra sample, top-left
-orientation, in strips or tiles (cropped at the image's edges), stored
-uncompressed, PackBits, Deflate (8 and 32946, through ``zlib``) or LZW
-(``tif_lzw.c``'s MSB-first codes, one bit wider as the table reaches the
-next width's last code), LZW and Deflate with the horizontal predictor or
-none.  Any other file raises ``Unsupported`` with its variant's name.
+returns it) of a little- or big-endian file: 8 or 16 bits a sample,
+unsigned, chunky, gray (BlackIsZero), RGB or RGB with one extra sample,
+top-left orientation, in strips or tiles (cropped at the image's edges),
+stored uncompressed, PackBits, Deflate (8 and 32946, through ``zlib``) or
+LZW (``tif_lzw.c``'s MSB-first codes, one bit wider as the table reaches
+the next width's last code), LZW and Deflate with the horizontal predictor
+(on the samples' values, mod 2**bits, in the file's byte order) or none.
+Any other file raises ``Unsupported`` with its variant's name.
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ _CHECK_GAP = 10000
 _SHORT, _LONG = 3, 4
 
 
-def _rows_per_strip(width: int, height: int) -> int:
+def _rows_per_strip(row_bytes: int, height: int) -> int:
     """cv2's strip height: as many rows as fit in 8 KiB, at least 1, at
     most the image."""
-    return max(1, min(height, (1 << 13) // (width * 3)))
+    return max(1, min(height, (1 << 13) // row_bytes))
 
 
 def _ratio(incount: int, outcount: int) -> int:
@@ -132,36 +134,40 @@ def _entry(tag: int, kind: int, values, at: int):
 
 
 def encode_tiff(rgb: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 RGB -> the little-endian TIFF ``cv2.imwrite``
-    writes for the BGR image: tags 256/257 (size), 258 (8, 8, 8), 259 = 5
-    (LZW), 262 = 2 (RGB), 273/279 (strip offsets and byte counts), 277 =
-    3, 278 (rows per strip), 284 = 1 (chunky), 317 = 2 (horizontal
-    predictor), 339 (1, 1, 1: unsigned).  The byte counts are SHORTs
-    where libtiff writes them so: more than one strip, each under 6553
-    bytes before coding."""
+    """(H, W, 3) uint8 or uint16 RGB -> the little-endian TIFF
+    ``cv2.imwrite`` writes for the BGR image: tags 256/257 (size), 258 (8
+    or 16 a sample), 259 = 5 (LZW), 262 = 2 (RGB), 273/279 (strip offsets
+    and byte counts), 277 = 3, 278 (rows per strip), 284 = 1 (chunky),
+    317 = 2 (horizontal predictor, on the samples' values), 339 (1, 1, 1:
+    unsigned).  The byte counts are SHORTs where libtiff writes them so:
+    more than one strip, each under 6553 bytes before coding."""
     a = np.asarray(rgb)
-    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+    if (a.dtype not in (np.uint8, np.uint16) or a.ndim != 3
+            or a.shape[2] != 3):
         raise ValueError(f"cannot encode an array of {a.dtype} and shape "
-                         f"{a.shape} as TIFF: (H, W, 3) uint8 RGB")
+                         f"{a.shape} as TIFF: (H, W, 3) uint8 RGB or "
+                         "uint16 RGB")
     H, W = a.shape[:2]
-    rps = _rows_per_strip(W, H)
+    row_bytes = W * 3 * a.dtype.itemsize
+    rps = _rows_per_strip(row_bytes, H)
     rows = np.ascontiguousarray(a).reshape(H, W * 3)
     diff = rows.copy()
-    diff[:, 3:] = rows[:, 3:] - rows[:, :-3]  # uint8: mod 256
+    diff[:, 3:] = rows[:, 3:] - rows[:, :-3]  # mod 2**bits
+    diff = diff.astype(a.dtype.newbyteorder("<"))
     strips = [_lzw_encode(diff[s:s + rps].tobytes())
               for s in range(0, H, rps)]
     offsets = np.cumsum([8] + [len(s) for s in strips])[:-1].tolist()
     counts = [len(s) for s in strips]
     end = offsets[-1] + counts[-1]
     ifd = end + (end & 1)
-    count_kind = (_SHORT if len(strips) > 1 and rps * W * 3 < 0xFFFF // 10
+    count_kind = (_SHORT if len(strips) > 1 and rps * row_bytes < 0xFFFF // 10
                   else _LONG)
 
     def short_long(v):
         return (_SHORT if v <= 0xFFFF else _LONG, [v])
 
     tags = {256: short_long(W), 257: short_long(H),
-            258: (_SHORT, [8, 8, 8]), 259: (_SHORT, [5]),
+            258: (_SHORT, [8 * a.dtype.itemsize] * 3), 259: (_SHORT, [5]),
             262: (_SHORT, [2]), 273: (_LONG, offsets), 277: (_SHORT, [3]),
             278: short_long(rps), 279: (count_kind, counts),
             284: (_SHORT, [1]), 317: (_SHORT, [2]),
@@ -304,15 +310,16 @@ def _decode_chunk(data: bytes, compression: int, size: int) -> bytes:
 
 
 def _variant(tags: dict) -> tuple:
-    """(samples a pixel, compression, predictor) of a file the decoder
-    reads; ``Unsupported`` naming any other variant."""
+    """(bits a sample, samples a pixel, compression, predictor) of a file
+    the decoder reads; ``Unsupported`` naming any other variant."""
     bits = set(tags.get(258, (1,)))
-    if bits != {8}:
+    if bits not in ({8}, {16}):
         raise Unsupported(f"{'/'.join(map(str, sorted(bits)))}-bit TIFF")
+    (depth,) = bits
     if set(tags.get(339, (1,))) != {1}:
         kinds = {2: "signed", 3: "floating-point"}
         raise Unsupported(
-            f"{kinds.get(tags[339][0], 'untyped')} 8-bit TIFF")
+            f"{kinds.get(tags[339][0], 'untyped')} {depth}-bit TIFF")
     spp = tags.get(277, (1,))[0]
     if 262 not in tags:
         raise Unsupported("TIFF without a photometric interpretation")
@@ -343,18 +350,40 @@ def _variant(tags: dict) -> tuple:
         predictor = 1  # libtiff applies the predictor to LZW and Deflate
     if predictor not in (1, 2):
         raise Unsupported(f"TIFF of predictor {predictor}")
-    return spp, compression, predictor
+    return depth, spp, compression, predictor
 
 
-def decode_tiff(data: bytes) -> np.ndarray:
-    """The first page of 8-bit TIFF bytes -> (H, W, C) uint8: C = 1 (gray),
-    3 (RGB) or 4 (RGB and its extra sample; colours under an unassociated
-    alpha premultiplied by it, ``(c * a + 127) // 255``, as libtiff's RGBA
-    reader gives them to cv2).  Raises ``Unsupported`` for
-    the variants the module docstring leaves out, ValueError for corrupt
-    files."""
+def _bw16_tile(block: np.ndarray, w: int, h: int) -> np.ndarray:
+    """A 16-bit gray tile as libtiff's RGBA reader gives it (each value's
+    high byte, kept here in the high byte): its ``put16bitbwtile`` steps
+    from one row to the next by the tile's skew (``tw - w`` for a tile cut
+    at the image's right edge) in bytes, where it means samples, so row r
+    of a cut tile starts ``r * (2 * w + tw - w)`` bytes into the tile in
+    the host's byte order, at an odd byte where that is odd."""
+    th, tw = block.shape[:2]
+    flat = block.astype("<u2").reshape(-1).view(np.uint8)
+    at = (np.arange(h)[:, None] * (w + tw) + 2 * np.arange(w) + 1)
+    hi = np.zeros((th, tw, 1), np.uint16)
+    hi[:h, :w, 0] = flat[at].astype(np.uint16) << 8
+    return hi
+
+
+def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
+    """The first page of 8- or 16-bit TIFF bytes -> (H, W, C) uint8 or
+    uint16, C = 1 (gray), 3 (RGB) or 4 (RGB and its extra sample): what
+    ``cv2.imread(path, IMREAD_UNCHANGED)`` gives, in RGB order.  At 8
+    bits cv2 reads through libtiff's RGBA reader, which premultiplies
+    colours under an unassociated alpha, ``(c * a + 127) // 255``; at 16
+    bits it reads the samples as they are, whatever the extra sample.
+    ``color``: what ``IMREAD_COLOR`` gives, uint8, the same at 8 bits; at
+    16 bits through the RGBA reader as well: gray ``v >> 8``
+    (``put16bitbwtile``, with its row step in tiles: ``_bw16_tile``), RGB
+    ``(v + 128) // 257`` (its ``Bitdepth16To8``) and then the
+    premultiplication.  Raises ``Unsupported`` for the variants the
+    module docstring leaves out, ValueError for corrupt files."""
     tags = _directory(data)
-    spp, compression, predictor = _variant(tags)
+    depth, spp, compression, predictor = _variant(tags)
+    order = "<" if data[:2] == b"II" else ">"
     try:
         W, H = tags[256][0], tags[257][0]
     except KeyError:
@@ -376,21 +405,30 @@ def decode_tiff(data: bytes) -> np.ndarray:
     across, down = -(-W // tw), -(-H // th)
     if len(offsets) < across * down or len(counts) < across * down:
         raise ValueError("corrupt TIFF: too few strips or tiles")
-    out = np.empty((H, W, spp), np.uint8)
+    dtype = np.dtype(np.uint8 if depth == 8 else order + "u2")
+    out = np.empty((H, W, spp), dtype.newbyteorder("="))
     for k in range(across * down):
         y, x = k // across * th, k % across * tw
         rows = th if 322 in tags else min(th, H - y)  # the last strip's
-        size = rows * tw * spp
+        size = rows * tw * spp * dtype.itemsize
         chunk = data[offsets[k]:offsets[k] + counts[k]]
         raw = _decode_chunk(chunk, compression, size)
         if len(raw) < size:
             raise ValueError("corrupt TIFF: a strip or tile decodes short")
-        block = np.frombuffer(raw, np.uint8).reshape(rows, tw, spp)
-        if predictor == 2:
-            block = np.cumsum(block, axis=1, dtype=np.uint8)
+        block = np.frombuffer(raw, dtype).reshape(rows, tw, spp)
+        if predictor == 2:  # sums mod 2**depth of the samples' values
+            block = np.cumsum(block, axis=1, dtype=out.dtype)
+        if color and depth == 16 and spp == 1 and 322 in tags:
+            block = _bw16_tile(block, min(tw, W - x), min(rows, H - y))
         out[y:y + rows, x:x + tw] = block[:H - y, :W - x]
-    if spp == 4 and tags.get(338, (0,))[0] == 2:
-        # unassociated alpha: libtiff's RGBA reader premultiplies
+    unassociated = spp == 4 and tags.get(338, (0,))[0] == 2
+    if depth == 16:
+        if not color:
+            return out
+        if spp == 1:
+            return (out >> 8).astype(np.uint8)
+        out = ((out.astype(np.uint32) + 128) // 257).astype(np.uint8)
+    if unassociated:  # libtiff's RGBA reader premultiplies
         a = out[..., 3:].astype(np.uint32)
         out[..., :3] = (out[..., :3] * a + 127) // 255
     return out
