@@ -70,7 +70,21 @@ non-zero):
    cuda`` on the 16-bit PNG (values to 257) with each kernel call replayed
    bit-equal to its plain version, ``cli enhance --device cuda`` on it,
    and on a 270x480 crop of it ``six_strategy_tuple`` in each tier and
-   ``enhance_batch`` card against CPU at the frame-0 gates, then the five
+   ``enhance_batch`` card against CPU at the frame-0 gates,
+   ``[jpeg_variants]`` (``jpeg_variants_slice``): from ``[write]``'s
+   ``frame0.jpg``, a CMYK and a YCCK file (its own components, K a copy
+   of Y) each decoding to OpenCV's CMYK formula on the planes written,
+   lossless gray and RGB files (predictors 1 and 7, restarts) of the
+   270x480 crop each decoding to the samples written, and arithmetic-coded
+   sequential and progressive files each decoding equal to the Huffman
+   file (at 1080p unless the sequential one took the host over 30 s;
+   host ms printed), ``cli six --device cuda`` on the CMYK file with six
+   exact's launches of one frame and each kernel call replayed bit-equal,
+   ``[exif]`` (``exif_slice``): four 640x480 pairs with an EXIF
+   Orientation (JPEGs of 6, PNGs of 8 in ``eXIf``) loaded by
+   ``PairedImageDataset`` equal to their twins turned by ``np.rot90``, and
+   one ``cli train-mlp --device cuda`` epoch on them launching K1b and K7
+   once a cached image (each call replayed bit-equal), then the five
    CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
@@ -1400,6 +1414,234 @@ def png16_slice(torch, run_cli, captured_match, replay, smi: str) -> None:
         card=repr(smi))
 
 
+# [jpeg_variants]: [write]'s frame0.jpg as the JPEG variants beyond
+# Huffman DCT files of 1 or 3 components (CMYK, YCCK, lossless,
+# arithmetic coding), each decoding to an array known without cv2; six
+# on the CMYK file
+LOSSLESS_RESTART_ROWS = 5
+# the arithmetic files go to the crop where the 1080p sequential one took
+# the host this long to write and decode
+ARITH_HOST_LIMIT_S = 30.0
+ARITH_DAC = ((0, 0, 0x52), (0, 1, 0x30), (1, 0, 10), (1, 1, 1))
+
+
+def cmyk_formula(c, m, y, k) -> np.ndarray:
+    """OpenCV's CMYK to BGR conversion in RGB order, on u8 planes: each of
+    C, M and Y becomes ``k - ((255 - v) * k >> 8)``."""
+    k = k.astype(np.int32)
+    return np.stack([k - (((255 - v.astype(np.int32)) * k) >> 8)
+                     for v in (c, m, y)], -1).astype(np.uint8)
+
+
+def jpeg_variants_slice(torch, run_cli, captured_match, replay,
+                        smi: str) -> None:
+    """[jpeg_variants]: from ``[write]``'s 1080p ``frame0.jpg`` (the port's
+    4:2:0 encoder), ``tests/torch_jpeg_scans.py`` writes
+    - a CMYK and a YCCK file whose components are frame0.jpg's Y, Cb, Cr
+      and Y again (``recomponent``): each must decode to OpenCV's CMYK
+      formula (``cmyk_formula``) on the planes written, which the
+      components' RGB-marked twin decodes to (for YCCK, first 255 less
+      frame0.jpg's own YCbCr decode, as ``jdcolor.c`` converts YCCK);
+    - lossless gray and RGB files of predictors 1 and 7 with a restart
+      every ``LOSSLESS_RESTART_ROWS`` MCU rows on the ``PNG16_CROP`` crop
+      of frame 0: each must decode to the samples written;
+    - arithmetic-coded sequential (SOF9, DAC conditioning) and progressive
+      (SOF10, cv2's script, restarts) files of frame0.jpg's coefficients
+      at 1080p (on the crop's baseline file where the sequential one took
+      over ``ARITH_HOST_LIMIT_S`` to write and decode): each must decode
+      equal to the Huffman file.
+    The host ms of each write and decode printed beside the card.  ``cli
+    six --device cuda`` on the CMYK file: six exact's launches of one
+    frame (``SIX_ONE_FRAME``, K7 d and K6 d + 1 times), each captured call
+    replayed bit-equal to its plain version."""
+    from tests import torch_jpeg_scans as js
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+    from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+        decode_jpeg,
+        encode_jpeg,
+    )
+
+    t_phase = time.perf_counter()
+    out = WORK / "jpeg_variants"
+    (out / "in").mkdir(parents=True, exist_ok=True)
+    base = (WORK / "write" / "frame0.jpg").read_bytes()
+    rgb = decode_jpeg(base)
+    planes = decode_jpeg(js.recomponent(base, (0, 1, 2), (js.adobe(0),)))
+    y, cb, cr = (planes[..., k] for k in range(3))
+    h, w = PNG16_CROP
+    crop = np.ascontiguousarray(
+        uio.imread_u8(str(WORK / "in" / "frame0.png"))[:h, :w])
+    crop_base = encode_jpeg(crop)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+
+    def held(name, write, want, **extra):
+        data, ms_w = timed(write)
+        got, ms_r = timed(lambda: decode_jpeg(data))
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"jpeg_variants: {name} decodes to other samples than "
+              f"{extra.get('equal_to', 'written')}")
+        (out / name).write_bytes(data)
+        log("jpeg_variants", file=name, bytes=len(data),
+            frame=f"{want.shape[1]}x{want.shape[0]}",
+            write_host_ms=f"{ms_w:.1f}", decode_host_ms=f"{ms_r:.1f}",
+            **extra, card=repr(smi))
+        return data, ms_w + ms_r
+
+    held("cmyk.jpg", lambda: js.recomponent(base, (0, 1, 2, 0),
+                                            (js.adobe(0),)),
+         cmyk_formula(y, cb, cr, y), equal_to="the CMYK formula")
+    held("ycck.jpg", lambda: js.recomponent(base, (0, 1, 2, 0),
+                                            (js.adobe(2),)),
+         cmyk_formula(*(255 - rgb[..., k] for k in range(3)), y),
+         equal_to="the CMYK formula after YCC")
+    for psv in (1, 7):
+        held(f"lossless_gray_p{psv}.jpg", lambda: js.lossless(
+            [crop[..., 0]], psv, restart_rows=LOSSLESS_RESTART_ROWS),
+            crop[..., 0], equal_to="written")
+        held(f"lossless_rgb_p{psv}.jpg", lambda: js.lossless(
+            [crop[..., k] for k in range(3)], psv, ids=[82, 71, 66],
+            restart_rows=LOSSLESS_RESTART_ROWS), crop, equal_to="written")
+    _, secs = held("arith_seq.jpg", lambda: js.arithmetic(
+        base, dac=ARITH_DAC), rgb, equal_to="the Huffman file")
+    at_full = secs / 1e3 < ARITH_HOST_LIMIT_S
+    src, want = (base, rgb) if at_full else (crop_base, decode_jpeg(crop_base))
+    held("arith_prog.jpg", lambda: js.arithmetic(
+        src, js.script("cv2", 3), 7, ARITH_DAC[:2]), want,
+        equal_to="the Huffman file", seq_host_s=f"{secs / 1e3:.1f}")
+    (out / "in" / "frame0_cmyk.jpg").write_bytes(
+        (out / "cmyk.jpg").read_bytes())
+    calls, launches, secs = run_cli(
+        ["six", "--device", "cuda", "--input", str(out / "in"), "--output",
+         str(out / "six")], True)
+    d = launches["hysteresis_propagate"]
+    check(all(launches[k] == v for k, v in SIX_ONE_FRAME.items())
+          and d >= 1 and launches["sat_rows"] == d + 1,
+          f"jpeg_variants: six on the CMYK file launched {launches}")
+    check(captured_match(calls, launches),
+          f"jpeg_variants: captured calls {[len(v) for v in calls.values()]}"
+          f" vs launches {launches}")
+    pngs = sorted(p.name for p in (out / "six").glob("*.png"))
+    check(pngs == sorted(f"frame0_cmyk_{n}.png" for n in SIX_ORDER),
+          f"jpeg_variants: six outputs {pngs}")
+    replayed = {}
+    for kname, arglists in calls.items():
+        for k, args in enumerate(arglists):
+            replay(kname, args, f"jpeg_variants six call {k} (CMYK)")
+        if arglists:
+            replayed[kname] = len(arglists)
+    torch.cuda.synchronize()
+    log("jpeg_variants", command="'six --device cuda' (CMYK file)",
+        seconds=f"{secs:.2f}",
+        launches=json.dumps(nonzero(launches), separators=(",", ":")),
+        replayed_bit_equal=json.dumps(replayed, separators=(",", ":")),
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=repr(smi))
+
+
+# [exif]: EXIF_PAIRS [train]-style pairs with an EXIF Orientation, the
+# first half JPEGs of orientation 6, the rest PNGs of orientation 8
+# (eXIf); the training loader turns each as cv2.imread(path) does, and
+# cli train-mlp's feature cache launches K1b and K7 once a cached image
+EXIF_PAIRS = 4
+EXIF_TURNS = {6: -1, 8: 1}  # orientation -> np.rot90's k
+
+
+def exif_slice(torch, run_cli, captured_match, replay, smi: str) -> None:
+    """[exif]: ``EXIF_PAIRS`` pairs at TRAIN_H x TRAIN_W (raw: a seeded
+    underwater frame, reference: a brighter twin), the first half written
+    as JPEGs (the port's encoder) with an APP1 Exif segment of orientation
+    6, the rest as PNGs with an ``eXIf`` chunk of orientation 8
+    (big-endian); beside them the same pairs turned by ``np.rot90`` into
+    plain PNGs.  ``PairedImageDataset.load_pair`` must give each oriented
+    pair equal to its turned twin (and ``imread_u8`` a 640x480 frame), and
+    one epoch of ``cli train-mlp --device cuda`` on the oriented pairs
+    must launch K1b and K7 once a cached image, each captured call
+    replayed bit-equal to its plain version."""
+    from tests import torch_jpeg_scans as js
+    from tests import torch_png
+    from underwater_image_enhancement_tpu_torch.train.data import (
+        PairedImageDataset,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+    from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+        decode_jpeg,
+        encode_jpeg,
+    )
+
+    t_phase = time.perf_counter()
+    root = WORK / "exif"
+    dirs = {k: root / k for k in ("raw", "ref", "raw_turned", "ref_turned")}
+    for d_ in dirs.values():
+        d_.mkdir(parents=True, exist_ok=True)
+    for i in range(EXIF_PAIRS):
+        raw = np.round(synthetic_frame(2000 + i, TRAIN_H, TRAIN_W)
+                       * 255).astype(np.uint8)
+        ref = np.clip(raw.astype(np.int32) * 5 // 4 + 10, 0, 255).astype(
+            np.uint8)
+        orient = 6 if i < EXIF_PAIRS // 2 else 8
+        for kind, img in (("raw", raw), ("ref", ref)):
+            if orient == 6:
+                data = encode_jpeg(img)
+                plain = decode_jpeg(data)
+                data = js.with_app1(data, b"Exif\x00\x00"
+                                    + js.exif_tiff(6, "II"))
+                name = f"pair{i:02d}.jpg"
+            else:
+                plain = img
+                data = js.with_png_chunks(uio.encode_png(img), [
+                    torch_png.chunk(b"eXIf", js.exif_tiff(8, "MM"))])
+                name = f"pair{i:02d}.png"
+            (dirs[kind] / name).write_bytes(data)
+            (dirs[kind + "_turned"] / f"pair{i:02d}.png").write_bytes(
+                uio.encode_png(np.rot90(plain, EXIF_TURNS[orient])))
+    first = uio.imread_u8(str(dirs["raw"] / "pair00.jpg"))
+    check(first.shape == (TRAIN_W, TRAIN_H, 3),
+          f"exif: imread_u8 of an orientation-6 JPEG {first.shape}")
+    ds = PairedImageDataset(str(dirs["raw"]), str(dirs["ref"]), 256, False)
+    turned = PairedImageDataset(str(dirs["raw_turned"]),
+                                str(dirs["ref_turned"]), 256, False)
+    for i in range(EXIF_PAIRS):
+        a, b = ds.load_pair(i), turned.load_pair(i)
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"exif: load_pair({i}) differs from its turned twin")
+    log("exif", pairs=EXIF_PAIRS, orientations="6 (JPEG), 8 (PNG eXIf)",
+        load_pair="equal to the turned twins", frame=f"{TRAIN_W}x{TRAIN_H}")
+    out = root / "train_mlp"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        calls, launches, secs = run_cli(
+            ["train-mlp", "--input", str(dirs["raw"]), "--reference",
+             str(dirs["ref"]), "--output", str(out), "--epochs", "1",
+             "--batch-size", "1", "--device", "cuda"], True)
+    hist = json.loads((out / "training_history.json").read_text())
+    want = {**NONE, "lab_forward_u8": EXIF_PAIRS,
+            "hysteresis_propagate": EXIF_PAIRS}
+    check(launches == want and captured_match(calls, launches),
+          f"exif: train-mlp launched {launches}")
+    check(len(hist["train_loss"]) == 1
+          and bool(np.isfinite(hist["train_loss"] + hist["val_loss"]).all()),
+          f"exif: train-mlp history {hist}")
+    for kname, arglists in calls.items():
+        for k, args in enumerate(arglists):
+            replay(kname, args, f"exif train-mlp call {k}")
+    torch.cuda.synchronize()
+    log("exif", command="'train-mlp --device cuda' (oriented pairs)",
+        epochs=1, seconds=f"{secs:.2f}",
+        train_loss=f"{hist['train_loss'][0]:.6f}",
+        launches=json.dumps(nonzero(launches), separators=(",", ":")),
+        replayed_bit_equal=json.dumps(
+            {k: len(v) for k, v in calls.items() if v},
+            separators=(",", ":")),
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=repr(smi))
+
+
 # [train_mesh]: MLPTrainer, ZooTrainer("vit"), the f32 VGGTrainer and the
 # ResNet18 and EfficientNet b0 ZooTrainer at published widths on mesh None,
 # one position and two positions of the one card; 3 steps from one seed
@@ -2603,6 +2845,10 @@ def main() -> int:
     jpeg_prog_slice(torch, run_cli, smi)
     # [png16] 16-bit PNG and TIFF, palette and Adam7 PNG; six on 16 bits
     png16_slice(torch, run_cli, captured_match, replay, smi)
+    # [jpeg_variants] CMYK, YCCK, lossless and arithmetic JPEG; six on CMYK
+    jpeg_variants_slice(torch, run_cli, captured_match, replay, smi)
+    # [exif] oriented training pairs through the loader and train-mlp
+    exif_slice(torch, run_cli, captured_match, replay, smi)
 
     # Phase-1 labeling: auto, build-dataset, build-dataset --fast
     for key, argv in (

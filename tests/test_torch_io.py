@@ -248,30 +248,10 @@ def test_truncated_jpeg_is_unreadable(tmp_path, cut, file):
     assert tio.read_image(str(tmp_path / "cut.jpg")) == (None, None)
 
 
-def _cmyk_jpeg(gray: bytes) -> bytes:
-    """A four-component (CMYK, Adobe transform 0) sequential JPEG built
-    from a gray one: its scan sent once for each component."""
-    segments = jpeg_scans._segments(gray)
-    p = 2 + sum(4 + len(body) for _, body in segments)  # the SOS marker
-    (n,) = struct.unpack(">H", gray[p + 2:p + 4])
-    scan = gray[p + 2 + n:gray.rindex(b"\xff\xd9")]
-    out = [b"\xff\xd8",
-           tjpeg._segment(0xEE, b"Adobe\x00\x64" + bytes(5))]
-    for marker, body in segments:
-        if marker == 0xC0:
-            body = body[:5] + bytes([4]) + b"".join(
-                bytes([k, 0x11, 0]) for k in range(1, 5))
-        if marker != 0xE0:  # no JFIF marker
-            out.append(tjpeg._segment(marker, body))
-    for k in range(1, 5):
-        out.append(tjpeg._segment(0xDA, bytes([1, k, 0, 0, 63, 0])) + scan)
-    return b"".join(out) + b"\xff\xd9"
-
-
 def test_formats_the_port_does_not_read_are_logged(tmp_path):
     img = _image(32, 48, seed=10)
     files = {
-        "cmyk.jpg": _cmyk_jpeg(_jpeg(img[..., 0], 90)),
+        "planar.tif": _tiff([img], planar=2),
         "tiff.tif": cv2.imencode(".tiff", img.astype(np.uint16) * 257)[1]
         .tobytes(),
         "555.bmp": _bmp16(img),
@@ -284,8 +264,8 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     for name in files:
         assert (jio.imread_unit(str(tmp_path / name)) is None) == (
             name == "junk.png"), name
-    assert tio.read_image(str(tmp_path / "cmyk.jpg")) == (
-        None, "JPEG with 4 components (CMYK or YCCK)")
+    assert tio.read_image(str(tmp_path / "planar.tif")) == (
+        None, "planar TIFF")
     # the 16-bit TIFF, which the port skipped before it read them
     img, why = tio.read_image(str(tmp_path / "tiff.tif"), color=True)
     assert why is None
@@ -299,8 +279,7 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     assert sorted(logged) == sorted([
         "warning: 555.bmp unsupported by the port: 16-bit BMP",
         "warning: unreadable junk.png",
-        "warning: cmyk.jpg unsupported by the port: JPEG with 4 components "
-        "(CMYK or YCCK)",
+        "warning: planar.tif unsupported by the port: planar TIFF",
     ])
 
 

@@ -10,12 +10,15 @@ and channel handling give: RGB out, grayscale replicated to RGB, alpha
 dropped, float32 samples over 255 (``imread_unit``; a 16-bit PNG or TIFF
 reads up to 257, as it does in the JAX package).  ``imread_u8`` reads as
 the JAX training loader's ``cv2.imread(path)`` (``IMREAD_COLOR``) does:
-8 bits, a 16-bit sample as cv2 converts it for its format.  PNG is read
-in every colour type and depth, with PLTE, tRNS and Adam7
-(``decode_png``).  Unreadable files give None so callers can skip them;
-so do the files cv2 reads and the port does not (the JPEG, BMP and TIFF
-variants and the other formats that ``jpeg.py``, ``bmp.py`` and
-``tiff.py`` leave out), which ``read_image`` names.
+8 bits, a 16-bit sample as cv2 converts it for its format, then turned as
+a JPEG's or PNG's EXIF Orientation says (``exif.py``; ``IMREAD_UNCHANGED``
+turns nothing).  PNG is read in every colour type and depth, with PLTE,
+tRNS and Adam7 (``decode_png``); JPEG in every variant cv2 reads
+(``jpeg.py``: baseline, progressive, arithmetic-coded and lossless; gray,
+RGB, YCbCr, CMYK and YCCK).  Unreadable files give None so callers can
+skip them; so do the files cv2 reads and the port does not (the BMP and
+TIFF variants and the other formats that ``bmp.py`` and ``tiff.py``
+leave out), which ``read_image`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
 ``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
@@ -37,6 +40,7 @@ from underwater_image_enhancement_tpu_torch.utils.bmp import (
     decode_bmp,
     encode_bmp,
 )
+from underwater_image_enhancement_tpu_torch.utils import exif
 from underwater_image_enhancement_tpu_torch.utils.config import SUPPORTED_FORMATS
 from underwater_image_enhancement_tpu_torch.utils.jpeg import (
     Unsupported,
@@ -127,7 +131,8 @@ def _header(body: bytes) -> tuple:
 
 def _chunks(data: bytes):
     """(W, H, depth, colour type, interlace, palette, tRNS body, zlib
-    stream) of a PNG, its chunks taken as cv2's libpng takes them: IHDR
+    stream, eXIf body or None) of a PNG, its chunks taken as cv2's libpng
+    takes them: IHDR
     first; every chunk whole and IEND present (cv2 refuses a file cut
     short anywhere); a CRC error ends the read in a critical chunk but
     IEND and drops an ancillary chunk; an unknown critical chunk ends the
@@ -135,10 +140,12 @@ def _chunks(data: bytes):
     only where it is valid, before the first IDAT and, for a palette,
     after PLTE (the first valid one wins); PLTE is read only for a
     palette image, cut to the depth's 2**depth entries, and given twice
-    ends the read."""
+    ends the read; the first eXIf that libpng keeps
+    (``exif.png_exif_valid``), before or after the image data."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, head, palette, trns, idat, run = 8, None, None, None, [], 0
+    exif_body = None
     while True:
         if pos + 12 > len(data):
             raise ValueError("PNG cut short")
@@ -187,11 +194,15 @@ def _chunks(data: bytes):
                     or (ctype == 3 and palette is not None
                         and 0 < length <= len(palette))):
                 trns = body
+        elif tag == b"eXIf":
+            if exif_body is None and exif.png_exif_valid(body):
+                exif_body = body
         elif tag == b"IEND":
             break
         elif critical:
             raise ValueError(f"PNG with an unknown critical chunk {tag!r}")
-    return W, H, depth, ctype, interlace, palette, trns, b"".join(idat)
+    return (W, H, depth, ctype, interlace, palette, trns, b"".join(idat),
+            exif_body)
 
 
 def _samples(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
@@ -230,7 +241,13 @@ def _passes(W: int, H: int, interlace: int):
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) uint8, or uint16 at 16 bits: what
+    """``_decode_png``'s image."""
+    return _decode_png(data)[0]
+
+
+def _decode_png(data: bytes):
+    """PNG bytes -> ((H, W) or (H, W, C) uint8, or uint16 at 16 bits; the
+    Orientation of its eXIf chunk or None).  The image is what
     ``cv2.imdecode(data, IMREAD_UNCHANGED)`` gives, in RGB order.  Every
     colour type and depth, filter types 0-4, Adam7 interlace: gray (1-,
     2- and 4-bit samples scaled to 8 bits as libpng's
@@ -243,7 +260,9 @@ def decode_png(data: bytes) -> np.ndarray:
     gives None (``_chunks``; a zlib stream that does not end, which
     libpng reads to its end, or that holds too few bytes; a bad filter
     type); ``zlib.error`` on a corrupt stream."""
-    W, H, depth, ctype, interlace, palette, trns, stream = _chunks(data)
+    W, H, depth, ctype, interlace, palette, trns, stream, exif_body = \
+        _chunks(data)
+    turn = None if exif_body is None else exif.orientation(exif_body)
     z = zlib.decompressobj()
     raw = np.frombuffer(z.decompress(stream), np.uint8)
     if not z.eof:
@@ -263,17 +282,19 @@ def decode_png(data: bytes) -> np.ndarray:
         table[:len(palette), :3] = palette
         if trns is not None:
             table[:len(trns), 3] = np.frombuffer(trns, np.uint8)
-        return table[out[..., 0]][..., :3 if trns is None else 4]
+        return table[out[..., 0]][..., :3 if trns is None else 4], turn
     if ctype == 0:
         scale = 255 // ((1 << depth) - 1) if depth < 8 else 1
-        return out[..., 0] * np.uint8(scale) if scale > 1 else out[..., 0]
+        return (out[..., 0] * np.uint8(scale) if scale > 1
+                else out[..., 0]), turn
     if ctype == 2 and trns is not None:
         key = np.array(struct.unpack(">3H", trns), np.uint32)
         if depth == 8:
             key &= 0xFF
         alpha = np.where((out == key).all(-1), 0, np.iinfo(out.dtype).max)
-        return np.concatenate([out, alpha[..., None].astype(out.dtype)], -1)
-    return out
+        return np.concatenate([out, alpha[..., None].astype(out.dtype)],
+                              -1), turn
+    return out, turn
 
 
 # first bytes of the other formats cv2 reads
@@ -291,15 +312,19 @@ def decode_image(data: bytes, color: bool = False) -> np.ndarray:
     package's channel handling give (uint8, or uint16 for a 16-bit PNG or TIFF;
     gray replicated, alpha dropped), or with ``color`` what
     ``IMREAD_COLOR`` gives (uint8: a 16-bit PNG's samples ``v >> 8``, a
-    16-bit TIFF's as ``tiff.decode_tiff(color=True)`` says).  Raises
-    ``Unsupported`` for a format (or variant) that cv2 reads and the port
-    does not, ValueError for anything else it cannot read."""
+    16-bit TIFF's as ``tiff.decode_tiff(color=True)`` says, a lossless
+    gray JPEG refused; then a JPEG's or PNG's EXIF orientation applied,
+    ``exif.py``).  Raises ``Unsupported`` for a format (or variant) that
+    cv2 reads and the port does not, ValueError for anything else it
+    cannot read."""
+    turn = None
     if data[:8] == _SIGNATURE:
-        img = decode_png(data)
+        img, turn = _decode_png(data)
         if color and img.dtype == np.uint16:
             img = (img >> 8).astype(np.uint8)
     elif data[:3] == b"\xff\xd8\xff":
-        img = decode_jpeg(data)
+        img = decode_jpeg(data, color)
+        turn = exif.jpeg_orientation(data) if color else None
     elif data[:2] == b"BM":
         return decode_bmp(data)
     elif data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
@@ -319,7 +344,7 @@ def decode_image(data: bytes, color: bool = False) -> np.ndarray:
         img = np.repeat(img[..., :1], 3, axis=2)
     else:
         img = img[..., :3]
-    return np.ascontiguousarray(img)
+    return exif.apply(img, turn) if color else np.ascontiguousarray(img)
 
 
 def read_image(path: str, color: bool = False):

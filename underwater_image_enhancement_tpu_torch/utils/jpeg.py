@@ -3,16 +3,24 @@ decompression (what ``cv2.imread`` returns for these files), and
 ``encode_jpeg``, which writes the bytes ``cv2.imwrite`` writes with its
 defaults (see its docstring).
 
-Covers Huffman JPEG, sequential (SOF0 baseline, SOF1 extended) and
-progressive (SOF2), 8-bit, with 1 or 3 components, any sampling factors
+Covers every JPEG that cv2 5.0.0 reads: sequential (SOF0 baseline, SOF1
+extended) and progressive (SOF2) files, Huffman- or arithmetic-coded
+(SOF9, SOF10), 8-bit, with 1, 3 or 4 components (gray; RGB or YCbCr;
+CMYK or YCCK as ``_color_space`` tells them apart), any sampling factors
 whose ratios libjpeg upsamples (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 and the
-like), restart intervals, one or several scans.  Anything else
-(arithmetic coding, 12 bits, lossless, hierarchical, CMYK) raises
-``Unsupported``.  A file cut short in its entropy-coded data decodes as
-``cv2.imread`` decodes it (libjpeg pads the data with zero bits, the MCU
-in progress decodes from them, and the MCUs after it keep what earlier
-scans put there: grey in a sequential file); one cut short before its
-first scan's data raises ValueError.
+like), restart intervals, one or several scans; and lossless files
+(SOF3) of 2-8 bits with 1, 3 or 4 components.  What cv2 refuses raises
+ValueError, as it is unreadable there too: a precision other than these,
+hierarchical (SOF5-7, SOF13-15) and arithmetic lossless (SOF11) frames, a
+height left to a DNL marker, fractional sampling ratios, 2 or more than
+4 components, a lossless file in YCbCr or YCCK (libjpeg-turbo converts no
+colour in lossless mode), or gray when ``color`` asks for
+``IMREAD_COLOR``'s BGR.  No file raises ``Unsupported``.  A file cut
+short in its entropy-coded data decodes as ``cv2.imread`` decodes it
+(libjpeg pads the data with zero bits, the MCU in progress decodes from
+them, and the MCUs after it keep what earlier scans put there: grey in a
+sequential file); one cut short before its first scan's data raises
+ValueError.
 
 A progressive file's scans follow ``jdphuff.c``: DC first and refine
 scans (interleaved or not), AC first and refine scans of one component,
@@ -23,6 +31,18 @@ a file cut short), libjpeg-turbo's block smoothing (``jdcoefct.c``
 ``decompress_smooth_data``) estimates the first nine AC coefficients,
 and the DC where no AC data came, from the 5x5 neighbourhood of DC
 values; ``_smooth`` repeats it.
+
+Arithmetic coding follows ``jdarith.c``: T.81 Annex D's QM decoder
+(``_QM``; Table D.2 as ``_ARITAB``), the DC contexts of the DAC
+conditioning L and U and the AC magnitude bins split at Kx, statistics a
+table shared by the components that name it, all reset at each restart,
+zero bytes read past the data; the progressive scans keep the Huffman
+ones' order rules and block smoothing.  Lossless files follow
+``jdlhuff.c``, ``jddiffct.c`` and ``jdlossls.c``: predictors 1-7 and the
+point transform, the first row of a scan or restart interval predicted
+from 2**(P-Pt-1) and then the sample to its left, restarts of whole MCU
+rows, the samples replicated to full size and converted to no other
+colour space.
 
 The arithmetic is libjpeg's, integer for integer:
 
@@ -62,13 +82,17 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_SOF_NAMES = {
-    0xC3: "lossless JPEG (SOF3)",
+# the SOF markers this decoder reads: (process, arithmetic coding)
+_SOF_KINDS = {0xC0: ("sequential", False), 0xC1: ("sequential", False),
+              0xC2: ("progressive", False), 0xC3: ("lossless", False),
+              0xC9: ("sequential", True), 0xCA: ("progressive", True)}
+# the SOF markers libjpeg-turbo does not decode (cv2 gives None)
+_SOF_REFUSED = {
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
-    0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
-    0xCA: "arithmetic-coded JPEG (SOF10)", 0xCB: "lossless JPEG (SOF11)",
-    0xCD: "arithmetic-coded JPEG (SOF13)", 0xCE: "arithmetic-coded JPEG (SOF14)",
-    0xCF: "arithmetic-coded JPEG (SOF15)",
+    0xC7: "hierarchical JPEG (SOF7)",
+    0xCB: "arithmetic-coded lossless JPEG (SOF11)",
+    0xCD: "hierarchical JPEG (SOF13)", 0xCE: "hierarchical JPEG (SOF14)",
+    0xCF: "hierarchical JPEG (SOF15)",
 }
 
 
@@ -83,30 +107,35 @@ def _huffman_lut(counts, symbols, ac: bool):
     ``fast[peek]`` = (bits to advance, run, value) where the code and its
     extra bits fit in the 16 (the value sign-extended as libjpeg's
     HUFF_EXTEND; run 15 and value 0 for ZRL, run 64 for EOB, the run 0 for
-    DC), or (0, 0, 0) where they do not."""
-    slow = np.zeros(1 << 16, np.int64)
+    DC), or (0, 0, 0) where they do not.  Built a code and an extra-bits
+    value at a time, each filling its run of peeks (codes past 16 bits, in
+    a table that holds too many, fill none)."""
+    slow = [0] * (1 << 16)
+    fast = [(0, 0, 0)] * (1 << 16)
     code, k = 0, 0
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
+            sym = symbols[k]
+            span = 1 << (16 - length)
             lo = code << (16 - length)
-            slow[lo:lo + (1 << (16 - length))] = (length << 8) | symbols[k]
             code += 1
             k += 1
+            if lo >= 1 << 16:
+                continue
+            slow[lo:lo + span] = [(length << 8) | sym] * span
+            size = sym & 15 if ac else sym
+            if length + size > 16:
+                continue
+            run = 0
+            if ac:
+                run = sym >> 4 if size else (15 if sym == 0xF0 else 64)
+            step = span >> size
+            for r in range(1 << size):
+                v = r - (1 << size) + 1 if size and r < 1 << (size - 1) else r
+                at = lo + r * step
+                fast[at:at + step] = [(length + size, run, v)] * step
         code <<= 1
-    peek = np.arange(1 << 16, dtype=np.int64)
-    n, rs = slow >> 8, slow & 255
-    size = rs & 15 if ac else rs
-    adv = n + size
-    ok = (slow != 0) & (adv <= 16)
-    raw = (peek >> np.maximum(16 - adv, 0)) & ((1 << size) - 1)
-    val = np.where((size > 0) & (raw < (1 << np.maximum(size - 1, 0))),
-                   raw - ((1 << size) - 1), raw)
-    run = np.zeros_like(rs)
-    if ac:
-        run = np.where(size > 0, rs >> 4, np.where(rs == 0xF0, 15, 64))
-    fast = list(zip(np.where(ok, adv, 0).tolist(), np.where(ok, run, 0).tolist(),
-                    np.where(ok, val, 0).tolist()))
-    return fast, slow.tolist()
+    return fast, slow
 
 
 # zero bytes past a segment's end: one block (at most 64 symbols of at
@@ -375,21 +404,38 @@ def _split_restarts(data: bytes) -> list:
     return [_unstuff(p) for p in parts]
 
 
+def _check_frame(frame) -> None:
+    """ValueError for the frames cv2 gives None for: a precision other than
+    8 bits (2 to 8 in a lossless file; cv2 reads libjpeg-turbo's 8-bit
+    samples only), 2 or more than 4 components (no colour conversion to
+    BGR), a height left to a DNL marker (libjpeg does not take one)."""
+    prec, lossless = frame.precision, frame.lossless
+    if not (2 <= prec <= 8 if lossless else prec == 8):
+        raise ValueError(f"{prec}-bit {'lossless ' if lossless else ''}JPEG")
+    if len(frame.comps) not in (1, 3, 4):
+        raise ValueError(f"JPEG with {len(frame.comps)} components")
+    if frame.H == 0 or frame.W == 0:
+        raise ValueError("JPEG with its height in a DNL marker")
+
+
 class _Frame:
     """SOF, and the coefficients of every component in one flat array (in
-    zigzag order within a block; component k's blocks from offset[k])."""
+    zigzag order within a block; component k's blocks from offset[k]), or
+    a lossless frame's samples (a data unit of one sample, ``samples``)."""
 
-    def __init__(self, body: bytes, progressive: bool = False):
-        prec, self.H, self.W, nc = struct.unpack(">BHHB", body[:6])
-        if len(body) < 6 + 3 * nc:
+    def __init__(self, body: bytes, kind: str = "sequential",
+                 arithmetic: bool = False):
+        if len(body) < 6:
             raise ValueError("corrupt JPEG: short frame header")
-        if prec != 8:
-            raise Unsupported(f"{prec}-bit JPEG")
-        if nc not in (1, 3):
-            raise Unsupported(f"JPEG with {nc} components"
-                              + (" (CMYK or YCCK)" if nc == 4 else ""))
-        if self.H == 0 or self.W == 0:
-            raise Unsupported("JPEG with its height in a DNL marker")
+        prec, self.H, self.W, nc = struct.unpack(">BHHB", body[:6])
+        if nc == 0 or len(body) < 6 + 3 * nc:
+            raise ValueError("corrupt JPEG: short frame header")
+        self.lossless = kind == "lossless"
+        self.arithmetic = arithmetic
+        # samples a data unit's side: a block of 8, or one sample
+        unit = self.unit = 1 if self.lossless else 8
+        self.precision = prec
+        progressive = kind == "progressive"
         # (id, h, v, quantisation table) a component
         self.comps = [(body[6 + 3 * k], body[7 + 3 * k] >> 4,
                        body[7 + 3 * k] & 15, body[8 + 3 * k])
@@ -398,15 +444,17 @@ class _Frame:
             raise ValueError("corrupt JPEG: sampling factor out of range")
         self.hmax = max(c[1] for c in self.comps)
         self.vmax = max(c[2] for c in self.comps)
-        self.mcus_x = -(-self.W // (8 * self.hmax))
-        self.mcus_y = -(-self.H // (8 * self.vmax))
+        self.mcus_x = -(-self.W // (unit * self.hmax))
+        self.mcus_y = -(-self.H // (unit * self.vmax))
         # blocks a row and a column of each component's array
         self.blocks = [(self.mcus_y * v, self.mcus_x * h)
                        for _, h, v, _ in self.comps]
-        sizes = [by * bx * 64 for by, bx in self.blocks]
+        sizes = [by * bx * unit * unit for by, bx in self.blocks]
         self.offset = np.cumsum([0] + sizes)[:-1].tolist()
         # each component's quantisation table, latched at its first scan
         self.quant = [None] * nc
+        # a lossless frame's samples, each component's from its scan
+        self.samples = [None] * nc
         self.progressive = progressive
         if not progressive:
             self.coef = np.zeros(sum(sizes), np.int64)
@@ -436,7 +484,7 @@ class _Frame:
             k = members[0]
             dh, dw = self.comp_size(k)
             bx = self.blocks[k][1]
-            by_n, bx_n = -(-dh // 8), -(-dw // 8)
+            by_n, bx_n = -(-dh // self.unit), -(-dw // self.unit)
             blk = (np.arange(by_n)[:, None] * bx + np.arange(bx_n)).ravel()
             return [(k, int(b)) for b in blk], 1
         per_mcu = []  # (component, block row, block col) within an MCU
@@ -456,7 +504,8 @@ class _Frame:
 def _scan_members(frame: _Frame, header: bytes, qt):
     """The components of a scan (frame indices) and each one's (DC table
     id, AC table id); latches each component's quantisation table at its
-    first scan, as ``jdinput.c`` does."""
+    first scan, as ``jdinput.c`` does (``qt`` None: a lossless frame, which
+    has none)."""
     ns = header[0] if header else 0
     if ns == 0 or len(header) < 4 + 2 * ns:
         raise ValueError("corrupt JPEG: short scan header")
@@ -469,7 +518,7 @@ def _scan_members(frame: _Frame, header: bytes, qt):
         k = ids.index(cid)
         members.append(k)
         tables.append((t >> 4, t & 15))
-        if frame.quant[k] is None:
+        if qt is not None and frame.quant[k] is None:
             tq = frame.comps[k][3]
             if tq not in qt:
                 raise ValueError("corrupt JPEG: missing quantisation table")
@@ -698,6 +747,470 @@ def _decode_prog_scan(frame: _Frame, header: bytes, entropy: bytes,
 
 
 # ---------------------------------------------------------------------------
+# Arithmetic decoding (T.81 Annex D's QM decoder as jdarith.c runs it)
+# ---------------------------------------------------------------------------
+
+# Table D.2 (jaricom.c): each state's (Qe, the next state after an LPS
+# with the MPS switch in bit 7, the next state after an MPS); state 113
+# is the fixed bin of probability one half that never adapts
+_ARITAB = [(q, (sw << 7) | lps, mps) for q, lps, mps, sw in (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080B, 18, 4, 0), (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0),
+    (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1),
+    (0x3F25, 36, 16, 0), (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0),
+    (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0CEF, 43, 21, 0),
+    (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01B1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0),
+    (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0),
+    (0x2EF1, 67, 40, 0), (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0),
+    (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0),
+    (0x04DE, 50, 52, 0), (0x040F, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0), (0x01F8, 54, 57, 0),
+    (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0),
+    (0x008F, 61, 32, 0), (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0),
+    (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0), (0x2FE8, 83, 69, 0),
+    (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119C, 74, 76, 0), (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0),
+    (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0),
+    (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0),
+    (0x3C3D, 104, 100, 0), (0x375E, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0), (0x415E, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0))]
+FIXED_BIN = 113
+
+
+class _QM:
+    """The QM decoder of one restart interval (``jdarith.c``
+    arith_decode): the C and A registers and the bit counter, fed the
+    interval's unstuffed bytes and zero bytes past their end (as libjpeg
+    supplies zeros once it meets a marker).  ``bit(st, i)`` decodes a
+    decision with the statistics bin ``st[i]`` (bit 7 the MPS, the rest
+    the state) and updates the bin."""
+
+    __slots__ = ("data", "pos", "c", "a", "ct")
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+        self.c, self.a, self.ct = 0, 0, -16  # two bytes to read first
+
+    def bit(self, st, i: int) -> int:
+        a = self.a
+        if a < 0x8000:  # renormalise, reading bytes into C (D.2.6)
+            c, ct, data, pos = self.c, self.ct, self.data, self.pos
+            while a < 0x8000:
+                ct -= 1
+                if ct < 0:
+                    c = (c << 8) | (data[pos] if pos < len(data) else 0)
+                    pos += 1
+                    ct += 8
+                    if ct < 0:
+                        ct += 1
+                        if ct == 0:  # the two first bytes are in
+                            a = 0x8000
+                a <<= 1
+            self.c, self.ct, self.pos = c, ct, pos
+        sv = st[i]
+        qe, nl, nm = _ARITAB[sv & 0x7F]
+        a -= qe
+        temp = a << self.ct
+        if self.c >= temp:  # the LPS sub-interval, or an exchange
+            self.c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a = a
+        return sv >> 7
+
+
+class _Overflow(Exception):
+    """jdarith.c's "bad code" (a spectral or magnitude overflow): the rest
+    of the restart interval decodes to nothing."""
+
+
+def _arith_magnitude(qm, st, sp, first):
+    """Figures F.23 and F.24 (F.21 and F.22 are the caller's): the
+    magnitude category from the bin ``sp`` on (``first`` the bin the
+    categories from 2 up continue in, None for a DC value, whose second
+    decision already reads there), then the magnitude's bits; returns
+    (|v|, the category's top bit, which the DC context reads)."""
+    m = qm.bit(st, sp)
+    if m:
+        if first is None:
+            sp = 20
+            while qm.bit(st, sp):
+                m <<= 1
+                if m == 0x8000:
+                    raise _Overflow
+                sp += 1
+        elif qm.bit(st, sp):
+            m <<= 1
+            sp = first
+            while qm.bit(st, sp):
+                m <<= 1
+                if m == 0x8000:
+                    raise _Overflow
+                sp += 1
+    top = v = m
+    sp += 14
+    m >>= 1
+    while m:
+        if qm.bit(st, sp):
+            v |= m
+        m >>= 1
+    return v + 1, top
+
+
+def _arith_dc(qm, st, ctx, L, U):
+    """One DC difference (F.19): (value, the component's next context)."""
+    if not qm.bit(st, ctx):
+        return 0, 0
+    sign = qm.bit(st, ctx + 1)
+    # the category's first decision at SP or SN, the others at X1 on
+    v, m = _arith_magnitude(qm, st, ctx + 2 + sign, None)
+    if m < (1 << L) >> 1:
+        ctx = 0
+    elif m > (1 << U) >> 1:
+        ctx = 12 + 4 * sign
+    else:
+        ctx = 4 + 4 * sign
+    return (-v if sign else v), ctx
+
+
+def _arith_ac(qm, st, fixed, k, K):
+    """The sign and magnitude of a nonzero AC coefficient at band index k
+    whose decisions start at bin 3 * (k - 1) + 2 (F.21-F.24)."""
+    sign = qm.bit(fixed, 0)
+    v, _ = _arith_magnitude(qm, st, 3 * (k - 1) + 2, 189 if k <= K else 217)
+    return -v if sign else v
+
+
+def _arith_segment(kind, seg, order, comps, c, Ss, Se, Al, cond):
+    """Decode the blocks ``order`` [(component, block index)] of one
+    restart interval of an arithmetic-coded scan into the zigzag
+    coefficient list ``c`` (in place): ``kind`` None for a sequential
+    scan, else a progressive scan's kind.  ``comps[ci]`` is (DC table, AC
+    table, offset).  The statistics areas, the DC predictions and
+    contexts start afresh (``process_restart``); a bad code leaves the
+    rest of the interval as it was."""
+    qm = _QM(seg)
+    dc_L, dc_U, ac_K = cond
+    dc_stats, ac_stats = {}, {}
+    for comp in comps:
+        if comp is not None:
+            dc_stats.setdefault(comp[0], bytearray(64))
+            ac_stats.setdefault(comp[1], bytearray(256))
+    fixed = bytearray([FIXED_BIN])
+    last, ctx = [0] * len(comps), [0] * len(comps)
+    p1, m1 = 1 << Al, -1 << Al
+    try:
+        for ci, base in order:
+            td, ta, out_base = comps[ci]
+            flat = out_base + base * 64
+            if kind is None or kind == _DC_FIRST:
+                d, ctx[ci] = _arith_dc(qm, dc_stats[td], ctx[ci], dc_L[td],
+                                       dc_U[td])
+                last[ci] += d
+                c[flat] = _wrap16(last[ci] << Al)
+                if kind is None:  # the block's AC coefficients (F.20)
+                    st, K, k = ac_stats[ta], ac_K[ta], 0
+                    while k < 63:
+                        sp = 3 * k
+                        if qm.bit(st, sp):  # EOB
+                            break
+                        while True:
+                            k += 1
+                            if qm.bit(st, sp + 1):
+                                break
+                            sp += 3
+                            if k >= 63:
+                                raise _Overflow
+                        c[flat + k] = _wrap16(_arith_ac(qm, st, fixed, k, K))
+            elif kind == _DC_REFINE:
+                if qm.bit(fixed, 0):
+                    c[flat] |= p1
+            elif kind == _AC_FIRST:
+                st, K, k = ac_stats[ta], ac_K[ta], Ss
+                while k <= Se:
+                    sp = 3 * (k - 1)
+                    if qm.bit(st, sp):  # EOB
+                        break
+                    while not qm.bit(st, sp + 1):
+                        sp += 3
+                        k += 1
+                        if k > Se:
+                            raise _Overflow
+                    c[flat + k] = _wrap16(_arith_ac(qm, st, fixed, k, K) << Al)
+                    k += 1
+            else:  # _AC_REFINE (G.1.3.3)
+                st = ac_stats[ta]
+                kex = Se  # the previous stage's end of block
+                while kex > 0 and not c[flat + kex]:
+                    kex -= 1
+                k = Ss
+                while k <= Se:
+                    sp = 3 * (k - 1)
+                    if k > kex and qm.bit(st, sp):  # EOB
+                        break
+                    while True:
+                        cur = c[flat + k]
+                        if cur:  # a correction bit
+                            if qm.bit(st, sp + 2):
+                                c[flat + k] = cur + (m1 if cur < 0 else p1)
+                            break
+                        if qm.bit(st, sp + 1):  # newly nonzero
+                            c[flat + k] = m1 if qm.bit(fixed, 0) else p1
+                            break
+                        sp += 3
+                        k += 1
+                        if k > Se:
+                            raise _Overflow
+                    k += 1
+    except _Overflow:
+        pass
+
+
+def _decode_arith_scan(frame: _Frame, header: bytes, entropy: bytes,
+                       restart: int, cond, qt) -> None:
+    """One scan of an arithmetic-coded frame (SOF9 sequential, SOF10
+    progressive) into ``frame.coef`` or ``frame.plist``: libjpeg's checks
+    of a progressive scan, then each restart interval from its own bytes
+    (one whose marker never came reads zero bytes, as libjpeg does)."""
+    members, tables = _scan_members(frame, header, qt)
+    ns = len(members)
+    Ss, Se, A = header[1 + 2 * ns], header[2 + 2 * ns], header[3 + 2 * ns]
+    comps = [None] * len(frame.comps)
+    for k, (td, ta) in zip(members, tables):
+        comps[k] = (td, ta, frame.offset[k])
+    if frame.progressive:
+        frame.scans += 1
+        kind = _scan_kind(frame, members, Ss, Se, A >> 4, A & 15)
+        c, Al = frame.plist, A & 15
+    else:
+        kind, c, Al, Ss, Se = None, frame.coef, 0, 0, 63
+    order, per_mcu = frame.scan_order(members)
+    n_mcu = len(order) // per_mcu
+    per = restart if restart else n_mcu
+    segs = _split_restarts(entropy)
+    if kind is None:
+        c = frame.coef.tolist()
+    for r, start in enumerate(range(0, n_mcu, per)):
+        _arith_segment(kind, segs[r] if r < len(segs) else b"",
+                       order[start * per_mcu:(start + per) * per_mcu],
+                       comps, c, Ss, Se, Al, cond)
+    if kind is None:
+        frame.coef = np.array(c, np.int64)
+    else:
+        # jdarith.c never flags missing data: every row is a good one
+        frame.last_good = frame.mcus_y - 1
+
+
+# ---------------------------------------------------------------------------
+# Lossless (SOF3: jdlhuff.c, jddiffct.c and jdlossls.c)
+# ---------------------------------------------------------------------------
+
+def _lossless_symbol(win, pos, slow):
+    """(bits to advance, difference) of the code at ``pos`` where the fast
+    table has none: its code and extra bits take more than 16 bits, or its
+    category is 16 (the difference 32768, no extra bits)."""
+    bits = (win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFFFFFF
+    e = slow[bits >> 16]
+    if not e:
+        raise ValueError("corrupt JPEG: bad Huffman code")
+    n, s = e >> 8, e & 255
+    if s == 16:
+        return n, 32768
+    v = (bits >> (32 - n - s)) & ((1 << s) - 1) if s else 0
+    if s and v < 1 << (s - 1):
+        v -= (1 << s) - 1
+    return n + s, v
+
+
+def _lossless_row(win, pos, nbits, tables, count):
+    """Decode ``count`` differences (one MCU row) from ``pos``, the i-th
+    with the Huffman tables ``tables[i % len(tables)]`` (an MCU's samples
+    in order).  Where the data runs out the rest of the row reads zero
+    bits (libjpeg's bit reader), which give every later sample the
+    difference of its table's all-zero code.  Returns (the differences,
+    the new position, whether the data ran out)."""
+    per = len(tables)
+    out = []
+    append = out.append
+    for i in range(count):
+        if pos > nbits:
+            zero = []
+            for fast, slow in tables:
+                adv, _, v = fast[0]
+                zero.append(v if adv else _lossless_symbol(_ZERO_WINDOWS, 0,
+                                                           slow)[1])
+            out += [zero[j % per] for j in range(i, count)]
+            return out, pos, True
+        fast, slow = tables[i % per]
+        adv, _, v = fast[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
+        if not adv:
+            adv, v = _lossless_symbol(win, pos, slow)
+        pos += adv
+        append(v)
+    return out, pos, pos > nbits
+
+
+def _lossless_layout(frame: _Frame, members):
+    """A lossless scan's MCUs: (the component of each sample of an MCU, the
+    MCUs a row, the MCU rows, each sample's index in its component's
+    array in coding order as (component, flat index) arrays).  An
+    interleaved MCU holds v x h samples of each component, dummies past a
+    component's own samples included; a one-component scan's MCU is one
+    of the component's own samples."""
+    if len(members) == 1:
+        k = members[0]
+        dh, dw = frame.comp_size(k)
+        bx = frame.blocks[k][1]
+        flat = (np.arange(dh)[:, None] * bx + np.arange(dw)).ravel()
+        return [k], dw, dh, np.full(flat.size, k), flat
+    comp, at = [], []
+    for k in members:
+        _, h, v, _ = frame.comps[k]
+        comp += [k] * (v * h)
+        at += [(y, x, h, v, frame.blocks[k][1]) for y in range(v)
+               for x in range(h)]
+    my, mx = np.divmod(np.arange(frame.mcus_x * frame.mcus_y), frame.mcus_x)
+    flat = np.stack([(my * v + y) * bx + mx * h + x
+                     for y, x, h, v, bx in at], axis=1).ravel()
+    return (comp, frame.mcus_x, frame.mcus_y,
+            np.tile(np.array(comp), frame.mcus_x * frame.mcus_y), flat)
+
+
+def _undifference(d: np.ndarray, psv: int, first, start: int) -> np.ndarray:
+    """jdlossls.c's undifferencing of a component's (rows, columns)
+    differences: rows in ``first`` (a scan's or restart's first row) from
+    ``start`` then the sample to the left, the first sample of other rows
+    from the one above, the others by predictor ``psv``; every sample
+    modulo 2**16.  Predictors 1-5 are linear in the sample to the left
+    and run as prefix sums; 6 and 7 run sample by sample."""
+    rows, width = d.shape
+    x = np.zeros((rows, width), np.int64)
+    for r in range(rows):
+        dr = d[r]
+        if first[r]:
+            x[r] = (start + np.cumsum(dr)) & 0xFFFF
+            continue
+        up = x[r - 1]
+        if psv == 2:
+            x[r] = (dr + up) & 0xFFFF
+        elif psv == 3:
+            x[r] = (dr + np.concatenate([up[:1], up[:-1]])) & 0xFFFF
+        elif psv in (1, 4, 5):
+            step = dr.copy()
+            if psv == 4:
+                step[1:] += up[1:] - up[:-1]
+            elif psv == 5:
+                step[1:] += (up[1:] - up[:-1]) >> 1
+            x[r] = (up[0] + np.cumsum(step)) & 0xFFFF
+        else:
+            dl, ul = dr.tolist(), up.tolist()
+            ra = (dl[0] + ul[0]) & 0xFFFF
+            out = [ra]
+            if psv == 6:
+                for j in range(1, width):
+                    ra = (dl[j] + ul[j] + ((ra - ul[j - 1]) >> 1)) & 0xFFFF
+                    out.append(ra)
+            else:
+                for j in range(1, width):
+                    ra = (dl[j] + ((ra + ul[j]) >> 1)) & 0xFFFF
+                    out.append(ra)
+            x[r] = out
+    return x
+
+
+def _decode_lossless_scan(frame: _Frame, header: bytes, entropy: bytes,
+                          restart: int, dc_tabs, dc_max) -> None:
+    """One scan of a lossless frame: libjpeg-turbo's checks (predictor
+    1-7, Se and Ah 0, Pt under the precision, DC symbols up to 16, a
+    restart interval of whole MCU rows), the differences of every MCU row
+    (a row after the data ran out gives zeros and resets the predictors,
+    until a restart marker that is present), then each component's
+    samples (``frame.samples``)."""
+    members, tables = _scan_members(frame, header, None)
+    ns = len(members)
+    psv, Se, A = header[1 + 2 * ns], header[2 + 2 * ns], header[3 + 2 * ns]
+    Al = A & 15
+    if not 1 <= psv <= 7 or Se or A >> 4 or Al >= frame.precision:
+        raise ValueError(f"corrupt JPEG: bad lossless scan (psv={psv} "
+                         f"Se={Se} Ah={A >> 4} Al={Al})")
+    luts = [None] * len(frame.comps)
+    for k, (td, _) in zip(members, tables):
+        if td not in dc_tabs:
+            raise ValueError("corrupt JPEG: missing Huffman table")
+        if dc_max[td] > 16:
+            raise ValueError("corrupt JPEG: lossless table symbol past 16")
+        luts[k] = dc_tabs[td]
+    pattern, per_row, n_rows, comp_of, flat_of = _lossless_layout(frame,
+                                                                  members)
+    if restart % per_row:
+        raise ValueError(f"corrupt JPEG: restart interval {restart} is not "
+                         f"a whole number of MCU rows ({per_row})")
+    mcu_tables = [luts[k] for k in pattern]
+    count = per_row * len(pattern)  # samples an MCU row
+    every = restart // per_row if restart else n_rows
+    segs = _split_restarts(entropy)
+    got = np.zeros(n_rows * count, np.int64)
+    reset, out = set(), False
+    win, pos, nbits = _ZERO_WINDOWS, 0, -1
+    for j in range(n_rows):
+        if j % every == 0:
+            reset.add(j)
+            r = j // every
+            if r < len(segs):
+                win, nbits = _windows(segs[r]), 8 * len(segs[r])
+                pos, out = 0, False
+            elif not out:
+                win, pos, nbits = _windows(b""), 0, 0
+        if out:
+            reset.add(j)
+            continue
+        row, pos, out = _lossless_row(win, pos, nbits, mcu_tables, count)
+        got[j * count:(j + 1) * count] = row
+    diffs = [np.zeros(by * bx, np.int64) for by, bx in frame.blocks]
+    for k in members:
+        diffs[k][flat_of[comp_of == k]] = got[comp_of == k]
+    for k in members:
+        by, bx = frame.blocks[k]
+        dh, dw = frame.comp_size(k)
+        v = frame.comps[k][2]
+        # a reset takes effect at the first row of the iMCU row (v rows)
+        # it falls in, when that row is undifferenced
+        imcu = {j if ns > 1 else j // v for j in reset}
+        first = [r % v == 0 and r // v in imcu for r in range(dh)]
+        x = _undifference(diffs[k].reshape(by, bx)[:dh, :dw], psv, first,
+                          1 << (frame.precision - Al - 1))
+        frame.samples[k] = ((x << Al) & 0xFF).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
 # Block smoothing (libjpeg-turbo's jdcoefct.c, 5x5 DC neighbourhoods)
 # ---------------------------------------------------------------------------
 
@@ -813,13 +1326,43 @@ def _smooth(frame: _Frame, k: int, zz: np.ndarray, latch) -> np.ndarray:
 
 
 def _color_space(frame: _Frame, jfif: bool, adobe_transform) -> str:
-    """jdapimin.c default_decompress_parms for 3 components."""
+    """jdapimin.c default_decompress_parms: the colour space of 3 or 4
+    components ("rgb", "ycc", "cmyk" or "ycck")."""
+    if len(frame.comps) == 4:  # Adobe transform 0 or no marker: CMYK
+        return "cmyk" if adobe_transform in (None, 0) else "ycck"
     if jfif:
         return "ycc"
     if adobe_transform is not None:
         return "rgb" if adobe_transform == 0 else "ycc"
     ids = tuple(c[0] for c in frame.comps)
-    return "rgb" if ids == (82, 71, 66) else "ycc"
+    if ids == (82, 71, 66):
+        return "rgb"
+    # libjpeg-turbo 3 takes a lossless file's other ids as RGB
+    return "rgb" if frame.unit == 1 else "ycc"
+
+
+def cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """OpenCV's CMYK to BGR conversion (``icvCvt_CMYK2BGR_8u_C4C3R``) of
+    u8 planes, in RGB order: each of C, M, Y becomes
+    ``k - ((255 - v) * k >> 8)``."""
+    k = k.astype(np.int32)
+    return np.stack([k - (((255 - p.astype(np.int32)) * k) >> 8)
+                     for p in (c, m, y)], axis=-1).astype(np.uint8)
+
+
+def _to_rgb(planes, space: str) -> np.ndarray:
+    """Upsampled component planes in the frame's colour space -> (H, W)
+    gray or (H, W, 3) RGB, as cv2 gets them from libjpeg."""
+    if len(planes) == 1:
+        return planes[0]
+    if space == "rgb":
+        return np.stack(planes, axis=-1)
+    if space == "ycc":
+        return ycc_to_rgb(*planes)
+    if space == "ycck":  # jdcolor.c ycck_cmyk_convert: CMY = 255 - RGB
+        planes = [255 - p for p in np.moveaxis(ycc_to_rgb(*planes[:3]), -1,
+                                                0)] + [planes[3]]
+    return cmyk_to_rgb(*planes)
 
 
 def _read(data: bytes):
@@ -829,8 +1372,10 @@ def _read(data: bytes):
     component k's padded block array from ``frame.offset[k]``)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
-    qt, dc_tabs, ac_tabs = {}, {}, {}
+    qt, dc_tabs, ac_tabs, dc_max = {}, {}, {}, {}
     frame, restart, jfif, adobe_transform = None, 0, False, None
+    # the arithmetic conditioning a table (DAC): DC L and U, AC Kx
+    cond = ([0] * 16, [1] * 16, [5] * 16)
     scanned = False
     pos = 2
     while pos < len(data):
@@ -885,26 +1430,52 @@ def _read(data: bytes):
                 if p + 17 + n > len(body):
                     raise ValueError("corrupt JPEG: short Huffman table")
                 ac = bool(body[p] >> 4)
-                lut = _huffman_lut(counts, list(body[p + 17:p + 17 + n]), ac)
+                symbols = list(body[p + 17:p + 17 + n])
+                lut = _huffman_lut(counts, symbols, ac)
                 (ac_tabs if ac else dc_tabs)[body[p] & 15] = lut
+                if not ac:
+                    dc_max[body[p] & 15] = max(symbols, default=0)
                 p += 17 + n
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1, 0xC2):
-            frame = _Frame(body, progressive=marker == 0xC2)
-        elif marker in _SOF_NAMES:
-            raise Unsupported(_SOF_NAMES[marker])
+        elif marker == 0xCC:  # jdmarker.c get_dac
+            for p in range(0, len(body) - 1, 2):
+                index, val = body[p], body[p + 1]
+                if index >= 32:
+                    raise ValueError(f"corrupt JPEG: DAC index {index}")
+                if index >= 16:
+                    cond[2][index - 16] = val
+                elif val & 15 > val >> 4:
+                    raise ValueError(f"corrupt JPEG: DAC value {val:#x}")
+                else:
+                    cond[0][index], cond[1][index] = val & 15, val >> 4
+        elif marker in _SOF_KINDS:
+            frame = _Frame(body, *_SOF_KINDS[marker])
+            _check_frame(frame)
+        elif marker in _SOF_REFUSED:
+            raise ValueError(_SOF_REFUSED[marker] + ", which libjpeg-turbo "
+                             "does not decode")
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("corrupt JPEG: SOS before SOF")
             stop = _scan_end(data, pos)
-            scan = _decode_prog_scan if frame.progressive else _decode_scan
-            scan(frame, body, data[pos:stop], restart, dc_tabs, ac_tabs, qt)
+            entropy = data[pos:stop]
+            if frame.lossless:
+                _decode_lossless_scan(frame, body, entropy, restart, dc_tabs,
+                                      dc_max)
+            elif frame.arithmetic:
+                _decode_arith_scan(frame, body, entropy, restart, cond, qt)
+            else:
+                scan = (_decode_prog_scan if frame.progressive
+                        else _decode_scan)
+                scan(frame, body, entropy, restart, dc_tabs, ac_tabs, qt)
             pos, scanned = stop, True
     if frame is None:
         raise ValueError("corrupt JPEG: no frame")
     if not scanned:  # libjpeg: "JPEG datastream contains no image"
         raise ValueError("corrupt JPEG: no scan")
+    if frame.lossless:
+        return frame, jfif, adobe_transform
     if frame.progressive:
         frame.coef = np.array(frame.plist, np.int64)
     for k, (_, _, _, tq) in enumerate(frame.comps):
@@ -915,11 +1486,20 @@ def _read(data: bytes):
     return frame, jfif, adobe_transform
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W) uint8 gray or (H, W, 3) uint8 RGB, as libjpeg
-    decompresses them by default.  Raises ``Unsupported`` for files outside
-    this decoder's scope, ValueError for corrupt ones."""
+def decode_jpeg(data: bytes, color: bool = False) -> np.ndarray:
+    """JPEG bytes -> (H, W) uint8 gray or (H, W, 3) uint8 RGB, what
+    ``cv2.imread`` gives in ``IMREAD_UNCHANGED`` (``color`` False) or in
+    ``IMREAD_COLOR`` (True), in RGB order (libjpeg's default
+    decompression; CMYK and YCCK through OpenCV's CMYK formula).  The two
+    modes differ only on a lossless gray file, which ``IMREAD_COLOR``
+    refuses.  ValueError where cv2 gives None."""
     frame, jfif, adobe_transform = _read(data)
+    if any(frame.hmax % h or frame.vmax % v for _, h, v, _ in frame.comps):
+        # jdsample.c: JERR_FRACT_SAMPLE_NOTIMPL, cv2 gives None
+        raise ValueError("JPEG with fractional sampling ratios")
+    space = _color_space(frame, jfif, adobe_transform)
+    if frame.lossless:
+        return _lossless_image(frame, space, color)
     latch = _smoothing_latch(frame) if frame.progressive else None
     planes = []
     for k, (_, h, v, _) in enumerate(frame.comps):
@@ -935,14 +1515,30 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         px = px.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
         dh, dw = frame.comp_size(k)
         fh, fv = frame.hmax // h, frame.vmax // v
-        if frame.hmax % h or frame.vmax % v:
-            raise Unsupported("JPEG with fractional sampling ratios")
         planes.append(_upsample(px[:dh, :dw], fh, fv)[:frame.H, :frame.W])
-    if len(planes) == 1:
-        return planes[0]
-    if _color_space(frame, jfif, adobe_transform) == "rgb":
-        return np.stack(planes, axis=-1)
-    return ycc_to_rgb(*planes)
+    return _to_rgb(planes, space)
+
+
+def _lossless_image(frame: _Frame, space: str, color: bool) -> np.ndarray:
+    """A lossless frame's samples as cv2 gets them: each component
+    replicated to full size (libjpeg-turbo upsamples without its triangle
+    filter when a data unit is one sample), then gray, RGB or CMYK as they
+    are; libjpeg-turbo converts no colour in lossless mode, so a YCbCr or
+    YCCK file, and with ``color`` (``IMREAD_COLOR``'s BGR) a gray one,
+    raise ValueError, as cv2 gives None."""
+    gray = len(frame.comps) == 1
+    if (color and gray) or (not gray and space in ("ycc", "ycck")):
+        raise ValueError(f"lossless JPEG in {'gray' if gray else space}: "
+                         "libjpeg-turbo converts no colour in lossless mode")
+    planes = []
+    for k, (_, h, v, _) in enumerate(frame.comps):
+        p = frame.samples[k]
+        if p is None:  # a component no scan reached
+            p = np.zeros(frame.comp_size(k), np.uint8)
+        p = np.repeat(np.repeat(p, frame.vmax // v, axis=0), frame.hmax // h,
+                      axis=1)
+        planes.append(p[:frame.H, :frame.W])
+    return _to_rgb(planes, space)
 
 
 # ---------------------------------------------------------------------------
