@@ -84,7 +84,17 @@ non-zero):
    Orientation (JPEGs of 6, PNGs of 8 in ``eXIf``) loaded by
    ``PairedImageDataset`` equal to their twins turned by ``np.rot90``, and
    one ``cli train-mlp --device cuda`` epoch on them launching K1b and K7
-   once a cached image (each call replayed bit-equal), then the five
+   once a cached image (each call replayed bit-equal),
+   ``[tiff_variants]`` (``tiff_variants_slice``): frame 0 at 1080p as an
+   orientation-3, a palette, a planar, a CMYK, a WhiteIsZero, an
+   old-style LZW, a fill-order-2 and a JPEG-in-TIFF file
+   (``tests/torch_tiff.py``), each decoding to the array it encodes as
+   cv2 converts it (host ms printed), ``cli six --device cuda`` on the
+   orientation-3 file with six exact's launches of one frame, each call
+   replayed bit-equal, its PNGs byte-equal to six's on the frame's PNG,
+   ``[bmp_variants]`` (``bmp_variants_slice``): frame 0 as an RLE8, a
+   4-bit and a 16-bit BMP (``tests/torch_bmp.py``), each decoding to its
+   colours (host ms printed), then the five
    CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
@@ -1642,6 +1652,206 @@ def exif_slice(torch, run_cli, captured_match, replay, smi: str) -> None:
         card=repr(smi))
 
 
+# [tiff_variants]: 1080p frame 0 as the TIFF variants that libtiff's RGBA
+# reader and cv2's own path take apart from 8- and 16-bit chunky RGB, each
+# decoding to the array it encodes as cv2 converts it; six on the
+# orientation-3 file against six on the PNG of the same frame
+TIFF_STRIP_ROWS = 16
+TIFF_TILE = (256, 256)
+
+
+def variants_frame() -> np.ndarray:
+    """Frame 0 as ``[write]`` and ``[png16]`` read it: (H, W, 3) uint8."""
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    u8 = uio.imread_u8(str(WORK / "in" / "frame0.png"))
+    check(u8 is not None and u8.shape == (H, W, 3), "variants: frame 0")
+    return u8
+
+
+def held_file(phase: str, out: Path, name: str, write, decode, want,
+              smi: str, **extra) -> bytes:
+    """Write a file by ``write()``, decode it by ``decode(data)`` and hold
+    it equal to ``want``; log both host ms."""
+    t0 = time.perf_counter()
+    data = write()
+    ms_w = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = decode(data)
+    ms_r = (time.perf_counter() - t0) * 1e3
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"{phase}: {name} decodes to other pixels than it encodes")
+    (out / name).write_bytes(data)
+    log(phase, file=name, bytes=len(data), frame=f"{W}x{H}",
+        write_host_ms=f"{ms_w:.1f}", decode_host_ms=f"{ms_r:.1f}",
+        **extra, card=repr(smi))
+    return data
+
+
+def tiff_variants_slice(torch, run_cli, captured_match, replay,
+                        smi: str) -> None:
+    """[tiff_variants]: from 1080p frame 0, ``tests/torch_tiff.py``
+    writes an orientation-3 file (the frame turned 180 degrees, Deflate
+    with the predictor, strips of ``TIFF_STRIP_ROWS`` rows), a palette
+    file (``palette_332``'s 256 colours in a 16-bit colormap), planar RGB
+    in ``TIFF_TILE`` tiles, CMYK (C, M, Y the complements of R, G, B, K a
+    quarter of the darkest), a WhiteIsZero gray (the green plane), an
+    old-style LZW file, a fill-order-2 LZW file and a JPEG-in-TIFF
+    (YCbCr strips of the port's JPEG encoder, its tables in JPEGTables).
+    Each decodes (``tiff.decode_tiff``, host ms printed) to the array it
+    encodes as cv2 converts it: the frame turned back, the colormap's high
+    bytes, ``(255 - c) * (255 - k) // 255`` and alpha 255, the gray, the
+    strips' own JPEG decodes.  ``cli six --device cuda`` on the
+    orientation-3 file launches six exact's kernels of one frame
+    (``SIX_ONE_FRAME``), each call replayed bit-equal to its plain
+    version, and writes PNGs byte-equal to those of ``cli six`` on the
+    frame's PNG."""
+    from tests import torch_tiff as T
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+    from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+        decode_jpeg,
+        encode_jpeg,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.tiff import (
+        decode_tiff,
+    )
+
+    t_phase = time.perf_counter()
+    out = WORK / "tiff_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    u8 = variants_frame()
+    rows = TIFF_STRIP_ROWS
+
+    def held(name, write, want, **extra):
+        return held_file("tiff_variants", out, name, write, decode_tiff,
+                         want, smi, **extra)
+
+    held("orientation3.tif", lambda: T.tiff(
+        [u8[::-1, ::-1]], compression=8, predictor=2, rows_per_strip=rows,
+        tags={274: (3, [3])}), u8, equal_to="the frame")
+    idx, pal = palette_332(u8)
+    cmap = (pal.T.astype(np.int64) * 257).reshape(-1).tolist()
+    held("palette.tif", lambda: T.tiff(
+        [idx.astype(np.uint8)], compression=8, photometric=3,
+        rows_per_strip=rows, tags={320: (3, cmap)}), pal[idx],
+        equal_to="the palette's colours")
+    held("planar.tif", lambda: T.tiff([u8], planar=2, tile=TIFF_TILE), u8,
+         equal_to="the frame")
+    k = u8.min(-1) // 4
+    cmyk = np.concatenate([255 - u8, k[..., None]], -1)
+    conv = ((255 - cmyk[..., :3].astype(np.int32))
+            * (255 - k[..., None].astype(np.int32)) // 255).astype(np.uint8)
+    held("cmyk.tif", lambda: T.tiff([cmyk], compression=8, photometric=5,
+                                    rows_per_strip=rows),
+         np.concatenate([conv, np.full((H, W, 1), 255, np.uint8)], -1),
+         equal_to="libtiff's CMYK conversion")
+    held("white_is_zero.tif", lambda: T.tiff(
+        [255 - u8[..., 1]], compression=5, photometric=0,
+        rows_per_strip=rows), u8[..., 1:2], equal_to="the gray")
+    held("old_lzw.tif", lambda: T.tiff([u8], compression="lzw-old",
+                                       rows_per_strip=rows), u8,
+         equal_to="the frame")
+    held("fill_order2.tif", lambda: T.tiff(
+        [u8], compression=5, predictor=2, fill_order=2,
+        rows_per_strip=rows), u8, equal_to="the frame")
+    tables = []
+
+    def strip_jpeg(blk, plane):
+        head, chunk = T.jpeg_split(encode_jpeg(np.ascontiguousarray(blk)))
+        tables[:] = [head]
+        return chunk
+
+    T.tiff([u8[:rows]], compression=7, photometric=6, jpeg=strip_jpeg)
+    strips = np.concatenate([decode_jpeg(encode_jpeg(np.ascontiguousarray(
+        u8[y:y + rows]))) for y in range(0, H, rows)])
+    held("jpeg.tif", lambda: T.tiff(
+        [u8], compression=7, photometric=6, jpeg=strip_jpeg,
+        rows_per_strip=rows, tags={347: (7, tables[0]), 530: (3, [2, 2])}),
+        strips, equal_to="the strips' JPEG decodes")
+    outs = {}
+    for label, name, data in (
+            ("png", "frame0.png", uio.encode_png(u8)),
+            ("orientation3", "frame0.tif",
+             (out / "orientation3.tif").read_bytes())):
+        src = out / f"in_{label}"
+        src.mkdir(parents=True, exist_ok=True)
+        (src / name).write_bytes(data)
+        calls, launches, secs = run_cli(
+            ["six", "--device", "cuda", "--input", str(src), "--output",
+             str(out / f"six_{label}")], label != "png")
+        d = launches["hysteresis_propagate"]
+        check(all(launches[k_] == v for k_, v in SIX_ONE_FRAME.items())
+              and d >= 1 and launches["sat_rows"] == d + 1,
+              f"tiff_variants: six on the {label} file launched {launches}")
+        pngs = {p.name: p.read_bytes()
+                for p in sorted((out / f"six_{label}").glob("*.png"))}
+        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
+              f"tiff_variants: six outputs {sorted(pngs)}")
+        outs[label] = (pngs, launches)
+        if label != "png":
+            check(captured_match(calls, launches),
+                  f"tiff_variants: captured calls "
+                  f"{[len(v) for v in calls.values()]} vs {launches}")
+            for kname, arglists in calls.items():
+                for j, args in enumerate(arglists):
+                    replay(kname, args,
+                           f"tiff_variants six call {j} (orientation 3)")
+            torch.cuda.synchronize()
+            log("tiff_variants",
+                command="'six --device cuda' (orientation-3 TIFF)",
+                seconds=f"{secs:.2f}",
+                launches=json.dumps(nonzero(launches), separators=(",", ":")),
+                replayed_bit_equal=json.dumps(
+                    {k_: len(v) for k_, v in calls.items() if v},
+                    separators=(",", ":")), card=repr(smi))
+    check(outs["orientation3"] == outs["png"],
+          "tiff_variants: six writes other PNGs (or launches) for the "
+          "orientation-3 TIFF than for the frame's PNG")
+    log("tiff_variants", six_outputs="byte-equal to the PNG's",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+
+
+# [bmp_variants]: 1080p frame 0 as an RLE8, a 4-bit and a 16-bit BMP
+BMP_16_COLOURS = np.array([[r * 255, g * 85, b * 255] for r in (0, 1)
+                           for g in range(4) for b in (0, 1)], np.uint8)
+
+
+def bmp_variants_slice(smi: str) -> None:
+    """[bmp_variants]: from 1080p frame 0, ``tests/torch_bmp.py`` writes
+    an RLE8 file of ``palette_332``'s indices, a 4-bit file (R and B by
+    their top bit, G by its top two: ``BMP_16_COLOURS``) and a 16-bit
+    5-5-5 file; each decodes (``bmp.decode_bmp``, host ms printed) to the
+    palette's colours, or to the samples' top five bits shifted up, as
+    OpenCV's decoder gives them."""
+    from tests import torch_bmp as B
+    from underwater_image_enhancement_tpu_torch.utils.bmp import decode_bmp
+
+    t_phase = time.perf_counter()
+    out = WORK / "bmp_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    u8 = variants_frame()
+    idx, pal = palette_332(u8)
+    held_file("bmp_variants", out, "rle8.bmp", lambda: B.bmp(
+        B.rle(idx, 8), W, H, 8, B.BI_RLE8, palette=pal), decode_bmp,
+        pal[idx], smi, equal_to="the palette's colours")
+    idx4 = ((u8[..., 0] >> 7) << 3) | ((u8[..., 1] >> 6) << 1) | (
+        u8[..., 2] >> 7)
+    held_file("bmp_variants", out, "4bit.bmp", lambda: B.bmp(
+        B.pack(idx4[::-1], 4), W, H, 4, palette=BMP_16_COLOURS),
+        decode_bmp, BMP_16_COLOURS[idx4], smi,
+        equal_to="the palette's colours")
+    v = ((u8[..., 0].astype(np.int64) >> 3) << 10
+         | (u8[..., 1].astype(np.int64) >> 3) << 5 | u8[..., 2] >> 3)
+    held_file("bmp_variants", out, "555.bmp", lambda: B.bmp(
+        B.pack(v[::-1], 16), W, H, 16), decode_bmp, u8 >> 3 << 3, smi,
+        equal_to="the top five bits")
+    log("bmp_variants",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+
+
 # [train_mesh]: MLPTrainer, ZooTrainer("vit"), the f32 VGGTrainer and the
 # ResNet18 and EfficientNet b0 ZooTrainer at published widths on mesh None,
 # one position and two positions of the one card; 3 steps from one seed
@@ -2849,6 +3059,10 @@ def main() -> int:
     jpeg_variants_slice(torch, run_cli, captured_match, replay, smi)
     # [exif] oriented training pairs through the loader and train-mlp
     exif_slice(torch, run_cli, captured_match, replay, smi)
+    # [tiff_variants] the TIFF variants at 1080p; six on an oriented TIFF
+    tiff_variants_slice(torch, run_cli, captured_match, replay, smi)
+    # [bmp_variants] RLE8, 4-bit and 16-bit BMP at 1080p
+    bmp_variants_slice(smi)
 
     # Phase-1 labeling: auto, build-dataset, build-dataset --fast
     for key, argv in (

@@ -22,6 +22,7 @@ import pytest
 
 from tests import torch_frames
 from tests import torch_jpeg_scans as jpeg_scans
+from tests import torch_tiff
 from underwater_image_enhancement_tpu import cli as jcli
 from underwater_image_enhancement_tpu.train import data as jdata
 from underwater_image_enhancement_tpu.utils import io as jio
@@ -251,10 +252,10 @@ def test_truncated_jpeg_is_unreadable(tmp_path, cut, file):
 def test_formats_the_port_does_not_read_are_logged(tmp_path):
     img = _image(32, 48, seed=10)
     files = {
-        "planar.tif": _tiff([img], planar=2),
+        "lab.tif": _tiff([img], photometric=8),
         "tiff.tif": cv2.imencode(".tiff", img.astype(np.uint16) * 257)[1]
         .tobytes(),
-        "555.bmp": _bmp16(img),
+        "webp.bmp": cv2.imencode(".webp", img)[1].tobytes(),
         "fine.jpg": _jpeg(img, 90),
         "junk.png": b"not an image",
     }
@@ -264,8 +265,8 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     for name in files:
         assert (jio.imread_unit(str(tmp_path / name)) is None) == (
             name == "junk.png"), name
-    assert tio.read_image(str(tmp_path / "planar.tif")) == (
-        None, "planar TIFF")
+    assert tio.read_image(str(tmp_path / "lab.tif")) == (
+        None, "CIELab TIFF")
     # the 16-bit TIFF, which the port skipped before it read them
     img, why = tio.read_image(str(tmp_path / "tiff.tif"), color=True)
     assert why is None
@@ -277,9 +278,9 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
         tio.collect_images(str(tmp_path)), log=logged.append)]
     assert got == ["fine.jpg", "tiff.tif"]
     assert sorted(logged) == sorted([
-        "warning: 555.bmp unsupported by the port: 16-bit BMP",
+        "warning: webp.bmp unsupported by the port: WebP",
         "warning: unreadable junk.png",
-        "warning: planar.tif unsupported by the port: planar TIFF",
+        "warning: lab.tif unsupported by the port: CIELab TIFF",
     ])
 
 
@@ -477,108 +478,8 @@ def test_tiff_of_the_port_encoder_matches_cv2(tmp_path, shape):
     _assert_tiff_reads_as_cv2(tmp_path, data)
 
 
-def _packbits(raw: bytes) -> bytes:
-    """PackBits: repeats of 3 to 128 bytes, literal runs of up to 128."""
-    out, i = bytearray(), 0
-    while i < len(raw):
-        j = i
-        while j < len(raw) and j - i < 128 and raw[j] == raw[i]:
-            j += 1
-        if j - i >= 3:
-            out += bytes([257 - (j - i), raw[i]])
-            i = j
-            continue
-        j = i + 1
-        while j < len(raw) and j - i < 128 and not (
-                j + 2 < len(raw) and raw[j] == raw[j + 1] == raw[j + 2]):
-            j += 1
-        out += bytes([j - i - 1]) + raw[i:j]
-        i = j
-    return bytes(out)
-
-
-def _coded(raw: bytes, compression: int) -> bytes:
-    if compression == 1:
-        return raw
-    if compression == 5:
-        return ttiff._lzw_encode(raw)
-    if compression == 32773:
-        return _packbits(raw)
-    return zlib.compress(raw)
-
-
-def _tiff(pages, order="<", tile=None, compression=1, predictor=1,
-          photometric=None, planar=1, rows_per_strip=None, tags=None):
-    """A TIFF built with ``struct``: one directory a page (an (H, W) or
-    (H, W, C) uint8 or uint16 array), linked in order, after the pages'
-    data, in ``order``'s byte order; strips of ``rows_per_strip`` rows
-    (one strip where None) or (width, height) ``tile``s padded at the
-    edges, each row differenced by ``predictor`` 2 and each strip or tile
-    coded by ``compression``; ``tags`` adds or replaces entries (tag:
-    (type, values))."""
-    data, dirs = bytearray(8), []
-    for img in pages:
-        a = img if img.ndim == 3 else img[..., None]
-        H, W, C = a.shape
-        a = a.astype(a.dtype.newbyteorder(order))
-        planes = [a] if planar == 1 else [a[..., c:c + 1] for c in range(C)]
-        tw, th = tile or (W, rows_per_strip or H)
-        offsets, counts = [], []
-        for plane in planes:
-            for y in range(0, H, th):
-                for x in range(0, W, tw):
-                    rows = th if tile else min(th, H - y)
-                    blk = np.zeros((rows, tw, plane.shape[2]), plane.dtype)
-                    part = plane[y:y + rows, x:x + tw]
-                    blk[:part.shape[0], :part.shape[1]] = part
-                    flat = blk.reshape(rows, -1)
-                    if predictor == 2:
-                        n = plane.shape[2]
-                        flat = flat.copy()
-                        flat[:, n:] = flat[:, n:] - flat[:, :-n]
-                    chunk = _coded(flat.tobytes(), compression)
-                    offsets.append(len(data))
-                    counts.append(len(chunk))
-                    data += chunk + b"\0" * (len(chunk) & 1)
-        entries = {256: (4, [W]), 257: (4, [H]),
-                   258: (3, [a.dtype.itemsize * 8] * C),
-                   259: (3, [compression]),
-                   262: (3, [photometric if photometric is not None
-                             else 1 if C == 1 else 2]),
-                   277: (3, [C]), 284: (3, [planar]), 317: (3, [predictor])}
-        if tile:
-            entries.update({322: (3, [tw]), 323: (3, [th]),
-                            324: (4, offsets), 325: (4, counts)})
-        else:
-            entries.update({273: (4, offsets), 278: (4, [th]),
-                            279: (4, counts)})
-        entries.update(tags or {})
-        dirs.append(entries)
-    links = []
-    for entries in dirs:
-        at = len(data)
-        values_at = at + 2 + 12 * len(entries) + 4
-        head, values = struct.pack(order + "H", len(entries)), b""
-        for tag in sorted(entries):
-            kind, vals = entries[tag]
-            raw = struct.pack(order + ("H" if kind == 3 else "I") * len(vals),
-                              *vals)
-            if len(raw) <= 4:
-                head += struct.pack(order + "HHI", tag, kind, len(vals))
-                head += raw.ljust(4, b"\0")
-            else:
-                head += struct.pack(order + "HHII", tag, kind, len(vals),
-                                    values_at + len(values))
-                values += raw
-        links.append(at + len(head))
-        data += head + b"\0" * 4 + values
-        data += b"\0" * (len(data) & 1)
-        if len(links) == 1:
-            data[:8] = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(
-                order + "I", at)
-        else:
-            data[links[-2]:links[-2] + 4] = struct.pack(order + "I", at)
-    return bytes(data)
+# the TIFF writer of the tests and chip_smoke.py
+_tiff = torch_tiff.tiff
 
 
 def _tiff_images():
@@ -624,6 +525,18 @@ TIFF_BUILT = {
         [rgb], tile=(16, 16)),
     "tiled gray uncompressed": lambda rgb, gray, rgba: _tiff(
         [gray], ">", tile=(48, 16)),
+    # the variants TIFF_UNSUPPORTED named before the port read them
+    "palette": lambda rgb, gray, rgba: _palette(rgb, gray, rgba),
+    "cmyk": lambda rgb, gray, rgba: _tiff([rgba], photometric=5),
+    "planar": lambda rgb, gray, rgba: _tiff([rgb], planar=2),
+    "white is zero": lambda rgb, gray, rgba: _tiff([gray], photometric=0),
+    "orientation 3": lambda rgb, gray, rgba: _tiff(
+        [rgb], tags={274: (3, [3])}),
+    "gray and alpha": lambda rgb, gray, rgba: _tiff(
+        [rgba[..., :2]], photometric=1),
+    # and the compression test's old-style LZW
+    "old-style lzw": lambda rgb, gray, rgba: _tiff(
+        [rgb], compression="lzw-old", rows_per_strip=9),
 }
 
 
@@ -727,19 +640,28 @@ def _palette(rgb, gray, rgba):
     return _tiff([gray], photometric=3, tags={320: (3, cmap)})
 
 
-# variants cv2 reads and the port does not: (file, the name it logs)
+# variants cv2 reads and the port does not (ROADMAP Queue 1 item 11.9):
+# (file, the name it logs)
 TIFF_UNSUPPORTED = {
-    "palette": (_palette, "palette TIFF"),
-    "cmyk": (lambda rgb, gray, rgba: _tiff([rgba], photometric=5),
-             "CMYK TIFF"),
-    "planar": (lambda rgb, gray, rgba: _tiff([rgb], planar=2),
-               "planar TIFF"),
-    "white is zero": (lambda rgb, gray, rgba: _tiff([gray], photometric=0),
-                      "WhiteIsZero TIFF"),
-    "orientation": (lambda rgb, gray, rgba: _tiff(
-        [rgb], tags={274: (3, [3])}), "TIFF of orientation 3"),
-    "gray and alpha": (lambda rgb, gray, rgba: _tiff(
-        [rgba[..., :2]], photometric=1), "gray and alpha TIFF"),
+    "cielab": (lambda rgb, gray, rgba: _tiff([rgb], photometric=8),
+               "CIELab TIFF"),
+    "ycbcr": (lambda rgb, gray, rgba: _tiff([rgb], photometric=6),
+              "YCbCr TIFF"),
+    "14-bit": (lambda rgb, gray, rgba: _tiff(
+        [gray[:, :40].reshape(gray.shape[0], 20, 2)], photometric=1,
+        tags={256: (4, [22]), 258: (3, [14]), 277: (3, [1])}),
+               "14-bit TIFF"),
+    "12-bit": (lambda rgb, gray, rgba: _tiff(
+        [gray[:, :40].reshape(gray.shape[0], 20, 2)], photometric=1,
+        tags={256: (4, [26]), 258: (3, [12]), 277: (3, [1])}),
+               "12-bit TIFF"),
+    "floating-point": (lambda rgb, gray, rgba: _tiff(
+        [(gray[:, :10] / np.float32(255)).astype("<f4").view(np.uint8)
+         .reshape(gray.shape[0], 10, 4)], photometric=1,
+        tags={256: (4, [10]), 258: (3, [32]), 277: (3, [1]),
+              339: (3, [3])}), "floating-point 32-bit TIFF"),
+    "bigtiff": (lambda rgb, gray, rgba: _tiff([rgb], big=True),
+                "BigTIFF"),
 }
 
 
@@ -753,12 +675,14 @@ def test_tiff_variants_the_port_does_not_read_are_named(tmp_path, name):
 
 
 @pytest.mark.parametrize("compression,first,why", [
-    (7, b"\xff\xd8", "JPEG TIFF"), (6, b"\xff\xd8", "old-style JPEG TIFF"),
-    (5, b"\x00\x01", "old-style LZW TIFF")])
+    (2, b"\x00\x01", "CCITT RLE TIFF"), (4, b"\x00\x01", "CCITT G4 TIFF"),
+    (34712, b"\xffO", "JPEG 2000 TIFF")])
 def test_tiff_compressions_the_port_does_not_read_are_named(compression,
                                                             first, why):
-    """The compressions named from the tag (JPEG) or from the strip's
-    first bytes (LZW's old LSB-first codes, which begin 0x00 0x01)."""
+    """The compressions of item 11.9 that cv2 reads, named from the tag
+    whatever the strip's first bytes (the old-style LZW that the strip's
+    first bytes named, and JPEG, are read now: ``TIFF_BUILT``,
+    ``tests/test_torch_tiff_variants.py``)."""
     rgb, _, _ = _tiff_images()
     data = bytearray(_tiff([rgb], compression=1))
     (at,) = struct.unpack("<I", data[4:8])

@@ -15,10 +15,13 @@ a JPEG's or PNG's EXIF Orientation says (``exif.py``; ``IMREAD_UNCHANGED``
 turns nothing).  PNG is read in every colour type and depth, with PLTE,
 tRNS and Adam7 (``decode_png``); JPEG in every variant cv2 reads
 (``jpeg.py``: baseline, progressive, arithmetic-coded and lossless; gray,
-RGB, YCbCr, CMYK and YCCK).  Unreadable files give None so callers can
-skip them; so do the files cv2 reads and the port does not (the BMP and
-TIFF variants and the other formats that ``bmp.py`` and ``tiff.py``
-leave out), which ``read_image`` names.
+RGB, YCbCr, CMYK and YCCK); BMP in every variant cv2 reads (``bmp.py``:
+OS/2 headers, 1- to 32-bit, bit fields, RLE8 and RLE4); TIFF in the
+variants ``tiff.py`` lists (its Orientation applied as cv2 applies it, in
+both modes).  Unreadable files give None so callers can skip them; so do
+the files cv2 reads and the port does not (the TIFF variants of ROADMAP
+Queue 1 item 11.9 and the formats outside ``SUPPORTED_FORMATS``), which
+``read_image`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
 ``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
@@ -309,14 +312,16 @@ _OTHER_FORMATS = (
 def decode_image(data: bytes, color: bool = False) -> np.ndarray:
     """Image bytes -> (H, W, 3) RGB, the format found from the signature:
     what ``cv2.imread(path, IMREAD_UNCHANGED)`` of the file and the JAX
-    package's channel handling give (uint8, or uint16 for a 16-bit PNG or TIFF;
-    gray replicated, alpha dropped), or with ``color`` what
-    ``IMREAD_COLOR`` gives (uint8: a 16-bit PNG's samples ``v >> 8``, a
-    16-bit TIFF's as ``tiff.decode_tiff(color=True)`` says, a lossless
-    gray JPEG refused; then a JPEG's or PNG's EXIF orientation applied,
-    ``exif.py``).  Raises ``Unsupported`` for a format (or variant) that
-    cv2 reads and the port does not, ValueError for anything else it
-    cannot read."""
+    package's channel handling give (uint8, or uint16 for a 16-bit PNG or
+    TIFF; gray, a gray-palette or OS/2 BMP and a gray TIFF replicated,
+    alpha dropped, a CMYK TIFF's fourth channel too), or with ``color``
+    what ``IMREAD_COLOR`` gives (uint8: a 16-bit PNG's samples ``v >> 8``,
+    a TIFF as ``tiff.decode_tiff(color=True)`` and a BMP as
+    ``bmp.decode_bmp(color=True)`` give it, a lossless gray JPEG refused;
+    then a JPEG's or PNG's EXIF orientation applied, ``exif.py``; a TIFF's
+    own Orientation is applied in both modes by ``decode_tiff``).  Raises
+    ``Unsupported`` for a format (or variant) that cv2 reads and the port
+    does not, ValueError for anything else it cannot read."""
     turn = None
     if data[:8] == _SIGNATURE:
         img, turn = _decode_png(data)
@@ -326,7 +331,7 @@ def decode_image(data: bytes, color: bool = False) -> np.ndarray:
         img = decode_jpeg(data, color)
         turn = exif.jpeg_orientation(data) if color else None
     elif data[:2] == b"BM":
-        return decode_bmp(data)
+        img = decode_bmp(data, color)
     elif data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         img = decode_tiff(data, color=color)
     else:

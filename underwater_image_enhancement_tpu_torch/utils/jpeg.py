@@ -1494,10 +1494,31 @@ def decode_jpeg(data: bytes, color: bool = False) -> np.ndarray:
     modes differ only on a lossless gray file, which ``IMREAD_COLOR``
     refuses.  ValueError where cv2 gives None."""
     frame, jfif, adobe_transform = _read(data)
+    return _decode_frame(frame, _color_space(frame, jfif, adobe_transform),
+                         color)
+
+
+def decode_jpeg_chunk(tables: bytes, data: bytes, space: str) -> np.ndarray:
+    """A strip or tile of a JPEG-compressed TIFF -> (H, W) or (H, W, C)
+    uint8, as libtiff's JPEG codec has libjpeg decode it: the
+    tables-only stream ``tables`` (the JPEGTables tag, SOI ... EOI, or
+    b"") read first, so the chunk's own tables replace its tables, and the
+    colour space that libtiff sets in place of the markers' (``space``:
+    "ycc" for a YCbCr image, which libtiff's RGBA reader has libjpeg
+    convert to RGB; "rgb" for any other, whose components come out as
+    they are)."""
+    if tables[:2] == b"\xff\xd8" and data[:2] == b"\xff\xd8":
+        body = tables[2:-2] if tables[-2:] == b"\xff\xd9" else tables[2:]
+        data = data[:2] + body + data[2:]
+    frame = _read(data)[0]
+    return _decode_frame(frame, space, False)
+
+
+def _decode_frame(frame: _Frame, space: str, color: bool) -> np.ndarray:
+    """A parsed frame's image in the colour space ``space``."""
     if any(frame.hmax % h or frame.vmax % v for _, h, v, _ in frame.comps):
         # jdsample.c: JERR_FRACT_SAMPLE_NOTIMPL, cv2 gives None
         raise ValueError("JPEG with fractional sampling ratios")
-    space = _color_space(frame, jfif, adobe_transform)
     if frame.lossless:
         return _lossless_image(frame, space, color)
     latch = _smoothing_latch(frame) if frame.progressive else None

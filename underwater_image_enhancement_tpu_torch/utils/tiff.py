@@ -1,7 +1,7 @@
 """A TIFF codec in numpy.  ``encode_tiff`` writes the file ``cv2.imwrite``
 writes for a colour image through libtiff (LZW with the horizontal
 predictor, chunky RGB, 8 or 16 bits a sample); ``decode_tiff`` reads the
-8- and 16-bit files ``cv2.imread`` reads, with cv2's pixels.
+files ``cv2.imread`` reads, with cv2's pixels.
 
 The strips are libtiff's: ``_rows_per_strip`` rows each (cv2's 8 KiB
 strips), each row differenced by the predictor (each sample less the one
@@ -11,14 +11,23 @@ strips, as libtiff writes it: twelve tags, then their out-of-line values
 in libtiff's order.
 
 The decoder takes the first directory (the first page, as ``cv2.imread``
-returns it) of a little- or big-endian file: 8 or 16 bits a sample,
-unsigned, chunky, gray (BlackIsZero), RGB or RGB with one extra sample,
-top-left orientation, in strips or tiles (cropped at the image's edges),
-stored uncompressed, PackBits, Deflate (8 and 32946, through ``zlib``) or
-LZW (``tif_lzw.c``'s MSB-first codes, one bit wider as the table reaches
-the next width's last code), LZW and Deflate with the horizontal predictor
-(on the samples' values, mod 2**bits, in the file's byte order) or none.
-Any other file raises ``Unsupported`` with its variant's name.
+returns it) of a little- or big-endian file: 1, 4 (palette), 8 or 16 bits
+a sample, unsigned; gray, WhiteIsZero, RGB with or without an extra
+sample, gray with extra samples, palette (16-bit or 8-bit colormaps),
+CMYK and JPEG YCbCr; chunky or planar, in strips or tiles (cropped at the
+image's edges); stored uncompressed, PackBits, Deflate (8 and 32946,
+through ``zlib``), LZW (``tif_lzw.c``'s codes, and the old style's LSB-first
+ones) or JPEG (each strip or tile a JPEG after the JPEGTables tag,
+``jpeg.decode_jpeg_chunk``); fill order 1 or 2; LZW and Deflate with the
+horizontal predictor or none; orientations 1-4.  cv2's two paths and
+libtiff's RGBA reader are ``decode_tiff``'s.  What cv2 refuses (2-bit
+and 24-bit samples, 16-bit palette and CMYK, orientations 5-8, old-style
+JPEG, LZMA, ZSTD, WebP, ICCLab, ITULab, transparency masks, predictor 3 on
+integers, JPEG without its tables, ...) raises ValueError; what it reads
+and the port does not (ROADMAP Queue 1 item 11.9: floating-point, signed,
+10-, 12-, 14- and 32-bit samples, CIELab, uncompressed YCbCr, LogL and
+LogLuv under SGILog, CCITT and JPEG 2000 compression, BigTIFF) raises
+``Unsupported`` with its variant's name.
 """
 
 from __future__ import annotations
@@ -28,8 +37,11 @@ import zlib
 
 import numpy as np
 
+from underwater_image_enhancement_tpu_torch.utils import exif
+from underwater_image_enhancement_tpu_torch.utils.bmp import opencv_gray
 from underwater_image_enhancement_tpu_torch.utils.jpeg import (
     Unsupported,
+    decode_jpeg_chunk,
     pack_msb,
 )
 
@@ -188,19 +200,27 @@ def encode_tiff(rgb: np.ndarray) -> bytes:
 
 
 # struct formats of the integer TIFF field types (BYTE, SHORT, LONG,
-# SBYTE, SSHORT, SLONG, IFD); tags of other types are not read
+# SBYTE, SSHORT, SLONG, IFD); UNDEFINED values are kept as bytes, tags of
+# other types are not read
 _INT_FORMAT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I"}
-_PHOTOMETRIC = {0: "WhiteIsZero", 3: "palette", 4: "transparency mask",
-                5: "CMYK", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
-                10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+_UNDEFINED = 7
+# what cv2 reads and the port does not (ROADMAP Queue 1 item 11.9)
+_PHOTOMETRIC = {8: "CIELab", 32844: "LogL", 32845: "LogLuv"}
 _COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4",
-                 6: "old-style JPEG", 7: "JPEG", 34712: "JPEG 2000",
-                 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
-_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS = 1, 5, 32946, 8, 32773
+                 34712: "JPEG 2000"}
+# what cv2's libtiff refuses: cv2 gives None
+_REFUSED_PHOTOMETRIC = {4: "transparency mask", 9: "ICCLab", 10: "ITULab"}
+_REFUSED_COMPRESSIONS = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD",
+                         50001: "WebP"}
+_SGILOG = (34676, 34677)
+_NONE, _LZW, _JPEG, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS = (
+    1, 5, 7, 32946, 8, 32773)
+_MINISWHITE, _MINISBLACK, _RGB, _PALETTE, _CMYK, _YCBCR = 0, 1, 2, 3, 5, 6
 
 
 def _directory(data: bytes) -> dict:
-    """The first directory's integer tags: tag -> tuple of values."""
+    """The first directory's tags: tag -> tuple of values (the integer
+    types) or bytes (UNDEFINED)."""
     order = {b"II": "<", b"MM": ">"}.get(data[:2])
     if order is None:
         raise ValueError("not a TIFF file")
@@ -215,9 +235,10 @@ def _directory(data: bytes) -> dict:
     for k in range(n):
         entry = data[at + 2 + 12 * k:at + 14 + 12 * k]
         tag, kind, count = struct.unpack(order + "HHI", entry[:8])
-        if kind not in _INT_FORMAT or count == 0:
+        if (kind not in _INT_FORMAT and kind != _UNDEFINED) or count == 0:
             continue
-        size = struct.calcsize(_INT_FORMAT[kind]) * count
+        size = (count if kind == _UNDEFINED
+                else struct.calcsize(_INT_FORMAT[kind]) * count)
         if size <= 4:
             raw = entry[8:8 + size]
         else:
@@ -225,16 +246,20 @@ def _directory(data: bytes) -> dict:
             raw = data[off:off + size]
         if len(raw) != size:
             raise ValueError(f"corrupt TIFF: tag {tag} past the file's end")
-        tags[tag] = struct.unpack(f"{order}{count}{_INT_FORMAT[kind]}", raw)
+        tags[tag] = (bytes(raw) if kind == _UNDEFINED else struct.unpack(
+            f"{order}{count}{_INT_FORMAT[kind]}", raw))
     return tags
 
 
 def _lzw_decode(data: bytes, size: int) -> bytes:
-    """A strip or tile coded by ``tif_lzw.c``: MSB-first codes of 9 to 12
-    bits, one bit wider once the table holds the width's last code but
-    one; the first ``size`` bytes."""
-    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
-        raise Unsupported("old-style LZW TIFF")
+    """A strip or tile coded by ``tif_lzw.c``, the first ``size`` bytes:
+    MSB-first codes of 9 to 12 bits, one bit wider once the table holds the
+    width's last code but one (``LZWDecode``); or, where the data begins
+    0x00 and an odd byte (a clear code read least significant bit first),
+    the old style's LSB-first codes, one bit wider once the table holds
+    the width's last code (``LZWDecodeCompat``)."""
+    old = len(data) >= 2 and data[0] == 0 and data[1] & 1
+    grow = 0 if old else 1
     out, have = [], 0
     table = [bytes([i]) for i in range(256)] + [b"", b""]
     nbits, prev = 9, None
@@ -242,14 +267,21 @@ def _lzw_decode(data: bytes, size: int) -> bytes:
     pos, end = 0, len(data)
     while have < size:
         while nacc < nbits and pos < end:
-            acc = (acc << 8) | data[pos]
+            if old:
+                acc |= data[pos] << nacc
+            else:
+                acc = (acc << 8) | data[pos]
             pos += 1
             nacc += 8
         if nacc < nbits:
             break  # no EOI: libtiff keeps what the strip gave
         nacc -= nbits
-        code = (acc >> nacc) & ((1 << nbits) - 1)
-        acc &= (1 << nacc) - 1
+        if old:
+            code = acc & ((1 << nbits) - 1)
+            acc >>= nbits
+        else:
+            code = (acc >> nacc) & ((1 << nbits) - 1)
+            acc &= (1 << nacc) - 1
         if code == _CLEAR:
             del table[_FIRST:]
             nbits, prev = 9, None
@@ -271,7 +303,7 @@ def _lzw_decode(data: bytes, size: int) -> bytes:
             else:
                 raise ValueError(f"corrupt LZW: code {code} past the table "
                                  f"({len(table)})")
-            if len(table) >= (1 << nbits) - 1 and nbits < 12:
+            if len(table) >= (1 << nbits) - grow and nbits < 12:
                 nbits += 1
         out.append(entry)
         have += len(entry)
@@ -299,6 +331,11 @@ def _packbits_decode(data: bytes, size: int) -> bytes:
     return b"".join(out)[:size]
 
 
+# each byte value with its bits reversed: FillOrder 2
+_REVERSED = np.array([int(f"{v:08b}"[::-1], 2) for v in range(256)],
+                     np.uint8)
+
+
 def _decode_chunk(data: bytes, compression: int, size: int) -> bytes:
     if compression == _NONE:
         return data[:size]
@@ -309,126 +346,378 @@ def _decode_chunk(data: bytes, compression: int, size: int) -> bytes:
     return zlib.decompressobj().decompress(data, size)
 
 
-def _variant(tags: dict) -> tuple:
-    """(bits a sample, samples a pixel, compression, predictor) of a file
-    the decoder reads; ``Unsupported`` naming any other variant."""
-    bits = set(tags.get(258, (1,)))
-    if bits not in ({8}, {16}):
-        raise Unsupported(f"{'/'.join(map(str, sorted(bits)))}-bit TIFF")
-    (depth,) = bits
-    if set(tags.get(339, (1,))) != {1}:
-        kinds = {2: "signed", 3: "floating-point"}
-        raise Unsupported(
-            f"{kinds.get(tags[339][0], 'untyped')} {depth}-bit TIFF")
-    spp = tags.get(277, (1,))[0]
-    if 262 not in tags:
-        raise Unsupported("TIFF without a photometric interpretation")
-    photometric = tags[262][0]
-    if photometric in _PHOTOMETRIC:
-        raise Unsupported(f"{_PHOTOMETRIC[photometric]} TIFF")
-    if not 1 <= spp <= 4 or (photometric == 2 and spp < 3):
-        raise ValueError(f"TIFF of photometric interpretation {photometric} "
-                         f"with {spp} samples a pixel, which cv2 does not "
-                         "read either")
-    if (photometric, spp) == (1, 2):
-        raise Unsupported("gray and alpha TIFF")
-    if (photometric, spp) not in ((1, 1), (2, 3), (2, 4)):
-        raise Unsupported(f"TIFF of photometric interpretation "
-                          f"{photometric} with {spp} samples a pixel")
-    if spp > 1 and tags.get(284, (1,))[0] != 1:
-        raise Unsupported("planar TIFF")
-    if tags.get(274, (1,))[0] != 1:
-        raise Unsupported(f"TIFF of orientation {tags[274][0]}")
-    if tags.get(266, (1,))[0] != 1:
-        raise Unsupported("TIFF of fill order 2")
-    compression = tags.get(259, (_NONE,))[0]
-    if compression not in (_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS):
-        name = _COMPRESSIONS.get(compression, f"compression {compression}")
-        raise Unsupported(f"{name} TIFF")
-    predictor = tags.get(317, (1,))[0]
-    if compression in (_NONE, _PACKBITS):
-        predictor = 1  # libtiff applies the predictor to LZW and Deflate
-    if predictor not in (1, 2):
-        raise Unsupported(f"TIFF of predictor {predictor}")
-    return depth, spp, compression, predictor
+class _Layout:
+    """What a directory's tags say: the image's size, samples, photometric
+    interpretation, coding and chunks, and which of cv2's two reading
+    paths takes it."""
+
+    def __init__(self, tags: dict, color: bool):
+        self.tags = tags
+        try:
+            self.W, self.H = tags[256][0], tags[257][0]
+        except KeyError:
+            raise ValueError("corrupt TIFF: no image size") from None
+        if self.W <= 0 or self.H <= 0:
+            raise ValueError("corrupt TIFF: empty image")
+        if self.W > 1 << 20 or self.H > 1 << 20 or self.W * self.H > 1 << 30:
+            raise ValueError("TIFF past cv2's image size limits")
+        bits = tags.get(258, (1,))
+        self.spp = tags.get(277, (1,))[0]
+        if len(set(bits)) != 1:
+            # libtiff: "Cannot handle different values per sample"
+            raise ValueError("TIFF with different bits a sample")
+        self.bits = bits[0]
+        self.photometric = tags.get(262, (None,))[0]
+        self.compression = tags.get(259, (_NONE,))[0]
+        self.planar = tags.get(284, (1,))[0] if self.spp > 1 else 1
+        extra = tags.get(338, ())
+        # libtiff's RGBA reader: an unspecified extra sample of a pixel of
+        # over 3 samples counts as an associated alpha
+        self.alpha = extra[0] if extra and extra[0] in (1, 2) else (
+            1 if extra and self.spp > 3 else 0)
+        self.orientation = tags.get(274, (1,))[0]
+        self.fill_order = tags.get(266, (1,))[0]
+        self.predictor = tags.get(317, (1,))[0]
+        if self.compression not in (_LZW, _DEFLATE, _ADOBE_DEFLATE):
+            self.predictor = 1  # libtiff's predictor goes with these
+        self.check(color)
+        # cv2 reads 16-bit gray (one sample), RGB and RGBA as the samples
+        # are in IMREAD_UNCHANGED; every other file through libtiff's RGBA
+        # reader, 8 bits a channel
+        self.raw = (self.bits == 16 and not color and (
+            (self.photometric in (_MINISWHITE, _MINISBLACK)
+             and self.spp == 1) or self.photometric == _RGB))
+
+    def check(self, color: bool) -> None:
+        """ValueError where cv2 gives None, ``Unsupported`` naming what it
+        reads and the port does not."""
+        bits, spp, ph = self.bits, self.spp, self.photometric
+        fmt = set(self.tags.get(339, (1,)))
+        if fmt - {1}:
+            kinds = {2: "signed", 3: "floating-point"}
+            kind = kinds.get(max(fmt), "untyped")
+            if color and kind != "signed":
+                raise ValueError(f"{kind} TIFF, which IMREAD_COLOR refuses")
+            raise Unsupported(f"{kind} {bits}-bit TIFF")
+        if bits in (10, 12, 14, 32, 64):
+            if color:
+                raise ValueError(f"{bits}-bit TIFF, which IMREAD_COLOR "
+                                 "refuses")
+            raise Unsupported(f"{bits}-bit TIFF")
+        # OpenCV's readHeader: 1, 8, 10, 12, 14, 16, 32 or 64 bits, 4 for a
+        # palette
+        if bits not in (1, 8, 16) and not (bits == 4 and ph == _PALETTE):
+            raise ValueError(f"{bits}-bit TIFF, which cv2 does not read")
+        if not 1 <= spp <= 4:
+            raise ValueError(f"TIFF of {spp} samples a pixel, which cv2 "
+                             "does not read")
+        if ph is None:
+            raise Unsupported("TIFF without a photometric interpretation")
+        if ph in _REFUSED_PHOTOMETRIC:
+            raise ValueError(f"{_REFUSED_PHOTOMETRIC[ph]} TIFF, which "
+                             "cv2 does not read")
+        if ph in (32844, 32845) and self.compression not in _SGILOG:
+            raise ValueError("LogL or LogLuv TIFF without SGILog "
+                             "compression, which cv2 does not read")
+        if ph in _PHOTOMETRIC:
+            raise Unsupported(f"{_PHOTOMETRIC[ph]} TIFF")
+        if self.compression in _REFUSED_COMPRESSIONS:
+            raise ValueError(f"{_REFUSED_COMPRESSIONS[self.compression]} "
+                             "TIFF, which cv2 does not read")
+        if self.compression in _COMPRESSIONS:
+            raise Unsupported(f"{_COMPRESSIONS[self.compression]} TIFF")
+        if self.compression not in (_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE,
+                                    _PACKBITS, _JPEG):
+            raise Unsupported(f"compression {self.compression} TIFF")
+        if ph == _YCBCR and self.compression != _JPEG:
+            raise Unsupported("YCbCr TIFF")
+        if self.compression == _JPEG and (bits != 8 or self.planar != 1
+                                          or ph not in (_MINISBLACK, _RGB,
+                                                        _YCBCR)):
+            raise Unsupported("JPEG TIFF of other than 8-bit chunky gray, "
+                              "RGB or YCbCr")
+        if self.predictor == 3:
+            raise ValueError("TIFF of predictor 3 on integer samples, which "
+                             "cv2 does not read")
+        if self.predictor not in (1, 2):
+            raise Unsupported(f"TIFF of predictor {self.predictor}")
+        if self.predictor == 2 and bits not in (8, 16):
+            raise ValueError(f"TIFF of predictor 2 on {bits}-bit samples, "
+                             "which libtiff does not read")
+        if 5 <= self.orientation <= 8:
+            # cv2 turns the image into a new array and imread refuses it
+            raise ValueError(f"TIFF of orientation {self.orientation}, "
+                             "which cv2 does not read")
+        if ph in (_MINISWHITE, _MINISBLACK):
+            if bits == 16 and spp > 2 and not color:
+                raise Unsupported(f"16-bit gray TIFF with {spp - 1} extra "
+                                  "samples")
+        elif ph == _RGB:
+            if spp not in (3, 4) or bits == 1:
+                raise ValueError(f"{bits}-bit RGB TIFF of {spp} samples, "
+                                 "which cv2 does not read")
+        elif ph == _PALETTE:
+            if spp != 1:
+                raise Unsupported(f"palette TIFF of {spp} samples a pixel")
+            if bits == 16:
+                raise ValueError("16-bit palette TIFF, which cv2 does not "
+                                 "read")
+            if len(self.tags.get(320, ())) < 3 << bits:
+                raise ValueError("palette TIFF without its colormap")
+        elif ph == _CMYK:
+            if bits != 8 or spp != 4:
+                raise ValueError(f"{bits}-bit CMYK TIFF of {spp} samples, "
+                                 "which cv2 does not read")
+        elif ph != _YCBCR:
+            raise ValueError(f"TIFF of photometric interpretation {ph}, "
+                             "which cv2 does not read")
+
+    def chunks(self):
+        """(tile width, tile height, tiled, offsets, byte counts)."""
+        tags = self.tags
+        if 322 in tags:
+            tw, th = tags[322][0], tags.get(323, (0,))[0]
+            offsets, counts = tags.get(324), tags.get(325)
+        else:  # strips: full-width tiles of RowsPerStrip rows
+            tw, th = self.W, min(tags.get(278, (self.H,))[0], self.H)
+            offsets, counts = tags.get(273), tags.get(279)
+        if offsets is None:
+            raise ValueError("corrupt TIFF: no strip or tile offsets")
+        if counts is None:
+            raise Unsupported("TIFF without strip or tile byte counts")
+        if tw <= 0 or th <= 0:
+            raise ValueError("corrupt TIFF: empty strips or tiles")
+        n = -(-self.W // tw) * -(-self.H // th) * (
+            self.spp if self.planar == 2 else 1)
+        if len(offsets) < n or len(counts) < n:
+            raise ValueError("corrupt TIFF: too few strips or tiles")
+        return tw, th, 322 in tags, offsets, counts
 
 
-def _bw16_tile(block: np.ndarray, w: int, h: int) -> np.ndarray:
-    """A 16-bit gray tile as libtiff's RGBA reader gives it (each value's
-    high byte, kept here in the high byte): its ``put16bitbwtile`` steps
-    from one row to the next by the tile's skew (``tw - w`` for a tile cut
-    at the image's right edge) in bytes, where it means samples, so row r
-    of a cut tile starts ``r * (2 * w + tw - w)`` bytes into the tile in
-    the host's byte order, at an odd byte where that is odd."""
-    th, tw = block.shape[:2]
-    flat = block.astype("<u2").reshape(-1).view(np.uint8)
-    at = (np.arange(h)[:, None] * (w + tw) + 2 * np.arange(w) + 1)
-    hi = np.zeros((th, tw, 1), np.uint16)
-    hi[:h, :w, 0] = flat[at].astype(np.uint16) << 8
-    return hi
+def _row_bytes(width: int, samples: int, bits: int) -> int:
+    return -(-width * samples * bits // 8)
+
+
+def _unpack(raw: bytes, rows: int, tw: int, n: int, bits: int,
+            dtype) -> np.ndarray:
+    """A chunk's bytes -> (rows, tw, n) sample values; below 8 bits each
+    row is packed most significant bit first and padded to a byte."""
+    if bits >= 8:
+        return np.frombuffer(raw, dtype).reshape(rows, tw, n)
+    per = 8 // bits
+    packed = np.frombuffer(raw, np.uint8).reshape(rows, -1)
+    shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
+    values = (packed[..., None] >> shifts) & ((1 << bits) - 1)
+    return values.reshape(rows, -1)[:, :tw * n].reshape(rows, tw, n)
+
+
+def _skewed(block: np.ndarray, w: int, h: int, step: int) -> np.ndarray:
+    """The samples that a put routine of libtiff's RGBA reader takes from
+    a tile cut at the image's right edge (``w`` of its columns and ``h`` of
+    its rows in the image) when it steps from one row to the next by
+    ``step`` bytes of the tile's buffer in the host's (little-endian)
+    byte order: 16-bit samples read at the byte where they fall, odd ones
+    too."""
+    th, tw, n = block.shape
+    size = block.dtype.itemsize
+    flat = block.astype(block.dtype.newbyteorder("<")).reshape(-1).view(
+        np.uint8)
+    at = (np.arange(h)[:, None, None] * step
+          + (np.arange(w)[:, None] * n + np.arange(n)) * size)
+    vals = flat[at]
+    if size == 2:
+        vals = vals.astype(np.uint16) | (flat[at + 1].astype(np.uint16) << 8)
+    out = np.zeros((th, tw, n), vals.dtype)
+    out[:h, :w] = vals
+    return out
+
+
+def _samples(data: bytes, lay: _Layout) -> np.ndarray:
+    """The image's (H, W, samples) values, native uint8 (8 bits and
+    below) or uint16: the strips or tiles (each sample's plane apart for
+    planar files) decoded, bit-reversed first for FillOrder 2, the
+    predictor's sums undone.  Tiles cut at the right edge are taken as
+    the RGBA reader takes them where its put routine steps rows by other
+    than the tile's row bytes (``_skewed``)."""
+    W, H, bits, spp = lay.W, lay.H, lay.bits, lay.spp
+    order = "<" if data[:2] == b"II" else ">"
+    tw, th, tiled, offsets, counts = lay.chunks()
+    planes = spp if lay.planar == 2 else 1
+    n = spp // planes  # samples in a chunk's pixel
+    dtype = np.dtype(np.uint8 if bits <= 8 else order + "u2")
+    out = np.empty((H, W, spp), dtype.newbyteorder("="))
+    # the gray put routines of the RGBA reader step rows by ``tw - w``
+    # bytes where they mean pixels: 16-bit samples, or 8-bit ones of a
+    # pixel of more than one
+    skew = (not lay.raw and planes == 1 and (bits == 16 or spp > 1)
+            and lay.photometric in (_MINISWHITE, _MINISBLACK))
+    tables = lay.tags.get(347, b"")
+    space = "ycc" if lay.photometric == _YCBCR else "rgb"
+    across, down = -(-W // tw), -(-H // th)
+    for k in range(across * down * planes):
+        p, kk = divmod(k, across * down)
+        y, x = kk // across * th, kk % across * tw
+        rows = th if tiled else min(th, H - y)
+        chunk = data[offsets[k]:offsets[k] + counts[k]]
+        if lay.compression == _JPEG:
+            block = _jpeg_block(tables, chunk, space, rows, tw, n, tiled,
+                                y + rows >= H)
+        else:
+            if lay.fill_order == 2:
+                chunk = _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
+            size = rows * _row_bytes(tw, n, bits)
+            raw = _decode_chunk(chunk, lay.compression, size)
+            if len(raw) < size:
+                raise ValueError("corrupt TIFF: a strip or tile decodes "
+                                 "short")
+            block = _unpack(raw, rows, tw, n, bits, dtype)
+        if lay.predictor == 2:  # sums mod 2**bits of the samples' values
+            block = np.cumsum(block, axis=1, dtype=out.dtype)
+        w, h = min(tw, W - x), min(rows, H - y)
+        if skew and tiled and w < tw:
+            block = _skewed(block, w, h, dtype.itemsize * n * w + tw - w)
+        out[y:y + rows, x:x + tw, p * n:(p + 1) * n] = block[:H - y, :W - x]
+    return out
+
+
+def _jpeg_block(tables: bytes, chunk: bytes, space: str, rows: int,
+                tw: int, n: int, tiled: bool, last: bool) -> np.ndarray:
+    """A JPEG strip or tile as libtiff's JPEG codec decodes it: its frame
+    as wide as the chunk and as tall (a last strip may be taller, which
+    libtiff cuts), ``n`` components."""
+    img = decode_jpeg_chunk(tables, chunk, space)
+    img = img.reshape(img.shape[:2] + (-1,))
+    h, w, c = img.shape
+    if c != n:
+        raise ValueError("JPEG TIFF: improper JPEG component count")
+    if (w, h) != (tw, rows) and not (w == tw and h > rows and last
+                                     and not tiled):
+        raise ValueError(f"JPEG TIFF: a {w}x{h} JPEG in a {tw}x{rows} "
+                         "strip or tile")
+    return img[:rows]
+
+
+def _to8(v: np.ndarray) -> np.ndarray:
+    """libtiff's RGBA reader's ``Bitdepth16To8`` of 16-bit samples."""
+    return ((v.astype(np.uint32) + 128) // 257).astype(np.uint8)
+
+
+def _gray_map(lay: _Layout) -> np.ndarray:
+    """``setupMap``/``makebwmap``: a gray sample's 8-bit value by its value
+    (16 bits: by its high byte), ``x * 255 / range`` in integers, reversed
+    for WhiteIsZero."""
+    top = 255 if lay.bits == 16 else (1 << lay.bits) - 1
+    x = np.arange(top + 1)
+    if lay.photometric == _MINISWHITE:
+        x = top - x
+    return (x * 255 // top).astype(np.uint8)
+
+
+def _palette(lay: _Layout) -> np.ndarray:
+    """(2**bits, 3) uint8 RGB of the colormap, as libtiff's ``checkcmap``
+    and ``cvtcmap`` give it: each entry's high byte, or the entries as they
+    are where none of the 2**bits of each channel reaches 256 (libtiff
+    warns "Assuming 8-bit colormap")."""
+    n = 1 << lay.bits
+    cmap = np.asarray(lay.tags[320][:3 * n], np.int64).reshape(3, n).T
+    return (cmap if (cmap < 256).all() else cmap >> 8).astype(np.uint8)
+
+
+def _premultiply(c: np.ndarray, a: np.ndarray) -> np.ndarray:
+    """libtiff's ``UaToAa``: a colour under an unassociated alpha."""
+    return ((c.astype(np.uint32) * a + 127) // 255).astype(np.uint8)
+
+
+def _rgba(s: np.ndarray, lay: _Layout):
+    """(H, W, samples) values -> what libtiff's RGBA reader makes of them:
+    (gray (H, W) uint8 or None, RGB (H, W, 3) uint8 or None, alpha (H, W)
+    uint8 or None), one of the first two set."""
+    ph, planar = lay.photometric, lay.planar == 2
+    if ph in (_MINISWHITE, _MINISBLACK):
+        if not planar:  # put*bwtile, put*greytile: the first sample mapped
+            v = s[..., 0] >> 8 if lay.bits == 16 else s[..., 0]
+            return _gray_map(lay)[v], None, None
+        # gtTileSeparate takes a planar gray as RGB, with no map
+        g = _to8(s[..., 0]) if lay.bits == 16 else s[..., 0]
+        a = None
+        if lay.alpha:
+            a = _to8(s[..., 1]) if lay.bits == 16 else s[..., 1]
+            if lay.alpha == 2:
+                g = _premultiply(g, a)
+        return g, None, a
+    if ph == _PALETTE:
+        return None, _palette(lay)[s[..., 0]], None
+    if ph == _CMYK:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bittile
+        k = 255 - s[..., 3:].astype(np.int32)
+        return None, (k * (255 - s[..., :3].astype(np.int32)) // 255).astype(
+            np.uint8), None
+    rgb = _to8(s[..., :3]) if lay.bits == 16 else s[..., :3]
+    a = None
+    if lay.spp == 4:
+        a = _to8(s[..., 3]) if lay.bits == 16 else s[..., 3]
+        if lay.alpha == 2:
+            rgb = _premultiply(rgb, a[..., None])
+    return None, rgb, a
 
 
 def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
-    """The first page of 8- or 16-bit TIFF bytes -> (H, W, C) uint8 or
-    uint16, C = 1 (gray), 3 (RGB) or 4 (RGB and its extra sample): what
-    ``cv2.imread(path, IMREAD_UNCHANGED)`` gives, in RGB order.  At 8
-    bits cv2 reads through libtiff's RGBA reader, which premultiplies
-    colours under an unassociated alpha, ``(c * a + 127) // 255``; at 16
-    bits it reads the samples as they are, whatever the extra sample.
-    ``color``: what ``IMREAD_COLOR`` gives, uint8, the same at 8 bits; at
-    16 bits through the RGBA reader as well: gray ``v >> 8``
-    (``put16bitbwtile``, with its row step in tiles: ``_bw16_tile``), RGB
-    ``(v + 128) // 257`` (its ``Bitdepth16To8``) and then the
-    premultiplication.  Raises ``Unsupported`` for the variants the
-    module docstring leaves out, ValueError for corrupt files."""
-    tags = _directory(data)
-    depth, spp, compression, predictor = _variant(tags)
-    order = "<" if data[:2] == b"II" else ">"
-    try:
-        W, H = tags[256][0], tags[257][0]
-    except KeyError:
-        raise ValueError("corrupt TIFF: no image size") from None
-    if W <= 0 or H <= 0:
-        raise ValueError("corrupt TIFF: empty image")
-    if 322 in tags:  # tiles
-        tw, th = tags[322][0], tags.get(323, (0,))[0]
-        offsets, counts = tags.get(324), tags.get(325)
-    else:  # strips: full-width tiles of RowsPerStrip rows
-        tw, th = W, min(tags.get(278, (H,))[0], H)
-        offsets, counts = tags.get(273), tags.get(279)
-    if offsets is None:
-        raise ValueError("corrupt TIFF: no strip or tile offsets")
-    if counts is None:
-        raise Unsupported("TIFF without strip or tile byte counts")
-    if tw <= 0 or th <= 0:
-        raise ValueError("corrupt TIFF: empty strips or tiles")
-    across, down = -(-W // tw), -(-H // th)
-    if len(offsets) < across * down or len(counts) < across * down:
-        raise ValueError("corrupt TIFF: too few strips or tiles")
-    dtype = np.dtype(np.uint8 if depth == 8 else order + "u2")
-    out = np.empty((H, W, spp), dtype.newbyteorder("="))
-    for k in range(across * down):
-        y, x = k // across * th, k % across * tw
-        rows = th if 322 in tags else min(th, H - y)  # the last strip's
-        size = rows * tw * spp * dtype.itemsize
-        chunk = data[offsets[k]:offsets[k] + counts[k]]
-        raw = _decode_chunk(chunk, compression, size)
-        if len(raw) < size:
-            raise ValueError("corrupt TIFF: a strip or tile decodes short")
-        block = np.frombuffer(raw, dtype).reshape(rows, tw, spp)
-        if predictor == 2:  # sums mod 2**depth of the samples' values
-            block = np.cumsum(block, axis=1, dtype=out.dtype)
-        if color and depth == 16 and spp == 1 and 322 in tags:
-            block = _bw16_tile(block, min(tw, W - x), min(rows, H - y))
-        out[y:y + rows, x:x + tw] = block[:H - y, :W - x]
-    unassociated = spp == 4 and tags.get(338, (0,))[0] == 2
-    if depth == 16:
-        if not color:
-            return out
-        if spp == 1:
-            return (out >> 8).astype(np.uint8)
-        out = ((out.astype(np.uint32) + 128) // 257).astype(np.uint8)
-    if unassociated:  # libtiff's RGBA reader premultiplies
-        a = out[..., 3:].astype(np.uint32)
-        out[..., :3] = (out[..., :3] * a + 127) // 255
-    return out
+    """The first page of TIFF bytes -> (H, W, C) uint8 or uint16: what
+    ``cv2.imread(path, IMREAD_UNCHANGED)`` gives, in RGB order, or with
+    ``color`` what ``IMREAD_COLOR`` gives (uint8, C = 3).
+
+    cv2 takes one of two paths.  16-bit gray (one sample), RGB and RGBA
+    in IMREAD_UNCHANGED are its own reading: the samples as they are,
+    whatever the photometric interpretation (WhiteIsZero is not reversed)
+    and extra sample say (a planar file's samples too, where cv2 gives
+    the first plane and memory it never wrote: the port gives the
+    samples).  Every other file goes through libtiff's RGBA reader
+    (``tif_getimage.c``, 8 bits a channel): gray and WhiteIsZero through
+    ``_gray_map`` (16 bits by the high byte, and in a tile cut at the
+    right edge with ``put16bitbwtile``'s row step: ``_skewed``), a
+    planar gray as RGB (16 bits by ``Bitdepth16To8``, an unassociated
+    alpha premultiplied), palette through ``_palette``, RGB with 16 bits
+    ``(v + 128) // 257`` and an unassociated alpha premultiplied
+    ``(c * a + 127) // 255``, CMYK ``(255 - c) * (255 - k) / 255``, JPEG
+    YCbCr through libjpeg's RGB.  cv2 then keeps one channel for gray
+    interpretations and 1-bit files (a 1-bit palette's gray by OpenCV's
+    BGRA-to-gray weights), four for 4 samples (alpha 255 for CMYK), else
+    three; IMREAD_COLOR three.  Orientations 2-4 flip the image as
+    ``exif.TRANSFORMS``, in both modes; 5-8 raise ValueError, as cv2
+    gives None.  Raises ``Unsupported`` for the variants cv2 reads and the
+    port does not, ValueError for corrupt files and those cv2 refuses."""
+    lay = _Layout(_directory(data), color)
+    s = _samples(data, lay)
+    if lay.raw:
+        out = s
+    else:
+        gray, rgb, a = _rgba(s, lay)
+        gray_out = lay.photometric in (_MINISWHITE, _MINISBLACK) or (
+            lay.bits == 1)
+        if color:
+            out = (np.repeat(gray[..., None], 3, axis=2) if rgb is None
+                   else rgb)
+        elif gray_out:
+            out = (opencv_gray(rgb) if gray is None else gray)[..., None]
+        elif lay.spp == 4:
+            alpha = np.full(rgb.shape[:2], 255, np.uint8) if a is None else a
+            out = np.concatenate([rgb, alpha[..., None]], axis=2)
+        else:
+            out = rgb
+    return _orient(out, lay)
+
+
+def _orient(img: np.ndarray, lay: _Layout) -> np.ndarray:
+    """Orientations 2-4 as cv2 applies them: the image flipped as
+    ``exif.TRANSFORMS`` says, except that through the RGBA reader each
+    column of a tiled file's tiles is flipped left-right in place (cv2
+    reads a tile at a time, which the reader flips alone)."""
+    o = lay.orientation
+    if o not in (2, 3, 4):
+        return img
+    tw = lay.tags[322][0] if 322 in lay.tags else lay.W
+    if o != 4 and tw < lay.W and not lay.raw:
+        img = img.copy()
+        for x in range(0, lay.W, tw):
+            img[:, x:x + tw] = img[:, x:x + tw][:, ::-1]
+        o = 4 if o == 3 else 1
+    return exif.apply(img, o)
