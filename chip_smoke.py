@@ -94,7 +94,16 @@ non-zero):
    replayed bit-equal, its PNGs byte-equal to six's on the frame's PNG,
    ``[bmp_variants]`` (``bmp_variants_slice``): frame 0 as an RLE8, a
    4-bit and a 16-bit BMP (``tests/torch_bmp.py``), each decoding to its
-   colours (host ms printed), then the five
+   colours (host ms printed), ``[other_formats]``
+   (``other_formats_slice``): frame 0 as PPM, PAM, PFM, Sun raster and
+   HDR from the port's writers and as an ASCII P2, a 16-bit P6, a
+   colormap Sun raster, an old-style RLE HDR and an interlaced GIF
+   (``tests/torch_formats.py``), each decoding to its array (host ms
+   printed), an RLE Sun raster refused as cv2 refuses it, ``cli six
+   --device cuda`` on the PFM with six exact's launches of one frame,
+   each call replayed bit-equal, its PNGs byte-equal to six's on the
+   frame's PNG, and ``cli enhance`` HDR in and out on the card and the
+   CPU within 1e-6, then the five
    CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
@@ -1852,6 +1861,164 @@ def bmp_variants_slice(smi: str) -> None:
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
 
 
+# [other_formats]: 1080p frame 0 through the formats outside
+# SUPPORTED_FORMATS that the port reads and writes
+def other_formats_slice(torch, run_cli, captured_match, replay,
+                        smi: str) -> None:
+    """[other_formats]: 1080p frame 0 written by the port's writers as PPM,
+    PAM, PFM, Sun raster and HDR, and by ``tests/torch_formats.py`` as an
+    ASCII P2 (the green plane), a 16-bit P6 (``sixteen_bit``), a Sun
+    raster with ``palette_332``'s colormap, an old-style RLE HDR of the
+    HDR writer's quads (its repeats read as pixels, as cv2 reads them)
+    and an interlaced GIF with a local table of ``palette_332``'s
+    colours; each decodes (host ms printed) to its array: the frame, its
+    samples as float32, the RGBE samples of ``torch_formats.rgbe_quads``'s
+    ``float2rgbe`` (of the frame, and for the old-style file of its
+    ``palette_332`` colours, which repeat), the palette's colours.  An RLE Sun raster is refused,
+    as cv2 refuses every RT_BYTE_ENCODED file.  ``cli six --device cuda``
+    on the PFM (named ``frame0.png``: a folder run collects the suffixes
+    of ``SUPPORTED_FORMATS``, and the reader goes by the signature)
+    launches six exact's kernels of one frame
+    (``SIX_ONE_FRAME``), each call replayed bit-equal, and writes PNGs
+    byte-equal to six's on the frame's PNG; ``cli enhance --input
+    frame0.hdr --output out.hdr`` on the card and with ``--device cpu``:
+    each file the HDR writer's bytes of its own enhanced frame, and the
+    two frames within 1e-6 (``enhance`` on each device)."""
+    from tests import torch_formats as F
+    from underwater_image_enhancement_tpu_torch import cli
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+        enhance,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+    from underwater_image_enhancement_tpu_torch.utils.gif import decode_gif
+    from underwater_image_enhancement_tpu_torch.utils.hdr import (
+        decode_hdr,
+        encode_hdr,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.pxm import (
+        decode_pam,
+        decode_pfm,
+        decode_pnm,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.sunras import (
+        decode_sunras,
+    )
+
+    t_phase = time.perf_counter()
+    out = WORK / "other_formats"
+    out.mkdir(parents=True, exist_ok=True)
+    u8 = variants_frame()
+    idx, pal = palette_332(u8)
+    quads = F.rgbe_quads(u8.astype(np.float32)
+                         * (np.float32(1) / np.float32(255)))
+
+    def held(name, write, decode, want, **extra):
+        return held_file("other_formats", out, name, write, decode, want,
+                         smi, **extra)
+
+    for name, decode, want in (
+            ("frame0.ppm", decode_pnm, u8), ("frame0.pam", decode_pam, u8),
+            ("frame0.pfm", decode_pfm, u8.astype(np.float32)),
+            ("frame0.ras", decode_sunras, u8),
+            ("frame0.hdr", decode_hdr, F.rgbe_float(quads))):
+        held(name, lambda n=name: uio.encoder_for(n)(u8), decode, want,
+             writer="the port's")
+    held("ascii_p2.pgm", lambda: F.pnm(2, u8[..., 1]), decode_pnm,
+         u8[..., 1], equal_to="the green plane")
+    v16 = sixteen_bit(u8, 16)
+    held("p6_16.ppm", lambda: F.pnm(6, v16, 65535), decode_pnm, v16,
+         equal_to="the 16-bit samples")
+    held("palette.ras", lambda: F.sunras(F.sunras_rows(idx, 8), W, H, 8,
+                                         cmap=pal), decode_sunras, pal[idx],
+         equal_to="the palette's colours")
+    runs = F.rgbe_quads(pal[idx].astype(np.float32)
+                        * (np.float32(1) / np.float32(255)))
+    _, flat = F.hdr_old_rle(runs, W)
+    held("old_rle.hdr", lambda: F.hdr_old_rle(runs, W)[0], decode_hdr,
+         F.rgbe_float(flat), equal_to="the repeats read as pixels",
+         rows=flat.shape[0],
+         repeats=int((flat[..., :3] == 1).all(-1).sum()))
+    held("interlaced.gif", lambda: F.gif(W, H, [F.gif_image(
+        idx, lct=pal, interlace=True)]), decode_gif, pal[idx],
+         equal_to="the palette's colours")
+    rle = F.sunras(F.sunras_rle(idx.astype(np.uint8).tobytes()), W, H, 8,
+                   kind=2, cmap=pal)
+    try:
+        decode_sunras(rle)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "other_formats: an RT_BYTE_ENCODED Sun raster decoded, "
+          "which cv2 refuses")
+    log("other_formats", file="rle.ras", bytes=len(rle),
+        refused="as cv2 refuses RT_BYTE_ENCODED", card=repr(smi))
+    outs = {}
+    for label, name, data in (
+            ("png", "frame0.png", uio.encode_png(u8)),
+            ("pfm", "frame0.png", (out / "frame0.pfm").read_bytes())):
+        src = out / f"in_{label}"
+        src.mkdir(parents=True, exist_ok=True)
+        (src / name).write_bytes(data)
+        calls, launches, secs = run_cli(
+            ["six", "--device", "cuda", "--input", str(src), "--output",
+             str(out / f"six_{label}")], label != "png")
+        d = launches["hysteresis_propagate"]
+        check(all(launches[k_] == v for k_, v in SIX_ONE_FRAME.items())
+              and d >= 1 and launches["sat_rows"] == d + 1,
+              f"other_formats: six on the {label} file launched {launches}")
+        pngs = {p.name: p.read_bytes()
+                for p in sorted((out / f"six_{label}").glob("*.png"))}
+        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
+              f"other_formats: six outputs {sorted(pngs)}")
+        outs[label] = (pngs, launches)
+        if label == "pfm":
+            check(captured_match(calls, launches),
+                  f"other_formats: captured calls "
+                  f"{[len(v) for v in calls.values()]} vs {launches}")
+            for kname, arglists in calls.items():
+                for j, args in enumerate(arglists):
+                    replay(kname, args, f"other_formats six call {j} (PFM)")
+            torch.cuda.synchronize()
+            log("other_formats", command="'six --device cuda' (PFM)",
+                seconds=f"{secs:.2f}",
+                launches=json.dumps(nonzero(launches), separators=(",", ":")),
+                replayed_bit_equal=json.dumps(
+                    {k_: len(v) for k_, v in calls.items() if v},
+                    separators=(",", ":")), card=repr(smi))
+    check(outs["pfm"] == outs["png"],
+          "other_formats: six writes other PNGs (or launches) for the PFM "
+          "than for the frame's PNG")
+    src = out / "frame0.hdr"
+    args = cli.build_parser().parse_args(
+        ["enhance", "--input", str(src), "--output", "x.hdr"])
+    params = {"omega": args.omega, "gamma": args.gamma,
+              "L_low": args.l_low, "L_high": args.l_high}
+    unit = uio.imread_unit(str(src))
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        _, launches, secs = run_cli(
+            ["enhance", "--device", dev, "--input", str(src), "--output",
+             str(out / f"enhanced_{dev}.hdr")], False)
+        check(not any(launches.values()),
+              f"other_formats: enhance on {dev} launched {launches}")
+        e = enhance(unit, params, device=dev).cpu()
+        frames[dev] = e
+        e_u8 = (np.clip(e.numpy(), 0, 1) * 255).astype(np.uint8)
+        check((out / f"enhanced_{dev}.hdr").read_bytes() == encode_hdr(e_u8),
+              f"other_formats: enhance --device {dev} wrote another HDR "
+              f"than its frame's")
+        log("other_formats", command=f"'enhance --device {dev}' (HDR in "
+            f"and out)", seconds=f"{secs:.2f}", card=repr(smi))
+    d_e = float((frames["cuda"].double() - frames["cpu"].double()).abs().max())
+    check(d_e <= 1e-6, f"other_formats: enhance card vs CPU {d_e} > 1e-6")
+    same = (out / "enhanced_cuda.hdr").read_bytes() == (
+        out / "enhanced_cpu.hdr").read_bytes()
+    log("other_formats", function="enhance (HDR frame)", max_abs=d_e,
+        files_byte_equal=same, six_outputs="byte-equal to the PNG's",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+
+
 # [train_mesh]: MLPTrainer, ZooTrainer("vit"), the f32 VGGTrainer and the
 # ResNet18 and EfficientNet b0 ZooTrainer at published widths on mesh None,
 # one position and two positions of the one card; 3 steps from one seed
@@ -3063,6 +3230,8 @@ def main() -> int:
     tiff_variants_slice(torch, run_cli, captured_match, replay, smi)
     # [bmp_variants] RLE8, 4-bit and 16-bit BMP at 1080p
     bmp_variants_slice(smi)
+    # [other_formats] PPM, PAM, PFM, Sun raster, HDR, GIF; six on a PFM
+    other_formats_slice(torch, run_cli, captured_match, replay, smi)
 
     # Phase-1 labeling: auto, build-dataset, build-dataset --fast
     for key, argv in (

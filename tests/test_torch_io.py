@@ -256,6 +256,8 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
         "tiff.tif": cv2.imencode(".tiff", img.astype(np.uint16) * 257)[1]
         .tobytes(),
         "webp.bmp": cv2.imencode(".webp", img)[1].tobytes(),
+        "avif.png": cv2.imencode(".avif", img)[1].tobytes(),
+        "pfm.tif": cv2.imencode(".pfm", img)[1].tobytes(),
         "fine.jpg": _jpeg(img, 90),
         "junk.png": b"not an image",
     }
@@ -273,11 +275,15 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     np.testing.assert_array_equal(
         img, jdata._imread_rgb(str(tmp_path / "tiff.tif")))
     assert tio.read_image(str(tmp_path / "junk.png")) == (None, None)
+    # the PFM, named by its signature, read as JAX reads it
+    np.testing.assert_array_equal(tio.imread_unit(str(tmp_path / "pfm.tif")),
+                                  jio.imread_unit(str(tmp_path / "pfm.tif")))
     logged = []
     got = [p.name for p, _ in tio.decode_iter(
         tio.collect_images(str(tmp_path)), log=logged.append)]
-    assert got == ["fine.jpg", "tiff.tif"]
+    assert got == ["fine.jpg", "pfm.tif", "tiff.tif"]
     assert sorted(logged) == sorted([
+        "warning: avif.png unsupported by the port: AVIF",
         "warning: webp.bmp unsupported by the port: WebP",
         "warning: unreadable junk.png",
         "warning: lab.tif unsupported by the port: CIELab TIFF",

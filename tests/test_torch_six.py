@@ -304,7 +304,11 @@ def test_source_imports_neither_jax_nor_the_jax_package():
             "underwater_image_enhancement_tpu_torch/validate.py",
             "underwater_image_enhancement_tpu_torch/examples.py",
             "underwater_image_enhancement_tpu_torch/utils/profiling.py",
-            "underwater_image_enhancement_tpu_torch/utils/oracles.py"} <= names
+            "underwater_image_enhancement_tpu_torch/utils/oracles.py",
+            "underwater_image_enhancement_tpu_torch/utils/pxm.py",
+            "underwater_image_enhancement_tpu_torch/utils/sunras.py",
+            "underwater_image_enhancement_tpu_torch/utils/hdr.py",
+            "underwater_image_enhancement_tpu_torch/utils/gif.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -7,8 +7,11 @@ BMP (24-bit) and TIFF (LZW with the horizontal predictor) are held to
 frame of ``tests/torch_frames.py``; the TIFF also to cv2's tag values and
 to ``cv2.imread`` of the port's file.  ``cli enhance --output NAME.<fmt>``
 writes the JAX CLI's bytes where the two u8 frames are equal (the test
-asserts they are).  Suffixes that cv2 writes and the port does not, and
-suffixes cv2 cannot write, raise.
+asserts they are).  PPM, PNM, PAM, PFM, Sun raster and HDR: the port's
+``imwrite_unit`` writes the bytes of JAX's (``cv2.imwrite``); for
+``.pgm`` and ``.pbm`` of a colour frame cv2 writes nothing and the port
+raises.  Suffixes that cv2 writes and the port does not, and suffixes
+cv2 cannot write, raise.
 """
 
 import struct
@@ -19,6 +22,7 @@ import pytest
 
 from tests import torch_frames
 from underwater_image_enhancement_tpu import cli as jcli
+from underwater_image_enhancement_tpu.utils import io as jio
 from underwater_image_enhancement_tpu_torch import cli as tcli
 from underwater_image_enhancement_tpu_torch.utils import io as tio
 from underwater_image_enhancement_tpu_torch.utils.bmp import (
@@ -42,6 +46,9 @@ BMP_SHAPES = ((1, 1), (3, 5), (37, 53))
 TIFF_SHAPES = ((1, 1), (37, 53), (20, 160), (2, 2000), (10, 700),
                (3, 1920))
 CLI_SUFFIXES = (".jpg", ".JPEG", ".bmp", ".tif")
+COLOUR_WRITERS = (".ppm", ".pnm", ".pam", ".pfm", ".sr", ".ras", ".hdr",
+                  ".pic")
+GRAY_ONLY = (".pgm", ".pbm")
 
 
 def _frame(kind: str, shape) -> np.ndarray:
@@ -165,15 +172,24 @@ def test_cli_enhance_writes_the_jax_clis_bytes(cli_outputs, suffix):
 
 
 def test_async_writer_writes_each_format(tmp_path):
+    """Every suffix of ``WRITERS``: the colour frame's bytes, or (``.pgm``,
+    ``.pbm``) an error reported by ``close()`` and no file."""
     rgb = _frame("smooth", (37, 53))
     with tio.AsyncWriter(workers=2) as writer:
         for suffix in tio.WRITERS:
             writer.write(str(tmp_path / f"a{suffix}"), rgb)
-    assert writer.close() == []
+    assert sorted(p for p, _ in writer.close()) == sorted(
+        str(tmp_path / f"a{s}") for s in GRAY_ONLY)
     for suffix in tio.WRITERS:
+        if suffix in GRAY_ONLY:
+            assert not (tmp_path / f"a{suffix}").exists()
+            continue
         data = (tmp_path / f"a{suffix}").read_bytes()
         if suffix == ".png":
             assert np.array_equal(tio.imread_u8(str(tmp_path / "a.png")), rgb)
+        elif suffix in (".sr", ".ras"):  # cv2 pads the odd last row from
+            want = _cv2_bytes(suffix, rgb)  # past the image; the port: 0
+            assert data[:-1] == want[:-1] and data[-1] == 0
         else:
             assert data == _cv2_bytes(suffix, rgb)
 
@@ -182,6 +198,34 @@ def test_writer_tables_match_cv2():
     """Every suffix of either table has a cv2 writer."""
     for suffix in tuple(tio.WRITERS) + tio.UNPORTED_WRITERS:
         assert cv2.haveImageWriter("x" + suffix), suffix
+
+
+@pytest.mark.parametrize("suffix", COLOUR_WRITERS)
+def test_simple_format_writes_jax_bytes(tmp_path, suffix):
+    """JAX's ``imwrite_unit`` (``cv2.imwrite`` of the BGR frame) and the
+    port's write the same bytes for the same seeded float frame, and the
+    port's file reads back as JAX's does."""
+    img = np.random.default_rng(24).random((64, 96, 3)).astype(np.float32)
+    jio.imwrite_unit(str(tmp_path / f"jax{suffix}"), img)
+    tio.imwrite_unit(str(tmp_path / f"port{suffix}"), img)
+    data = (tmp_path / f"port{suffix}").read_bytes()
+    assert data == (tmp_path / f"jax{suffix}").read_bytes()
+    a = tio.imread_unit(str(tmp_path / f"port{suffix}"))
+    b = jio.imread_unit(str(tmp_path / f"jax{suffix}"))
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("suffix", GRAY_ONLY)
+def test_gray_only_suffix_refuses_colour(tmp_path, suffix):
+    """cv2 refuses a colour frame for ``.pgm`` and ``.pbm``: JAX's
+    ``imwrite_unit`` writes no file and raises nothing; the port raises
+    ValueError and writes no file."""
+    img = _frame("noise", (4, 4))
+    jio.imwrite_unit(str(tmp_path / f"jax{suffix}"), img)
+    assert not (tmp_path / f"jax{suffix}").exists()
+    with pytest.raises(ValueError, match="one-channel images only"):
+        tio.imwrite_unit(str(tmp_path / f"port{suffix}"), img)
+    assert not (tmp_path / f"port{suffix}").exists()
 
 
 @pytest.mark.parametrize("suffix", tio.UNPORTED_WRITERS)
@@ -200,7 +244,8 @@ def test_unknown_suffix_raises_as_cv2_does(tmp_path, suffix):
         tio.imwrite_unit(str(tmp_path / f"p{suffix}"), rgb)
 
 
-@pytest.mark.parametrize("suffix", [".jpg", ".bmp", ".tif"])
+@pytest.mark.parametrize("suffix", [".jpg", ".bmp", ".tif", ".ppm", ".pam",
+                                    ".pfm", ".sr", ".hdr"])
 def test_non_rgb_arrays_raise(tmp_path, suffix):
     with pytest.raises(ValueError, match=r"\(H, W, 3\) uint8 RGB"):
         tio.imwrite_unit(str(tmp_path / f"g{suffix}"),

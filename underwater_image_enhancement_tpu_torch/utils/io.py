@@ -1,7 +1,9 @@
 """Host-side image IO with no image library: a PNG codec built on
-``zlib`` + ``struct`` + numpy, the JPEG, BMP and TIFF codecs of
-``jpeg.py``, ``bmp.py`` and ``tiff.py``, plus the folder helpers of
-the JAX package's ``utils/io.py`` (collect, decode-ahead, write-behind).
+``zlib`` + ``struct`` + numpy, the JPEG, BMP, TIFF, netpbm/PFM, Sun
+raster, Radiance HDR and GIF codecs of ``jpeg.py``, ``bmp.py``,
+``tiff.py``, ``pxm.py``, ``sunras.py``, ``hdr.py`` and ``gif.py``, plus
+the folder helpers of the JAX package's ``utils/io.py`` (collect,
+decode-ahead, write-behind).
 
 A file's format is found from its first bytes, not its suffix, as cv2
 does.  Reading follows the reference's load conventions (main.py:91-113)
@@ -18,16 +20,19 @@ tRNS and Adam7 (``decode_png``); JPEG in every variant cv2 reads
 RGB, YCbCr, CMYK and YCCK); BMP in every variant cv2 reads (``bmp.py``:
 OS/2 headers, 1- to 32-bit, bit fields, RLE8 and RLE4); TIFF in the
 variants ``tiff.py`` lists (its Orientation applied as cv2 applies it, in
-both modes).  Unreadable files give None so callers can skip them; so do
-the files cv2 reads and the port does not (the TIFF variants of ROADMAP
-Queue 1 item 11.9 and the formats outside ``SUPPORTED_FORMATS``), which
-``read_image`` names.
+both modes); netpbm P1-P7 and PFM (``pxm.py``), Sun raster
+(``sunras.py``), Radiance HDR (``hdr.py``: float32, as PFM) and the first
+image of a GIF (``gif.py``).  Unreadable files give None so callers can
+skip them; so do the files cv2 reads and the port does not (the TIFF
+variants of ROADMAP Queue 1 item 11.9, WebP, JPEG 2000 and AVIF), and
+those on which the JAX package's channel handling raises (a two-channel
+PAM), which ``read_image`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
 ``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
-defaults), BMP and TIFF (cv2's bytes).  A suffix cv2 writes and the port
-does not (``UNPORTED_WRITERS``) and one cv2 cannot write raise
-ValueError.
+defaults), and BMP, TIFF, PPM/PNM/PGM/PBM, PAM, PFM, Sun raster and HDR
+(cv2's bytes).  A suffix cv2 writes and the port does not
+(``UNPORTED_WRITERS``) and one cv2 cannot write raise ValueError.
 """
 
 from __future__ import annotations
@@ -45,10 +50,28 @@ from underwater_image_enhancement_tpu_torch.utils.bmp import (
 )
 from underwater_image_enhancement_tpu_torch.utils import exif
 from underwater_image_enhancement_tpu_torch.utils.config import SUPPORTED_FORMATS
+from underwater_image_enhancement_tpu_torch.utils.gif import decode_gif
+from underwater_image_enhancement_tpu_torch.utils.hdr import (
+    decode_hdr,
+    encode_hdr,
+)
 from underwater_image_enhancement_tpu_torch.utils.jpeg import (
     Unsupported,
     decode_jpeg,
     encode_jpeg,
+)
+from underwater_image_enhancement_tpu_torch.utils.pxm import (
+    decode_pam,
+    decode_pfm,
+    decode_pnm,
+    encode_pam,
+    encode_pfm,
+    encode_ppm,
+    refuse_colour,
+)
+from underwater_image_enhancement_tpu_torch.utils.sunras import (
+    decode_sunras,
+    encode_sunras,
 )
 from underwater_image_enhancement_tpu_torch.utils.tiff import (
     decode_tiff,
@@ -302,27 +325,43 @@ def _decode_png(data: bytes):
 
 # first bytes of the other formats cv2 reads
 _OTHER_FORMATS = (
-    (b"GIF8", "GIF"),
     (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
-    (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
-    (b"v/1\x01", "OpenEXR"), (b"\x59\xa6\x6a\x95", "Sun raster"),
+    (b"v/1\x01", "OpenEXR"),
 )
+_SPACE = b" \t\n\v\f\r"
+
+
+def _is_avif(data: bytes) -> bool:
+    """An ISO-BMFF ``ftyp`` box at byte 4 whose major or a compatible
+    brand is ``avif`` or ``avis``."""
+    if data[4:8] != b"ftyp" or len(data) < 16:
+        return False
+    size = int.from_bytes(data[:4], "big")
+    box = data[8:min(len(data), size if size >= 16 else 16)]
+    brands = [box[:4]] + [box[i:i + 4] for i in range(8, len(box) - 3, 4)]
+    return b"avif" in brands or b"avis" in brands
 
 
 def decode_image(data: bytes, color: bool = False) -> np.ndarray:
     """Image bytes -> (H, W, 3) RGB, the format found from the signature:
     what ``cv2.imread(path, IMREAD_UNCHANGED)`` of the file and the JAX
-    package's channel handling give (uint8, or uint16 for a 16-bit PNG or
-    TIFF; gray, a gray-palette or OS/2 BMP and a gray TIFF replicated,
+    package's channel handling give (uint8, or uint16 for a 16-bit PNG,
+    TIFF, PNM or PAM, or float32 for PFM and HDR; gray, a gray-palette or
+    OS/2 BMP, a gray TIFF and a gray netpbm, PFM or Sun raster replicated,
     alpha dropped, a CMYK TIFF's fourth channel too), or with ``color``
     what ``IMREAD_COLOR`` gives (uint8: a 16-bit PNG's samples ``v >> 8``,
     a TIFF as ``tiff.decode_tiff(color=True)`` and a BMP as
-    ``bmp.decode_bmp(color=True)`` give it, a lossless gray JPEG refused;
-    then a JPEG's or PNG's EXIF orientation applied, ``exif.py``; a TIFF's
-    own Orientation is applied in both modes by ``decode_tiff``).  Raises
-    ``Unsupported`` for a format (or variant) that cv2 reads and the port
-    does not, ValueError for anything else it cannot read."""
+    ``bmp.decode_bmp(color=True)`` give it, a lossless gray JPEG refused,
+    PFM and HDR samples rounded and saturated, a gray PFM refused as
+    ``cv2.imread`` refuses it; then a JPEG's or PNG's EXIF orientation
+    applied, ``exif.py``; a TIFF's own Orientation is applied in both
+    modes by ``decode_tiff``).  Raises ``Unsupported`` for a format (or
+    variant) that cv2 reads and the port does not, and where the JAX
+    package's channel handling raises on what cv2 gives (a two-channel
+    PAM); ValueError for anything else it cannot read."""
     turn = None
+    head = data[:3]
+    netpbm = (len(head) == 3 and head[0] == 80 and head[2] in _SPACE)
     if data[:8] == _SIGNATURE:
         img, turn = _decode_png(data)
         if color and img.dtype == np.uint16:
@@ -334,11 +373,27 @@ def decode_image(data: bytes, color: bool = False) -> np.ndarray:
         img = decode_bmp(data, color)
     elif data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         img = decode_tiff(data, color=color)
+    elif netpbm and head[1] in b"123456":
+        img = decode_pnm(data, color)
+    elif netpbm and head[1] == 55:  # P7
+        img = decode_pam(data, color)
+        if img.ndim == 3 and img.shape[2] == 2:
+            raise Unsupported("two-channel PAM")
+    elif netpbm and head[1] in b"Ff":
+        img = decode_pfm(data, color)
+        if color and img.ndim == 2:  # cv2.imread gives None
+            raise ValueError("a gray PFM in IMREAD_COLOR")
+    elif data[:4] == b"\x59\xa6\x6a\x95":
+        img = decode_sunras(data, color)
+    elif data.startswith(b"#?RGBE") or data.startswith(b"#?RADIANCE"):
+        img = decode_hdr(data, color)
+    elif data[:3] == b"GIF":
+        img = decode_gif(data, color)
     else:
         if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
             raise Unsupported("WebP")
-        if data[:1] == b"P" and data[1:2] in b"1234567" and len(data) > 2:
-            raise Unsupported("PNM")
+        if _is_avif(data):
+            raise Unsupported("AVIF")
         for sig, name in _OTHER_FORMATS:
             if data.startswith(sig):
                 raise Unsupported(name)
@@ -390,10 +445,12 @@ def imread_unit(path: str) -> Optional[np.ndarray]:
 WRITERS = {".png": encode_png,
            ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".jpe": encode_jpeg,
            ".bmp": encode_bmp, ".dib": encode_bmp,
-           ".tif": encode_tiff, ".tiff": encode_tiff}
-UNPORTED_WRITERS = (".webp", ".jp2", ".pbm", ".pgm", ".ppm", ".pnm", ".pam",
-                    ".pfm", ".sr", ".ras", ".hdr", ".pic", ".avif", ".gif",
-                    ".apng")
+           ".tif": encode_tiff, ".tiff": encode_tiff,
+           ".ppm": encode_ppm, ".pnm": encode_ppm, ".pgm": refuse_colour,
+           ".pbm": refuse_colour, ".pam": encode_pam, ".pfm": encode_pfm,
+           ".sr": encode_sunras, ".ras": encode_sunras,
+           ".hdr": encode_hdr, ".pic": encode_hdr}
+UNPORTED_WRITERS = (".webp", ".jp2", ".avif", ".gif", ".apng")
 
 
 def encoder_for(path: str):
@@ -412,8 +469,12 @@ def encoder_for(path: str):
 def imwrite_unit(path: str, img: np.ndarray) -> None:
     """Write an RGB image in the format of the path's suffix (``WRITERS``):
     uint8 arrays as they are, float [0, 1] arrays as the reference's (clip
-    * 255) truncated to uint8.  JPEG, BMP and TIFF take (H, W, 3) images;
-    PNG also gray and RGBA."""
+    * 255) truncated to uint8.  JPEG, BMP, TIFF, PPM/PNM (P6), PAM, PFM
+    (the samples 0-255 as float32), Sun raster and HDR (the samples over
+    255, RGBE) take (H, W, 3) images; PNG also gray and RGBA.  PGM and PBM
+    raise ValueError: cv2 writes one-channel images only there (the JAX
+    package's ``cv2.imwrite`` of its colour frame writes no file and
+    raises nothing)."""
     encode = encoder_for(path)
     img = np.asarray(img)
     u8 = img if img.dtype == np.uint8 else (np.clip(img, 0, 1) * 255).astype(np.uint8)
@@ -430,8 +491,7 @@ def collect_images(folder: str, formats: Optional[List[str]] = None) -> List[Pat
 
 
 class AsyncWriter:
-    """Write-behind encoder (``imwrite_unit``: PNG, JPEG, BMP or TIFF by
-    the suffix) on a host thread pool (zlib and numpy release the GIL for
+    """Write-behind encoder (``imwrite_unit``, its format by the suffix) on a host thread pool (zlib and numpy release the GIL for
     part of each encode), so the device does not wait for encodes.  In-flight writes are
     bounded; ``close()`` joins them and returns [(path, error_str)] for
     any that failed."""
