@@ -103,7 +103,14 @@ non-zero):
    --device cuda`` on the PFM with six exact's launches of one frame,
    each call replayed bit-equal, its PNGs byte-equal to six's on the
    frame's PNG, and ``cli enhance`` HDR in and out on the card and the
-   CPU within 1e-6, then the five
+   CPU within 1e-6, ``[tiff_samples]`` (``tiff_samples_slice``): frame 0
+   as a float32 (predictor 3), a 12-bit, a signed 16-bit, a BigTIFF, a
+   2x2 YCbCr, an 8-bit CIELab and a JPEG 2000-tagged TIFF
+   (``tests/torch_tiff.py``), each decoding to its closed form (the
+   YCbCr and CIELab files to their shape and dtype; host ms printed),
+   ``cli six --device cuda`` on the float file with six exact's launches
+   of one frame, each call replayed bit-equal, its PNGs byte-equal to
+   six's on the frame's PNG, then the five
    CLAHE
    legs of each frame fused (``impl="fused"``, K5) against split, and each
    frame's u8 LAB (K1b; and through K8 ``_fast`` from the unit planes, the
@@ -1679,16 +1686,18 @@ def variants_frame() -> np.ndarray:
 
 
 def held_file(phase: str, out: Path, name: str, write, decode, want,
-              smi: str, **extra) -> bytes:
+              smi: str, shape_only: bool = False, **extra) -> bytes:
     """Write a file by ``write()``, decode it by ``decode(data)`` and hold
-    it equal to ``want``; log both host ms."""
+    it equal to ``want``, dtype included (with ``shape_only``, of its
+    shape and dtype only); log both host ms."""
     t0 = time.perf_counter()
     data = write()
     ms_w = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     got = decode(data)
     ms_r = (time.perf_counter() - t0) * 1e3
-    check(got.shape == want.shape and np.array_equal(got, want),
+    check(got.shape == want.shape and got.dtype == want.dtype and (
+        shape_only or np.array_equal(got, want)),
           f"{phase}: {name} decodes to other pixels than it encodes")
     (out / name).write_bytes(data)
     log(phase, file=name, bytes=len(data), frame=f"{W}x{H}",
@@ -1820,6 +1829,134 @@ def tiff_variants_slice(torch, run_cli, captured_match, replay,
           "tiff_variants: six writes other PNGs (or launches) for the "
           "orientation-3 TIFF than for the frame's PNG")
     log("tiff_variants", six_outputs="byte-equal to the PNG's",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+
+
+# [tiff_samples]: 1080p frame 0 as the TIFF sample types, colour spaces
+# and containers cv2 reads apart from 8- and 16-bit unsigned samples, each
+# decoding to its closed form; six on the float TIFF against six on the
+# PNG of the same frame
+def tiff_samples_slice(torch, run_cli, captured_match, replay,
+                       smi: str) -> None:
+    """[tiff_samples]: from 1080p frame 0, ``tests/torch_tiff.py`` writes
+    a float32 RGB file of the samples 0-255 (Deflate with the
+    floating-point predictor), a 12-bit RGB file (LZW) of the samples
+    widened to 12 bits, a signed 16-bit gray (the green plane over the
+    whole int16 range), a BigTIFF of the frame, a 2x2 YCbCr file
+    (uncompressed; Y, Cb, Cr the green, blue and red planes), an 8-bit
+    CIELab file (L*, a*, b* the frame's three bytes) and a file tagged
+    JPEG 2000 (compression 34712, which libtiff does not know).  Each
+    decodes (``tiff.decode_tiff``, host ms printed) to its closed form:
+    the floats as written, the 12-bit values ``<< 4``, the signed plane's
+    high bytes in ``IMREAD_COLOR`` (its int16 samples in
+    ``IMREAD_UNCHANGED``, which ``io.decode_image`` names: JAX's reader
+    raises on it), the frame, zeros; the YCbCr and CIELab files to (H, W,
+    3) uint8 (the CPU tests hold them to cv2).  ``cli six --device cuda``
+    on the float file launches six exact's kernels of one frame
+    (``SIX_ONE_FRAME``), each call replayed bit-equal to its plain
+    version, and writes PNGs byte-equal to those of ``cli six`` on the
+    frame's PNG."""
+    from tests import torch_tiff as T
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+    from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+        Unsupported,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.tiff import (
+        decode_tiff,
+    )
+
+    t_phase = time.perf_counter()
+    out = WORK / "tiff_samples"
+    out.mkdir(parents=True, exist_ok=True)
+    u8 = variants_frame()
+    rows = TIFF_STRIP_ROWS
+
+    def held(name, write, want, decode=decode_tiff, **extra):
+        return held_file("tiff_samples", out, name, write, decode, want,
+                         smi, **extra)
+
+    held("float32.tif", lambda: T.tiff(
+        [u8.astype(np.float32)], compression=8, predictor=3,
+        rows_per_strip=rows), u8.astype(np.float32),
+        equal_to="the floats as written")
+    v12 = (u8.astype(np.uint16) << 4) | (u8 >> 4)
+    held("rgb12.tif", lambda: T.tiff([v12], bits=12, compression=5,
+                                     rows_per_strip=rows), v12 << 4,
+         equal_to="the samples << 4")
+    s16 = (u8[..., 1].astype(np.int32) * 257 - 32768).astype(np.int16)
+    high = np.repeat((s16.view(np.uint16) >> 8).astype(np.uint8)[..., None],
+                     3, axis=2)
+    data = held("signed16.tif", lambda: T.tiff([s16], rows_per_strip=rows),
+                high, decode=lambda d: decode_tiff(d, True),
+                equal_to="the high bytes (IMREAD_COLOR)")
+    check(np.array_equal(decode_tiff(data), s16[..., None]),
+          "tiff_samples: the signed file's IMREAD_UNCHANGED samples")
+    try:
+        uio.decode_image(data)
+        named = None
+    except Unsupported as e:
+        named = str(e)
+    check(named == "signed 16-bit TIFF, on which the JAX reader raises",
+          f"tiff_samples: the signed file named {named!r}")
+    log("tiff_samples", file="signed16.tif", imread_unit=f"named {named!r}",
+        card=repr(smi))
+    held("bigtiff.tif", lambda: T.tiff([u8], big=True, compression=8,
+                                       predictor=2, rows_per_strip=rows),
+         u8, equal_to="the frame")
+    ycc = u8[..., [1, 2, 0]]
+    held("ycbcr22.tif", lambda: T.tiff(
+        [ycc], photometric=6, block=T.ycbcr_block(2, 2),
+        rows_per_strip=rows, tags={530: (3, [2, 2])}),
+        np.empty((H, W, 3), np.uint8), shape_only=True,
+        equal_to="(H, W, 3) uint8")
+    held("cielab8.tif", lambda: T.tiff([u8], photometric=8,
+                                       rows_per_strip=rows),
+         np.empty((H, W, 3), np.uint8), shape_only=True,
+         equal_to="(H, W, 3) uint8")
+    held("jpeg2000.tif", lambda: T.tiff([u8], rows_per_strip=rows,
+                                        tags={259: (3, [34712])}),
+         np.zeros((H, W, 3), np.uint8), equal_to="zeros")
+    outs = {}
+    for label, name, data in (
+            ("png", "frame0.png", uio.encode_png(u8)),
+            ("float32", "frame0.tif", (out / "float32.tif").read_bytes())):
+        src = out / f"in_{label}"
+        src.mkdir(parents=True, exist_ok=True)
+        (src / name).write_bytes(data)
+        calls, launches, secs = run_cli(
+            ["six", "--device", "cuda", "--input", str(src), "--output",
+             str(out / f"six_{label}")], label != "png")
+        d = launches["hysteresis_propagate"]
+        check(all(launches[k_] == v for k_, v in SIX_ONE_FRAME.items())
+              and d >= 1 and launches["sat_rows"] == d + 1,
+              f"tiff_samples: six on the {label} file launched {launches}")
+        pngs = {p.name: p.read_bytes()
+                for p in sorted((out / f"six_{label}").glob("*.png"))}
+        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
+              f"tiff_samples: six outputs {sorted(pngs)}")
+        outs[label] = (pngs, launches)
+        if label != "png":
+            check(captured_match(calls, launches),
+                  f"tiff_samples: captured calls "
+                  f"{[len(v) for v in calls.values()]} vs {launches}")
+            for kname, arglists in calls.items():
+                for j, args in enumerate(arglists):
+                    replay(kname, args,
+                           f"tiff_samples six call {j} (float TIFF)")
+            torch.cuda.synchronize()
+            log("tiff_samples", command="'six --device cuda' (float TIFF)",
+                seconds=f"{secs:.2f}",
+                launches=json.dumps(nonzero(launches), separators=(",", ":")),
+                replayed_bit_equal=json.dumps(
+                    {k_: len(v) for k_, v in calls.items() if v},
+                    separators=(",", ":")), card=repr(smi))
+    check(outs["float32"] == outs["png"],
+          "tiff_samples: six writes other PNGs (or launches) for the float "
+          "TIFF than for the frame's PNG")
+    log("tiff_samples", six_outputs="byte-equal to the PNG's",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
 
 
@@ -3232,6 +3369,9 @@ def main() -> int:
     bmp_variants_slice(smi)
     # [other_formats] PPM, PAM, PFM, Sun raster, HDR, GIF; six on a PFM
     other_formats_slice(torch, run_cli, captured_match, replay, smi)
+    # [tiff_samples] float, 12-bit, signed, BigTIFF, YCbCr, CIELab and
+    # JPEG 2000 TIFF at 1080p; six on the float TIFF
+    tiff_samples_slice(torch, run_cli, captured_match, replay, smi)
 
     # Phase-1 labeling: auto, build-dataset, build-dataset --fast
     for key, argv in (

@@ -253,6 +253,7 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     img = _image(32, 48, seed=10)
     files = {
         "lab.tif": _tiff([img], photometric=8),
+        "signed.tif": _tiff([img.astype(np.int16) - 300]),
         "tiff.tif": cv2.imencode(".tiff", img.astype(np.uint16) * 257)[1]
         .tobytes(),
         "webp.bmp": cv2.imencode(".webp", img)[1].tobytes(),
@@ -263,12 +264,18 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     }
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
-    # cv2, and so the JAX package, reads all but the junk
+    # cv2 reads all but the junk; the JAX package's cvtColor raises on
+    # the signed samples
     for name in files:
+        if name == "signed.tif":
+            with pytest.raises(cv2.error):
+                jio.imread_unit(str(tmp_path / name))
+            continue
         assert (jio.imread_unit(str(tmp_path / name)) is None) == (
             name == "junk.png"), name
-    assert tio.read_image(str(tmp_path / "lab.tif")) == (
-        None, "CIELab TIFF")
+    # the CIELab TIFF, which the port skipped before it read it
+    np.testing.assert_array_equal(tio.imread_unit(str(tmp_path / "lab.tif")),
+                                  jio.imread_unit(str(tmp_path / "lab.tif")))
     # the 16-bit TIFF, which the port skipped before it read them
     img, why = tio.read_image(str(tmp_path / "tiff.tif"), color=True)
     assert why is None
@@ -281,12 +288,13 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     logged = []
     got = [p.name for p, _ in tio.decode_iter(
         tio.collect_images(str(tmp_path)), log=logged.append)]
-    assert got == ["fine.jpg", "pfm.tif", "tiff.tif"]
+    assert got == ["fine.jpg", "lab.tif", "pfm.tif", "tiff.tif"]
     assert sorted(logged) == sorted([
         "warning: avif.png unsupported by the port: AVIF",
         "warning: webp.bmp unsupported by the port: WebP",
         "warning: unreadable junk.png",
-        "warning: lab.tif unsupported by the port: CIELab TIFF",
+        "warning: signed.tif unsupported by the port: signed 16-bit TIFF, "
+        "on which the JAX reader raises",
     ])
 
 
@@ -646,58 +654,68 @@ def _palette(rgb, gray, rgba):
     return _tiff([gray], photometric=3, tags={320: (3, cmap)})
 
 
-# variants cv2 reads and the port does not (ROADMAP Queue 1 item 11.9):
-# (file, the name it logs)
-TIFF_UNSUPPORTED = {
-    "cielab": (lambda rgb, gray, rgba: _tiff([rgb], photometric=8),
-               "CIELab TIFF"),
-    "ycbcr": (lambda rgb, gray, rgba: _tiff([rgb], photometric=6),
-              "YCbCr TIFF"),
-    "14-bit": (lambda rgb, gray, rgba: _tiff(
+# variants of ROADMAP Queue 1 item 11.9 that cv2 reads and the port named
+# unread until it read them: the files of the test that named them
+TIFF_ITEM_11_9 = {
+    "cielab": lambda rgb, gray, rgba: _tiff([rgb], photometric=8),
+    # RGB bytes read as YCbCr blocks of the default 2x2 subsampling
+    "ycbcr": lambda rgb, gray, rgba: _tiff([rgb], photometric=6),
+    "14-bit": lambda rgb, gray, rgba: _tiff(
         [gray[:, :40].reshape(gray.shape[0], 20, 2)], photometric=1,
         tags={256: (4, [22]), 258: (3, [14]), 277: (3, [1])}),
-               "14-bit TIFF"),
-    "12-bit": (lambda rgb, gray, rgba: _tiff(
+    "12-bit": lambda rgb, gray, rgba: _tiff(
         [gray[:, :40].reshape(gray.shape[0], 20, 2)], photometric=1,
         tags={256: (4, [26]), 258: (3, [12]), 277: (3, [1])}),
-               "12-bit TIFF"),
-    "floating-point": (lambda rgb, gray, rgba: _tiff(
+    "floating-point": lambda rgb, gray, rgba: _tiff(
         [(gray[:, :10] / np.float32(255)).astype("<f4").view(np.uint8)
          .reshape(gray.shape[0], 10, 4)], photometric=1,
         tags={256: (4, [10]), 258: (3, [32]), 277: (3, [1]),
-              339: (3, [3])}), "floating-point 32-bit TIFF"),
-    "bigtiff": (lambda rgb, gray, rgba: _tiff([rgb], big=True),
-                "BigTIFF"),
+              339: (3, [3])}),
+    "bigtiff": lambda rgb, gray, rgba: _tiff([rgb], big=True),
 }
 
 
-@pytest.mark.parametrize("name", sorted(TIFF_UNSUPPORTED))
-def test_tiff_variants_the_port_does_not_read_are_named(tmp_path, name):
-    build, why = TIFF_UNSUPPORTED[name]
+@pytest.mark.parametrize("name", sorted(TIFF_ITEM_11_9))
+def test_tiff_variants_of_item_11_9_read_as_jax(tmp_path, name):
+    """Each reads through ``imread_unit`` as JAX's ``imread_unit`` reads it
+    (12- and 14-bit samples shifted to 16 bits, floats over 255) and
+    through ``imread_u8`` as ``train/data._imread_rgb`` (None where
+    ``IMREAD_COLOR`` refuses the sample size)."""
     path = tmp_path / "v.tif"
-    path.write_bytes(build(*_tiff_images()))
-    assert jio.imread_unit(str(path)) is not None  # cv2 reads it
-    assert tio.read_image(str(path)) == (None, why)
+    path.write_bytes(TIFF_ITEM_11_9[name](*_tiff_images()))
+    want = jio.imread_unit(str(path))
+    assert want is not None  # cv2 reads it
+    got = tio.imread_unit(str(path))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    u8 = jdata._imread_rgb(str(path))
+    if u8 is None:
+        assert tio.imread_u8(str(path)) is None
+    else:
+        np.testing.assert_array_equal(tio.imread_u8(str(path)), u8)
 
 
-@pytest.mark.parametrize("compression,first,why", [
-    (2, b"\x00\x01", "CCITT RLE TIFF"), (4, b"\x00\x01", "CCITT G4 TIFF"),
-    (34712, b"\xffO", "JPEG 2000 TIFF")])
-def test_tiff_compressions_the_port_does_not_read_are_named(compression,
-                                                            first, why):
-    """The compressions of item 11.9 that cv2 reads, named from the tag
-    whatever the strip's first bytes (the old-style LZW that the strip's
-    first bytes named, and JPEG, are read now: ``TIFF_BUILT``,
-    ``tests/test_torch_tiff_variants.py``)."""
+@pytest.mark.parametrize("compression,photometric,why", [
+    (2, None, "CCITT RLE TIFF"), (3, None, "CCITT G3 TIFF"),
+    (4, None, "CCITT G4 TIFF"), (34676, 32844, "SGILog LogL TIFF"),
+    (34677, 32845, "SGILog24 LogLuv TIFF")])
+def test_tiff_compressions_the_port_does_not_read_are_named(
+        compression, photometric, why):
+    """The compressions of item 11.9 that cv2 reads and the port does not
+    (CCITT, and SGILog under LogL or LogLuv), named from the tags whatever
+    the strip's first bytes (the old-style LZW that the strip's first
+    bytes named, and JPEG, are read now: ``TIFF_BUILT``,
+    ``tests/test_torch_tiff_variants.py``; JPEG 2000 reads as zeros:
+    ``tests/test_torch_tiff_samples.py``)."""
     rgb, _, _ = _tiff_images()
-    data = bytearray(_tiff([rgb], compression=1))
+    data = bytearray(_tiff([rgb], compression=1, photometric=photometric))
     (at,) = struct.unpack("<I", data[4:8])
     (n,) = struct.unpack("<H", data[at:at + 2])
     for k in range(n):
         e = at + 2 + 12 * k
         if struct.unpack("<H", data[e:e + 2])[0] == 259:
             data[e + 8:e + 10] = struct.pack("<H", compression)
-    data[8:10] = first
+    data[8:10] = b"\x00\x01"
     with pytest.raises(tjpeg.Unsupported, match=f"^{why}$"):
         ttiff.decode_tiff(bytes(data))
 

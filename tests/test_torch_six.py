@@ -308,7 +308,9 @@ def test_source_imports_neither_jax_nor_the_jax_package():
             "underwater_image_enhancement_tpu_torch/utils/pxm.py",
             "underwater_image_enhancement_tpu_torch/utils/sunras.py",
             "underwater_image_enhancement_tpu_torch/utils/hdr.py",
-            "underwater_image_enhancement_tpu_torch/utils/gif.py"} <= names
+            "underwater_image_enhancement_tpu_torch/utils/gif.py",
+            "underwater_image_enhancement_tpu_torch/utils/tiff_color.py"
+            } <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -122,35 +122,71 @@ def code(raw: bytes, compression) -> bytes:
     raise ValueError(f"no coder for compression {compression}")
 
 
+def pack_msb(blk: np.ndarray, bits: int) -> np.ndarray:
+    """(rows, cols, samples) unsigned values -> (rows, row bytes) uint8:
+    each row's samples of ``bits`` bits (up to 16) packed most significant
+    bit first, the row padded to a byte."""
+    rows = blk.shape[0]
+    v = blk.reshape(rows, -1).astype(">u2")
+    b = np.unpackbits(v.view(np.uint8).reshape(rows, -1, 2), axis=2)
+    b = b.reshape(rows, -1, 16)[..., 16 - bits:].reshape(rows, -1)
+    return np.packbits(b, axis=1)
+
+
+def fp_predict(raw: bytes, row_samples: int, bps: int, stride: int) -> bytes:
+    """Rows of native (little-endian) samples of ``bps`` bytes, each row
+    ``row_samples`` of them -> libtiff's floating-point predictor
+    (``fpDiff``): each row's bytes regathered into planes, most
+    significant first, then each byte less the one ``stride`` before it in
+    the row, mod 256."""
+    a = np.frombuffer(raw, np.uint8).reshape(-1, row_samples, bps)
+    planes = a[..., ::-1].transpose(0, 2, 1).reshape(a.shape[0], -1)
+    out = planes.copy()
+    out[:, stride:] = planes[:, stride:] - planes[:, :-stride]
+    return out.tobytes()
+
+
 def _rows(blk: np.ndarray, bits: int, order: str) -> bytes:
     """(rows, cols, samples) values -> the chunk's bytes: packed rows below
-    8 bits, the file's byte order at 16."""
+    8 bits and at 10, 12 and 14 (most significant bit first), the file's
+    byte order from 16 bits up (any dtype: unsigned, signed, float)."""
     if bits < 8:
         return torch_png.pack_rows(blk, bits).tobytes()
-    if bits == 16:
-        return blk.astype(order + "u2").tobytes()
+    if bits in (10, 12, 14):
+        return pack_msb(blk, bits).tobytes()
+    if blk.dtype.itemsize > 1:
+        return blk.astype(blk.dtype.newbyteorder(order)).tobytes()
     return blk.astype(np.uint8).tobytes()
 
 
-_PACK = {1: "B", 3: "H", 4: "I", 16: "Q"}
+_PACK = {1: "B", 3: "H", 4: "I", 5: "I", 6: "b", 8: "h", 9: "i", 10: "i",
+         11: "f", 12: "d", 16: "Q"}
 
 
 def _value_bytes(order: str, kind: int, vals) -> tuple:
-    """(count, packed bytes) of an entry's values."""
+    """(count, packed bytes) of an entry's values; RATIONAL and SRATIONAL
+    values as numerator, denominator, numerator, ..."""
     if kind in (2, 7) or (kind == 1 and isinstance(vals, bytes)):
         return len(vals), bytes(vals)
-    return len(vals), struct.pack(order + _PACK[kind] * len(vals), *vals)
+    count = len(vals) // 2 if kind in (5, 10) else len(vals)
+    return count, struct.pack(order + _PACK[kind] * len(vals), *vals)
 
 
 def tiff(pages, order="<", tile=None, compression=1, predictor=1,
          photometric=None, planar=1, rows_per_strip=None, bits=None,
-         fill_order=1, tags=None, jpeg=None, big=False) -> bytes:
+         fill_order=1, tags=None, jpeg=None, big=False,
+         block=None) -> bytes:
     """A TIFF of ``pages`` ((H, W) or (H, W, C) arrays of sample values,
-    uint8 or uint16), linked in order.  ``bits`` a sample (default the
-    dtype's), ``tile`` (width, height) or strips of ``rows_per_strip``
-    rows (one strip where None), ``compression`` as the module docstring
-    says (``jpeg(block, plane)`` codes a chunk for compression 6 or 7),
-    ``big``: a BigTIFF (version 43, 8-byte offsets and counts)."""
+    unsigned, signed or float; SampleFormat 2 or 3 written for the last
+    two), linked in order.  ``bits`` a sample (default the dtype's),
+    ``tile`` (width, height) or strips of ``rows_per_strip`` rows (one
+    strip where None), ``compression`` as the module docstring says
+    (``jpeg(block, plane)`` codes a chunk for compression 6 or 7),
+    ``predictor`` 2 (on the samples' bits as unsigned integers) or 3
+    (libtiff's floating-point predictor, ``fp_predict``), ``big``: a
+    BigTIFF (version 43, 8-byte offsets and counts), ``block(blk)``: a
+    chunk's uncoded bytes from its (rows, tile width, samples) values in
+    place of the samples' own."""
     data, dirs = bytearray(16 if big else 8), []
     for img in pages:
         a = img if img.ndim == 3 else img[..., None]
@@ -166,15 +202,24 @@ def tiff(pages, order="<", tile=None, compression=1, predictor=1,
                     blk = np.zeros((rows, tw, plane.shape[2]), plane.dtype)
                     part = plane[y:y + rows, x:x + tw]
                     blk[:part.shape[0], :part.shape[1]] = part
+                    n = plane.shape[2]
                     if predictor == 2:
-                        n = plane.shape[2]
-                        flat = blk.reshape(rows, -1).copy()
+                        flat = blk.reshape(rows, -1)
+                        if flat.dtype.kind != "u":
+                            flat = flat.view(f"u{flat.dtype.itemsize}")
+                        flat = flat.copy()
                         flat[:, n:] = flat[:, n:] - flat[:, :-n]
-                        blk = flat.reshape(blk.shape)
+                        blk = flat.view(blk.dtype).reshape(blk.shape)
                     if compression in (6, 7):
                         chunk = jpeg(blk, p)
                     else:
-                        chunk = code(_rows(blk, depth, order), compression)
+                        raw = (block(blk) if block
+                               else _rows(blk, depth, order))
+                        if predictor == 3:
+                            size = blk.dtype.itemsize
+                            raw = fp_predict(blk.astype(blk.dtype.newbyteorder(
+                                "<")).tobytes(), tw * n, size, n)
+                        chunk = code(raw, compression)
                     if fill_order == 2:
                         chunk = reverse_bits(chunk)
                     offsets.append(len(data))
@@ -185,6 +230,8 @@ def tiff(pages, order="<", tile=None, compression=1, predictor=1,
                    262: (3, [photometric if photometric is not None
                              else 1 if C <= 2 else 2]),
                    277: (3, [C]), 284: (3, [planar]), 317: (3, [predictor])}
+        if a.dtype.kind in "if":
+            entries[339] = (3, [2 if a.dtype.kind == "i" else 3] * C)
         if fill_order != 1:
             entries[266] = (3, [fill_order])
         at = 16 if big else 4
@@ -230,6 +277,22 @@ def tiff(pages, order="<", tile=None, compression=1, predictor=1,
         else:
             data[links[-2]:links[-2] + inline] = struct.pack(link, at)
     return bytes(data)
+
+
+def ycbcr_block(hs: int, vs: int):
+    """A ``block`` for ``tiff``: a chunk's (rows, tile width, 3) Y, Cb, Cr
+    -> libtiff's subsampled YCbCr layout: block rows of ceil(width / hs)
+    blocks, each its hs * vs lumas (rows of hs) then the Cb and Cr of the
+    block's first pixel; blocks past the chunk's edge padded with zeros."""
+    def code(blk: np.ndarray) -> bytes:
+        rows, tw = blk.shape[:2]
+        bh, bw = -(-rows // vs), -(-tw // hs)
+        pad = np.zeros((bh * vs, bw * hs, 3), np.uint8)
+        pad[:rows, :tw] = blk
+        y = pad[..., 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3)
+        return np.concatenate([y.reshape(bh, bw, hs * vs),
+                               pad[::vs, ::hs, 1:]], -1).tobytes()
+    return code
 
 
 def jpeg_split(data: bytes) -> tuple:

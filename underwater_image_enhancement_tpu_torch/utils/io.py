@@ -10,7 +10,8 @@ does.  Reading follows the reference's load conventions (main.py:91-113)
 and gives what the JAX package's ``cv2.imread(path, IMREAD_UNCHANGED)``
 and channel handling give: RGB out, grayscale replicated to RGB, alpha
 dropped, float32 samples over 255 (``imread_unit``; a 16-bit PNG or TIFF
-reads up to 257, as it does in the JAX package).  ``imread_u8`` reads as
+reads up to 257, as it does in the JAX package, a float TIFF, PFM or HDR
+its samples over 255).  ``imread_u8`` reads as
 the JAX training loader's ``cv2.imread(path)`` (``IMREAD_COLOR``) does:
 8 bits, a 16-bit sample as cv2 converts it for its format, then turned as
 a JPEG's or PNG's EXIF Orientation says (``exif.py``; ``IMREAD_UNCHANGED``
@@ -20,13 +21,15 @@ tRNS and Adam7 (``decode_png``); JPEG in every variant cv2 reads
 RGB, YCbCr, CMYK and YCCK); BMP in every variant cv2 reads (``bmp.py``:
 OS/2 headers, 1- to 32-bit, bit fields, RLE8 and RLE4); TIFF in the
 variants ``tiff.py`` lists (its Orientation applied as cv2 applies it, in
-both modes); netpbm P1-P7 and PFM (``pxm.py``), Sun raster
+both modes; float, 10- to 16-bit samples, BigTIFF, uncompressed YCbCr
+and CIELab among them); netpbm P1-P7 and PFM (``pxm.py``), Sun raster
 (``sunras.py``), Radiance HDR (``hdr.py``: float32, as PFM) and the first
 image of a GIF (``gif.py``).  Unreadable files give None so callers can
-skip them; so do the files cv2 reads and the port does not (the TIFF
-variants of ROADMAP Queue 1 item 11.9, WebP, JPEG 2000 and AVIF), and
-those on which the JAX package's channel handling raises (a two-channel
-PAM), which ``read_image`` names.
+skip them; so do the files cv2 reads and the port does not (CCITT and
+SGILog TIFF, the rest of ROADMAP Queue 1 item 11.9, WebP, JPEG 2000 and
+AVIF), and those on which the JAX package's channel handling raises (a
+two-channel PAM; a signed, 32- or 64-bit integer or float64 TIFF), which
+``read_image`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
 ``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
@@ -346,9 +349,11 @@ def decode_image(data: bytes, color: bool = False) -> np.ndarray:
     """Image bytes -> (H, W, 3) RGB, the format found from the signature:
     what ``cv2.imread(path, IMREAD_UNCHANGED)`` of the file and the JAX
     package's channel handling give (uint8, or uint16 for a 16-bit PNG,
-    TIFF, PNM or PAM, or float32 for PFM and HDR; gray, a gray-palette or
-    OS/2 BMP, a gray TIFF and a gray netpbm, PFM or Sun raster replicated,
-    alpha dropped, a CMYK TIFF's fourth channel too), or with ``color``
+    TIFF, PNM or PAM and a 10- to 14-bit TIFF's samples shifted to 16
+    bits, or float32 for PFM, HDR and a float TIFF; gray, a gray-palette
+    or OS/2 BMP, a gray TIFF and a gray netpbm, PFM or Sun raster
+    replicated, alpha dropped, a CMYK TIFF's fourth channel too), or with
+    ``color``
     what ``IMREAD_COLOR`` gives (uint8: a 16-bit PNG's samples ``v >> 8``,
     a TIFF as ``tiff.decode_tiff(color=True)`` and a BMP as
     ``bmp.decode_bmp(color=True)`` give it, a lossless gray JPEG refused,
@@ -358,7 +363,9 @@ def decode_image(data: bytes, color: bool = False) -> np.ndarray:
     modes by ``decode_tiff``).  Raises ``Unsupported`` for a format (or
     variant) that cv2 reads and the port does not, and where the JAX
     package's channel handling raises on what cv2 gives (a two-channel
-    PAM); ValueError for anything else it cannot read."""
+    PAM; a TIFF of signed, 32- or 64-bit integer or float64 samples,
+    which ``cvtColor`` refuses); ValueError for anything else it cannot
+    read."""
     turn = None
     head = data[:3]
     netpbm = (len(head) == 3 and head[0] == 80 and head[2] in _SPACE)
@@ -373,6 +380,12 @@ def decode_image(data: bytes, color: bool = False) -> np.ndarray:
         img = decode_bmp(data, color)
     elif data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         img = decode_tiff(data, color=color)
+        if img.dtype not in (np.uint8, np.uint16, np.float32):
+            # cvtColor takes 8-bit, 16-bit and float32 images only
+            kind = {"i": "signed", "u": "unsigned"}.get(img.dtype.kind,
+                                                      "floating-point")
+            raise Unsupported(f"{kind} {8 * img.dtype.itemsize}-bit TIFF, "
+                              "on which the JAX reader raises")
     elif netpbm and head[1] in b"123456":
         img = decode_pnm(data, color)
     elif netpbm and head[1] == 55:  # P7

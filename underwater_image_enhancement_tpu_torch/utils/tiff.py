@@ -11,22 +11,26 @@ strips, as libtiff writes it: twelve tags, then their out-of-line values
 in libtiff's order.
 
 The decoder takes the first directory (the first page, as ``cv2.imread``
-returns it) of a little- or big-endian file: 1, 4 (palette), 8 or 16 bits
-a sample, unsigned; gray, WhiteIsZero, RGB with or without an extra
-sample, gray with extra samples, palette (16-bit or 8-bit colormaps),
-CMYK and JPEG YCbCr; chunky or planar, in strips or tiles (cropped at the
-image's edges); stored uncompressed, PackBits, Deflate (8 and 32946,
-through ``zlib``), LZW (``tif_lzw.c``'s codes, and the old style's LSB-first
-ones) or JPEG (each strip or tile a JPEG after the JPEGTables tag,
-``jpeg.decode_jpeg_chunk``); fill order 1 or 2; LZW and Deflate with the
-horizontal predictor or none; orientations 1-4.  cv2's two paths and
-libtiff's RGBA reader are ``decode_tiff``'s.  What cv2 refuses (2-bit
-and 24-bit samples, 16-bit palette and CMYK, orientations 5-8, old-style
-JPEG, LZMA, ZSTD, WebP, ICCLab, ITULab, transparency masks, predictor 3 on
-integers, JPEG without its tables, ...) raises ValueError; what it reads
-and the port does not (ROADMAP Queue 1 item 11.9: floating-point, signed,
-10-, 12-, 14- and 32-bit samples, CIELab, uncompressed YCbCr, LogL and
-LogLuv under SGILog, CCITT and JPEG 2000 compression, BigTIFF) raises
+returns it) of a little- or big-endian classic TIFF or BigTIFF: 1, 4
+(palette), 8, 10, 12, 14, 16, 32 or 64 bits a sample, unsigned, signed
+or float (32 and 64 bits); gray, WhiteIsZero, RGB with or without an
+extra sample, gray with extra samples, palette (16-bit or 8-bit
+colormaps), CMYK, JPEG YCbCr, uncompressed YCbCr at every subsampling
+libtiff's RGBA reader takes and CIELab (``tiff_color.py``); chunky or
+planar, in strips or tiles (cropped at the image's edges); stored
+uncompressed, PackBits, Deflate (8 and 32946, through ``zlib``), LZW
+(``tif_lzw.c``'s codes, and the old style's LSB-first ones) or JPEG (each
+strip or tile a JPEG after the JPEGTables tag, ``jpeg.decode_jpeg_chunk``),
+or of a compression libtiff does not know (JPEG 2000 among them: zero
+samples, as libtiff's RGBA reader gives them); fill order 1 or 2; LZW and
+Deflate with the horizontal predictor, or the floating-point one on
+floats; orientations 1-4.  cv2's two paths and libtiff's RGBA reader are
+``decode_tiff``'s, with cv2's array type.  What cv2 refuses (2-bit and
+24-bit samples, 16-bit floats, 16-bit palette and CMYK, orientations
+5-8, old-style JPEG, LZMA, ZSTD, WebP, ICCLab, ITULab, transparency
+masks, predictor 3 on integers, JPEG without its tables, ...) raises
+ValueError; what it reads and the port does not (ROADMAP Queue 1 item
+11.9: CCITT compression, SGILog's LogL and LogLuv) raises
 ``Unsupported`` with its variant's name.
 """
 
@@ -37,7 +41,7 @@ import zlib
 
 import numpy as np
 
-from underwater_image_enhancement_tpu_torch.utils import exif
+from underwater_image_enhancement_tpu_torch.utils import exif, tiff_color
 from underwater_image_enhancement_tpu_torch.utils.bmp import opencv_gray
 from underwater_image_enhancement_tpu_torch.utils.jpeg import (
     Unsupported,
@@ -200,14 +204,19 @@ def encode_tiff(rgb: np.ndarray) -> bytes:
 
 
 # struct formats of the integer TIFF field types (BYTE, SHORT, LONG,
-# SBYTE, SSHORT, SLONG, IFD); UNDEFINED values are kept as bytes, tags of
-# other types are not read
-_INT_FORMAT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I"}
+# SBYTE, SSHORT, SLONG, IFD, and BigTIFF's LONG8, SLONG8, IFD8); the real
+# types (RATIONAL, SRATIONAL, FLOAT, DOUBLE) by their sizes; UNDEFINED
+# values are kept as bytes, tags of other types are not read
+_INT_FORMAT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I",
+               16: "Q", 17: "q", 18: "Q"}
+_REAL_SIZE = {5: 8, 10: 8, 11: 4, 12: 8}
 _UNDEFINED = 7
 # what cv2 reads and the port does not (ROADMAP Queue 1 item 11.9)
-_PHOTOMETRIC = {8: "CIELab", 32844: "LogL", 32845: "LogLuv"}
+_PHOTOMETRIC = {32844: "LogL", 32845: "LogLuv"}
 _COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4",
-                 34712: "JPEG 2000"}
+                 34676: "SGILog", 34677: "SGILog24", 32766: "NeXT",
+                 32771: "CCITT RLEW", 32809: "ThunderScan",
+                 32909: "PixarLog", 34661: "JBIG", 34887: "LERC"}
 # what cv2's libtiff refuses: cv2 gives None
 _REFUSED_PHOTOMETRIC = {4: "transparency mask", 9: "ICCLab", 10: "ITULab"}
 _REFUSED_COMPRESSIONS = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD",
@@ -215,39 +224,86 @@ _REFUSED_COMPRESSIONS = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD",
 _SGILOG = (34676, 34677)
 _NONE, _LZW, _JPEG, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS = (
     1, 5, 7, 32946, 8, 32773)
-_MINISWHITE, _MINISBLACK, _RGB, _PALETTE, _CMYK, _YCBCR = 0, 1, 2, 3, 5, 6
+_READ_COMPRESSIONS = (_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS,
+                      _JPEG)
+_MINISWHITE, _MINISBLACK, _RGB, _PALETTE, _CMYK, _YCBCR, _CIELAB = (
+    0, 1, 2, 3, 5, 6, 8)
+# SampleFormat -> numpy kind
+_KINDS = {1: "u", 2: "i", 3: "f"}
+# libtiff's RGBA reader reads these sample sizes
+_RGBA_BITS = (1, 2, 4, 8, 16)
+# OpenCV's icvCvt_BGRA2Gray_16u_CnC1R: 14-bit fixed-point gray weights of
+# the first three samples (after its swap of red and blue)
+_GRAY16_WEIGHTS = (4899, 9617, 1868)
+
+
+def _reals(order: str, kind: int, count: int, raw: bytes) -> tuple:
+    """RATIONAL, SRATIONAL, FLOAT or DOUBLE values as libtiff's
+    ``TIFFReadDirEntryFloatArray`` gives them: float32, a fraction as
+    ``(float)n / (float)d`` (0 where d is 0)."""
+    if kind in (5, 10):
+        v = np.frombuffer(raw, order + ("u4" if kind == 5 else "i4")).reshape(
+            count, 2).astype(np.float32)
+        den = np.where(v[:, 1] == 0, np.float32(1), v[:, 1])
+        out = np.where(v[:, 1] == 0, np.float32(0), v[:, 0] / den)
+    else:
+        out = np.frombuffer(raw, order + ("f4" if kind == 11 else "f8"))
+    return tuple(out.astype(np.float32).tolist())
 
 
 def _directory(data: bytes) -> dict:
-    """The first directory's tags: tag -> tuple of values (the integer
-    types) or bytes (UNDEFINED)."""
+    """The first directory's tags, of a classic TIFF (version 42) or a
+    BigTIFF (version 43: 8-byte offsets, entry counts and value counts,
+    20-byte entries holding up to 8 bytes of values): tag -> tuple of
+    values (integers; float32 for the real types) or bytes
+    (UNDEFINED)."""
     order = {b"II": "<", b"MM": ">"}.get(data[:2])
     if order is None:
         raise ValueError("not a TIFF file")
     (version,) = struct.unpack(order + "H", data[2:4])
     if version == 43:
-        raise Unsupported("BigTIFF")
-    if version != 42:
+        if struct.unpack(order + "HH", data[4:8]) != (8, 0):
+            raise ValueError("corrupt BigTIFF: offsets not of 8 bytes")
+        (at,) = struct.unpack(order + "Q", data[8:16])
+        word, entry, inline = "Q", 20, 8
+        (n,) = struct.unpack(order + "Q", data[at:at + 8])
+        at += 8
+    elif version == 42:
+        (at,) = struct.unpack(order + "I", data[4:8])
+        word, entry, inline = "I", 12, 4
+        (n,) = struct.unpack(order + "H", data[at:at + 2])
+        at += 2
+    else:
         raise ValueError(f"not a TIFF file (version {version})")
-    (at,) = struct.unpack(order + "I", data[4:8])
-    (n,) = struct.unpack(order + "H", data[at:at + 2])
     tags = {}
     for k in range(n):
-        entry = data[at + 2 + 12 * k:at + 14 + 12 * k]
-        tag, kind, count = struct.unpack(order + "HHI", entry[:8])
-        if (kind not in _INT_FORMAT and kind != _UNDEFINED) or count == 0:
-            continue
-        size = (count if kind == _UNDEFINED
-                else struct.calcsize(_INT_FORMAT[kind]) * count)
-        if size <= 4:
-            raw = entry[8:8 + size]
+        e = data[at + entry * k:at + entry * (k + 1)]
+        tag, kind, count = struct.unpack(order + "HH" + word,
+                                         e[:entry - inline])
+        if kind in _INT_FORMAT:
+            size = struct.calcsize(_INT_FORMAT[kind]) * count
+        elif kind in _REAL_SIZE:
+            size = _REAL_SIZE[kind] * count
+        elif kind == _UNDEFINED:
+            size = count
         else:
-            (off,) = struct.unpack(order + "I", entry[8:12])
+            continue
+        if count == 0:
+            continue
+        if size <= inline:
+            raw = e[entry - inline:entry - inline + size]
+        else:
+            (off,) = struct.unpack(order + word, e[entry - inline:])
             raw = data[off:off + size]
         if len(raw) != size:
             raise ValueError(f"corrupt TIFF: tag {tag} past the file's end")
-        tags[tag] = (bytes(raw) if kind == _UNDEFINED else struct.unpack(
-            f"{order}{count}{_INT_FORMAT[kind]}", raw))
+        if kind == _UNDEFINED:
+            tags[tag] = bytes(raw)
+        elif kind in _REAL_SIZE:
+            tags[tag] = _reals(order, kind, count, raw)
+        else:
+            tags[tag] = struct.unpack(f"{order}{count}{_INT_FORMAT[kind]}",
+                                      raw)
     return tags
 
 
@@ -348,8 +404,8 @@ def _decode_chunk(data: bytes, compression: int, size: int) -> bytes:
 
 class _Layout:
     """What a directory's tags say: the image's size, samples, photometric
-    interpretation, coding and chunks, and which of cv2's two reading
-    paths takes it."""
+    interpretation, coding and chunks, the array type cv2 gives, and which
+    of cv2's two reading paths takes it."""
 
     def __init__(self, tags: dict, color: bool):
         self.tags = tags
@@ -367,6 +423,10 @@ class _Layout:
             # libtiff: "Cannot handle different values per sample"
             raise ValueError("TIFF with different bits a sample")
         self.bits = bits[0]
+        fmt = set(tags.get(339, (1,)))
+        if len(fmt) != 1:
+            raise ValueError("TIFF with different sample formats")
+        self.fmt = fmt.pop()
         self.photometric = tags.get(262, (None,))[0]
         self.compression = tags.get(259, (_NONE,))[0]
         self.planar = tags.get(284, (1,))[0] if self.spp > 1 else 1
@@ -380,34 +440,42 @@ class _Layout:
         self.predictor = tags.get(317, (1,))[0]
         if self.compression not in (_LZW, _DEFLATE, _ADOBE_DEFLATE):
             self.predictor = 1  # libtiff's predictor goes with these
+        self.subsampling = (tuple(tags.get(530, (2, 2))[:2])
+                            if self.photometric == _YCBCR else (1, 1))
+        # OpenCV's readHeader: past 8 bits only gray and RGB of 1, 3 or 4
+        # samples keep their depth; the rest is read as 8 bits a channel
+        self.depth = self.bits
+        if self.bits > 8 and (self.photometric is None
+                              or self.photometric > _RGB
+                              or self.spp not in (1, 3, 4)):
+            self.depth = 8
         self.check(color)
-        # cv2 reads 16-bit gray (one sample), RGB and RGBA as the samples
-        # are in IMREAD_UNCHANGED; every other file through libtiff's RGBA
+        # cv2 reads a file of over 8 bits in IMREAD_UNCHANGED itself (its
+        # 16-, 32- and 64-bit cases), every other through libtiff's RGBA
         # reader, 8 bits a channel
-        self.raw = (self.bits == 16 and not color and (
-            (self.photometric in (_MINISWHITE, _MINISBLACK)
-             and self.spp == 1) or self.photometric == _RGB))
+        self.raw = self.depth > 8 and not color
+        # a compression libtiff does not know decodes nothing; the RGBA
+        # reader goes on with its zeroed buffer
+        self.zeros = self.compression not in _READ_COMPRESSIONS
+        size = 1 if self.depth <= 8 else 2 if self.depth <= 16 else (
+            self.depth // 8)
+        self.dtype = np.dtype(f"{_KINDS[self.fmt]}{size}")
 
     def check(self, color: bool) -> None:
         """ValueError where cv2 gives None, ``Unsupported`` naming what it
         reads and the port does not."""
-        bits, spp, ph = self.bits, self.spp, self.photometric
-        fmt = set(self.tags.get(339, (1,)))
-        if fmt - {1}:
-            kinds = {2: "signed", 3: "floating-point"}
-            kind = kinds.get(max(fmt), "untyped")
-            if color and kind != "signed":
-                raise ValueError(f"{kind} TIFF, which IMREAD_COLOR refuses")
-            raise Unsupported(f"{kind} {bits}-bit TIFF")
-        if bits in (10, 12, 14, 32, 64):
-            if color:
-                raise ValueError(f"{bits}-bit TIFF, which IMREAD_COLOR "
-                                 "refuses")
-            raise Unsupported(f"{bits}-bit TIFF")
+        bits, spp, ph, fmt = self.bits, self.spp, self.photometric, self.fmt
         # OpenCV's readHeader: 1, 8, 10, 12, 14, 16, 32 or 64 bits, 4 for a
-        # palette
-        if bits not in (1, 8, 16) and not (bits == 4 and ph == _PALETTE):
+        # palette; unsigned or signed up to 16 bits, float from 32
+        if bits not in (1, 8, 10, 12, 14, 16, 32, 64) and not (
+                bits == 4 and ph == _PALETTE):
             raise ValueError(f"{bits}-bit TIFF, which cv2 does not read")
+        if fmt not in _KINDS or (fmt == 3 and self.depth <= 16):
+            raise ValueError(f"TIFF of SampleFormat {fmt} at {self.depth} "
+                             "bits, which cv2 does not read")
+        if (color or self.depth <= 8) and bits not in _RGBA_BITS:
+            raise ValueError(f"{bits}-bit TIFF, which libtiff's RGBA reader "
+                             "(IMREAD_COLOR) refuses")
         if not 1 <= spp <= 4:
             raise ValueError(f"TIFF of {spp} samples a pixel, which cv2 "
                              "does not read")
@@ -416,32 +484,33 @@ class _Layout:
         if ph in _REFUSED_PHOTOMETRIC:
             raise ValueError(f"{_REFUSED_PHOTOMETRIC[ph]} TIFF, which "
                              "cv2 does not read")
-        if ph in (32844, 32845) and self.compression not in _SGILOG:
+        if ph in _PHOTOMETRIC and self.compression not in _SGILOG:
             raise ValueError("LogL or LogLuv TIFF without SGILog "
                              "compression, which cv2 does not read")
-        if ph in _PHOTOMETRIC:
-            raise Unsupported(f"{_PHOTOMETRIC[ph]} TIFF")
         if self.compression in _REFUSED_COMPRESSIONS:
             raise ValueError(f"{_REFUSED_COMPRESSIONS[self.compression]} "
                              "TIFF, which cv2 does not read")
         if self.compression in _COMPRESSIONS:
-            raise Unsupported(f"{_COMPRESSIONS[self.compression]} TIFF")
-        if self.compression not in (_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE,
-                                    _PACKBITS, _JPEG):
-            raise Unsupported(f"compression {self.compression} TIFF")
-        if ph == _YCBCR and self.compression != _JPEG:
-            raise Unsupported("YCbCr TIFF")
+            name = _COMPRESSIONS[self.compression]
+            if ph in _PHOTOMETRIC:
+                name += " " + _PHOTOMETRIC[ph]
+            raise Unsupported(f"{name} TIFF")
+        if self.compression not in _READ_COMPRESSIONS and self.depth > 8 \
+                and not color:
+            # libtiff decodes none of its strips and cv2 stops
+            raise ValueError(f"compression {self.compression} TIFF of "
+                             f"{bits}-bit samples, which cv2 does not read")
         if self.compression == _JPEG and (bits != 8 or self.planar != 1
                                           or ph not in (_MINISBLACK, _RGB,
                                                         _YCBCR)):
             raise Unsupported("JPEG TIFF of other than 8-bit chunky gray, "
                               "RGB or YCbCr")
-        if self.predictor == 3:
+        if self.predictor == 3 and fmt != 3:
             raise ValueError("TIFF of predictor 3 on integer samples, which "
                              "cv2 does not read")
-        if self.predictor not in (1, 2):
+        if self.predictor not in (1, 2, 3):
             raise Unsupported(f"TIFF of predictor {self.predictor}")
-        if self.predictor == 2 and bits not in (8, 16):
+        if self.predictor == 2 and bits not in (8, 16, 32, 64):
             raise ValueError(f"TIFF of predictor 2 on {bits}-bit samples, "
                              "which libtiff does not read")
         if 5 <= self.orientation <= 8:
@@ -449,10 +518,8 @@ class _Layout:
             raise ValueError(f"TIFF of orientation {self.orientation}, "
                              "which cv2 does not read")
         if ph in (_MINISWHITE, _MINISBLACK):
-            if bits == 16 and spp > 2 and not color:
-                raise Unsupported(f"16-bit gray TIFF with {spp - 1} extra "
-                                  "samples")
-        elif ph == _RGB:
+            return
+        if ph == _RGB:
             if spp not in (3, 4) or bits == 1:
                 raise ValueError(f"{bits}-bit RGB TIFF of {spp} samples, "
                                  "which cv2 does not read")
@@ -468,9 +535,33 @@ class _Layout:
             if bits != 8 or spp != 4:
                 raise ValueError(f"{bits}-bit CMYK TIFF of {spp} samples, "
                                  "which cv2 does not read")
-        elif ph != _YCBCR:
+        elif ph == _YCBCR:
+            if self.compression != _JPEG:
+                self.check_ycbcr()
+        elif ph == _CIELAB:
+            # TIFFRGBAImageOK, and no put routine for planar CIELab
+            if spp != 3 or bits not in (8, 16) or self.planar != 1:
+                raise ValueError(f"{bits}-bit CIELab TIFF of {spp} samples "
+                                 f"(planar configuration {self.planar}), "
+                                 "which libtiff's RGBA reader does not read")
+        else:
             raise ValueError(f"TIFF of photometric interpretation {ph}, "
                              "which cv2 does not read")
+
+    def check_ycbcr(self) -> None:
+        """Uncompressed YCbCr as libtiff's RGBA reader takes it: 8-bit,
+        three samples, a put routine for the subsampling (chunky: 4x4, 4x2,
+        4x1, 2x2, 2x1, 1x2, 1x1; planar: 1x1)."""
+        hs, vs = self.subsampling
+        if self.bits != 8 or self.spp != 3:
+            raise ValueError(f"{self.bits}-bit YCbCr TIFF of {self.spp} "
+                             "samples, which libtiff's RGBA reader does not "
+                             "read")
+        if hs not in (1, 2, 4) or vs not in (1, 2, 4) or vs > hs and (
+                hs, vs) != (1, 2) or (self.planar == 2 and (hs, vs) != (1, 1)):
+            raise ValueError(f"YCbCr TIFF of subsampling {hs}x{vs} "
+                             f"(planar configuration {self.planar}), which "
+                             "libtiff's RGBA reader does not read")
 
     def chunks(self):
         """(tile width, tile height, tiled, offsets, byte counts)."""
@@ -500,8 +591,22 @@ def _row_bytes(width: int, samples: int, bits: int) -> int:
 
 def _unpack(raw: bytes, rows: int, tw: int, n: int, bits: int,
             dtype) -> np.ndarray:
-    """A chunk's bytes -> (rows, tw, n) sample values; below 8 bits each
-    row is packed most significant bit first and padded to a byte."""
+    """A chunk's bytes -> (rows, tw, n) sample values; below 8 bits and at
+    10, 12 and 14 each row is packed most significant bit first and padded
+    to a byte.  10-, 12- and 14-bit values come shifted to 16 bits, as
+    OpenCV's ``_unpack10To16`` and its kin give them."""
+    if bits in (10, 12, 14):
+        row, per = _row_bytes(tw, n, bits), bits // 2  # 4 samples a packet
+        k = -(-tw * n // 4)
+        packed = np.zeros((rows, k * per), np.uint64)
+        packed[:, :row] = np.frombuffer(raw, np.uint8).reshape(rows, row)
+        word = np.bitwise_or.reduce(packed.reshape(rows, k, per) << (
+            8 * np.arange(per - 1, -1, -1, dtype=np.uint64)), axis=2)
+        v = (word[..., None] >> (bits * np.arange(3, -1, -1,
+                                                  dtype=np.uint64)))
+        v = (v & np.uint64((1 << bits) - 1)) << np.uint64(16 - bits)
+        return v.reshape(rows, -1)[:, :tw * n].astype(np.uint16).reshape(
+            rows, tw, n)
     if bits >= 8:
         return np.frombuffer(raw, dtype).reshape(rows, tw, n)
     per = 8 // bits
@@ -509,6 +614,73 @@ def _unpack(raw: bytes, rows: int, tw: int, n: int, bits: int,
     shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
     values = (packed[..., None] >> shifts) & ((1 << bits) - 1)
     return values.reshape(rows, -1)[:, :tw * n].reshape(rows, tw, n)
+
+
+def _fp_unpredict(raw: bytes, rows: int, tw: int, n: int,
+                  size: int) -> np.ndarray:
+    """libtiff's floating-point predictor undone (``fpAcc``): in each row
+    every byte summed with the one ``n`` (the samples of a pixel) before
+    it, mod 256, then the row's byte planes (most significant first)
+    regathered into samples -> (rows, tw, n) big-endian unsigned words."""
+    a = np.frombuffer(raw, np.uint8).reshape(rows, tw * size, n)
+    a = np.cumsum(a, axis=1, dtype=np.uint8).reshape(rows, size, tw * n)
+    return np.ascontiguousarray(a.transpose(0, 2, 1)).view(
+        f">u{size}").reshape(rows, tw, n)
+
+
+def _ycbcr_chunk(raw: bytes, rows: int, tw: int, hs: int,
+                 vs: int) -> np.ndarray:
+    """An uncompressed YCbCr chunk of ``hs`` x ``vs`` subsampling -> (rows,
+    tw, 3) Y, Cb, Cr: block rows of ceil(tw / hs) blocks, each its hs * vs
+    lumas in rows then Cb and Cr, every pixel of a block with its
+    chroma; blocks cut at the chunk's edge keep their pixels inside, as
+    libtiff's ``putcontig8bitYCbCr*tile`` routines take them."""
+    bw, bh = -(-tw // hs), -(-rows // vs)
+    blk = np.frombuffer(raw, np.uint8)[:bw * bh * (hs * vs + 2)].reshape(
+        bh, bw, hs * vs + 2)
+    y = blk[..., :hs * vs].reshape(bh, bw, vs, hs).transpose(0, 2, 1, 3)
+    out = np.empty((bh, vs, bw, hs, 3), np.uint8)
+    out[..., 0] = y
+    out[..., 1:] = blk[:, None, :, None, hs * vs:]
+    return out.reshape(bh * vs, bw * hs, 3)[:rows, :tw]
+
+
+def _ycbcr44_skewed(raw: bytes, rows: int, tw: int, w: int) -> bytes:
+    """A 4x4-subsampled tile cut at the image's right edge (``w`` of its
+    ``tw`` columns inside) as ``putcontig8bitYCbCr44tile`` walks it: past
+    each block row's ceil(w / 4) blocks of 18 bytes it skips
+    ``(tw - w) // 4`` blocks of 10 bytes (the 4x2 routine's size), so its
+    block rows after the first start early.  The bytes it reads, laid out
+    as the tile's block rows."""
+    full = tw // 4 * 18
+    step = -(-w // 4) * 18 + (tw - w) // 4 * 10
+    return b"".join(raw[r * step:r * step + full]
+                    for r in range(-(-rows // 4)))
+
+
+def _ycbcr_unpredict(raw: bytes, lay: "_Layout", tiled: bool) -> bytes:
+    """The horizontal predictor undone on subsampled YCbCr blocks as
+    libtiff undoes it: on rows of ``TIFFScanlineSize`` bytes (a block
+    row's bytes over the vertical subsampling, rounded down; in tiles
+    ``TIFFTileRowSize``, three bytes a column), each byte summed with the
+    one three before it, mod 256.  Where the chunk is not whole rows, or
+    a row not whole pixels, libtiff's predictor fails and the RGBA reader
+    goes on with the bytes as decoded."""
+    hs, vs = lay.subsampling
+    row = (lay.tags[322][0] * 3 if tiled
+           else -(-lay.W // hs) * (hs * vs + 2) // vs)
+    if row == 0 or len(raw) % row or row % 3:
+        return raw
+    a = np.frombuffer(raw, np.uint8).reshape(-1, row // 3, 3)
+    return np.cumsum(a, axis=1, dtype=np.uint8).tobytes()
+
+
+def _chunk_bytes(lay: "_Layout", rows: int, tw: int, n: int) -> int:
+    """The bytes a strip or tile of ``rows`` rows decodes to."""
+    if lay.photometric == _YCBCR and lay.planar == 1:
+        hs, vs = lay.subsampling
+        return -(-rows // vs) * -(-tw // hs) * (hs * vs + 2)
+    return rows * _row_bytes(tw, n, lay.bits)
 
 
 def _skewed(block: np.ndarray, w: int, h: int, step: int) -> np.ndarray:
@@ -533,24 +705,32 @@ def _skewed(block: np.ndarray, w: int, h: int, step: int) -> np.ndarray:
 
 
 def _samples(data: bytes, lay: _Layout) -> np.ndarray:
-    """The image's (H, W, samples) values, native uint8 (8 bits and
-    below) or uint16: the strips or tiles (each sample's plane apart for
-    planar files) decoded, bit-reversed first for FillOrder 2, the
-    predictor's sums undone.  Tiles cut at the right edge are taken as
-    the RGBA reader takes them where its put routine steps rows by other
-    than the tile's row bytes (``_skewed``)."""
+    """The image's (H, W, samples) values, native unsigned: uint8 (8 bits
+    and below), uint16 (10 to 16 bits, shifted to 16), uint32 or uint64:
+    the strips or tiles (each sample's plane apart for planar files)
+    decoded, bit-reversed first for FillOrder 2, the predictor's sums
+    undone (horizontal: on the samples' bits; floating point:
+    ``_fp_unpredict``); YCbCr blocks spread over their pixels
+    (``_ycbcr_chunk``); zeros for a compression libtiff does not know.
+    Tiles cut at the right edge are taken as the RGBA reader takes them
+    where its put routine steps rows by other than the tile's row bytes
+    (``_skewed``)."""
     W, H, bits, spp = lay.W, lay.H, lay.bits, lay.spp
+    size = 1 if bits <= 8 else 2 if bits <= 16 else bits // 8
+    if lay.zeros:
+        return np.zeros((H, W, spp), f"u{size}")
     order = "<" if data[:2] == b"II" else ">"
     tw, th, tiled, offsets, counts = lay.chunks()
     planes = spp if lay.planar == 2 else 1
     n = spp // planes  # samples in a chunk's pixel
-    dtype = np.dtype(np.uint8 if bits <= 8 else order + "u2")
+    dtype = np.dtype(order + f"u{size}")
     out = np.empty((H, W, spp), dtype.newbyteorder("="))
     # the gray put routines of the RGBA reader step rows by ``tw - w``
     # bytes where they mean pixels: 16-bit samples, or 8-bit ones of a
     # pixel of more than one
     skew = (not lay.raw and planes == 1 and (bits == 16 or spp > 1)
             and lay.photometric in (_MINISWHITE, _MINISBLACK))
+    ycbcr = lay.photometric == _YCBCR and lay.compression != _JPEG
     tables = lay.tags.get(347, b"")
     space = "ycc" if lay.photometric == _YCBCR else "rgb"
     across, down = -(-W // tw), -(-H // th)
@@ -565,13 +745,24 @@ def _samples(data: bytes, lay: _Layout) -> np.ndarray:
         else:
             if lay.fill_order == 2:
                 chunk = _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
-            size = rows * _row_bytes(tw, n, bits)
-            raw = _decode_chunk(chunk, lay.compression, size)
-            if len(raw) < size:
+            want = _chunk_bytes(lay, rows, tw, n)
+            raw = _decode_chunk(chunk, lay.compression, want)
+            if len(raw) < want:
                 raise ValueError("corrupt TIFF: a strip or tile decodes "
                                  "short")
-            block = _unpack(raw, rows, tw, n, bits, dtype)
-        if lay.predictor == 2:  # sums mod 2**bits of the samples' values
+            if ycbcr and planes == 1:
+                if lay.predictor == 2:
+                    raw = _ycbcr_unpredict(raw, lay, tiled)
+                w = min(tw, W - x)
+                if tiled and lay.subsampling == (4, 4) and w < tw:
+                    raw = _ycbcr44_skewed(raw, rows, tw, w)
+                block = _ycbcr_chunk(raw, rows, tw, *lay.subsampling)
+            elif lay.predictor == 3:
+                block = _fp_unpredict(raw, rows, tw, n, size)
+            else:
+                block = _unpack(raw, rows, tw, n, bits, dtype)
+        if lay.predictor == 2 and not (ycbcr and planes == 1):
+            # sums mod 2**bits of the samples' values
             block = np.cumsum(block, axis=1, dtype=out.dtype)
         w, h = min(tw, W - x), min(rows, H - y)
         if skew and tiled and w < tw:
@@ -647,6 +838,11 @@ def _rgba(s: np.ndarray, lay: _Layout):
         return g, None, a
     if ph == _PALETTE:
         return None, _palette(lay)[s[..., 0]], None
+    if ph == _YCBCR and lay.compression != _JPEG:
+        return None, _ycbcr_rgb(s, lay.tags), None
+    if ph == _CIELAB:  # putcontig8bitCIELab8, putcontig8bitCIELab16
+        return None, tiff_color.cielab_to_rgb(
+            s, lay.bits, _counted(lay.tags, 318, 2)), None
     if ph == _CMYK:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bittile
         k = 255 - s[..., 3:].astype(np.int32)
         return None, (k * (255 - s[..., :3].astype(np.int32)) // 255).astype(
@@ -660,49 +856,100 @@ def _rgba(s: np.ndarray, lay: _Layout):
     return None, rgb, a
 
 
-def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
-    """The first page of TIFF bytes -> (H, W, C) uint8 or uint16: what
-    ``cv2.imread(path, IMREAD_UNCHANGED)`` gives, in RGB order, or with
-    ``color`` what ``IMREAD_COLOR`` gives (uint8, C = 3).
+def _counted(tags: dict, tag: int, count: int):
+    """A tag's values where it holds ``count`` of them, else None (libtiff
+    ignores a tag of a fixed count given another)."""
+    v = tags.get(tag)
+    return v if v is not None and len(v) == count else None
 
-    cv2 takes one of two paths.  16-bit gray (one sample), RGB and RGBA
-    in IMREAD_UNCHANGED are its own reading: the samples as they are,
-    whatever the photometric interpretation (WhiteIsZero is not reversed)
-    and extra sample say (a planar file's samples too, where cv2 gives
-    the first plane and memory it never wrote: the port gives the
-    samples).  Every other file goes through libtiff's RGBA reader
-    (``tif_getimage.c``, 8 bits a channel): gray and WhiteIsZero through
-    ``_gray_map`` (16 bits by the high byte, and in a tile cut at the
-    right edge with ``put16bitbwtile``'s row step: ``_skewed``), a
-    planar gray as RGB (16 bits by ``Bitdepth16To8``, an unassociated
-    alpha premultiplied), palette through ``_palette``, RGB with 16 bits
-    ``(v + 128) // 257`` and an unassociated alpha premultiplied
-    ``(c * a + 127) // 255``, CMYK ``(255 - c) * (255 - k) / 255``, JPEG
-    YCbCr through libjpeg's RGB.  cv2 then keeps one channel for gray
-    interpretations and 1-bit files (a 1-bit palette's gray by OpenCV's
-    BGRA-to-gray weights), four for 4 samples (alpha 255 for CMYK), else
-    three; IMREAD_COLOR three.  Orientations 2-4 flip the image as
-    ``exif.TRANSFORMS``, in both modes; 5-8 raise ValueError, as cv2
-    gives None.  Raises ``Unsupported`` for the variants cv2 reads and the
-    port does not, ValueError for corrupt files and those cv2 refuses."""
+
+def _ycbcr_rgb(s: np.ndarray, tags: dict) -> np.ndarray:
+    """Uncompressed YCbCr through ``tiff_color.ycbcr_to_rgb`` with the
+    YCbCrCoefficients and ReferenceBlackWhite tags, refused as
+    ``initYCbCrConversion`` refuses them."""
+    luma = _counted(tags, 529, 3)
+    rbw = _counted(tags, 532, 6)
+    if luma is not None and (np.isnan(luma).any() or luma[1] == 0):
+        raise ValueError("YCbCr TIFF of invalid YCbCrCoefficients")
+    if rbw is not None and not all(-0x7FFFFF7F < v < 0x7FFFFFFF
+                                   for v in rbw):
+        raise ValueError("YCbCr TIFF of invalid ReferenceBlackWhite")
+    return tiff_color.ycbcr_to_rgb(s, luma, rbw)
+
+
+def _cv2_own(s: np.ndarray, lay: _Layout) -> np.ndarray:
+    """cv2's own reading of a file of over 8 bits (``readData``'s 16-, 32-
+    and 64-bit cases): the samples as they are, in cv2's type, except a
+    gray of 3 or 4 samples of 10 to 16 bits, which
+    ``icvCvt_BGRA2Gray_16u_CnC1R`` turns into one weighted plane of the
+    first three (on the samples' bits as unsigned, before their shift to
+    16 bits).  Signed samples of 10 to 14 bits come shifted to 16 and
+    saturated at 32767."""
+    if lay.depth <= 16:
+        if lay.photometric in (_MINISWHITE, _MINISBLACK) and lay.spp > 1:
+            shift = 16 - lay.bits
+            w = (s[..., :3] >> shift).astype(np.int64) @ np.array(
+                _GRAY16_WEIGHTS)
+            s = (((w + (1 << 13)) >> 14) << shift).astype(np.uint16)[
+                ..., None]
+        if lay.fmt == 2 and lay.bits < 16:
+            return np.minimum(s, 32767).astype(np.int16)
+    return s.view(lay.dtype)
+
+
+def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
+    """The first page of TIFF bytes -> (H, W, C): what
+    ``cv2.imread(path, IMREAD_UNCHANGED)`` gives, in RGB order and cv2's
+    type (uint8, int8, uint16, int16, uint32, int32, uint64, int64,
+    float32 or float64), or with ``color`` what ``IMREAD_COLOR`` gives
+    (uint8, C = 3).
+
+    cv2 takes one of two paths.  A file of over 8 bits a sample that is
+    gray, WhiteIsZero or RGB of 1, 3 or 4 samples is its own reading in
+    IMREAD_UNCHANGED (``_cv2_own``): the samples as they are, whatever
+    the photometric interpretation (WhiteIsZero is not reversed) and extra
+    sample say (a planar file's samples too, where cv2 gives the first
+    plane and memory it never wrote: the port gives the samples); 10-,
+    12- and 14-bit samples shifted to 16 bits; gray of 3 or 4 samples as
+    one weighted plane.  Every other file goes through
+    libtiff's RGBA reader (``tif_getimage.c``, 8 bits a channel): gray and
+    WhiteIsZero through ``_gray_map`` (16 bits by the high byte, and in a
+    tile cut at the right edge with ``put16bitbwtile``'s row step:
+    ``_skewed``), a planar gray as RGB (16 bits by ``Bitdepth16To8``, an
+    unassociated alpha premultiplied), palette through ``_palette``, RGB
+    with 16 bits ``(v + 128) // 257`` and an unassociated alpha
+    premultiplied ``(c * a + 127) // 255``, CMYK ``(255 - c) * (255 - k) /
+    255``, JPEG YCbCr through libjpeg's RGB, uncompressed YCbCr and
+    CIELab through ``tiff_color``; signed samples as their bits unsigned,
+    the result signed bytes where cv2's type is.  A compression libtiff
+    does not know (JPEG 2000 among them) reads as zero samples there.  cv2
+    then keeps one channel for gray interpretations and 1-bit files (a
+    1-bit palette's gray by OpenCV's BGRA-to-gray weights), four for 4
+    samples (alpha 255 for CMYK), else three; IMREAD_COLOR three.
+    Orientations 2-4 flip the image as ``exif.TRANSFORMS``, in both
+    modes; 5-8 raise ValueError, as ``cv2.imread`` gives None.  Raises
+    ``Unsupported`` for the variants cv2 reads and the port does not
+    (CCITT and SGILog compression, LogL and LogLuv), ValueError for
+    corrupt files and those cv2 refuses."""
     lay = _Layout(_directory(data), color)
     s = _samples(data, lay)
     if lay.raw:
-        out = s
+        return _orient(_cv2_own(s, lay), lay)
+    gray, rgb, a = _rgba(s, lay)
+    gray_out = lay.photometric in (_MINISWHITE, _MINISBLACK) or (
+        lay.bits == 1)
+    if color:
+        out = (np.repeat(gray[..., None], 3, axis=2) if rgb is None
+               else rgb)
+    elif gray_out:
+        out = (opencv_gray(rgb) if gray is None else gray)[..., None]
+    elif lay.spp == 4:
+        alpha = np.full(rgb.shape[:2], 255, np.uint8) if a is None else a
+        out = np.concatenate([rgb, alpha[..., None]], axis=2)
     else:
-        gray, rgb, a = _rgba(s, lay)
-        gray_out = lay.photometric in (_MINISWHITE, _MINISBLACK) or (
-            lay.bits == 1)
-        if color:
-            out = (np.repeat(gray[..., None], 3, axis=2) if rgb is None
-                   else rgb)
-        elif gray_out:
-            out = (opencv_gray(rgb) if gray is None else gray)[..., None]
-        elif lay.spp == 4:
-            alpha = np.full(rgb.shape[:2], 255, np.uint8) if a is None else a
-            out = np.concatenate([rgb, alpha[..., None]], axis=2)
-        else:
-            out = rgb
+        out = rgb
+    if not color and lay.fmt == 2:
+        out = out.view(np.int8)
     return _orient(out, lay)
 
 
