@@ -54,10 +54,13 @@ non-zero):
    enhance``, ``cli auto``, ``cli build-dataset``, ``cli build-dataset
    --fast`` and ``cli assess`` in-process on ``cuda``, ``[write]``
    (``write_slice``): ``cli enhance --device cuda --input frame0.png
-   --output`` with ``.png``, ``.jpg``, ``.bmp`` and ``.tif``, each file
-   equal to the port's host encoder of the PNG output's u8 frame, the BMP
-   and the TIFF (``tiff.decode_tiff``) read back equal to it, the JPEG's
-   PSNR and each encoder's host ms a 1080p frame printed, ``[jpeg_prog]``
+   --output`` with ``.png``, ``.apng``, ``.jpg``, ``.bmp`` and ``.tif``,
+   each file equal to the port's host encoder of the PNG output's u8
+   frame (the ``.apng`` to the ``.png``), the BMP and the TIFF
+   (``tiff.decode_tiff``) read back equal to it, the JPEG's PSNR and each
+   encoder's host ms a 1080p frame printed, the host's zlib, the PNG's
+   IDAT chunks and zlib header, and four seeded frames' PNGs held to
+   cv2's SHA-256 (``PNG_SHA256``), ``[jpeg_prog]``
    (``jpeg_prog_slice``): that ``frame0.jpg`` transcoded losslessly into
    progressive files (``tests/torch_jpeg_scans.py``: cv2's script, and
    three-step successive approximation with restarts), each decoding
@@ -92,9 +95,14 @@ non-zero):
    cv2 converts it (host ms printed), ``cli six --device cuda`` on the
    orientation-3 file with six exact's launches of one frame, each call
    replayed bit-equal, its PNGs byte-equal to six's on the frame's PNG,
-   ``[bmp_variants]`` (``bmp_variants_slice``): frame 0 as an RLE8, a
-   4-bit and a 16-bit BMP (``tests/torch_bmp.py``), each decoding to its
-   colours (host ms printed), ``[other_formats]``
+   ``[tiff_layouts]`` (``tiff_layouts_slice``): frame 0 at 1080p as an
+   LZW and a planar TIFF without StripByteCounts, a palette + alpha TIFF
+   and a planar RGB and a CMYK JPEG-in-TIFF, each decoding to its closed
+   form, ``cli six --device cuda`` on the LZW file as on the
+   orientation-3 one (``six_twin``, which runs six on the frame's PNG
+   once for every phase), ``[bmp_variants]`` (``bmp_variants_slice``):
+   frame 0 as an RLE8, a 4-bit and a 16-bit BMP (``tests/torch_bmp.py``),
+   each decoding to its colours (host ms printed), ``[other_formats]``
    (``other_formats_slice``): frame 0 as PPM, PAM, PFM, Sun raster and
    HDR from the port's writers and as an ASCII P2, a 16-bit P6, a
    colormap Sun raster, an old-style RLE HDR and an interlaced GIF
@@ -1125,19 +1133,71 @@ def train_timing(torch, dev, train_ds, profile_frame, smi: str) -> None:
         del trainer
 
 
-# [write]: cli enhance --output NAME.<suffix> for the non-PNG writers
-WRITE_SUFFIXES = (".jpg", ".bmp", ".tif")
+# [write]: cli enhance --output NAME.<suffix> for the writers but PNG's
+WRITE_SUFFIXES = (".apng", ".jpg", ".bmp", ".tif")
 WRITE_ENCODE_RUNS = 3
+# the SHA-256 of cv2.imencode(".png") (OpenCV 5.0.0, libpng 1.6.58) of
+# each of png_probe_frames(): the card's host has no cv2, and its zlib
+# must give cv2's bytes
+PNG_SHA256 = {
+    "rgb1080_smooth":
+        "b596b3fbbccbf7e7b5c667dcbd62159547b302f830209fead7600a75be9fbf93",
+    "rgb1080_random":
+        "a9c3332f7c7a59147e26db6b961f25e507b97c03eaf595ee359acd258267c91a",
+    "gray5x7_smooth":
+        "d3126060d770368b6f2015d6dbef2037ec5bad3a8f35a1fbcec7c1e4619ba5e6",
+    "gray5x7_random":
+        "9add509e886100fc12fa7cad1428bbbc67c2dd2a7d82fdc284e908691a18be84",
+}
+
+
+def png_probe_frames() -> dict:
+    """1080p RGB and 5x7 gray frames, smooth (integer ramps) and random
+    (a 64-bit mix of each byte's index, seeded), made on the host in
+    integer arithmetic that every numpy computes alike."""
+    frames = {}
+    for name, (h, w, c) in (("rgb1080", (H, W, 3)), ("gray5x7", (5, 7, 1))):
+        yy, xx = np.mgrid[0:h, 0:w]
+        smooth = np.stack([(xx * 7 + yy * (3 + k)) // 5 for k in range(c)],
+                          -1) % 256
+        x = np.arange(h * w * c, dtype=np.uint64) + np.uint64(26)
+        x *= np.uint64(0x9E3779B97F4A7C15)
+        x ^= x >> np.uint64(31)
+        x *= np.uint64(0xBF58476D1CE4E5B9)
+        x ^= x >> np.uint64(29)
+        for kind, a in (("smooth", smooth),
+                        ("random", (x >> np.uint64(56)).reshape(h, w, c))):
+            a = a.astype(np.uint8)
+            frames[f"{name}_{kind}"] = a[..., 0] if c == 1 else a
+    return frames
+
+
+def png_idat(data: bytes) -> tuple:
+    """(IDAT chunk sizes, the zlib stream's first two bytes) of a PNG."""
+    sizes, head, at = [], b"", 8
+    while at < len(data):
+        n = int.from_bytes(data[at:at + 4], "big")
+        if data[at + 4:at + 8] == b"IDAT":
+            sizes.append(n)
+            head = head or data[at + 8:at + 10]
+        at += 12 + n
+    return sizes, head
 
 
 def write_slice(torch, run_cli, src: Path, smi: str) -> None:
     """[write]: ``cli enhance --device cuda --input frame0.png --output``
     with ``.png``, then each of ``WRITE_SUFFIXES``: each file's bytes equal
     the port's host encoder applied to the u8 frame of the ``.png``
-    output; the BMP and the TIFF read back by the port's decoders equal
-    that frame (the host ms of the decode printed), the JPEG's PSNR
-    against it is printed; the host ms to encode the 1080p frame (the
-    median of ``WRITE_ENCODE_RUNS``)."""
+    output, the ``.apng`` file the ``.png`` file's; the BMP and the TIFF
+    read back by the port's decoders equal that frame (the host ms of the
+    decode printed), the JPEG's PSNR against it is printed; the host ms to
+    encode the 1080p frame (the median of ``WRITE_ENCODE_RUNS``).  The
+    host's zlib version, the PNG's IDAT chunk sizes (8192 bytes but the
+    last) and zlib header; ``png_probe_frames`` encoded to cv2's bytes
+    (``PNG_SHA256``)."""
+    import hashlib
+    import zlib
+
     from underwater_image_enhancement_tpu_torch.utils import io as uio
     from underwater_image_enhancement_tpu_torch.utils.bmp import decode_bmp
     from underwater_image_enhancement_tpu_torch.utils.jpeg import (
@@ -1180,10 +1240,32 @@ def write_slice(torch, run_cli, src: Path, smi: str) -> None:
         elif suffix == ".jpg":
             back = torch.from_numpy(decode_jpeg(data)) / 255.0
             extra["psnr_db"] = f"{psnr_db(back, torch.from_numpy(u8) / 255.0):.3f}"
+        elif suffix == ".apng":
+            check(data == (out / "frame0.png").read_bytes(),
+                  "write: the .apng file is not the .png file's bytes")
+            extra["equal_to"] = "frame0.png"
         log("write", command=f"'enhance --output frame0{suffix}'",
             bytes=len(data), equal_to_host_encoder=True,
             encode_host_ms=f"{statistics.median(ms):.1f}",
             frame=f"{W}x{H}", **extra, card=repr(smi))
+    sizes, head = png_idat((out / "frame0.png").read_bytes())
+    check(sizes and all(n == 8192 for n in sizes[:-1]) and sizes[-1] <= 8192,
+          f"write: frame0.png's IDAT chunks {sizes}")
+    check(head == b"\x78\x01", f"write: frame0.png's zlib header {head!r}")
+    log("write", zlib_runtime=zlib.ZLIB_RUNTIME_VERSION,
+        zlib_built=zlib.ZLIB_VERSION, idat_chunks=len(sizes),
+        idat_sizes=f"{sizes[0]}x{len(sizes) - 1}+{sizes[-1]}",
+        zlib_header=head.hex())
+    for name, frame in png_probe_frames().items():
+        t0 = time.perf_counter()
+        data = uio.encode_png(frame)
+        ms = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(data).hexdigest()
+        check(digest == PNG_SHA256[name],
+              f"write: {name} encodes to other bytes than cv2's ({digest})")
+        log("write", png_probe=name, shape="x".join(map(str, frame.shape)),
+            bytes=len(data), sha256_equal_to_cv2=True,
+            encode_host_ms=f"{ms:.1f}", card=repr(smi))
 
 
 # [jpeg_prog]: [write]'s frame0.jpg as progressive files (the tests'
@@ -1706,6 +1788,65 @@ def held_file(phase: str, out: Path, name: str, write, decode, want,
     return data
 
 
+# six's PNGs and launches on frame 0's PNG, by the PNG's bytes: the run
+# every six_twin compares with, made once
+SIX_ON_PNG: dict = {}
+
+
+def six_twin(torch, run_cli, captured_match, replay, smi: str, phase: str,
+             out: Path, u8: np.ndarray, label: str, name: str, data: bytes,
+             what: str) -> None:
+    """``cli six --device cuda`` on a folder holding frame 0's PNG (run
+    once: ``SIX_ON_PNG``) and on one holding ``data`` (named ``name``),
+    ``what`` in the logs: both launch six exact's kernels of one frame
+    (``SIX_ONE_FRAME``), each of the second's calls replayed bit-equal to
+    its plain version, and both write the same PNGs."""
+    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
+        SIX_ORDER,
+    )
+    from underwater_image_enhancement_tpu_torch.utils import io as uio
+
+    png = uio.encode_png(u8)
+    outs = {"png": SIX_ON_PNG.get(png)}
+    for lab, nm, dat in (("png", "frame0.png", png), (label, name, data)):
+        if outs.get(lab) is not None:
+            continue
+        src = out / f"in_{lab}"
+        src.mkdir(parents=True, exist_ok=True)
+        (src / nm).write_bytes(dat)
+        calls, launches, secs = run_cli(
+            ["six", "--device", "cuda", "--input", str(src), "--output",
+             str(out / f"six_{lab}")], lab != "png")
+        d = launches["hysteresis_propagate"]
+        check(all(launches[k_] == v for k_, v in SIX_ONE_FRAME.items())
+              and d >= 1 and launches["sat_rows"] == d + 1,
+              f"{phase}: six on the {lab} file launched {launches}")
+        pngs = {p.name: p.read_bytes()
+                for p in sorted((out / f"six_{lab}").glob("*.png"))}
+        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
+              f"{phase}: six outputs {sorted(pngs)}")
+        outs[lab] = (pngs, launches)
+        if lab == "png":
+            SIX_ON_PNG[png] = outs[lab]
+        else:
+            check(captured_match(calls, launches),
+                  f"{phase}: captured calls "
+                  f"{[len(v) for v in calls.values()]} vs {launches}")
+            for kname, arglists in calls.items():
+                for j, args in enumerate(arglists):
+                    replay(kname, args, f"{phase} six call {j} ({what})")
+            torch.cuda.synchronize()
+            log(phase, command=f"'six --device cuda' ({what})",
+                seconds=f"{secs:.2f}",
+                launches=json.dumps(nonzero(launches), separators=(",", ":")),
+                replayed_bit_equal=json.dumps(
+                    {k_: len(v) for k_, v in calls.items() if v},
+                    separators=(",", ":")), card=repr(smi))
+    check(outs[label] == outs["png"],
+          f"{phase}: six writes other PNGs (or launches) for the {what} "
+          "than for the frame's PNG")
+
+
 def tiff_variants_slice(torch, run_cli, captured_match, replay,
                         smi: str) -> None:
     """[tiff_variants]: from 1080p frame 0, ``tests/torch_tiff.py``
@@ -1725,10 +1866,6 @@ def tiff_variants_slice(torch, run_cli, captured_match, replay,
     version, and writes PNGs byte-equal to those of ``cli six`` on the
     frame's PNG."""
     from tests import torch_tiff as T
-    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
-        SIX_ORDER,
-    )
-    from underwater_image_enhancement_tpu_torch.utils import io as uio
     from underwater_image_enhancement_tpu_torch.utils.jpeg import (
         decode_jpeg,
         encode_jpeg,
@@ -1789,46 +1926,102 @@ def tiff_variants_slice(torch, run_cli, captured_match, replay,
         [u8], compression=7, photometric=6, jpeg=strip_jpeg,
         rows_per_strip=rows, tags={347: (7, tables[0]), 530: (3, [2, 2])}),
         strips, equal_to="the strips' JPEG decodes")
-    outs = {}
-    for label, name, data in (
-            ("png", "frame0.png", uio.encode_png(u8)),
-            ("orientation3", "frame0.tif",
-             (out / "orientation3.tif").read_bytes())):
-        src = out / f"in_{label}"
-        src.mkdir(parents=True, exist_ok=True)
-        (src / name).write_bytes(data)
-        calls, launches, secs = run_cli(
-            ["six", "--device", "cuda", "--input", str(src), "--output",
-             str(out / f"six_{label}")], label != "png")
-        d = launches["hysteresis_propagate"]
-        check(all(launches[k_] == v for k_, v in SIX_ONE_FRAME.items())
-              and d >= 1 and launches["sat_rows"] == d + 1,
-              f"tiff_variants: six on the {label} file launched {launches}")
-        pngs = {p.name: p.read_bytes()
-                for p in sorted((out / f"six_{label}").glob("*.png"))}
-        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
-              f"tiff_variants: six outputs {sorted(pngs)}")
-        outs[label] = (pngs, launches)
-        if label != "png":
-            check(captured_match(calls, launches),
-                  f"tiff_variants: captured calls "
-                  f"{[len(v) for v in calls.values()]} vs {launches}")
-            for kname, arglists in calls.items():
-                for j, args in enumerate(arglists):
-                    replay(kname, args,
-                           f"tiff_variants six call {j} (orientation 3)")
-            torch.cuda.synchronize()
-            log("tiff_variants",
-                command="'six --device cuda' (orientation-3 TIFF)",
-                seconds=f"{secs:.2f}",
-                launches=json.dumps(nonzero(launches), separators=(",", ":")),
-                replayed_bit_equal=json.dumps(
-                    {k_: len(v) for k_, v in calls.items() if v},
-                    separators=(",", ":")), card=repr(smi))
-    check(outs["orientation3"] == outs["png"],
-          "tiff_variants: six writes other PNGs (or launches) for the "
-          "orientation-3 TIFF than for the frame's PNG")
+    six_twin(torch, run_cli, captured_match, replay, smi, "tiff_variants",
+             out, u8, "orientation3", "frame0.tif",
+             (out / "orientation3.tif").read_bytes(), "orientation-3 TIFF")
     log("tiff_variants", six_outputs="byte-equal to the PNG's",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+
+
+# [tiff_layouts]: 1080p frame 0 as the TIFF layouts of ROADMAP Queue 1
+# item 11.9's third part: no StripByteCounts, palette + ExtraSamples, JPEG
+# in planar RGB and in CMYK; six on the first against six on the PNG
+def tiff_layouts_slice(torch, run_cli, captured_match, replay,
+                       smi: str) -> None:
+    """[tiff_layouts]: from 1080p frame 0, ``tests/torch_tiff.py`` writes
+    an LZW file of one strip (the predictor on) and an uncompressed planar
+    file of one strip a plane, both without StripByteCounts (the port
+    estimates the counts as libtiff does), a palette file of two samples a
+    pixel (``palette_332``'s indices and an unassociated alpha of the
+    green plane, Deflate, strips of ``TIFF_STRIP_ROWS`` rows), a planar
+    RGB JPEG file (each plane one JPEG of one component, its quantisation
+    table in JPEGTables) and a CMYK JPEG file (one JPEG of four
+    components: C, M, Y the complements of R, G, B, K a quarter of the
+    darkest; its tables in JPEGTables too).  Each decodes
+    (``tiff.decode_tiff``, host ms printed) to its closed form: the frame,
+    the palette's colours (the alpha ignored), the planes' own JPEG
+    decodes, ``(255 - c) * (255 - k) // 255`` of the components' own
+    decode and alpha 255.  ``cli six --device cuda`` on the LZW file
+    (``six_twin``) launches six exact's kernels of one frame, each call
+    replayed bit-equal, and writes six's PNGs of the frame's PNG."""
+    from tests import torch_jpeg_scans as js
+    from tests import torch_tiff as T
+    from underwater_image_enhancement_tpu_torch.utils.jpeg import (
+        decode_jpeg_chunk,
+    )
+    from underwater_image_enhancement_tpu_torch.utils.tiff import (
+        decode_tiff,
+    )
+
+    t_phase = time.perf_counter()
+    out = WORK / "tiff_layouts"
+    out.mkdir(parents=True, exist_ok=True)
+    u8 = variants_frame()
+
+    def held(name, write, want, **extra):
+        return held_file("tiff_layouts", out, name, write, decode_tiff,
+                         want, smi, **extra)
+
+    held("no_counts_lzw.tif", lambda: T.tiff(
+        [u8], compression=5, predictor=2, tags={279: None}), u8,
+        equal_to="the frame")
+    held("no_counts_planar.tif", lambda: T.tiff(
+        [u8], planar=2, tags={279: None}), u8, equal_to="the frame")
+    idx, pal = palette_332(u8)
+    cmap = (pal.T.astype(np.int64) * 257).reshape(-1).tolist()
+    held("palette_alpha.tif", lambda: T.tiff(
+        [np.stack([idx.astype(np.uint8), u8[..., 1]], -1)], compression=8,
+        photometric=3, rows_per_strip=TIFF_STRIP_ROWS,
+        tags={320: (3, cmap), 338: (3, [2])}), pal[idx],
+        equal_to="the palette's colours")
+    jpegs = {}
+
+    def raw_jpeg(blk, plane):
+        jpegs[plane] = js.sequential([blk[..., c] for c in range(
+            blk.shape[2])], app=())
+        head, chunk = T.jpeg_split(jpegs[plane], (0xDB,))
+        jpegs["tables"] = head
+        return chunk
+
+    T.tiff([u8[:8, :8]], compression=7, photometric=2, jpeg=raw_jpeg)
+    tables = jpegs["tables"]
+
+    def jpeg_tiff(img, **kw):
+        """The file and the host ms to write it, its JPEGs kept in
+        ``jpegs`` for the closed form (``held_file`` times only the
+        copy)."""
+        t0 = time.perf_counter()
+        data = T.tiff([img], compression=7, jpeg=raw_jpeg,
+                      tags={347: (7, tables)}, **kw)
+        return data, f"{(time.perf_counter() - t0) * 1e3:.1f}"
+
+    data, ms = jpeg_tiff(u8, photometric=2, planar=2)
+    planes = np.stack([decode_jpeg_chunk(b"", jpegs[p], "rgb")
+                       for p in range(3)], -1)
+    held("jpeg_planar.tif", lambda: data, planes, encode_host_ms=ms,
+         equal_to="the planes' JPEG decodes")
+    cmyk = np.concatenate([255 - u8, (u8.min(-1) // 4)[..., None]], -1)
+    data, ms = jpeg_tiff(cmyk, photometric=5)
+    c = decode_jpeg_chunk(b"", jpegs[0], "rgb").astype(np.int32)
+    conv = ((255 - c[..., :3]) * (255 - c[..., 3:]) // 255).astype(np.uint8)
+    held("jpeg_cmyk.tif", lambda: data, np.concatenate(
+        [conv, np.full((H, W, 1), 255, np.uint8)], -1), encode_host_ms=ms,
+        equal_to="libtiff's CMYK conversion of the JPEG's components")
+    six_twin(torch, run_cli, captured_match, replay, smi, "tiff_layouts",
+             out, u8, "no_counts", "frame0.tif",
+             (out / "no_counts_lzw.tif").read_bytes(),
+             "TIFF without StripByteCounts")
+    log("tiff_layouts", six_outputs="byte-equal to the PNG's",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
 
 
@@ -1857,9 +2050,6 @@ def tiff_samples_slice(torch, run_cli, captured_match, replay,
     version, and writes PNGs byte-equal to those of ``cli six`` on the
     frame's PNG."""
     from tests import torch_tiff as T
-    from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
-        SIX_ORDER,
-    )
     from underwater_image_enhancement_tpu_torch.utils import io as uio
     from underwater_image_enhancement_tpu_torch.utils.jpeg import (
         Unsupported,
@@ -1919,43 +2109,9 @@ def tiff_samples_slice(torch, run_cli, captured_match, replay,
     held("jpeg2000.tif", lambda: T.tiff([u8], rows_per_strip=rows,
                                         tags={259: (3, [34712])}),
          np.zeros((H, W, 3), np.uint8), equal_to="zeros")
-    outs = {}
-    for label, name, data in (
-            ("png", "frame0.png", uio.encode_png(u8)),
-            ("float32", "frame0.tif", (out / "float32.tif").read_bytes())):
-        src = out / f"in_{label}"
-        src.mkdir(parents=True, exist_ok=True)
-        (src / name).write_bytes(data)
-        calls, launches, secs = run_cli(
-            ["six", "--device", "cuda", "--input", str(src), "--output",
-             str(out / f"six_{label}")], label != "png")
-        d = launches["hysteresis_propagate"]
-        check(all(launches[k_] == v for k_, v in SIX_ONE_FRAME.items())
-              and d >= 1 and launches["sat_rows"] == d + 1,
-              f"tiff_samples: six on the {label} file launched {launches}")
-        pngs = {p.name: p.read_bytes()
-                for p in sorted((out / f"six_{label}").glob("*.png"))}
-        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
-              f"tiff_samples: six outputs {sorted(pngs)}")
-        outs[label] = (pngs, launches)
-        if label != "png":
-            check(captured_match(calls, launches),
-                  f"tiff_samples: captured calls "
-                  f"{[len(v) for v in calls.values()]} vs {launches}")
-            for kname, arglists in calls.items():
-                for j, args in enumerate(arglists):
-                    replay(kname, args,
-                           f"tiff_samples six call {j} (float TIFF)")
-            torch.cuda.synchronize()
-            log("tiff_samples", command="'six --device cuda' (float TIFF)",
-                seconds=f"{secs:.2f}",
-                launches=json.dumps(nonzero(launches), separators=(",", ":")),
-                replayed_bit_equal=json.dumps(
-                    {k_: len(v) for k_, v in calls.items() if v},
-                    separators=(",", ":")), card=repr(smi))
-    check(outs["float32"] == outs["png"],
-          "tiff_samples: six writes other PNGs (or launches) for the float "
-          "TIFF than for the frame's PNG")
+    six_twin(torch, run_cli, captured_match, replay, smi, "tiff_samples",
+             out, u8, "float32", "frame0.tif",
+             (out / "float32.tif").read_bytes(), "float TIFF")
     log("tiff_samples", six_outputs="byte-equal to the PNG's",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
 
@@ -2024,7 +2180,6 @@ def other_formats_slice(torch, run_cli, captured_match, replay,
     from tests import torch_formats as F
     from underwater_image_enhancement_tpu_torch import cli
     from underwater_image_enhancement_tpu_torch.pipeline.enhance import (
-        SIX_ORDER,
         enhance,
     )
     from underwater_image_enhancement_tpu_torch.utils import io as uio
@@ -2090,42 +2245,9 @@ def other_formats_slice(torch, run_cli, captured_match, replay,
           "which cv2 refuses")
     log("other_formats", file="rle.ras", bytes=len(rle),
         refused="as cv2 refuses RT_BYTE_ENCODED", card=repr(smi))
-    outs = {}
-    for label, name, data in (
-            ("png", "frame0.png", uio.encode_png(u8)),
-            ("pfm", "frame0.png", (out / "frame0.pfm").read_bytes())):
-        src = out / f"in_{label}"
-        src.mkdir(parents=True, exist_ok=True)
-        (src / name).write_bytes(data)
-        calls, launches, secs = run_cli(
-            ["six", "--device", "cuda", "--input", str(src), "--output",
-             str(out / f"six_{label}")], label != "png")
-        d = launches["hysteresis_propagate"]
-        check(all(launches[k_] == v for k_, v in SIX_ONE_FRAME.items())
-              and d >= 1 and launches["sat_rows"] == d + 1,
-              f"other_formats: six on the {label} file launched {launches}")
-        pngs = {p.name: p.read_bytes()
-                for p in sorted((out / f"six_{label}").glob("*.png"))}
-        check(sorted(pngs) == sorted(f"frame0_{n}.png" for n in SIX_ORDER),
-              f"other_formats: six outputs {sorted(pngs)}")
-        outs[label] = (pngs, launches)
-        if label == "pfm":
-            check(captured_match(calls, launches),
-                  f"other_formats: captured calls "
-                  f"{[len(v) for v in calls.values()]} vs {launches}")
-            for kname, arglists in calls.items():
-                for j, args in enumerate(arglists):
-                    replay(kname, args, f"other_formats six call {j} (PFM)")
-            torch.cuda.synchronize()
-            log("other_formats", command="'six --device cuda' (PFM)",
-                seconds=f"{secs:.2f}",
-                launches=json.dumps(nonzero(launches), separators=(",", ":")),
-                replayed_bit_equal=json.dumps(
-                    {k_: len(v) for k_, v in calls.items() if v},
-                    separators=(",", ":")), card=repr(smi))
-    check(outs["pfm"] == outs["png"],
-          "other_formats: six writes other PNGs (or launches) for the PFM "
-          "than for the frame's PNG")
+    six_twin(torch, run_cli, captured_match, replay, smi, "other_formats",
+             out, u8, "pfm", "frame0.png", (out / "frame0.pfm").read_bytes(),
+             "PFM")
     src = out / "frame0.hdr"
     args = cli.build_parser().parse_args(
         ["enhance", "--input", str(src), "--output", "x.hdr"])
@@ -3365,6 +3487,9 @@ def main() -> int:
     exif_slice(torch, run_cli, captured_match, replay, smi)
     # [tiff_variants] the TIFF variants at 1080p; six on an oriented TIFF
     tiff_variants_slice(torch, run_cli, captured_match, replay, smi)
+    # [tiff_layouts] no StripByteCounts, palette + alpha, planar and CMYK
+    # JPEG TIFF at 1080p; six on the first
+    tiff_layouts_slice(torch, run_cli, captured_match, replay, smi)
     # [bmp_variants] RLE8, 4-bit and 16-bit BMP at 1080p
     bmp_variants_slice(smi)
     # [other_formats] PPM, PAM, PFM, Sun raster, HDR, GIF; six on a PFM

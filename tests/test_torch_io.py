@@ -261,18 +261,20 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
         "pfm.tif": cv2.imencode(".pfm", img)[1].tobytes(),
         "fine.jpg": _jpeg(img, 90),
         "junk.png": b"not an image",
+        # OpenEXR's signature: this cv2 is built without OpenEXR
+        "exr.png": b"v/1\x01" + bytes(60),
     }
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
-    # cv2 reads all but the junk; the JAX package's cvtColor raises on
-    # the signed samples
+    # cv2 reads all but the junk and the OpenEXR file; the JAX package's
+    # cvtColor raises on the signed samples
     for name in files:
         if name == "signed.tif":
             with pytest.raises(cv2.error):
                 jio.imread_unit(str(tmp_path / name))
             continue
         assert (jio.imread_unit(str(tmp_path / name)) is None) == (
-            name == "junk.png"), name
+            name in ("junk.png", "exr.png")), name
     # the CIELab TIFF, which the port skipped before it read it
     np.testing.assert_array_equal(tio.imread_unit(str(tmp_path / "lab.tif")),
                                   jio.imread_unit(str(tmp_path / "lab.tif")))
@@ -282,6 +284,7 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
     np.testing.assert_array_equal(
         img, jdata._imread_rgb(str(tmp_path / "tiff.tif")))
     assert tio.read_image(str(tmp_path / "junk.png")) == (None, None)
+    assert tio.read_image(str(tmp_path / "exr.png")) == (None, None)
     # the PFM, named by its signature, read as JAX reads it
     np.testing.assert_array_equal(tio.imread_unit(str(tmp_path / "pfm.tif")),
                                   jio.imread_unit(str(tmp_path / "pfm.tif")))
@@ -293,6 +296,7 @@ def test_formats_the_port_does_not_read_are_logged(tmp_path):
         "warning: avif.png unsupported by the port: AVIF",
         "warning: webp.bmp unsupported by the port: WebP",
         "warning: unreadable junk.png",
+        "warning: unreadable exr.png",
         "warning: signed.tif unsupported by the port: signed 16-bit TIFF, "
         "on which the JAX reader raises",
     ])
@@ -654,6 +658,12 @@ def _palette(rgb, gray, rgba):
     return _tiff([gray], photometric=3, tags={320: (3, cmap)})
 
 
+def _components_jpeg(blk, plane):
+    """A JPEG strip of a block's own samples (one component a sample)."""
+    return jpeg_scans.sequential([blk[..., c] for c in range(blk.shape[2])],
+                                 app=())
+
+
 # variants of ROADMAP Queue 1 item 11.9 that cv2 reads and the port named
 # unread until it read them: the files of the test that named them
 TIFF_ITEM_11_9 = {
@@ -672,6 +682,22 @@ TIFF_ITEM_11_9 = {
         tags={256: (4, [10]), 258: (3, [32]), 277: (3, [1]),
               339: (3, [3])}),
     "bigtiff": lambda rgb, gray, rgba: _tiff([rgb], big=True),
+    # the third part: no StripByteCounts, palette + ExtraSamples, JPEG in
+    # planar RGB and in CMYK
+    "no strip byte counts lzw": lambda rgb, gray, rgba: _tiff(
+        [rgb], compression=5, predictor=2, tags={279: None}),
+    "no strip byte counts planar": lambda rgb, gray, rgba: _tiff(
+        [rgb], compression=5, planar=2, tags={279: None}),
+    "palette and extra sample": lambda rgb, gray, rgba: _tiff(
+        [np.stack([rgb[..., 0], rgba[..., 3]], -1)], photometric=3,
+        tags={320: (3, (np.arange(768) * 85 % 65536).tolist()),
+              338: (3, [2])}),
+    "jpeg planar rgb": lambda rgb, gray, rgba: _tiff(
+        [rgb], compression=7, photometric=2, planar=2,
+        rows_per_strip=16, jpeg=_components_jpeg),
+    "jpeg cmyk": lambda rgb, gray, rgba: _tiff(
+        [np.concatenate([rgb, 255 - rgba[..., 3:]], -1)], compression=7,
+        photometric=5, jpeg=_components_jpeg),
 }
 
 

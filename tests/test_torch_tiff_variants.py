@@ -1,7 +1,10 @@
 """The port's TIFF decoder (``utils/tiff.py``) on the variants beyond
 8- and 16-bit chunky gray and RGB: the Orientation tag, WhiteIsZero,
-palette, gray + alpha, CMYK, planar files, 1- and 4-bit samples, fill
-order 2, old-style LZW and JPEG-in-TIFF.  Each file is built here
+palette (with extra samples too), gray + alpha, CMYK, planar files, 1-
+and 4-bit samples, fill order 2, old-style LZW, JPEG-in-TIFF (chunky and
+planar, every photometric interpretation), files without
+StripByteCounts or with counts libtiff doubts, and strips that decode
+short.  Each file is built here
 (``tests/torch_tiff.py``, or ``cv2.imencode`` where cv2 writes the
 variant), 64x96 or smaller, and read by the port in both modes: bit-equal
 to ``cv2.imread`` in ``IMREAD_UNCHANGED`` and in ``IMREAD_COLOR``, and
@@ -120,6 +123,56 @@ def _ycc_jpeg(tables):
         tables[:] = [head]
         return chunk
     return code
+
+
+def _raw_jpeg(blk, plane):
+    """A JPEG strip or tile of a block's own samples, one component a
+    sample, no colour conversion."""
+    return js.sequential([blk[..., c] for c in range(blk.shape[2])], app=())
+
+
+def _split_jpeg(tables):
+    """``_raw_jpeg`` with its quantisation tables (the same in every chunk;
+    the Huffman tables are each chunk's own) moved to ``tables``."""
+    def code(blk, plane):
+        head, chunk = T.jpeg_split(_raw_jpeg(blk, plane), (0xDB,))
+        tables[:] = [head]
+        return chunk
+    return code
+
+
+def _jpeg12(blk, plane):
+    """``_raw_jpeg`` as a 12-bit extended-sequential frame (SOF1, the same
+    coefficients): a valid 12-bit JPEG."""
+    data = bytearray(_raw_jpeg(blk, plane))
+    at = data.index(b"\xff\xc0")
+    data[at + 1], data[at + 4] = 0xC1, 12
+    return bytes(data)
+
+
+def _no_counts(**kw):
+    """A file without StripByteCounts (or TileByteCounts)."""
+    tile = kw.get("tile")
+    return T.tiff([kw.pop("img", IMG["rgb"])], tags={
+        325 if tile else 279: None, **kw.pop("tags", {})}, **kw)
+
+
+def _counts(counts, **kw):
+    """A file of strips whose StripByteCounts are ``counts(true counts)``."""
+    true = ttiff._directory(T.tiff([IMG["rgb"]], **kw))[279]
+    return T.tiff([IMG["rgb"]], tags={279: (4, counts(list(true)))}, **kw)
+
+
+def _palette_extra(bits=8, extra=(2,), samples=2, **kw):
+    """A palette file of ``samples`` samples a pixel: the index, then the
+    alpha and the other planes; tag 338 ``extra`` (None: no tag)."""
+    planes = [_index(bits)] + [IMG["rgba"][..., 3 - k] >> (8 - bits)
+                               for k in range(samples - 1)]
+    tags = {320: (3, _cmap(bits)), **kw.pop("tags", {})}
+    if extra is not None:
+        tags[338] = (3, list(extra))
+    return T.tiff([np.stack(planes, -1)], bits=bits, photometric=3,
+                  tags=tags, **kw)
 
 
 def _jpeg_tiff(img, photometric, tags=None, **kw):
@@ -264,7 +317,134 @@ READ = {
     "jpeg ycbcr tiles": lambda: _jpeg_tiff(IMG["rgb"], 6, tile=(16, 16)),
     "jpeg ycbcr orientation 2": lambda: _jpeg_tiff(
         IMG["rgb"], 6, tags=_orient(2), rows_per_strip=8),
+    # JPEG of any photometric interpretation, chunky or planar: libtiff
+    # has libjpeg decode each chunk's own components (one a chunk when
+    # planar), then its RGBA reader takes them as it takes uncompressed
+    # samples
+    "jpeg planar rgb": lambda: T.tiff([IMG["rgb"]], compression=7,
+                                      photometric=2, planar=2,
+                                      jpeg=_raw_jpeg),
+    "jpeg planar rgb strips big-endian": lambda: T.tiff(
+        [IMG["rgb"]], ">", compression=7, photometric=2, planar=2,
+        rows_per_strip=16, jpeg=_raw_jpeg),
+    "jpeg planar rgb tiles": lambda: T.tiff(
+        [IMG["rgb"]], compression=7, photometric=2, planar=2,
+        tile=(16, 16), jpeg=_raw_jpeg),
+    "jpeg planar rgb tables": lambda: _jpeg_tables(planar=2,
+                                                   rows_per_strip=16),
+    "jpeg planar rgba": lambda: T.tiff(
+        [IMG["rgba"]], compression=7, photometric=2, planar=2,
+        jpeg=_raw_jpeg, tags={338: (3, [2])}),
+    "jpeg planar ycbcr 1x1": lambda: T.tiff(
+        [IMG["rgb"]], compression=7, photometric=6, planar=2,
+        tile=(16, 16), jpeg=_raw_jpeg, tags={530: (3, [1, 1])}),
+    "jpeg cmyk": lambda: T.tiff([IMG["cmyk"]], compression=7,
+                                photometric=5, jpeg=_raw_jpeg),
+    "jpeg cmyk strips tables": lambda: _jpeg_tables(
+        img=IMG["cmyk"], photometric=5, rows_per_strip=16),
+    "jpeg cmyk planar": lambda: T.tiff([IMG["cmyk"]], compression=7,
+                                       photometric=5, planar=2,
+                                       jpeg=_raw_jpeg),
+    # libtiff asks libjpeg for no conversion: Adobe's YCCK transform flag
+    # changes nothing
+    "jpeg cmyk adobe ycck": lambda: T.tiff(
+        [IMG["cmyk"]], compression=7, photometric=5,
+        jpeg=lambda blk, p: js.sequential(
+            [blk[..., c] for c in range(4)], app=(js.adobe(2),))),
+    "jpeg gray and alpha": lambda: T.tiff(
+        [IMG["ga"]], compression=7, jpeg=_raw_jpeg, tags={338: (3, [2])}),
+    "jpeg gray of 3 samples planar": lambda: T.tiff(
+        [IMG["rgb"]], compression=7, photometric=1, planar=2,
+        jpeg=_raw_jpeg),
+    "jpeg white is zero": lambda: T.tiff([IMG["gray"]], compression=7,
+                                         photometric=0, jpeg=_raw_jpeg),
+    "jpeg palette": lambda: T.tiff([_index(8)], compression=7,
+                                   photometric=3, jpeg=_raw_jpeg,
+                                   tags={320: (3, _cmap(8))}),
+    "jpeg cielab": lambda: T.tiff([IMG["rgb"]], compression=7,
+                                  photometric=8, jpeg=_raw_jpeg),
+    # a Colormap of another count than 3 * 2**bits is ignored, and a
+    # palette file of 8 bits and up without one reads as gray
+    **{f"palette colormap of {n} values": (lambda n=n: T.tiff(
+        [_index(8)], photometric=3, tags={320: (3, _cmap(8)[:n])}))
+       for n in (0, 763)},
+    "palette colormap of 771 values": lambda: T.tiff(
+        [_index(8)], photometric=3,
+        tags={320: (3, _cmap(8) + [1, 2, 3])}),
+    "palette without colormap 16": lambda: T.tiff([IMG["gray16"]],
+                                                  photometric=3),
+    "palette without colormap and extra": lambda: T.tiff(
+        [IMG["ga"]], photometric=3, tags={338: (3, [2])}),
+    # palette + extra samples: the index mapped, the rest ignored (8-bit
+    # chunky only); libtiff takes samples past the first as extra where
+    # tag 338 is missing; tiles cut at the right edge with
+    # put8bitcmaptile's row step
+    **{f"palette and extra {e}": (lambda e=e: _palette_extra(extra=(e,)))
+       for e in (0, 1, 2)},
+    "palette and extra sample untagged": lambda: _palette_extra(extra=None),
+    "palette and 2 extra samples": lambda: _palette_extra(extra=(2, 0),
+                                                          samples=3),
+    "palette and 3 extra samples": lambda: _palette_extra(
+        extra=(1, 0, 0), samples=4),
+    "palette and extra tiles lzw": lambda: _palette_extra(
+        tile=(16, 16), compression=5),
+    "palette and extra tiles big-endian": lambda: _palette_extra(
+        extra=(1,), order=">", tile=(32, 16)),
+    "palette and extra orientation 3": lambda: _palette_extra(
+        tags=_orient(3)),
+    # no StripByteCounts: one strip (or one a plane, or one tile), its
+    # count estimated as libtiff's EstimateStripByteCounts does: the
+    # strip's rows uncompressed, else the file less its directory (over
+    # the planes, which cuts the planes that coded longer: their tails
+    # read as zeros)
+    **{f"no byte counts compression {c}": (lambda c=c: _no_counts(
+        compression=c)) for c in (1, 5, 8, 32773)},
+    "no byte counts lzw predictor gray": lambda: _no_counts(
+        img=IMG["gray"], compression=5, predictor=2),
+    "no byte counts deflate 16": lambda: _no_counts(
+        img=IMG["rgb16"], compression=8, predictor=2),
+    "no byte counts big-endian packbits": lambda: _no_counts(
+        order=">", compression=32773),
+    "no byte counts bigtiff lzw": lambda: _no_counts(compression=5,
+                                                     big=True),
+    **{f"no byte counts planar compression {c}": (lambda c=c: _no_counts(
+        planar=2, compression=c)) for c in (1, 5, 8, 32773)},
+    "no byte counts planar bigtiff deflate": lambda: _no_counts(
+        planar=2, compression=8, big=True),
+    "no byte counts one tile lzw": lambda: _no_counts(tile=(64, 48),
+                                                      compression=5),
+    "no byte counts one tile a plane": lambda: _no_counts(
+        img=IMG["rgb"][:32, :48], planar=2, tile=(48, 32)),
+    "no byte counts jpeg cmyk": lambda: _no_counts(
+        img=IMG["cmyk"], compression=7, photometric=5, jpeg=_raw_jpeg),
+    # uncompressed 2x2 YCbCr of an odd height: the estimate (a scanline a
+    # row) falls short of the strip, which reads as zeros
+    "no byte counts ycbcr odd height": lambda: _no_counts(photometric=6),
+    # ByteCountLooksBad: one strip's count of 0, or, uncompressed, past
+    # the file's end or short of its rows, is estimated anew
+    "count 0 one strip lzw": lambda: _counts(lambda c: [0], compression=5),
+    "count 0 one strip": lambda: _counts(lambda c: [0]),
+    "count short one strip": lambda: _counts(lambda c: [c[0] // 2]),
+    "count past the end one strip": lambda: _counts(
+        lambda c: [c[0] + 10 ** 6]),
+    # a strip that decodes short: the RGBA reader goes on with zeros where
+    # LZW, Deflate and PackBits stop, and a whole strip of zeros
+    # uncompressed
+    **{f"second strip cut compression {c}": (lambda c=c: _counts(
+        lambda n: [n[0], n[1] * 2 // 3], compression=c, rows_per_strip=20))
+       for c in (1, 5, 8, 32773)},
 }
+
+
+def _jpeg_tables(img=None, photometric=2, **kw):
+    """A JPEG file of raw-component chunks, their quantisation tables in
+    JPEGTables."""
+    img = IMG["rgb"] if img is None else img
+    tables = []
+    T.tiff([img], compression=7, photometric=photometric,
+           jpeg=_split_jpeg(tables), **kw)
+    return T.tiff([img], compression=7, photometric=photometric,
+                  jpeg=_split_jpeg([]), tags={347: (7, tables[0])}, **kw)
 
 
 @pytest.mark.parametrize("name", sorted(READ))
@@ -318,6 +498,51 @@ REFUSED = {
        for p in (9, 10)},
     "transparency mask": lambda: T.tiff([_index(1)], bits=1, photometric=4),
     "logl without sgilog": lambda: T.tiff([IMG["gray"]], photometric=32844),
+    # no PhotometricInterpretation: OpenCV's readHeader fails
+    **{f"no photometric {k}": (lambda k=k: T.tiff([IMG[k]],
+                                                   tags={262: None}))
+       for k in ("gray", "rgb", "gray16", "rgb16")},
+    # predictors libtiff does not set up
+    **{f"predictor {p}": (lambda p=p: T.tiff([IMG["rgb"]], compression=5,
+                                             tags={317: (3, [p])}))
+       for p in (4, 34892, 34893, 34894, 34895)},
+    # codecs cv2's libtiff is built without
+    **{f"compression {c}": (lambda c=c: T.tiff([IMG["rgb"]],
+                                               tags={259: (3, [c])}))
+       for c in (32909, 34661, 34887)},
+    "jpeg 12-bit": lambda: T.tiff([IMG["gray"]], bits=12, compression=7,
+                                  jpeg=_jpeg12),
+    "jpeg 12-bit rgb": lambda: T.tiff([IMG["rgb"]], bits=12, compression=7,
+                                      photometric=2, jpeg=_jpeg12),
+    "jpeg planar ycbcr 2x2": lambda: T.tiff(
+        [IMG["rgb"]], compression=7, photometric=6, planar=2,
+        jpeg=_raw_jpeg),
+    "jpeg planar cielab": lambda: T.tiff([IMG["rgb"]], compression=7,
+                                         photometric=8, planar=2,
+                                         jpeg=_raw_jpeg),
+    # a palette file without its colormap: under 8 bits, or of 3 samples
+    # (read as RGB of one colour channel)
+    "palette 4-bit without colormap": lambda: T.tiff(
+        [_index(4)], bits=4, photometric=3),
+    "palette without colormap of 3 samples": lambda: T.tiff(
+        [IMG["rgb"]], photometric=3),
+    # palette + extra samples, planar or under 8 bits
+    "palette and extra planar": lambda: _palette_extra(planar=2),
+    **{f"palette {b}-bit and extra": (lambda b=b: _palette_extra(bits=b))
+       for b in (1, 4)},
+    # no StripByteCounts and more than one strip a plane, or tiles
+    **{f"no byte counts strips compression {c}": (lambda c=c: _no_counts(
+        compression=c, rows_per_strip=8)) for c in (1, 5)},
+    "no byte counts planar strips": lambda: _no_counts(
+        planar=2, compression=8, rows_per_strip=8),
+    "no byte counts tiles": lambda: _no_counts(tile=(16, 16),
+                                               compression=5),
+    # a strip libtiff cannot fill: no bytes, or past the file's end
+    "count past the end lzw": lambda: _counts(
+        lambda c: [c[0] + 10 ** 6], compression=5),
+    "count 0 second strip": lambda: _counts(lambda c: [c[0], 0],
+                                            rows_per_strip=20),
+    "count 0 planar": lambda: _counts(lambda c: [0, 0, 0], planar=2),
 }
 
 
@@ -345,6 +570,21 @@ def test_tiff16_planar_reads_its_samples(tmp_path):
     np.testing.assert_array_equal(
         ttiff.decode_tiff(data, True),
         cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1])
+
+
+def test_tiff16_palette_without_colormap_of_3_samples(tmp_path):
+    """libtiff reads a 16-bit palette file of 3 samples without its
+    colormap as RGB of one colour channel: cv2's own path reads the
+    samples in IMREAD_UNCHANGED, the RGBA reader refuses it in
+    IMREAD_COLOR."""
+    data = T.tiff([IMG["rgb16"]], photometric=3)
+    path = tmp_path / "p.tif"
+    path.write_bytes(data)
+    want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(ttiff.decode_tiff(data), want[..., ::-1])
+    assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="without its colormap"):
+        ttiff.decode_tiff(data, True)
 
 
 def test_old_style_lzw_widens_a_code_later():

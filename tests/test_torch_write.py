@@ -1,8 +1,10 @@
 """The port's image writers against cv2 on the CPU.
 
 ``utils/io.imwrite_unit`` picks the encoder from the suffix, as
-``cv2.imwrite`` does.  JPEG (cv2's defaults: baseline, quality 95, 4:2:0),
-BMP (24-bit) and TIFF (LZW with the horizontal predictor) are held to
+``cv2.imwrite`` does.  PNG and APNG (gray, RGB and RGBA; Sub-filtered
+rows, ``Z_RLE`` at level 1, libpng's zlib header for small images, 8 KiB
+IDAT chunks), JPEG (cv2's defaults: baseline, quality 95, 4:2:0), BMP
+(24-bit) and TIFF (LZW with the horizontal predictor) are held to
 ``cv2.imencode``'s bytes, on noise and on the smooth ``underwater_img``
 frame of ``tests/torch_frames.py``; the TIFF also to cv2's tag values and
 to ``cv2.imread`` of the port's file.  ``cli enhance --output NAME.<fmt>``
@@ -38,6 +40,11 @@ from underwater_image_enhancement_tpu_torch.utils.tiff import (
     encode_tiff,
 )
 
+# libpng's zlib header rewrite (up to 16 KiB of filtered rows) and filter
+# 0 on a frame one pixel wide; several IDAT chunks from 64x64 RGBA up
+PNG_SHAPES = ((1, 1), (1, 2), (2, 1), (5, 7), (9, 9), (17, 5), (33, 17),
+              (64, 64), (100, 100), (120, 160), (300, 1))
+APNG_SHAPES = ((1, 1), (33, 17), (120, 160))
 JPEG_SHAPES = ((1, 1), (7, 9), (8, 8), (16, 16), (17, 33), (37, 53),
                (120, 160))
 BMP_SHAPES = ((1, 1), (3, 5), (37, 53))
@@ -45,7 +52,7 @@ BMP_SHAPES = ((1, 1), (3, 5), (37, 53))
 # (two strips) and out of it (four); the 1080p strip shape (one row)
 TIFF_SHAPES = ((1, 1), (37, 53), (20, 160), (2, 2000), (10, 700),
                (3, 1920))
-CLI_SUFFIXES = (".jpg", ".JPEG", ".bmp", ".tif")
+CLI_SUFFIXES = (".png", ".jpg", ".JPEG", ".bmp", ".tif")
 COLOUR_WRITERS = (".ppm", ".pnm", ".pam", ".pfm", ".sr", ".ras", ".hdr",
                   ".pic")
 GRAY_ONLY = (".pgm", ".pbm")
@@ -65,9 +72,25 @@ def _frame(kind: str, shape) -> np.ndarray:
 
 
 def _cv2_bytes(suffix: str, rgb: np.ndarray) -> bytes:
-    ok, buf = cv2.imencode(suffix, np.ascontiguousarray(rgb[..., ::-1]))
+    """``cv2.imencode`` of an RGB or RGBA frame (as BGR or BGRA) or of a
+    gray one."""
+    if rgb.ndim == 3:
+        rgb = rgb[..., [2, 1, 0, 3][:rgb.shape[2]]]
+    ok, buf = cv2.imencode(suffix, np.ascontiguousarray(rgb))
     assert ok
     return buf.tobytes()
+
+
+def _png_frame(kind: str, shape, channels: int) -> np.ndarray:
+    """``_frame`` as gray (its red plane), RGB or RGBA (alpha the green
+    plane of the other kind's frame)."""
+    rgb = _frame(kind, shape)
+    if channels == 1:
+        return rgb[..., 0]
+    if channels == 3:
+        return rgb
+    other = _frame("smooth" if kind == "noise" else "noise", shape)
+    return np.concatenate([rgb, other[..., 1:2]], -1)
 
 
 def _tiff_tags(data: bytes) -> dict:
@@ -95,6 +118,34 @@ def test_jpeg_bytes_equal_cv2(kind, shape):
     # and the port's decoder reads it as cv2 does
     want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     assert np.array_equal(decode_jpeg(data), want[..., ::-1])
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+@pytest.mark.parametrize("shape", PNG_SHAPES)
+def test_png_bytes_equal_cv2(kind, shape, channels):
+    img = _png_frame(kind, shape, channels)
+    data = tio.encode_png(img)
+    assert data == _cv2_bytes(".png", img)
+    back = tio.decode_image(data)
+    want = img[..., :3] if channels > 1 else np.repeat(img[..., None], 3, 2)
+    assert np.array_equal(back, want)
+
+
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+def test_png_bytes_equal_cv2_at_1080p(kind):
+    """The 1080p RGB frame: 1 MiB and up of IDAT chunks, no header
+    rewrite."""
+    rgb = _frame(kind, (1080, 1920))
+    assert tio.encode_png(rgb) == _cv2_bytes(".png", rgb)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("shape", APNG_SHAPES)
+def test_apng_bytes_equal_cv2(shape, channels):
+    """cv2 writes a one-frame ``.apng`` as the PNG's bytes."""
+    img = _png_frame("noise", shape, channels)
+    assert tio.encoder_for("a.apng")(img) == _cv2_bytes(".apng", img)
 
 
 @pytest.mark.parametrize("shape", BMP_SHAPES)
@@ -153,7 +204,7 @@ def cli_outputs(tmp_path_factory):
     (the port's with ``--device cpu``) on the smooth frame -> the folder."""
     root = tmp_path_factory.mktemp("write_cli")
     tio.imwrite_unit(str(root / "in.png"), torch_frames.underwater_img())
-    for suffix in (".png",) + CLI_SUFFIXES:
+    for suffix in CLI_SUFFIXES:
         jcli.main(["enhance", "--input", str(root / "in.png"), "--output",
                    str(root / f"jax{suffix}")])
         tcli.main(["enhance", "--input", str(root / "in.png"), "--output",
@@ -185,9 +236,7 @@ def test_async_writer_writes_each_format(tmp_path):
             assert not (tmp_path / f"a{suffix}").exists()
             continue
         data = (tmp_path / f"a{suffix}").read_bytes()
-        if suffix == ".png":
-            assert np.array_equal(tio.imread_u8(str(tmp_path / "a.png")), rgb)
-        elif suffix in (".sr", ".ras"):  # cv2 pads the odd last row from
+        if suffix in (".sr", ".ras"):  # cv2 pads the odd last row from
             want = _cv2_bytes(suffix, rgb)  # past the image; the port: 0
             assert data[:-1] == want[:-1] and data[-1] == 0
         else:

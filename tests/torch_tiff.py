@@ -14,7 +14,8 @@ coded by any compression the tests need: none, LZW (libtiff's codes, or
 32946) or JPEG (``jpeg=``: a function that codes one chunk).  With
 ``fill_order=2`` every coded chunk's bits are reversed in each byte, as a
 file of FillOrder 2 stores them.  ``tags`` adds or replaces entries:
-(type, values), values bytes for the types BYTE, ASCII and UNDEFINED.
+(type, values), values bytes for the types BYTE, ASCII and UNDEFINED;
+None drops the entry.
 """
 
 from __future__ import annotations
@@ -242,6 +243,7 @@ def tiff(pages, order="<", tile=None, compression=1, predictor=1,
             entries.update({273: (at, offsets), 278: (4, [th]),
                             279: (at, counts)})
         entries.update(tags or {})
+        entries = {k: v for k, v in entries.items() if v is not None}
         dirs.append(entries)
     links = []
     inline = 8 if big else 4
@@ -295,11 +297,11 @@ def ycbcr_block(hs: int, vs: int):
     return code
 
 
-def jpeg_split(data: bytes) -> tuple:
+def jpeg_split(data: bytes, markers=(0xDB, 0xC4)) -> tuple:
     """A JPEG file -> (its tables as an abbreviated tables-only stream:
-    SOI, the DQT and DHT segments, EOI; the file without them or any APPn
-    segment), as libtiff's JPEG codec splits a stream between the
-    JPEGTables tag and a strip or tile."""
+    SOI, the DQT and DHT segments (those of ``markers``), EOI; the file
+    without them or any APPn segment), as libtiff's JPEG codec splits a
+    stream between the JPEGTables tag and a strip or tile."""
     tables, rest, pos = [b"\xff\xd8"], [b"\xff\xd8"], 2
     while True:
         marker = data[pos + 1]
@@ -308,7 +310,7 @@ def jpeg_split(data: bytes) -> tuple:
             break
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
         seg = data[pos:pos + 2 + length]
-        if marker in (0xDB, 0xC4):
+        if marker in markers:
             tables.append(seg)
         elif not 0xE0 <= marker <= 0xEF:
             rest.append(seg)

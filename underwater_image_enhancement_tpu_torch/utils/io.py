@@ -26,16 +26,16 @@ and CIELab among them); netpbm P1-P7 and PFM (``pxm.py``), Sun raster
 (``sunras.py``), Radiance HDR (``hdr.py``: float32, as PFM) and the first
 image of a GIF (``gif.py``).  Unreadable files give None so callers can
 skip them; so do the files cv2 reads and the port does not (CCITT and
-SGILog TIFF, the rest of ROADMAP Queue 1 item 11.9, WebP, JPEG 2000 and
-AVIF), and those on which the JAX package's channel handling raises (a
-two-channel PAM; a signed, 32- or 64-bit integer or float64 TIFF), which
-``read_image`` names.
+SGILog TIFF, WebP, JPEG 2000 and AVIF), and those on which the JAX
+package's channel handling raises (a two-channel PAM; a signed, 32- or
+64-bit integer or float64 TIFF), which ``read_image`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
-``cv2.imwrite`` does (``WRITERS``): PNG, JPEG (the bytes of cv2's
-defaults), and BMP, TIFF, PPM/PNM/PGM/PBM, PAM, PFM, Sun raster and HDR
-(cv2's bytes).  A suffix cv2 writes and the port does not
-(``UNPORTED_WRITERS``) and one cv2 cannot write raise ValueError.
+``cv2.imwrite`` does (``WRITERS``): PNG and APNG (one frame: the PNG's
+bytes, as cv2 writes it), JPEG, BMP, TIFF, PPM/PNM/PGM/PBM, PAM, PFM, Sun
+raster and HDR, each in the bytes of cv2's defaults.  A suffix cv2 writes
+and the port does not (``UNPORTED_WRITERS``) and one cv2 cannot write
+raise ValueError.
 """
 
 from __future__ import annotations
@@ -96,8 +96,29 @@ def _chunk(tag: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", crc)
 
 
-def encode_png(u8: np.ndarray, level: int = 1) -> bytes:
-    """(H, W), (H, W, 1|3|4) uint8 -> PNG bytes (filter type 0 rows)."""
+def _zlib_header_for_size(stream: bytearray, size: int) -> None:
+    """libpng's ``optimize_cmf`` (pngwutil.c): for data of at most 16 KiB,
+    the CMF byte's window size (CINFO) lowered while the data fits in half
+    the window, FCHECK recomputed; the deflate body is left as it is."""
+    if size > 16384 or stream[0] & 0x0F != 8 or stream[0] >> 4 > 7:
+        return
+    cinfo = stream[0] >> 4
+    half = 1 << (cinfo + 7)
+    while size <= half and cinfo > 0:
+        half >>= 1
+        cinfo -= 1
+    stream[0] = cmf = (cinfo << 4) | 8
+    flg = stream[1] & 0xE0
+    stream[1] = flg + 31 - ((cmf << 8) + flg) % 31
+
+
+def encode_png(u8: np.ndarray) -> bytes:
+    """(H, W), (H, W, 1|3|4) uint8 -> the PNG bytes that
+    ``cv2.imencode(".png")`` (OpenCV 5.0.0 with libpng and zlib 1.2.13)
+    writes for the image: every row Sub-filtered (filter 0 on a frame one
+    pixel wide, as libpng's filter choice gives), one zlib stream of level
+    1 and strategy ``Z_RLE``, its header rewritten as libpng's
+    ``optimize_cmf`` does, cut into IDAT chunks of 8192 bytes."""
     a = np.ascontiguousarray(u8, dtype=np.uint8)
     if a.ndim == 3 and a.shape[2] == 1:
         a = a[..., 0]
@@ -108,12 +129,24 @@ def encode_png(u8: np.ndarray, level: int = 1) -> bytes:
     else:
         raise ValueError(f"cannot encode an array of shape {a.shape} as PNG")
     H, W = a.shape[:2]
-    raw = np.zeros((H, 1 + a[0].size), np.uint8)
-    raw[:, 1:] = a.reshape(H, -1)
+    c = a[0, 0].size
+    rows = a.reshape(H, -1)
+    raw = np.empty((H, 1 + rows.shape[1]), np.uint8)
+    raw[:, 1:] = rows
+    if W > 1:  # Sub: each sample less the one a pixel before it, mod 256
+        raw[:, 0] = 1
+        np.subtract(rows[:, c:], rows[:, :-c], out=raw[:, 1 + c:])
+    else:
+        raw[:, 0] = 0
+    z = zlib.compressobj(1, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
+    stream = bytearray(z.compress(raw.tobytes()) + z.flush())
+    _zlib_header_for_size(stream, raw.size)
     ihdr = struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
-            + _chunk(b"IEND", b""))
+    return b"".join(
+        [_SIGNATURE, _chunk(b"IHDR", ihdr)]
+        + [_chunk(b"IDAT", bytes(stream[i:i + 8192]))
+           for i in range(0, len(stream), 8192)]
+        + [_chunk(b"IEND", b"")])
 
 
 def _unfilter_row(ft: int, line: np.ndarray, prev: np.ndarray,
@@ -326,10 +359,10 @@ def _decode_png(data: bytes):
     return out, turn
 
 
-# first bytes of the other formats cv2 reads
+# first bytes of the other formats cv2 reads (OpenEXR is not among them:
+# cv2 5.0.0 is built without it, and a file of its signature is unknown)
 _OTHER_FORMATS = (
     (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
-    (b"v/1\x01", "OpenEXR"),
 )
 _SPACE = b" \t\n\v\f\r"
 
@@ -455,7 +488,7 @@ def imread_unit(path: str) -> Optional[np.ndarray]:
 
 
 # the suffixes cv2 writes (cv2.haveImageWriter) and their encoders here
-WRITERS = {".png": encode_png,
+WRITERS = {".png": encode_png, ".apng": encode_png,
            ".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".jpe": encode_jpeg,
            ".bmp": encode_bmp, ".dib": encode_bmp,
            ".tif": encode_tiff, ".tiff": encode_tiff,
@@ -463,7 +496,7 @@ WRITERS = {".png": encode_png,
            ".pbm": refuse_colour, ".pam": encode_pam, ".pfm": encode_pfm,
            ".sr": encode_sunras, ".ras": encode_sunras,
            ".hdr": encode_hdr, ".pic": encode_hdr}
-UNPORTED_WRITERS = (".webp", ".jp2", ".avif", ".gif", ".apng")
+UNPORTED_WRITERS = (".webp", ".jp2", ".avif", ".gif")
 
 
 def encoder_for(path: str):
@@ -482,10 +515,11 @@ def encoder_for(path: str):
 def imwrite_unit(path: str, img: np.ndarray) -> None:
     """Write an RGB image in the format of the path's suffix (``WRITERS``):
     uint8 arrays as they are, float [0, 1] arrays as the reference's (clip
-    * 255) truncated to uint8.  JPEG, BMP, TIFF, PPM/PNM (P6), PAM, PFM
-    (the samples 0-255 as float32), Sun raster and HDR (the samples over
-    255, RGBE) take (H, W, 3) images; PNG also gray and RGBA.  PGM and PBM
-    raise ValueError: cv2 writes one-channel images only there (the JAX
+    * 255) truncated to uint8, in the bytes ``cv2.imwrite`` writes for
+    them.  JPEG, BMP, TIFF, PPM/PNM (P6), PAM, PFM (the samples 0-255 as
+    float32), Sun raster and HDR (the samples over 255, RGBE) take (H, W,
+    3) images; PNG and APNG also gray and RGBA.  PGM and PBM raise
+    ValueError: cv2 writes one-channel images only there (the JAX
     package's ``cv2.imwrite`` of its colour frame writes no file and
     raises nothing)."""
     encode = encoder_for(path)

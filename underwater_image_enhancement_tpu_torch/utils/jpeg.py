@@ -404,15 +404,17 @@ def _split_restarts(data: bytes) -> list:
     return [_unstuff(p) for p in parts]
 
 
-def _check_frame(frame) -> None:
+def _check_frame(frame, tiff: bool) -> None:
     """ValueError for the frames cv2 gives None for: a precision other than
     8 bits (2 to 8 in a lossless file; cv2 reads libjpeg-turbo's 8-bit
     samples only), 2 or more than 4 components (no colour conversion to
-    BGR), a height left to a DNL marker (libjpeg does not take one)."""
+    BGR; in a TIFF's strip, which libtiff has libjpeg decode with no
+    conversion, more than 4), a height left to a DNL marker (libjpeg does
+    not take one)."""
     prec, lossless = frame.precision, frame.lossless
     if not (2 <= prec <= 8 if lossless else prec == 8):
         raise ValueError(f"{prec}-bit {'lossless ' if lossless else ''}JPEG")
-    if len(frame.comps) not in (1, 3, 4):
+    if len(frame.comps) not in ((1, 2, 3, 4) if tiff else (1, 3, 4)):
         raise ValueError(f"JPEG with {len(frame.comps)} components")
     if frame.H == 0 or frame.W == 0:
         raise ValueError("JPEG with its height in a DNL marker")
@@ -1365,11 +1367,12 @@ def _to_rgb(planes, space: str) -> np.ndarray:
     return cmyk_to_rgb(*planes)
 
 
-def _read(data: bytes):
+def _read(data: bytes, tiff: bool = False):
     """Parse a JPEG and decode its scans -> (frame, whether it has a JFIF
     marker, the Adobe transform or None).  ``frame.coef`` then holds the
     quantised coefficients of every component (zigzag within a block,
-    component k's padded block array from ``frame.offset[k]``)."""
+    component k's padded block array from ``frame.offset[k]``).  ``tiff``:
+    a TIFF's strip or tile (``_check_frame``)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     qt, dc_tabs, ac_tabs, dc_max = {}, {}, {}, {}
@@ -1451,7 +1454,7 @@ def _read(data: bytes):
                     cond[0][index], cond[1][index] = val & 15, val >> 4
         elif marker in _SOF_KINDS:
             frame = _Frame(body, *_SOF_KINDS[marker])
-            _check_frame(frame)
+            _check_frame(frame, tiff)
         elif marker in _SOF_REFUSED:
             raise ValueError(_SOF_REFUSED[marker] + ", which libjpeg-turbo "
                              "does not decode")
@@ -1510,7 +1513,7 @@ def decode_jpeg_chunk(tables: bytes, data: bytes, space: str) -> np.ndarray:
     if tables[:2] == b"\xff\xd8" and data[:2] == b"\xff\xd8":
         body = tables[2:-2] if tables[-2:] == b"\xff\xd9" else tables[2:]
         data = data[:2] + body + data[2:]
-    frame = _read(data)[0]
+    frame = _read(data, tiff=True)[0]
     return _decode_frame(frame, space, False)
 
 

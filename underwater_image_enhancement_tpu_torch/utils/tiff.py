@@ -15,20 +15,29 @@ returns it) of a little- or big-endian classic TIFF or BigTIFF: 1, 4
 (palette), 8, 10, 12, 14, 16, 32 or 64 bits a sample, unsigned, signed
 or float (32 and 64 bits); gray, WhiteIsZero, RGB with or without an
 extra sample, gray with extra samples, palette (16-bit or 8-bit
-colormaps), CMYK, JPEG YCbCr, uncompressed YCbCr at every subsampling
-libtiff's RGBA reader takes and CIELab (``tiff_color.py``); chunky or
-planar, in strips or tiles (cropped at the image's edges); stored
-uncompressed, PackBits, Deflate (8 and 32946, through ``zlib``), LZW
-(``tif_lzw.c``'s codes, and the old style's LSB-first ones) or JPEG (each
-strip or tile a JPEG after the JPEGTables tag, ``jpeg.decode_jpeg_chunk``),
-or of a compression libtiff does not know (JPEG 2000 among them: zero
-samples, as libtiff's RGBA reader gives them); fill order 1 or 2; LZW and
-Deflate with the horizontal predictor, or the floating-point one on
-floats; orientations 1-4.  cv2's two paths and libtiff's RGBA reader are
-``decode_tiff``'s, with cv2's array type.  What cv2 refuses (2-bit and
-24-bit samples, 16-bit floats, 16-bit palette and CMYK, orientations
-5-8, old-style JPEG, LZMA, ZSTD, WebP, ICCLab, ITULab, transparency
-masks, predictor 3 on integers, JPEG without its tables, ...) raises
+colormaps; 8-bit chunky with extra samples; without a colormap of 3 *
+2**bits values, from 8 bits, gray as libtiff takes it), CMYK, JPEG YCbCr,
+uncompressed YCbCr at every subsampling libtiff's RGBA reader takes and
+CIELab (``tiff_color.py``); chunky or planar, in strips or tiles (cropped
+at the image's edges); stored uncompressed, PackBits, Deflate (8 and
+32946, through ``zlib``), LZW (``tif_lzw.c``'s codes, and the old style's
+LSB-first ones) or JPEG (each strip or tile a JPEG of 8-bit samples after
+the JPEGTables tag, ``jpeg.decode_jpeg_chunk``, its components as they
+are but YCbCr's in chunky files, whatever the photometric
+interpretation), or of a compression libtiff does not know (JPEG 2000
+among them: zero samples, as libtiff's RGBA reader gives them); fill
+order 1 or 2; LZW and Deflate with the horizontal predictor, or the
+floating-point one on floats; orientations 1-4; without StripByteCounts
+(or with a single strip's count libtiff doubts) the counts estimated as
+libtiff estimates them; a strip that decodes short zero-filled as
+libtiff's RGBA reader reads it.  cv2's two paths and libtiff's RGBA
+reader are ``decode_tiff``'s, with cv2's array type.  What cv2 refuses
+(2-bit and 24-bit samples, 16-bit floats, 16-bit palette and CMYK,
+orientations 5-8, old-style JPEG, 12-bit JPEG, LZMA, ZSTD, WebP, JBIG,
+LERC, PixarLog, ICCLab, ITULab, transparency masks, no photometric
+interpretation, predictors other than 1-3 and predictor 3 on integers,
+JPEG without its tables, no StripByteCounts and more than one strip a
+plane, a strip of no bytes or past the file's end, ...) raises
 ValueError; what it reads and the port does not (ROADMAP Queue 1 item
 11.9: CCITT compression, SGILog's LogL and LogLuv) raises
 ``Unsupported`` with its variant's name.
@@ -215,12 +224,12 @@ _UNDEFINED = 7
 _PHOTOMETRIC = {32844: "LogL", 32845: "LogLuv"}
 _COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4",
                  34676: "SGILog", 34677: "SGILog24", 32766: "NeXT",
-                 32771: "CCITT RLEW", 32809: "ThunderScan",
-                 32909: "PixarLog", 34661: "JBIG", 34887: "LERC"}
+                 32771: "CCITT RLEW", 32809: "ThunderScan"}
 # what cv2's libtiff refuses: cv2 gives None
 _REFUSED_PHOTOMETRIC = {4: "transparency mask", 9: "ICCLab", 10: "ITULab"}
-_REFUSED_COMPRESSIONS = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD",
-                         50001: "WebP"}
+_REFUSED_COMPRESSIONS = {6: "old-style JPEG", 32909: "PixarLog",
+                         34661: "JBIG", 34887: "LERC", 34925: "LZMA",
+                         50000: "ZSTD", 50001: "WebP"}
 _SGILOG = (34676, 34677)
 _NONE, _LZW, _JPEG, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS = (
     1, 5, 7, 32946, 8, 32773)
@@ -251,12 +260,12 @@ def _reals(order: str, kind: int, count: int, raw: bytes) -> tuple:
     return tuple(out.astype(np.float32).tolist())
 
 
-def _directory(data: bytes) -> dict:
-    """The first directory's tags, of a classic TIFF (version 42) or a
-    BigTIFF (version 43: 8-byte offsets, entry counts and value counts,
-    20-byte entries holding up to 8 bytes of values): tag -> tuple of
-    values (integers; float32 for the real types) or bytes
-    (UNDEFINED)."""
+def _entries(data: bytes):
+    """The first directory of a classic TIFF (version 42) or a BigTIFF
+    (version 43: 8-byte offsets, entry counts and value counts, 20-byte
+    entries holding up to 8 bytes of values) -> (byte order, bytes of
+    values an entry holds, struct format of an offset, [(tag, type, count,
+    value field)])."""
     order = {b"II": "<", b"MM": ">"}.get(data[:2])
     if order is None:
         raise ValueError("not a TIFF file")
@@ -275,11 +284,21 @@ def _directory(data: bytes) -> dict:
         at += 2
     else:
         raise ValueError(f"not a TIFF file (version {version})")
-    tags = {}
+    out = []
     for k in range(n):
         e = data[at + entry * k:at + entry * (k + 1)]
         tag, kind, count = struct.unpack(order + "HH" + word,
                                          e[:entry - inline])
+        out.append((tag, kind, count, e[entry - inline:]))
+    return order, inline, word, out
+
+
+def _directory(data: bytes) -> dict:
+    """The first directory's tags (``_entries``): tag -> tuple of values
+    (integers; float32 for the real types) or bytes (UNDEFINED)."""
+    order, inline, word, entries = _entries(data)
+    tags = {}
+    for tag, kind, count, field in entries:
         if kind in _INT_FORMAT:
             size = struct.calcsize(_INT_FORMAT[kind]) * count
         elif kind in _REAL_SIZE:
@@ -291,9 +310,9 @@ def _directory(data: bytes) -> dict:
         if count == 0:
             continue
         if size <= inline:
-            raw = e[entry - inline:entry - inline + size]
+            raw = field[:size]
         else:
-            (off,) = struct.unpack(order + word, e[entry - inline:])
+            (off,) = struct.unpack(order + word, field)
             raw = data[off:off + size]
         if len(raw) != size:
             raise ValueError(f"corrupt TIFF: tag {tag} past the file's end")
@@ -305,6 +324,29 @@ def _directory(data: bytes) -> dict:
             tags[tag] = struct.unpack(f"{order}{count}{_INT_FORMAT[kind]}",
                                       raw)
     return tags
+
+
+# libtiff's TIFFDataWidth: the bytes of a value of each field type
+_TYPE_WIDTH = {1: 1, 2: 1, 6: 1, 7: 1, 3: 2, 8: 2, 4: 4, 9: 4, 11: 4, 13: 4,
+               5: 8, 10: 8, 12: 8, 16: 8, 17: 8, 18: 8}
+
+
+def _directory_bytes(data: bytes) -> int:
+    """The bytes that ``EstimateStripByteCounts`` (tif_dirread.c) counts as
+    not image data: the header, the first directory and the values its
+    entries hold out of line; ValueError for an entry of a type libtiff
+    has no width for."""
+    _, inline, _, entries = _entries(data)
+    big = inline == 8
+    space = (16 + 8 + 20 * len(entries) + 8 if big
+             else 8 + 2 + 12 * len(entries) + 4)
+    for tag, kind, count, _ in entries:
+        if kind not in _TYPE_WIDTH:
+            raise ValueError(f"TIFF without StripByteCounts, tag {tag} of "
+                             f"unknown type {kind}")
+        size = _TYPE_WIDTH[kind] * count
+        space += size if size > inline else 0
+    return space
 
 
 def _lzw_decode(data: bytes, size: int) -> bytes:
@@ -369,12 +411,15 @@ def _lzw_decode(data: bytes, size: int) -> bytes:
 
 def _packbits_decode(data: bytes, size: int) -> bytes:
     """PackBits: a header n, then n + 1 literal bytes (n < 128) or one byte
-    repeated 257 - n times (n > 128); 128 is skipped."""
+    repeated 257 - n times (n > 128); 128 is skipped.  Where the data ends
+    inside a run, what came before it."""
     out, have, pos = [], 0, 0
     while have < size and pos < len(data):
         n = data[pos]
         pos += 1
         if n < 128:
+            if pos + n + 1 > len(data):
+                break  # libtiff copies no literal run cut short
             chunk = data[pos:pos + n + 1]
             pos += n + 1
         elif n > 128:
@@ -428,6 +473,15 @@ class _Layout:
             raise ValueError("TIFF with different sample formats")
         self.fmt = fmt.pop()
         self.photometric = tags.get(262, (None,))[0]
+        # TIFFReadDirectory: a Colormap of another count is ignored, and a
+        # palette file of 8 bits and up without one is read as RGB (3
+        # samples; the two past the first already counted as extra, which
+        # the RGBA reader refuses) or gray
+        self.palette_as_rgb = False
+        if (self.photometric == _PALETTE and self.bits >= 8
+                and len(tags.get(320, ())) != 3 << self.bits):
+            self.palette_as_rgb = self.spp == 3
+            self.photometric = _RGB if self.spp == 3 else _MINISBLACK
         self.compression = tags.get(259, (_NONE,))[0]
         self.planar = tags.get(284, (1,))[0] if self.spp > 1 else 1
         extra = tags.get(338, ())
@@ -480,7 +534,9 @@ class _Layout:
             raise ValueError(f"TIFF of {spp} samples a pixel, which cv2 "
                              "does not read")
         if ph is None:
-            raise Unsupported("TIFF without a photometric interpretation")
+            # OpenCV's readHeader fails on TIFFGetField of tag 262
+            raise ValueError("TIFF without a photometric interpretation, "
+                             "which cv2 does not read")
         if ph in _REFUSED_PHOTOMETRIC:
             raise ValueError(f"{_REFUSED_PHOTOMETRIC[ph]} TIFF, which "
                              "cv2 does not read")
@@ -500,16 +556,17 @@ class _Layout:
             # libtiff decodes none of its strips and cv2 stops
             raise ValueError(f"compression {self.compression} TIFF of "
                              f"{bits}-bit samples, which cv2 does not read")
-        if self.compression == _JPEG and (bits != 8 or self.planar != 1
-                                          or ph not in (_MINISBLACK, _RGB,
-                                                        _YCBCR)):
-            raise Unsupported("JPEG TIFF of other than 8-bit chunky gray, "
-                              "RGB or YCbCr")
+        if self.compression == _JPEG and bits != 8:
+            # libtiff's JPEG codec: "Unsupported JPEG data precision"
+            raise ValueError(f"JPEG TIFF of {bits}-bit samples, which cv2 "
+                             "does not read")
         if self.predictor == 3 and fmt != 3:
             raise ValueError("TIFF of predictor 3 on integer samples, which "
                              "cv2 does not read")
         if self.predictor not in (1, 2, 3):
-            raise Unsupported(f"TIFF of predictor {self.predictor}")
+            # libtiff's PredictorSetup: "not supported"
+            raise ValueError(f"TIFF of predictor {self.predictor}, which "
+                             "libtiff does not read")
         if self.predictor == 2 and bits not in (8, 16, 32, 64):
             raise ValueError(f"TIFF of predictor 2 on {bits}-bit samples, "
                              "which libtiff does not read")
@@ -523,20 +580,29 @@ class _Layout:
             if spp not in (3, 4) or bits == 1:
                 raise ValueError(f"{bits}-bit RGB TIFF of {spp} samples, "
                                  "which cv2 does not read")
+            if self.palette_as_rgb and (color or self.depth <= 8):
+                raise ValueError("palette TIFF of 3 samples without its "
+                                 "colormap, which libtiff's RGBA reader "
+                                 "does not read")
         elif ph == _PALETTE:
-            if spp != 1:
-                raise Unsupported(f"palette TIFF of {spp} samples a pixel")
+            # TIFFRGBAImageOK: extra samples only in chunky files of 8 bits
+            # and up (libtiff counts every sample past the first as extra
+            # where tag 338 says fewer)
+            if spp > 1 and (self.planar == 2 or bits < 8):
+                raise ValueError(f"{bits}-bit palette TIFF of {spp} samples "
+                                 f"(planar configuration {self.planar}), "
+                                 "which libtiff's RGBA reader does not read")
             if bits == 16:
                 raise ValueError("16-bit palette TIFF, which cv2 does not "
                                  "read")
-            if len(self.tags.get(320, ())) < 3 << bits:
+            if len(self.tags.get(320, ())) != 3 << bits:
                 raise ValueError("palette TIFF without its colormap")
         elif ph == _CMYK:
             if bits != 8 or spp != 4:
                 raise ValueError(f"{bits}-bit CMYK TIFF of {spp} samples, "
                                  "which cv2 does not read")
         elif ph == _YCBCR:
-            if self.compression != _JPEG:
+            if self.compression != _JPEG or self.planar == 2:
                 self.check_ycbcr()
         elif ph == _CIELAB:
             # TIFFRGBAImageOK, and no put routine for planar CIELab
@@ -563,8 +629,10 @@ class _Layout:
                              f"(planar configuration {self.planar}), which "
                              "libtiff's RGBA reader does not read")
 
-    def chunks(self):
-        """(tile width, tile height, tiled, offsets, byte counts)."""
+    def chunks(self, data: bytes):
+        """(tile width, tile height, tiled, offsets, byte counts); the
+        counts estimated where the file has none, or one strip whose count
+        libtiff's ``ByteCountLooksBad`` doubts (``_estimated_counts``)."""
         tags = self.tags
         if 322 in tags:
             tw, th = tags[322][0], tags.get(323, (0,))[0]
@@ -574,13 +642,17 @@ class _Layout:
             offsets, counts = tags.get(273), tags.get(279)
         if offsets is None:
             raise ValueError("corrupt TIFF: no strip or tile offsets")
-        if counts is None:
-            raise Unsupported("TIFF without strip or tile byte counts")
         if tw <= 0 or th <= 0:
             raise ValueError("corrupt TIFF: empty strips or tiles")
         n = -(-self.W // tw) * -(-self.H // th) * (
             self.spp if self.planar == 2 else 1)
-        if len(offsets) < n or len(counts) < n:
+        if len(offsets) < n:
+            raise ValueError("corrupt TIFF: too few strips or tiles")
+        if counts is None or (n == 1 and 322 not in tags
+                              and _count_looks_bad(data, self, offsets[0],
+                                                   counts[0], tw, th)):
+            counts = _estimated_counts(data, self, n, offsets[:n], tw, th)
+        if len(counts) < n:
             raise ValueError("corrupt TIFF: too few strips or tiles")
         return tw, th, 322 in tags, offsets, counts
 
@@ -683,6 +755,52 @@ def _chunk_bytes(lay: "_Layout", rows: int, tw: int, n: int) -> int:
     return rows * _row_bytes(tw, n, lay.bits)
 
 
+def _estimated_counts(data: bytes, lay: "_Layout", n: int, offsets,
+                      tw: int, th: int) -> list:
+    """The byte counts of a file without StripByteCounts (or
+    TileByteCounts), as libtiff 4.7.1's ``TIFFReadDirectory`` and
+    ``EstimateStripByteCounts`` make them: ValueError (``MissingRequired``)
+    unless there is one chunk, or one a sample of a planar file; else,
+    compressed, the file's bytes less ``_directory_bytes`` (over the
+    samples a pixel for a planar file) for each chunk, the last cut at the
+    file's end; uncompressed, a chunk's bytes (a strip's rows times
+    ``TIFFScanlineSize``)."""
+    if n != (lay.spp if lay.planar == 2 else 1):
+        raise ValueError("TIFF without StripByteCounts of more than one "
+                         "strip or tile a plane, which libtiff does not read")
+    if lay.compression == _NONE:
+        pn = 1 if lay.planar == 2 else lay.spp
+        if 322 in lay.tags:
+            return [_chunk_bytes(lay, th, tw, pn)] * n
+        if lay.photometric == _YCBCR and lay.planar == 1:
+            hs, vs = lay.subsampling
+            row = -(-lay.W // hs) * (hs * vs + 2) // vs  # 8-bit samples
+        else:
+            row = _row_bytes(lay.W, pn, lay.bits)
+        return [row * lay.H] * n
+    space = len(data) - _directory_bytes(data)
+    if space < 0:
+        space = len(data)  # libtiff's choice
+    if lay.planar == 2:
+        space //= lay.spp
+    return [space] * (n - 1) + [max(0, min(space, len(data) - offsets[-1]))]
+
+
+def _count_looks_bad(data: bytes, lay: "_Layout", offset: int, count: int,
+                     tw: int, th: int) -> bool:
+    """libtiff's ``ByteCountLooksBad`` of a file's one strip: a count of 0
+    at a nonzero offset, or, uncompressed, one past the file's end or
+    short of the strip's rows."""
+    if offset == 0:
+        return False
+    if count == 0:
+        return True
+    if lay.compression != _NONE:
+        return False
+    return (offset <= len(data) and count > len(data) - offset) or (
+        count < _estimated_counts(data, lay, 1, [offset], tw, th)[0])
+
+
 def _skewed(block: np.ndarray, w: int, h: int, step: int) -> np.ndarray:
     """The samples that a put routine of libtiff's RGBA reader takes from
     a tile cut at the image's right edge (``w`` of its columns and ``h`` of
@@ -720,16 +838,18 @@ def _samples(data: bytes, lay: _Layout) -> np.ndarray:
     if lay.zeros:
         return np.zeros((H, W, spp), f"u{size}")
     order = "<" if data[:2] == b"II" else ">"
-    tw, th, tiled, offsets, counts = lay.chunks()
+    tw, th, tiled, offsets, counts = lay.chunks(data)
     planes = spp if lay.planar == 2 else 1
     n = spp // planes  # samples in a chunk's pixel
     dtype = np.dtype(order + f"u{size}")
     out = np.empty((H, W, spp), dtype.newbyteorder("="))
-    # the gray put routines of the RGBA reader step rows by ``tw - w``
-    # bytes where they mean pixels: 16-bit samples, or 8-bit ones of a
-    # pixel of more than one
-    skew = (not lay.raw and planes == 1 and (bits == 16 or spp > 1)
-            and lay.photometric in (_MINISWHITE, _MINISBLACK))
+    # the gray and palette put routines of the RGBA reader step rows by
+    # ``tw - w`` bytes where they mean pixels: 16-bit gray samples, or
+    # 8-bit ones of a pixel of more than one
+    skew = not lay.raw and planes == 1 and (
+        lay.photometric in (_MINISWHITE, _MINISBLACK) and (bits == 16
+                                                           or spp > 1)
+        or lay.photometric == _PALETTE and spp > 1)
     ycbcr = lay.photometric == _YCBCR and lay.compression != _JPEG
     tables = lay.tags.get(347, b"")
     space = "ycc" if lay.photometric == _YCBCR else "rgb"
@@ -738,6 +858,10 @@ def _samples(data: bytes, lay: _Layout) -> np.ndarray:
         p, kk = divmod(k, across * down)
         y, x = kk // across * th, kk % across * tw
         rows = th if tiled else min(th, H - y)
+        if counts[k] == 0 or offsets[k] + counts[k] > len(data):
+            # libtiff's TIFFFillStrip fails, and cv2 with it
+            raise ValueError("corrupt TIFF: a strip or tile of no bytes or "
+                             "past the file's end")
         chunk = data[offsets[k]:offsets[k] + counts[k]]
         if lay.compression == _JPEG:
             block = _jpeg_block(tables, chunk, space, rows, tw, n, tiled,
@@ -748,8 +872,15 @@ def _samples(data: bytes, lay: _Layout) -> np.ndarray:
             want = _chunk_bytes(lay, rows, tw, n)
             raw = _decode_chunk(chunk, lay.compression, want)
             if len(raw) < want:
-                raise ValueError("corrupt TIFF: a strip or tile decodes "
-                                 "short")
+                if lay.raw:  # cv2's own path stops
+                    raise ValueError("corrupt TIFF: a strip or tile decodes "
+                                     "short")
+                # libtiff's LZW, Deflate and PackBits decoders zero what
+                # they do not decode, its uncompressed one the whole chunk,
+                # and the RGBA reader goes on with it
+                if lay.compression == _NONE:
+                    raw = b""
+                raw += bytes(want - len(raw))
             if ycbcr and planes == 1:
                 if lay.predictor == 2:
                     raw = _ycbcr_unpredict(raw, lay, tiled)
@@ -838,7 +969,7 @@ def _rgba(s: np.ndarray, lay: _Layout):
         return g, None, a
     if ph == _PALETTE:
         return None, _palette(lay)[s[..., 0]], None
-    if ph == _YCBCR and lay.compression != _JPEG:
+    if ph == _YCBCR and (lay.compression != _JPEG or planar):
         return None, _ycbcr_rgb(s, lay.tags), None
     if ph == _CIELAB:  # putcontig8bitCIELab8, putcontig8bitCIELab16
         return None, tiff_color.cielab_to_rgb(
@@ -916,16 +1047,18 @@ def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
     WhiteIsZero through ``_gray_map`` (16 bits by the high byte, and in a
     tile cut at the right edge with ``put16bitbwtile``'s row step:
     ``_skewed``), a planar gray as RGB (16 bits by ``Bitdepth16To8``, an
-    unassociated alpha premultiplied), palette through ``_palette``, RGB
+    unassociated alpha premultiplied), palette through ``_palette`` (its
+    first sample; extra samples ignored), RGB
     with 16 bits ``(v + 128) // 257`` and an unassociated alpha
     premultiplied ``(c * a + 127) // 255``, CMYK ``(255 - c) * (255 - k) /
-    255``, JPEG YCbCr through libjpeg's RGB, uncompressed YCbCr and
+    255``, chunky JPEG YCbCr through libjpeg's RGB, other YCbCr and
     CIELab through ``tiff_color``; signed samples as their bits unsigned,
     the result signed bytes where cv2's type is.  A compression libtiff
     does not know (JPEG 2000 among them) reads as zero samples there.  cv2
     then keeps one channel for gray interpretations and 1-bit files (a
     1-bit palette's gray by OpenCV's BGRA-to-gray weights), four for 4
-    samples (alpha 255 for CMYK), else three; IMREAD_COLOR three.
+    samples but a palette's (alpha 255 for CMYK), else three;
+    IMREAD_COLOR three.
     Orientations 2-4 flip the image as ``exif.TRANSFORMS``, in both
     modes; 5-8 raise ValueError, as ``cv2.imread`` gives None.  Raises
     ``Unsupported`` for the variants cv2 reads and the port does not
@@ -943,7 +1076,7 @@ def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
                else rgb)
     elif gray_out:
         out = (opencv_gray(rgb) if gray is None else gray)[..., None]
-    elif lay.spp == 4:
+    elif lay.spp == 4 and lay.photometric != _PALETTE:
         alpha = np.full(rgb.shape[:2], 255, np.uint8) if a is None else a
         out = np.concatenate([rgb, alpha[..., None]], axis=2)
     else:
