@@ -100,7 +100,13 @@ non-zero):
    and a planar RGB and a CMYK JPEG-in-TIFF, each decoding to its closed
    form, ``cli six --device cuda`` on the LZW file as on the
    orientation-3 one (``six_twin``, which runs six on the frame's PNG
-   once for every phase), ``[bmp_variants]`` (``bmp_variants_slice``):
+   once for every phase), ``[tiff_codecs]`` (``tiff_codecs_slice``):
+   frame 0 at 1080p as CCITT RLE, RLEW, Group 3 1-D and 2-D and Group 4
+   TIFFs of its bits and as LogL, LogLuv and SGILog24 LogLuv TIFFs of its
+   X, Y, Z, each file and its decode in both modes held to the SHA-256 of
+   cv2's reading (``TIFF_CODEC_SHA256``, host ms printed), ``cli six
+   --device cuda`` on the Group 4 file as on the LZW one, against six on
+   the same bits as a PNG, ``[bmp_variants]`` (``bmp_variants_slice``):
    frame 0 as an RLE8, a 4-bit and a 16-bit BMP (``tests/torch_bmp.py``),
    each decoding to its colours (host ms printed), ``[other_formats]``
    (``other_formats_slice``): frame 0 as PPM, PAM, PFM, Sun raster and
@@ -260,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import hashlib
 import io
 import json
 import pickle
@@ -1837,7 +1844,7 @@ def six_twin(torch, run_cli, captured_match, replay, smi: str, phase: str,
                     replay(kname, args, f"{phase} six call {j} ({what})")
             torch.cuda.synchronize()
             log(phase, command=f"'six --device cuda' ({what})",
-                seconds=f"{secs:.2f}",
+                seconds=f"{secs:.2f}", descent_levels=d,
                 launches=json.dumps(nonzero(launches), separators=(",", ":")),
                 replayed_bit_equal=json.dumps(
                     {k_: len(v) for k_, v in calls.items() if v},
@@ -2022,6 +2029,162 @@ def tiff_layouts_slice(torch, run_cli, captured_match, replay,
              (out / "no_counts_lzw.tif").read_bytes(),
              "TIFF without StripByteCounts")
     log("tiff_layouts", six_outputs="byte-equal to the PNG's",
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
+
+
+# [tiff_codecs]: 1080p frame 0 as the CCITT and SGILog TIFFs of ROADMAP
+# Queue 1 item 11.9's second part, each decode held to cv2's SHA-256; six
+# on the Group 4 file against six on the same bits as a PNG
+TIFF_CODECS = {  # name -> (compression, T4Options, fill order)
+    "ccitt_rle.tif": (2, 0, 1), "ccitt_rlew.tif": (32771, 0, 1),
+    "ccitt_g3_1d.tif": (3, 0, 1), "ccitt_g3_2d_fill.tif": (3, 5, 1),
+    "ccitt_g4.tif": (4, 0, 1), "ccitt_g4_fill_order2.tif": (4, 0, 2)}
+SGILOG_FILES = {  # name -> (compression, photometric interpretation)
+    "sgilog_logl.tif": (34676, 32844), "sgilog_logluv.tif": (34676, 32845),
+    "sgilog24_logluv.tif": (34677, 32845)}
+# each file's SHA-256, then that of cv2.imread's array of it (OpenCV
+# 5.0.0 with its libtiff 4.7.1) in IMREAD_UNCHANGED and in IMREAD_COLOR,
+# as ``tiff_codec_sha256`` takes them: the card's host has no cv2, and its
+# libm and numpy must give cv2's floats.  Made by
+# ``python tools/tiff_codec_hashes.py``.
+TIFF_CODEC_SHA256 = {
+    "ccitt_rle.tif": (
+        "e6f338dc984cd6a847b731cc48f7348b704d4ca38d6c4e34c84e21ac144d811f",
+        "6d05cb23640e613b5111b84094499d4ebce2c1ab6c70de92847121129bc88ce3",
+        "e4a6b51153a54366859204243a44c619f55bca6979d22f6bd83d0afd5aab7909"),
+    "ccitt_rlew.tif": (
+        "b1152f226851b8f99ab110599ab7f3b1ccbffc3f522784e0cd2f5973290d4433",
+        "6d05cb23640e613b5111b84094499d4ebce2c1ab6c70de92847121129bc88ce3",
+        "e4a6b51153a54366859204243a44c619f55bca6979d22f6bd83d0afd5aab7909"),
+    "ccitt_g3_1d.tif": (
+        "b9d566ac5b0de0063a539c2bd5c7c4e507a44c26e2d0f9403f847d98996bda16",
+        "6d05cb23640e613b5111b84094499d4ebce2c1ab6c70de92847121129bc88ce3",
+        "e4a6b51153a54366859204243a44c619f55bca6979d22f6bd83d0afd5aab7909"),
+    "ccitt_g3_2d_fill.tif": (
+        "e8b0afef43b28b60c2fcc128d1db553fb0a7bfaa6ad71f62ed296c5e1b5f8c7c",
+        "6d05cb23640e613b5111b84094499d4ebce2c1ab6c70de92847121129bc88ce3",
+        "e4a6b51153a54366859204243a44c619f55bca6979d22f6bd83d0afd5aab7909"),
+    "ccitt_g4.tif": (
+        "91304ac9986417850a607d8d06ce7dbcf90eba52799f0009fe63162f2c572d96",
+        "6d05cb23640e613b5111b84094499d4ebce2c1ab6c70de92847121129bc88ce3",
+        "e4a6b51153a54366859204243a44c619f55bca6979d22f6bd83d0afd5aab7909"),
+    "ccitt_g4_fill_order2.tif": (
+        "64b163d5b56a2119e46bb6b697962e74ed314d480ead52ed9f7d5f7ff6218642",
+        "6d05cb23640e613b5111b84094499d4ebce2c1ab6c70de92847121129bc88ce3",
+        "e4a6b51153a54366859204243a44c619f55bca6979d22f6bd83d0afd5aab7909"),
+    "sgilog_logl.tif": (
+        "3ca96b6fc060cbd25231c783a59256876fbb450672a64fd52f09744648669c36",
+        "4c54ed8ceab23d4b01cf7a926e2c7795cbb6d1ed9c33be2d1bbfda360f2db046",
+        "578befe401a314ed7d1a1bf05e39378097da4942c7e92d96539a59570ea8f1e9"),
+    "sgilog_logluv.tif": (
+        "894d9f14b51b4bbae1fddc5f833a1c52dbba7622296c6435e7e66302923fb132",
+        "d8b4136c65b3b24716ccd414d7d7b93a9072de0e6233296b700e1fb8ab2d2086",
+        "4c45b27bd8e4a9b103fc6a99be66fa3029096c5b02240f48eb643b59bebf0dbe"),
+    "sgilog24_logluv.tif": (
+        "5be670a1e178463ad546c2b3889565da6cb3293b13ff28d8e481eb7bde5568bd",
+        "fb0fb202f6c05fe17a18d762b679e17efac57be4e118361d19efbf49018361a7",
+        "4b46dd57e8bad219446a1b7acad020c6003a4e0cb9822047d5ac1430213749aa"),
+}
+
+
+def codec_bits(u8: np.ndarray) -> np.ndarray:
+    """Frame 0 made bi-level: 1 (black) where OpenCV's integer gray of it
+    (``(4899 r + 9617 g + 1868 b + 8192) >> 14``) lies below its median."""
+    c = u8.astype(np.int64)
+    gray = (c[..., 0] * 4899 + c[..., 1] * 9617 + c[..., 2] * 1868
+            + 8192) >> 14
+    return (gray < np.median(gray)).astype(np.uint8)
+
+
+def tiff_codec_files(u8: np.ndarray) -> dict:
+    """name -> a function writing the file (``tests/torch_tiff.py``) from
+    frame 0: ``codec_bits`` in each of ``TIFF_CODECS`` (WhiteIsZero,
+    strips of ``TIFF_STRIP_ROWS`` rows) and the frame's X, Y, Z in each of
+    ``SGILOG_FILES`` (``frame_xyz``, ``sgilog_codes``; strips of
+    ``TIFF_STRIP_ROWS`` rows)."""
+    from tests import torch_tiff as T
+
+    bits = codec_bits(u8)
+    files = {}
+    for name, (comp, opts, order) in TIFF_CODECS.items():
+        files[name] = (lambda comp=comp, opts=opts, order=order: T.tiff(
+            [bits], compression=comp, bits=1, photometric=0,
+            rows_per_strip=TIFF_STRIP_ROWS, fill_order=order,
+            coder=lambda blk: T.ccitt(blk, comp, opts),
+            tags={292: (4, [opts])} if comp == 3 else None))
+    for name, (comp, ph) in SGILOG_FILES.items():
+        def write(comp=comp, ph=ph):
+            codes = T.sgilog_codes(T.frame_xyz(u8), comp, ph)
+            return T.tiff([T.sgilog_page(codes, ph)], compression=comp,
+                          photometric=ph, rows_per_strip=TIFF_STRIP_ROWS,
+                          coder=T.sgilog_coder(ph, comp))
+        files[name] = write
+    return files
+
+
+def tiff_codec_sha256(a: np.ndarray) -> str:
+    """SHA-256 of an image array as the port lays it out (RGB order): its
+    dtype and shape, then its bytes."""
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype.str}{a.shape}".encode()
+                          + a.tobytes()).hexdigest()
+
+
+def tiff_codecs_slice(torch, run_cli, captured_match, replay,
+                      smi: str) -> None:
+    """[tiff_codecs]: ``tiff_codec_files`` of 1080p frame 0: six CCITT
+    files (RLE, RLEW, Group 3 1-D, Group 3 2-D with fill bits, Group 4 and
+    Group 4 of fill order 2) and three SGILog ones (LogL, LogLuv, SGILog24
+    LogLuv).  Each file's bytes, and ``tiff.decode_tiff``'s array of it
+    in IMREAD_UNCHANGED and IMREAD_COLOR, hash to ``TIFF_CODEC_SHA256``
+    (cv2's arrays, where cv2 runs); the CCITT files decode to
+    their bits (255 white, 0 black).  Host ms of each write and decode
+    printed.  ``cli six --device cuda`` on the Group 4 file
+    (``six_twin``) launches six exact's kernels of one frame (the
+    descent's levels d printed), each call replayed bit-equal, and writes
+    the PNGs six writes for the same bits as a PNG."""
+    from underwater_image_enhancement_tpu_torch.utils.tiff import (
+        decode_tiff,
+    )
+
+    t_phase = time.perf_counter()
+    out = WORK / "tiff_codecs"
+    out.mkdir(parents=True, exist_ok=True)
+    u8 = variants_frame()
+    bits = codec_bits(u8)
+    white = np.where(bits, 0, 255).astype(np.uint8)
+    for name, write in tiff_codec_files(u8).items():
+        t0 = time.perf_counter()
+        data = write()
+        ms_w = (time.perf_counter() - t0) * 1e3
+        want_file, want_raw, want_color = TIFF_CODEC_SHA256[name]
+        got_file = hashlib.sha256(data).hexdigest()
+        check(got_file == want_file,
+              f"tiff_codecs: {name} is not the file whose cv2 reading is "
+              f"recorded (frame 0 or the writer differs here: {got_file})")
+        ms = {}
+        for mode, color, want in (("unchanged", False, want_raw),
+                                  ("color", True, want_color)):
+            t0 = time.perf_counter()
+            got = decode_tiff(data, color)
+            ms[mode] = f"{(time.perf_counter() - t0) * 1e3:.1f}"
+            digest = tiff_codec_sha256(got)
+            check(digest == want, f"tiff_codecs: {name} decodes "
+                  f"({mode}) to other bits than cv2's ({digest})")
+            if name in TIFF_CODECS and not color:
+                check(np.array_equal(got[..., 0], white),
+                      f"tiff_codecs: {name} decodes to other bits")
+        (out / name).write_bytes(data)
+        log("tiff_codecs", file=name, bytes=len(data), frame=f"{W}x{H}",
+            write_host_ms=f"{ms_w:.1f}",
+            decode_host_ms_unchanged=ms["unchanged"],
+            decode_host_ms_color=ms["color"], sha256_equal_to_cv2=True,
+            card=repr(smi))
+    six_twin(torch, run_cli, captured_match, replay, smi, "tiff_codecs",
+             out, np.repeat(white[..., None], 3, axis=2), "g4",
+             "frame0.tif", (out / "ccitt_g4.tif").read_bytes(),
+             "Group 4 TIFF")
+    log("tiff_codecs", six_outputs="byte-equal to the bits' PNG's",
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(smi))
 
 
@@ -3490,6 +3653,9 @@ def main() -> int:
     # [tiff_layouts] no StripByteCounts, palette + alpha, planar and CMYK
     # JPEG TIFF at 1080p; six on the first
     tiff_layouts_slice(torch, run_cli, captured_match, replay, smi)
+    # [tiff_codecs] CCITT and SGILog TIFF at 1080p, held to cv2's SHA-256;
+    # six on the Group 4 file
+    tiff_codecs_slice(torch, run_cli, captured_match, replay, smi)
     # [bmp_variants] RLE8, 4-bit and 16-bit BMP at 1080p
     bmp_variants_slice(smi)
     # [other_formats] PPM, PAM, PFM, Sun raster, HDR, GIF; six on a PFM

@@ -698,22 +698,60 @@ TIFF_ITEM_11_9 = {
     "jpeg cmyk": lambda rgb, gray, rgba: _tiff(
         [np.concatenate([rgb, 255 - rgba[..., 3:]], -1)], compression=7,
         photometric=5, jpeg=_components_jpeg),
+    # the second part: the CCITT and SGILog codecs
+    "ccitt rle": lambda rgb, gray, rgba: _ccitt(gray, 2),
+    "ccitt rlew": lambda rgb, gray, rgba: _ccitt(gray, 32771),
+    "ccitt g3 1-d": lambda rgb, gray, rgba: _ccitt(gray, 3),
+    "ccitt g3 2-d": lambda rgb, gray, rgba: _ccitt(gray, 3, 5),
+    "ccitt g4": lambda rgb, gray, rgba: _ccitt(gray, 4),
+    "sgilog logl": lambda rgb, gray, rgba: _sgilog(rgb, 34676, 32844),
+    "sgilog logluv": lambda rgb, gray, rgba: _sgilog(rgb, 34676, 32845),
+    "sgilog24 logluv": lambda rgb, gray, rgba: _sgilog(rgb, 34677, 32845),
 }
+
+
+def _ccitt(gray, compression, options=0):
+    """The gray image's dark half as black bits, CCITT-coded in strips of
+    8 rows (WhiteIsZero, as fax files are)."""
+    bits = (gray < 128).astype(np.uint8)
+    return _tiff([bits], compression=compression, bits=1, photometric=0,
+                 rows_per_strip=8,
+                 coder=lambda blk: torch_tiff.ccitt(blk, compression,
+                                                    options),
+                 tags={292: (4, [options])} if compression == 3 else None)
+
+
+def _sgilog(rgb, compression, photometric):
+    """The RGB image's X, Y, Z as SGILog codes in strips of 8 rows."""
+    codes = torch_tiff.sgilog_codes(torch_tiff.frame_xyz(rgb), compression,
+                                    photometric)
+    return _tiff([torch_tiff.sgilog_page(codes, photometric)],
+                 compression=compression, photometric=photometric,
+                 rows_per_strip=8,
+                 coder=torch_tiff.sgilog_coder(photometric, compression))
 
 
 @pytest.mark.parametrize("name", sorted(TIFF_ITEM_11_9))
 def test_tiff_variants_of_item_11_9_read_as_jax(tmp_path, name):
     """Each reads through ``imread_unit`` as JAX's ``imread_unit`` reads it
-    (12- and 14-bit samples shifted to 16 bits, floats over 255) and
-    through ``imread_u8`` as ``train/data._imread_rgb`` (None where
-    ``IMREAD_COLOR`` refuses the sample size)."""
+    (12- and 14-bit samples shifted to 16 bits, floats over 255, CCITT's
+    bits as 0 and 255, LogLuv's floats) and through ``imread_u8`` as
+    ``train/data._imread_rgb`` (None where ``IMREAD_COLOR`` refuses the
+    sample size).  LogL's signed bytes, on which JAX's ``cvtColor``
+    raises, the port names (``read_image``) and skips."""
     path = tmp_path / "v.tif"
     path.write_bytes(TIFF_ITEM_11_9[name](*_tiff_images()))
-    want = jio.imread_unit(str(path))
-    assert want is not None  # cv2 reads it
-    got = tio.imread_unit(str(path))
-    assert got.dtype == want.dtype and got.shape == want.shape
-    np.testing.assert_array_equal(got, want)
+    img, why = tio.read_image(str(path))
+    if name == "sgilog logl":
+        assert img is None and why.startswith("signed 8-bit TIFF")
+        with pytest.raises(cv2.error):
+            jio.imread_unit(str(path))
+    else:
+        want = jio.imread_unit(str(path))
+        assert want is not None  # cv2 reads it
+        got = tio.imread_unit(str(path))
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
     u8 = jdata._imread_rgb(str(path))
     if u8 is None:
         assert tio.imread_u8(str(path)) is None
@@ -726,13 +764,34 @@ def test_tiff_variants_of_item_11_9_read_as_jax(tmp_path, name):
     (4, None, "CCITT G4 TIFF"), (34676, 32844, "SGILog LogL TIFF"),
     (34677, 32845, "SGILog24 LogLuv TIFF")])
 def test_tiff_compressions_the_port_does_not_read_are_named(
-        compression, photometric, why):
-    """The compressions of item 11.9 that cv2 reads and the port does not
-    (CCITT, and SGILog under LogL or LogLuv), named from the tags whatever
-    the strip's first bytes (the old-style LZW that the strip's first
-    bytes named, and JPEG, are read now: ``TIFF_BUILT``,
-    ``tests/test_torch_tiff_variants.py``; JPEG 2000 reads as zeros:
-    ``tests/test_torch_tiff_samples.py``)."""
+        tmp_path, compression, photometric, why):
+    """The compressions of item 11.9 that the port once named unread
+    (CCITT, and SGILog under LogL or LogLuv), relabelled on an
+    uncompressed RGB file whose strip starts 0x00 0x01: read now, each
+    reads, or is refused (ValueError, never ``Unsupported``), as
+    ``cv2.imread`` gives it in both modes (``why`` names the case as it
+    was named)."""
+    data = _relabelled(compression, photometric)
+    path = tmp_path / "r.tif"
+    path.write_bytes(data)
+    for color, flag in ((False, cv2.IMREAD_UNCHANGED),
+                        (True, cv2.IMREAD_COLOR)):
+        want = cv2.imread(str(path), flag)
+        if want is None:
+            with pytest.raises(ValueError) as e:
+                ttiff.decode_tiff(data, color)
+            assert not isinstance(e.value, tjpeg.Unsupported), e.value
+        else:
+            got = ttiff.decode_tiff(data, color)
+            assert got.dtype == want.dtype, (why, color)
+            np.testing.assert_array_equal(got.view(np.uint8),
+                                          _raw_as_rgb(want).view(np.uint8))
+
+
+def _relabelled(compression, photometric):
+    """An uncompressed RGB file of ``_tiff_images``' colour image, its
+    compression tag set to ``compression``, its strip starting 0x00
+    0x01."""
     rgb, _, _ = _tiff_images()
     data = bytearray(_tiff([rgb], compression=1, photometric=photometric))
     (at,) = struct.unpack("<I", data[4:8])
@@ -742,8 +801,25 @@ def test_tiff_compressions_the_port_does_not_read_are_named(
         if struct.unpack("<H", data[e:e + 2])[0] == 259:
             data[e + 8:e + 10] = struct.pack("<H", compression)
     data[8:10] = b"\x00\x01"
-    with pytest.raises(tjpeg.Unsupported, match=f"^{why}$"):
-        ttiff.decode_tiff(bytes(data))
+    return bytes(data)
+
+
+def test_no_tiff_the_tests_build_raises_unsupported():
+    """Every TIFF this file builds decodes in both modes or raises
+    ValueError: none is named unsupported by the port any more."""
+    images = _tiff_images()
+    files = [f(*images) for f in TIFF_BUILT.values()]
+    files += [f(*_tiff16_images()) for f in TIFF16_BUILT.values()]
+    files += [f(*images) for f in TIFF_ITEM_11_9.values()]
+    files += [_relabelled(c, p) for c, p in (
+        (2, None), (3, None), (4, None), (32771, None), (34676, 32844),
+        (34676, 32845), (34677, 32845), (32809, None), (32766, None))]
+    for data in files:
+        for color in (False, True):
+            try:
+                ttiff.decode_tiff(data, color)
+            except ValueError as e:
+                assert not isinstance(e, tjpeg.Unsupported), e
 
 
 def test_cli_six_reads_a_tiff_as_its_png_twin(tmp_path):

@@ -11,15 +11,21 @@ the file's byte order), the horizontal predictor, and a strip or tile
 coded by any compression the tests need: none, LZW (libtiff's codes, or
 ``"lzw-old"``: the old LSB-first codes of ``tif_lzw.c``'s
 ``LZWDecodeCompat``, written with tag 259 = 5), PackBits, Deflate (8 and
-32946) or JPEG (``jpeg=``: a function that codes one chunk).  With
-``fill_order=2`` every coded chunk's bits are reversed in each byte, as a
-file of FillOrder 2 stores them.  ``tags`` adds or replaces entries:
-(type, values), values bytes for the types BYTE, ASCII and UNDEFINED;
-None drops the entry.
+32946) or JPEG (``jpeg=``: a function that codes one chunk), or by a
+``coder=`` of its own: ``ccitt`` (CCITT RLE, RLEW, Group 3 1-D and 2-D,
+Group 4: T.4's Modified Huffman, Modified READ and Modified Modified
+READ coders) and ``sgilog_coder`` (SGILog's LogL and LogLuv run-length
+planes, SGILog24's packed pixels; ``sgilog_page`` carries the codes and
+``sgilog_codes`` makes them from X, Y, Z).  With ``fill_order=2`` every
+coded chunk's bits are reversed in each byte, as a file of FillOrder 2
+stores them.  ``tags`` adds or replaces entries: (type, values), values
+bytes for the types BYTE, ASCII and UNDEFINED; None drops the entry.
 """
 
 from __future__ import annotations
 
+import bisect
+import math
 import struct
 import zlib
 
@@ -176,7 +182,7 @@ def _value_bytes(order: str, kind: int, vals) -> tuple:
 def tiff(pages, order="<", tile=None, compression=1, predictor=1,
          photometric=None, planar=1, rows_per_strip=None, bits=None,
          fill_order=1, tags=None, jpeg=None, big=False,
-         block=None) -> bytes:
+         block=None, coder=None) -> bytes:
     """A TIFF of ``pages`` ((H, W) or (H, W, C) arrays of sample values,
     unsigned, signed or float; SampleFormat 2 or 3 written for the last
     two), linked in order.  ``bits`` a sample (default the dtype's),
@@ -187,7 +193,9 @@ def tiff(pages, order="<", tile=None, compression=1, predictor=1,
     (libtiff's floating-point predictor, ``fp_predict``), ``big``: a
     BigTIFF (version 43, 8-byte offsets and counts), ``block(blk)``: a
     chunk's uncoded bytes from its (rows, tile width, samples) values in
-    place of the samples' own."""
+    place of the samples' own, ``coder(blk)``: a chunk's coded bytes
+    from its values (``ccitt`` and ``sgilog`` make them) in place of
+    ``compression``'s coder."""
     data, dirs = bytearray(16 if big else 8), []
     for img in pages:
         a = img if img.ndim == 3 else img[..., None]
@@ -211,7 +219,9 @@ def tiff(pages, order="<", tile=None, compression=1, predictor=1,
                         flat = flat.copy()
                         flat[:, n:] = flat[:, n:] - flat[:, :-n]
                         blk = flat.view(blk.dtype).reshape(blk.shape)
-                    if compression in (6, 7):
+                    if coder is not None:
+                        chunk = coder(blk)
+                    elif compression in (6, 7):
                         chunk = jpeg(blk, p)
                     else:
                         raw = (block(blk) if block
@@ -316,3 +326,277 @@ def jpeg_split(data: bytes, markers=(0xDB, 0xC4)) -> tuple:
             rest.append(seg)
         pos += 2 + length
     return b"".join(tables) + b"\xff\xd9", b"".join(rest)
+
+
+def _changes(row: np.ndarray) -> np.ndarray:
+    """A row of bits (1 black) -> its changing elements: the positions
+    where the colour differs from the pixel before (white before the
+    first), black ones at even indices."""
+    row = np.asarray(row, np.int8).reshape(-1)
+    return np.flatnonzero(np.diff(np.concatenate([[0], row])))
+
+
+def _runs(row: np.ndarray) -> list:
+    """A row's run lengths, white first (0 where it starts black)."""
+    edges = np.concatenate([[0], _changes(row), [len(row)]])
+    return np.diff(edges).tolist()
+
+
+def mh_codes(run: int, black: bool) -> list:
+    """One run in Modified Huffman codes: 2560 make-ups while past 2560,
+    a make-up of the 64s (the shared codes from 1792), a terminating
+    code."""
+    from underwater_image_enhancement_tpu_torch.utils import fax3
+    term = fax3.BLACK_TERMINATING if black else fax3.WHITE_TERMINATING
+    makeup = fax3.BLACK_MAKEUP if black else fax3.WHITE_MAKEUP
+    out = []
+    while run > 2560:
+        out.append(fax3.SHARED_MAKEUP[-1])
+        run -= 2560
+    if run >= 64:
+        m = run // 64
+        out.append(makeup[m - 1] if m <= 27 else fax3.SHARED_MAKEUP[m - 28])
+        run -= 64 * m
+    out.append(term[run])
+    return out
+
+
+def mh_row(row: np.ndarray) -> str:
+    return "".join("".join(mh_codes(r, bool(k & 1)))
+                   for k, r in enumerate(_runs(row)))
+
+
+def mr_row(row: np.ndarray, ref: np.ndarray, used=None) -> str:
+    """One row in T.4's Modified READ codes against the reference row
+    ``ref``: pass where b2 lies left of a1, vertical where |a1 - b1| <= 3,
+    else horizontal; each mode's name added to the set ``used``."""
+    from underwater_image_enhancement_tpu_torch.utils import fax3
+    width = len(row)
+    a = _changes(row).tolist() + [width] * 2
+    b = _changes(ref).tolist() + [width] * 3
+    modes = {k: v[0] for k, v in fax3.MODES.items()}
+    out, a0, black = [], -1, False
+    while a0 < width:
+        ia = bisect.bisect_right(a, a0)
+        a1, a2 = a[ia], a[ia + 1]
+        # b1: the first change right of a0 to the colour opposite a0's
+        ib = bisect.bisect_right(b, a0)
+        ib += (ib & 1) != black
+        b1, b2 = b[ib], b[ib + 1]
+        if b2 < a1:
+            mode = "pass"
+            out.append(modes[mode])
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            d = a1 - b1
+            mode = "V0" if d == 0 else f"VR{d}" if d > 0 else f"VL{-d}"
+            out.append(modes[mode])
+            a0, black = a1, not black
+        else:
+            mode = "horizontal"
+            out.append(modes[mode]
+                       + "".join(mh_codes(a1 - max(a0, 0), black))
+                       + "".join(mh_codes(a2 - a1, not black)))
+            a0 = a2
+        if used is not None:
+            used.add(mode)
+    return "".join(out)
+
+
+def _bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return np.packbits(np.frombuffer(bits.encode(), np.uint8) - 48).tobytes()
+
+
+def _reader_align(lookups: list, avail: int, pos: int) -> tuple:
+    """libtiff's ``Fax3DecodeRLE`` reading an RLEW row of ``lookups``
+    ((bits a lookup wants, bits its code takes)) from a chunk at an even
+    file offset, its accumulator holding ``avail`` bits of the ``pos``
+    bytes it has loaded: a byte loaded, and another where it still holds
+    fewer bits than the lookup wants; after the row the bits past a
+    multiple of 16 dropped, and a byte skipped where none are left at an
+    odd offset -> (avail, pos) where the next row starts, at bit ``8 * pos
+    - avail``."""
+    for need, width in lookups:
+        if avail < need:
+            avail += 8
+            pos += 1
+            if avail < need:
+                avail += 8
+                pos += 1
+        avail -= width
+    avail -= avail % 16
+    if avail == 0 and pos & 1:
+        pos += 1
+    return avail, pos
+
+
+def ccitt(blk: np.ndarray, compression: int, options: int = 0, k: int = 4,
+          first_eol: bool = True, rtc: bool = True, two_d_first=False,
+          align: str = "reader", used=None) -> bytes:
+    """A chunk of bits ((rows, width) or (rows, width, 1), 1 black) coded
+    for TIFF compression 2 (RLE: Modified Huffman rows, each padded to a
+    byte), 32771 (RLEW: rows padded to where libtiff's reader starts the
+    next, ``_reader_align``, or with ``align="writer"`` to 16 bits from
+    the chunk's start, as libtiff's writer pads them), 3 (Group 3: an EOL
+    before each row, the first only with ``first_eol``, and the RTC, six
+    EOLs, with ``rtc``; ``options`` bit 0: Modified READ, a tag bit after
+    each EOL, 1-D every ``k`` rows, the first row 2-D with
+    ``two_d_first``; bit 2: zero fill bits before each EOL so that it
+    ends a byte) or 4 (Group 4: Modified Modified READ against an
+    all-white first reference, then the EOFB); the 2-D modes coded added
+    to the set ``used``."""
+    from underwater_image_enhancement_tpu_torch.utils import fax3
+    rows = np.asarray(blk).reshape(blk.shape[0], -1).astype(bool)
+    width = rows.shape[1]
+    out, have = [], 0
+    if compression in (2, 32771):
+        avail = pos = 0
+        for row in rows:
+            runs = [mh_codes(r, bool(i & 1)) for i, r in enumerate(_runs(row))]
+            bits = "".join("".join(c) for c in runs)
+            if compression == 2 or align == "writer":
+                bits += "0" * (-len(bits) % (8 if compression == 2 else 16))
+            else:
+                lookups = [(13 if i & 1 else 12, len(c))
+                           for i, codes in enumerate(runs) for c in codes]
+                avail, pos = _reader_align(lookups, avail, pos)
+                bits += "0" * (8 * pos - avail - have - len(bits))
+            out.append(bits)
+            have += len(bits)
+        return _bytes("".join(out))
+    ref = np.zeros(width, bool)
+    for y, row in enumerate(rows):
+        one_d = compression == 3 and not options & 1
+        start = len(out)
+        if compression == 3:
+            if y or first_eol:
+                fill = "0" * (-(have + 12) % 8) if options & 4 else ""
+                out.append(fill + fax3.EOL)
+            if options & 1:
+                one_d = y % k == 0 and not (y == 0 and two_d_first)
+                out.append("1" if one_d else "0")
+        out.append(mh_row(row) if one_d else mr_row(row, ref, used))
+        have += sum(map(len, out[start:]))
+        ref = row
+    if compression == 4:
+        out.append(fax3.EOL * 2)
+    elif rtc:
+        out.append((fax3.EOL + ("1" if options & 1 else "")) * 6)
+    return _bytes("".join(out))
+
+
+def sgilog_rle(plane: bytes, min_run: int = 4) -> bytes:
+    """One byte plane of a row in SGILog's run-length codes: runs of
+    ``min_run`` or more equal bytes (up to 129 at a time) as ``(126 + n,
+    byte)``, the bytes between as literals of up to 127."""
+    a = np.frombuffer(plane, np.uint8)
+    n = len(a)
+    if n == 0:
+        return b""
+    first = np.flatnonzero(np.concatenate([[True], a[1:] != a[:-1]]))
+    ends = np.append(first[1:], n)
+    runlen = ends[np.cumsum(np.isin(np.arange(n), first)) - 1] - np.arange(n)
+    at = np.where(runlen >= min_run, np.arange(n), n)
+    nxt = np.minimum.accumulate(at[::-1])[::-1].tolist()
+    runlen = runlen.tolist()
+    out, i = bytearray(), 0
+    while i < n:
+        if runlen[i] >= min_run:
+            k = min(runlen[i], 129)
+            out += bytes([126 + k, plane[i]])
+            i += k
+            continue
+        j = min(nxt[i], i + 127)
+        out += bytes([j - i]) + plane[i:j]
+        i = j
+    return bytes(out)
+
+
+def sgilog_page(codes: np.ndarray, photometric: int) -> np.ndarray:
+    """SGILog codes -> the int16 page ``tiff`` writes for them (the sample
+    values only carry the codes to ``sgilog_coder``): LogL's 16-bit codes
+    as they are; LogLuv's 32- or 24-bit codes as (high 16 bits, low 16
+    bits, 0)."""
+    c = np.asarray(codes)
+    if photometric == 32844:
+        return c.astype(np.uint16).view(np.int16)
+    return np.stack([(c >> 16).astype(np.uint16), (c & 0xFFFF).astype(
+        np.uint16), np.zeros(c.shape, np.uint16)], -1).view(np.int16)
+
+
+def sgilog_coder(photometric: int, compression: int = 34676,
+                 min_run: int = 4):
+    """A ``coder`` for ``tiff`` of a ``sgilog_page``: each row of LogL as
+    its two byte planes and of LogLuv (34676) as its four, each plane
+    ``sgilog_rle``-coded; LogLuv 34677 three bytes a pixel."""
+    def code(blk: np.ndarray) -> bytes:
+        b = blk.view(np.uint16).astype(np.uint32)
+        if photometric == 32844:
+            words, shifts = b[..., 0], (8, 0)
+        else:
+            words, shifts = (b[..., 0] << 16) | b[..., 1], (24, 16, 8, 0)
+        if compression == 34677:
+            return np.stack([(words >> s) & 255 for s in (16, 8, 0)],
+                            -1).astype(np.uint8).tobytes()
+        return b"".join(
+            sgilog_rle(((row >> s) & 255).astype(np.uint8).tobytes(),
+                       min_run)
+            for row in words for s in shifts)
+    return code
+
+
+def frame_xyz(u8: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 RGB -> float64 X, Y, Z: the samples over 255 taken
+    as linear sRGB, each product and sum its own IEEE operation (no matrix
+    product, whose order a BLAS chooses)."""
+    rgb = u8.astype(np.float64) / 255.0
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    return np.stack([0.412453 * r + 0.357580 * g + 0.180423 * b,
+                     0.212671 * r + 0.715160 * g + 0.072169 * b,
+                     0.019334 * r + 0.119193 * g + 0.950227 * b], -1)
+
+
+def _log2(a: np.ndarray) -> np.ndarray:
+    """log2 of positive values through C's ``log2`` (``math.log2``) on
+    each distinct value, the same on every host's numpy."""
+    vals, inv = np.unique(a, return_inverse=True)
+    return np.array([math.log2(v) for v in vals.tolist()])[inv].reshape(
+        a.shape)
+
+
+def sgilog_codes(xyz: np.ndarray, compression: int = 34676,
+                 photometric: int = 32845) -> np.ndarray:
+    """Float X, Y, Z (..., 3) -> SGILog codes near them: LogL's
+    ``floor(256 (log2 Y + 64))`` (signed), LogLuv 32's with u' and v'
+    bytes ``floor(410 u')``, LogLuv 24's ``floor(64 (log2 Y + 12))`` and
+    the square of (u', v') in the port's uv table, clamped to it."""
+    from underwater_image_enhancement_tpu_torch.utils import sgilog
+    f = np.asarray(xyz, np.float64)
+    X, Y, Z = f[..., 0], f[..., 1], f[..., 2]
+    mag = np.abs(Y)
+    lg = _log2(np.where(mag > 0, mag, 1.0))
+    den = X + 15.0 * Y + 3.0 * Z
+    ok = den > 0
+    safe = np.where(ok, den, 1.0)
+    u = np.where(ok, 4.0 * X / safe, sgilog._U_NEU)
+    v = np.where(ok, 9.0 * Y / safe, sgilog._V_NEU)
+    if compression == 34677:
+        le = np.where(Y > 0, np.clip(np.floor(64 * (lg + 12)), 0, 1023),
+                      0).astype(np.uint32)
+        vi = np.clip(np.floor((v - sgilog._UV_VSTART) / sgilog._UV_SQSIZ),
+                     0, len(sgilog._NUS) - 1).astype(int)
+        nus = np.array(sgilog._NUS)
+        start = np.array(sgilog._USTART, np.float32).astype(np.float64)
+        ui = np.clip(np.floor((u - start[vi]) / sgilog._UV_SQSIZ), 0,
+                     nus[vi] - 1).astype(int)
+        ncum = np.concatenate([[0], np.cumsum(nus)[:-1]])
+        return (le << 14) | (ncum[vi] + ui).astype(np.uint32)
+    le = np.where(Y != 0, np.clip(np.floor(256 * (lg + 64)), 1, 0x7FFF),
+                  0).astype(np.uint32) | np.where(Y < 0, 0x8000, 0).astype(
+        np.uint32)
+    if photometric == 32844:
+        return le.astype(np.uint16)
+    ub = np.clip(np.floor(410 * u), 0, 255).astype(np.uint32)
+    vb = np.clip(np.floor(410 * v), 0, 255).astype(np.uint32)
+    return (le << 16) | (ub << 8) | vb

@@ -21,14 +21,15 @@ tRNS and Adam7 (``decode_png``); JPEG in every variant cv2 reads
 RGB, YCbCr, CMYK and YCCK); BMP in every variant cv2 reads (``bmp.py``:
 OS/2 headers, 1- to 32-bit, bit fields, RLE8 and RLE4); TIFF in the
 variants ``tiff.py`` lists (its Orientation applied as cv2 applies it, in
-both modes; float, 10- to 16-bit samples, BigTIFF, uncompressed YCbCr
-and CIELab among them); netpbm P1-P7 and PFM (``pxm.py``), Sun raster
-(``sunras.py``), Radiance HDR (``hdr.py``: float32, as PFM) and the first
-image of a GIF (``gif.py``).  Unreadable files give None so callers can
-skip them; so do the files cv2 reads and the port does not (CCITT and
-SGILog TIFF, WebP, JPEG 2000 and AVIF), and those on which the JAX
-package's channel handling raises (a two-channel PAM; a signed, 32- or
-64-bit integer or float64 TIFF), which ``read_image`` names.
+both modes; float, 10- to 16-bit samples, BigTIFF, uncompressed YCbCr,
+CIELab, CCITT (``fax3.py``) and SGILog (``sgilog.py``) among them);
+netpbm P1-P7 and PFM (``pxm.py``), Sun raster (``sunras.py``), Radiance
+HDR (``hdr.py``: float32, as PFM) and the first image of a GIF
+(``gif.py``).  Unreadable files give None so callers can
+skip them; so do the files cv2 reads and the port does not (WebP, JPEG
+2000 and AVIF), and those on which the JAX package's channel handling
+raises (a two-channel PAM; a signed, 32- or 64-bit integer or float64
+TIFF, LogL's signed bytes among them), which ``read_image`` names.
 
 Writing picks the encoder from the suffix, case-insensitive, as
 ``cv2.imwrite`` does (``WRITERS``): PNG and APNG (one frame: the PNG's

@@ -17,30 +17,33 @@ or float (32 and 64 bits); gray, WhiteIsZero, RGB with or without an
 extra sample, gray with extra samples, palette (16-bit or 8-bit
 colormaps; 8-bit chunky with extra samples; without a colormap of 3 *
 2**bits values, from 8 bits, gray as libtiff takes it), CMYK, JPEG YCbCr,
-uncompressed YCbCr at every subsampling libtiff's RGBA reader takes and
-CIELab (``tiff_color.py``); chunky or planar, in strips or tiles (cropped
-at the image's edges); stored uncompressed, PackBits, Deflate (8 and
-32946, through ``zlib``), LZW (``tif_lzw.c``'s codes, and the old style's
-LSB-first ones) or JPEG (each strip or tile a JPEG of 8-bit samples after
-the JPEGTables tag, ``jpeg.decode_jpeg_chunk``, its components as they
-are but YCbCr's in chunky files, whatever the photometric
-interpretation), or of a compression libtiff does not know (JPEG 2000
-among them: zero samples, as libtiff's RGBA reader gives them); fill
-order 1 or 2; LZW and Deflate with the horizontal predictor, or the
-floating-point one on floats; orientations 1-4; without StripByteCounts
-(or with a single strip's count libtiff doubts) the counts estimated as
-libtiff estimates them; a strip that decodes short zero-filled as
-libtiff's RGBA reader reads it.  cv2's two paths and libtiff's RGBA
-reader are ``decode_tiff``'s, with cv2's array type.  What cv2 refuses
-(2-bit and 24-bit samples, 16-bit floats, 16-bit palette and CMYK,
-orientations 5-8, old-style JPEG, 12-bit JPEG, LZMA, ZSTD, WebP, JBIG,
-LERC, PixarLog, ICCLab, ITULab, transparency masks, no photometric
-interpretation, predictors other than 1-3 and predictor 3 on integers,
-JPEG without its tables, no StripByteCounts and more than one strip a
-plane, a strip of no bytes or past the file's end, ...) raises
-ValueError; what it reads and the port does not (ROADMAP Queue 1 item
-11.9: CCITT compression, SGILog's LogL and LogLuv) raises
-``Unsupported`` with its variant's name.
+uncompressed YCbCr at every subsampling libtiff's RGBA reader takes,
+CIELab (``tiff_color.py``), LogL and LogLuv (``sgilog.py``); chunky or
+planar, in strips or tiles (cropped at the image's edges); stored
+uncompressed, PackBits, Deflate (8 and 32946, through ``zlib``), LZW
+(``tif_lzw.c``'s codes, and the old style's LSB-first ones), JPEG (each
+strip or tile a JPEG of 8-bit samples after the JPEGTables tag,
+``jpeg.decode_jpeg_chunk``, its components as they are but YCbCr's in
+chunky files, whatever the photometric interpretation), CCITT RLE, RLEW,
+Group 3 and Group 4 (``fax3.py``), SGILog and SGILog24 (``sgilog.py``),
+ThunderScan (4-bit palette strips, ``_thunder_decode``; tiles read as
+zeros, as libtiff has no tile decoder for it), or of a compression
+libtiff does not know (JPEG 2000 among them: zero samples, as libtiff's
+RGBA reader gives them); fill order 1 or 2; LZW and Deflate with the
+horizontal predictor, or the floating-point one on floats; orientations
+1-4; without StripByteCounts (or with a single strip's count libtiff
+doubts) the counts estimated as libtiff estimates them; a strip that
+decodes short zero-filled as libtiff's RGBA reader reads it.  cv2's two
+paths and libtiff's RGBA reader are ``decode_tiff``'s, with cv2's array
+type.  What cv2 refuses (2-bit and 24-bit samples, 16-bit floats, 16-bit
+palette and CMYK, orientations 5-8, old-style JPEG, 12-bit JPEG, LZMA,
+ZSTD, WebP, JBIG, LERC, PixarLog, NeXT, CCITT of other than one 1-bit
+sample, ThunderScan of other than 4 bits, SGILog of other photometric
+interpretations, LogL in SGILog24, ICCLab, ITULab, transparency masks,
+no photometric interpretation, predictors other than 1-3 and predictor 3
+on integers, JPEG without its tables, no StripByteCounts and more than
+one strip a plane, a strip of no bytes or past the file's end, ...)
+raises ValueError.
 """
 
 from __future__ import annotations
@@ -50,10 +53,14 @@ import zlib
 
 import numpy as np
 
-from underwater_image_enhancement_tpu_torch.utils import exif, tiff_color
+from underwater_image_enhancement_tpu_torch.utils import (
+    exif,
+    fax3,
+    sgilog,
+    tiff_color,
+)
 from underwater_image_enhancement_tpu_torch.utils.bmp import opencv_gray
 from underwater_image_enhancement_tpu_torch.utils.jpeg import (
-    Unsupported,
     decode_jpeg_chunk,
     pack_msb,
 )
@@ -220,21 +227,20 @@ _INT_FORMAT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I",
                16: "Q", 17: "q", 18: "Q"}
 _REAL_SIZE = {5: 8, 10: 8, 11: 4, 12: 8}
 _UNDEFINED = 7
-# what cv2 reads and the port does not (ROADMAP Queue 1 item 11.9)
-_PHOTOMETRIC = {32844: "LogL", 32845: "LogLuv"}
-_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4",
-                 34676: "SGILog", 34677: "SGILog24", 32766: "NeXT",
-                 32771: "CCITT RLEW", 32809: "ThunderScan"}
+_LOGL, _LOGLUV = 32844, 32845
+_FAX = (fax3.RLE, fax3.G3, fax3.G4, fax3.RLEW)
 # what cv2's libtiff refuses: cv2 gives None
 _REFUSED_PHOTOMETRIC = {4: "transparency mask", 9: "ICCLab", 10: "ITULab"}
-_REFUSED_COMPRESSIONS = {6: "old-style JPEG", 32909: "PixarLog",
+_REFUSED_COMPRESSIONS = {6: "old-style JPEG", 32766: "NeXT",
+                         32909: "PixarLog",
                          34661: "JBIG", 34887: "LERC", 34925: "LZMA",
                          50000: "ZSTD", 50001: "WebP"}
-_SGILOG = (34676, 34677)
+_SGILOG = (sgilog.SGILOG, sgilog.SGILOG24)
+_THUNDERSCAN = 32809
 _NONE, _LZW, _JPEG, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS = (
     1, 5, 7, 32946, 8, 32773)
 _READ_COMPRESSIONS = (_NONE, _LZW, _DEFLATE, _ADOBE_DEFLATE, _PACKBITS,
-                      _JPEG)
+                      _JPEG, _THUNDERSCAN) + _FAX + _SGILOG
 _MINISWHITE, _MINISBLACK, _RGB, _PALETTE, _CMYK, _YCBCR, _CIELAB = (
     0, 1, 2, 3, 5, 6, 8)
 # SampleFormat -> numpy kind
@@ -437,6 +443,72 @@ _REVERSED = np.array([int(f"{v:08b}"[::-1], 2) for v in range(256)],
                      np.uint8)
 
 
+# ThunderScan's 2- and 3-bit deltas; 2 and 4 mark a skipped pixel
+_DELTA2 = (0, 1, 0, -1)
+_DELTA3 = (0, 1, 2, 3, 0, -3, -2, -1)
+
+
+def _thunder_decode(data: bytes, rows: int, width: int) -> bytes:
+    """4-bit ThunderScan rows as libtiff's ``ThunderDecode`` decodes them,
+    each from its own last pixel 0: a byte's top two bits choose a run of
+    the last pixel (its low six bits long; one that would pass the row's
+    end writes nothing), three 2-bit or two 3-bit deltas from it, or a raw
+    pixel.  A row that does not end at its width is zeroed from where it
+    stopped, and ends the strip."""
+    row_bytes = (width + 1) // 2
+    out = bytearray(rows * row_bytes)
+    pos, end = 0, len(data)
+    for r in range(rows):
+        op = r * row_bytes
+        last = npix = 0
+        while pos < end and npix < width:
+            n = data[pos]
+            pos += 1
+            kind = n & 0xC0
+            if kind == 0:  # a run
+                if npix & 1:
+                    out[op] |= last
+                    last = out[op]
+                    op += 1
+                    npix += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                npix += n
+                if npix <= width:
+                    while n > 0:
+                        out[op] = last
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    out[op] &= 0xF0
+                last &= 0xF
+                continue
+            if kind == 0x40:
+                steps = [_DELTA2[d] for d in ((n >> 4) & 3, (n >> 2) & 3,
+                                               n & 3) if d != 2]
+            elif kind == 0x80:
+                steps = [_DELTA3[d] for d in ((n >> 3) & 7, n & 7) if d != 4]
+            else:
+                steps = [n - last]  # a raw pixel
+            for step in steps:
+                # SETPIXEL: each delta from the pixel before
+                last = (last + step) & 0xF
+                if npix < width:
+                    if npix & 1:
+                        out[op] |= last
+                        op += 1
+                    else:
+                        out[op] = last << 4
+                    npix += 1
+        if npix != width:
+            out[op:r * row_bytes + row_bytes] = bytes(
+                max(0, r * row_bytes + row_bytes - op))
+            break
+    return bytes(out)
+
+
 def _decode_chunk(data: bytes, compression: int, size: int) -> bytes:
     if compression == _NONE:
         return data[:size]
@@ -513,12 +585,15 @@ class _Layout:
         self.zeros = self.compression not in _READ_COMPRESSIONS
         size = 1 if self.depth <= 8 else 2 if self.depth <= 16 else (
             self.depth // 8)
-        self.dtype = np.dtype(f"{_KINDS[self.fmt]}{size}")
+        self.dtype = (np.dtype(np.float32) if self.photometric == _LOGLUV
+                      else np.dtype(f"{_KINDS[self.fmt]}{size}"))
 
     def check(self, color: bool) -> None:
-        """ValueError where cv2 gives None, ``Unsupported`` naming what it
-        reads and the port does not."""
+        """ValueError where cv2 gives None."""
         bits, spp, ph, fmt = self.bits, self.spp, self.photometric, self.fmt
+        if ph == _LOGLUV and self.compression in _SGILOG:
+            self.check_logluv(color)
+            return
         # OpenCV's readHeader: 1, 8, 10, 12, 14, 16, 32 or 64 bits, 4 for a
         # palette; unsigned or signed up to 16 bits, float from 32
         if bits not in (1, 8, 10, 12, 14, 16, 32, 64) and not (
@@ -540,17 +615,23 @@ class _Layout:
         if ph in _REFUSED_PHOTOMETRIC:
             raise ValueError(f"{_REFUSED_PHOTOMETRIC[ph]} TIFF, which "
                              "cv2 does not read")
-        if ph in _PHOTOMETRIC and self.compression not in _SGILOG:
+        if ph in (_LOGL, _LOGLUV) and self.compression not in _SGILOG:
             raise ValueError("LogL or LogLuv TIFF without SGILog "
                              "compression, which cv2 does not read")
         if self.compression in _REFUSED_COMPRESSIONS:
             raise ValueError(f"{_REFUSED_COMPRESSIONS[self.compression]} "
                              "TIFF, which cv2 does not read")
-        if self.compression in _COMPRESSIONS:
-            name = _COMPRESSIONS[self.compression]
-            if ph in _PHOTOMETRIC:
-                name += " " + _PHOTOMETRIC[ph]
-            raise Unsupported(f"{name} TIFF")
+        if self.compression in _FAX and (bits != 1 or spp != 1):
+            # libtiff's Fax3SetupState: "Bits/sample must be 1", and the
+            # RGBA reader fails on more than one sample
+            raise ValueError(f"CCITT TIFF of {spp} {bits}-bit samples, "
+                             "which cv2 does not read")
+        if self.compression == _THUNDERSCAN and bits != 4:
+            # ThunderSetupDecode: "only supports 4bits per sample"
+            raise ValueError(f"ThunderScan TIFF of {bits}-bit samples, "
+                             "which cv2 does not read")
+        if self.compression in _SGILOG:
+            sgilog.check(self.compression, ph, spp, self.planar, color)
         if self.compression not in _READ_COMPRESSIONS and self.depth > 8 \
                 and not color:
             # libtiff decodes none of its strips and cv2 stops
@@ -574,7 +655,7 @@ class _Layout:
             # cv2 turns the image into a new array and imread refuses it
             raise ValueError(f"TIFF of orientation {self.orientation}, "
                              "which cv2 does not read")
-        if ph in (_MINISWHITE, _MINISBLACK):
+        if ph in (_MINISWHITE, _MINISBLACK, _LOGL, _LOGLUV):
             return
         if ph == _RGB:
             if spp not in (3, 4) or bits == 1:
@@ -612,6 +693,22 @@ class _Layout:
                                  "which libtiff's RGBA reader does not read")
         else:
             raise ValueError(f"TIFF of photometric interpretation {ph}, "
+                             "which cv2 does not read")
+
+    def check_logluv(self, color: bool) -> None:
+        """LogLuv, which OpenCV's readHeader takes before it looks at the
+        samples' size or format: libtiff's LogLuv codec and, in
+        IMREAD_COLOR, ``TIFFRGBAImageOK``."""
+        sgilog.check(self.compression, self.photometric, self.spp,
+                     self.planar, color)
+        if color and (self.bits not in _RGBA_BITS or self.fmt == 3
+                      or len(self.tags.get(338, ())) != 0):
+            raise ValueError(f"LogLuv TIFF of {self.bits}-bit samples of "
+                             f"SampleFormat {self.fmt} (extra samples "
+                             f"{self.tags.get(338, ())}), which libtiff's "
+                             "RGBA reader (IMREAD_COLOR) refuses")
+        if 5 <= self.orientation <= 8:
+            raise ValueError(f"TIFF of orientation {self.orientation}, "
                              "which cv2 does not read")
 
     def check_ycbcr(self) -> None:
@@ -854,23 +951,30 @@ def _samples(data: bytes, lay: _Layout) -> np.ndarray:
     tables = lay.tags.get(347, b"")
     space = "ycc" if lay.photometric == _YCBCR else "rgb"
     across, down = -(-W // tw), -(-H // th)
+    fax = (fax3.FaxDecoder(lay.compression, tw, lay.tags.get(292, (0,))[0]
+                           if lay.compression == fax3.G3 else 0)
+           if lay.compression in _FAX else None)
     for k in range(across * down * planes):
         p, kk = divmod(k, across * down)
         y, x = kk // across * th, kk % across * tw
         rows = th if tiled else min(th, H - y)
-        if counts[k] == 0 or offsets[k] + counts[k] > len(data):
-            # libtiff's TIFFFillStrip fails, and cv2 with it
-            raise ValueError("corrupt TIFF: a strip or tile of no bytes or "
-                             "past the file's end")
-        chunk = data[offsets[k]:offsets[k] + counts[k]]
+        chunk = _chunk_at(data, offsets[k], counts[k])
         if lay.compression == _JPEG:
             block = _jpeg_block(tables, chunk, space, rows, tw, n, tiled,
                                 y + rows >= H)
         else:
             if lay.fill_order == 2:
-                chunk = _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
+                chunk = _reversed(chunk)
             want = _chunk_bytes(lay, rows, tw, n)
-            raw = _decode_chunk(chunk, lay.compression, want)
+            if fax is not None:
+                raw = fax.decode(chunk, rows, offsets[k])
+            elif lay.compression == _THUNDERSCAN:
+                # libtiff: "ThunderScan tile decoding is not implemented",
+                # and the RGBA reader goes on with its zeroed tile
+                raw = (bytes(want) if tiled
+                       else _thunder_decode(chunk, rows, tw))
+            else:
+                raw = _decode_chunk(chunk, lay.compression, want)
             if len(raw) < want:
                 if lay.raw:  # cv2's own path stops
                     raise ValueError("corrupt TIFF: a strip or tile decodes "
@@ -900,6 +1004,64 @@ def _samples(data: bytes, lay: _Layout) -> np.ndarray:
             block = _skewed(block, w, h, dtype.itemsize * n * w + tw - w)
         out[y:y + rows, x:x + tw, p * n:(p + 1) * n] = block[:H - y, :W - x]
     return out
+
+
+def _chunk_at(data: bytes, offset: int, count: int) -> bytes:
+    """A strip or tile's bytes; ValueError where libtiff's
+    ``TIFFFillStrip`` fails, and cv2 with it."""
+    if count == 0 or offset + count > len(data):
+        raise ValueError("corrupt TIFF: a strip or tile of no bytes or "
+                         "past the file's end")
+    return data[offset:offset + count]
+
+
+def _reversed(chunk: bytes) -> bytes:
+    """A FillOrder 2 chunk's bytes, each one's bits reversed."""
+    return _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
+
+
+def _sgilog_image(data: bytes, lay: _Layout, color: bool) -> np.ndarray:
+    """An SGILog file as cv2 reads it: LogLuv in IMREAD_UNCHANGED by cv2
+    itself (libtiff's float X, Y, Z, a strip or tile at a time, then
+    ``sgilog.xyz_to_rgb`` of the whole image: float32 RGB; a strip or tile
+    that fails refuses the file; an orientation flips the floats before
+    their conversion), everything else through libtiff's RGBA reader (8
+    bits: LogL one gray channel, signed where the file's samples are,
+    LogLuv RGB; the rows from a failing one on stay 0)."""
+    tw, th, tiled, offsets, counts = lay.chunks(data)
+    W, H = lay.W, lay.H
+    own = lay.photometric == _LOGLUV and not color
+    n = 1 if lay.photometric == _LOGL else 3
+    out = np.zeros((H, W, n), np.float32 if own else np.uint8)
+    across = -(-W // tw)
+    for k in range(across * -(-H // th)):
+        y, x = k // across * th, k % across * tw
+        rows = th if tiled else min(th, H - y)
+        chunk = _chunk_at(data, offsets[k], counts[k])
+        if lay.fill_order == 2:
+            chunk = _reversed(chunk)
+        codes, good = sgilog.decode(chunk, lay.compression, lay.photometric,
+                                    rows, tw)
+        if own and good < rows:
+            raise ValueError("corrupt SGILog TIFF: a strip or tile decodes "
+                             "short")
+        codes = codes[:good]
+        if own:
+            block = sgilog.xyz(codes, lay.compression)
+        elif n == 1:
+            block = sgilog.gray8(codes)[..., None]
+        else:
+            block = sgilog.rgb8(codes, lay.compression)
+        block = block[:H - y, :W - x]
+        out[y:y + len(block), x:x + block.shape[1]] = block
+    if own:  # cv2 flips the floats (the whole image), then converts them
+        turn = lay.orientation if lay.orientation in (2, 3, 4) else 1
+        return sgilog.xyz_to_rgb(exif.apply(out, turn))
+    if color and n == 1:
+        out = np.repeat(out, 3, axis=2)
+    elif not color and lay.fmt == 2:
+        out = out.view(np.int8)
+    return _orient(out, lay)
 
 
 def _jpeg_block(tables: bytes, chunk: bytes, space: str, rows: int,
@@ -1042,7 +1204,9 @@ def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
     sample say (a planar file's samples too, where cv2 gives the first
     plane and memory it never wrote: the port gives the samples); 10-,
     12- and 14-bit samples shifted to 16 bits; gray of 3 or 4 samples as
-    one weighted plane.  Every other file goes through
+    one weighted plane.  LogLuv is cv2's own reading too, whatever its
+    samples' size: float32 RGB (``_sgilog_image``).  Every other file
+    goes through
     libtiff's RGBA reader (``tif_getimage.c``, 8 bits a channel): gray and
     WhiteIsZero through ``_gray_map`` (16 bits by the high byte, and in a
     tile cut at the right edge with ``put16bitbwtile``'s row step:
@@ -1052,19 +1216,20 @@ def decode_tiff(data: bytes, color: bool = False) -> np.ndarray:
     with 16 bits ``(v + 128) // 257`` and an unassociated alpha
     premultiplied ``(c * a + 127) // 255``, CMYK ``(255 - c) * (255 - k) /
     255``, chunky JPEG YCbCr through libjpeg's RGB, other YCbCr and
-    CIELab through ``tiff_color``; signed samples as their bits unsigned,
+    CIELab through ``tiff_color``, LogL and LogLuv as libtiff's 8-bit
+    SGILog output; signed samples as their bits unsigned,
     the result signed bytes where cv2's type is.  A compression libtiff
     does not know (JPEG 2000 among them) reads as zero samples there.  cv2
-    then keeps one channel for gray interpretations and 1-bit files (a
-    1-bit palette's gray by OpenCV's BGRA-to-gray weights), four for 4
+    then keeps one channel for gray interpretations, LogL and 1-bit files
+    (a 1-bit palette's gray by OpenCV's BGRA-to-gray weights), four for 4
     samples but a palette's (alpha 255 for CMYK), else three;
     IMREAD_COLOR three.
     Orientations 2-4 flip the image as ``exif.TRANSFORMS``, in both
     modes; 5-8 raise ValueError, as ``cv2.imread`` gives None.  Raises
-    ``Unsupported`` for the variants cv2 reads and the port does not
-    (CCITT and SGILog compression, LogL and LogLuv), ValueError for
-    corrupt files and those cv2 refuses."""
+    ValueError for corrupt files and those cv2 refuses."""
     lay = _Layout(_directory(data), color)
+    if lay.compression in _SGILOG:
+        return _sgilog_image(data, lay, color)
     s = _samples(data, lay)
     if lay.raw:
         return _orient(_cv2_own(s, lay), lay)
